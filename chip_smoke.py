@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one CUDA card.
+
+    python3 chip_smoke.py [--out PATH]
+
+Phases (any failure raises; the exit code is then nonzero):
+
+  1. device: requires CUDA; prints torch, CUDA, nvcc and the card's name
+     and power limit (nvidia-smi);
+  2. build: compiles the hand-written kernels from
+     starneig_tpu_torch/kernels/csrc with nvcc;
+  3. kernels: each kernel against its plain PyTorch twin on the card, at
+     small shapes and at the shapes the n=4000 main path gives it, with
+     the tolerances stated below; CUDA-event times of both (the plain
+     twins' one timed run at the main path's shape comes after their runs
+     at the smaller shapes, which serve as the warm-up);
+  4. main path: a seeded n=200 solve checked against numpy and the CPU
+     run of the port, then n=4000 through api.sep.hessenberg and
+     api.sep.schur (A from default_rng(0)), gated on info == 0, S in
+     standardized real Schur form, residual and orthogonality < 500 u, and
+     every kernel launched at least once.
+
+The line before the last is the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}.  ``--out`` also writes all results as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+U = 2.220446049250313e-16          # float64 eps: the unit of the gates
+GATE_U = 500.0                     # reference warn gate (BASELINE.md)
+MAIN_N = 4000                      # bench.py's size
+
+REPLACES = {
+    "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
+    "francis": "starneig_tpu/ops/pallas_schur.py:131",
+    "train_hops": "starneig_tpu/ops/pallas_schur.py:537",
+    "aed_deflate": "starneig_tpu/ops/pallas_schur.py:797",
+}
+SOURCES = {k: f"starneig_tpu_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def timed(fn):
+    """Run fn() once; return (its result, its CUDA-event time in ms)."""
+    import torch
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def block_eigs(S, m):
+    """Sorted eigenvalues read off the diagonal blocks of S[:m, :m]."""
+    import numpy as np
+    from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
+    er, ei = extract_eigenvalues(S[:m, :m])
+    return np.sort_complex(er.cpu().numpy() + 1j * ei.cpu().numpy())
+
+
+def phase_device():
+    import torch
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True)
+    log("nvcc:", [ln for ln in out.stdout.splitlines() if "release" in ln][-1])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    try:
+        import triton  # noqa: F401
+        has_triton = True
+    except ImportError:
+        has_triton = False
+    log(f"import triton: {has_triton}; devices: {torch.cuda.device_count()}")
+    return smi
+
+
+def phase_build():
+    from starneig_tpu_torch import kernels
+    t0 = time.perf_counter()
+    kernels.build(verbose=True)
+    kernels.lib()
+    secs = time.perf_counter() - t0
+    log(f"build: {secs:.1f} s")
+    return secs
+
+
+def hessenberg_np(n, seed):
+    import numpy as np
+    return np.triu(np.random.default_rng(seed).standard_normal((n, n)), -1)
+
+
+def phase_gemv(dev):
+    import torch
+    from starneig_tpu_torch.ops.gpu_hess import gemv, gemv_plain
+    g = torch.Generator(device="cpu").manual_seed(1)
+    n, nb, row0 = 4000, 288, 1152
+    A = torch.randn(n, n, generator=g, dtype=torch.float64).to(dev)
+    V = torch.randn(n, nb, generator=g, dtype=torch.float64).to(dev)
+    xs = {k: torch.randn(k, generator=g, dtype=torch.float64).to(dev)
+          for k in (n, n - row0, nb)}
+    cases = [("A x", A, xs[n], False),
+             ("A[row0:, row0:] x", A[row0:, row0:], xs[n - row0], False),
+             ("V^T a", V, xs[n], True),
+             ("V[row0:]^T a", V[row0:], xs[n - row0], True),
+             ("V y", V, xs[nb], False)]
+    err = 0.0
+    for name, M, x, tr in cases:
+        uk, up = gemv(M, x, tr), gemv_plain(M, x, tr)
+        scale = float(gemv_plain(M.abs(), x.abs(), tr).max())
+        d = float((uk - up).abs().max())
+        log(f"  B1 {name}: max abs err {d:.2e}, relative {d / scale:.2e}")
+        check(d < 1e-12 * scale, f"B1 {name} disagrees: {d}")  # summation order
+        err = max(err, d)
+    ms = cuda_ms(lambda: gemv(A, xs[n]), 50)
+    pms = cuda_ms(lambda: gemv_plain(A, xs[n]), 50)
+    msT = cuda_ms(lambda: gemv(V, xs[n], True), 50)
+    pmsT = cuda_ms(lambda: gemv_plain(V, xs[n], True), 50)
+    log(f"  B1 n=4000 A x: kernel {ms:.4f} ms, plain {pms:.4f} ms; "
+        f"V^T a (4000x288): kernel {msT:.4f} ms, plain {pmsT:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                detail=dict(trans_ms=msT, trans_plain_ms=pmsT))
+
+
+def phase_francis(dev):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops.gpu_schur import francis
+    from starneig_tpu_torch.ops.small_schur import _small_schur_plain
+    from starneig_tpu_torch.testing.hooks import schur_form_error
+    err = 0.0
+    # (w, active m, seed): a fresh window, an n=200-geometry window with a
+    # shorter active block, and the n=4000 main path's window (WA = 322)
+    for w, m, seed in ((40, 40, 0), (40, 31, 1), (322, 322, 2)):
+        Hn = hessenberg_np(w, seed)
+        Hn[m:, :] = 0.0
+        Hn[:, m:] = 0.0
+        H = torch.from_numpy(Hn).to(dev)
+        Z = torch.eye(w, dtype=torch.float64, device=dev)
+        th = U / 2 * float(np.linalg.norm(Hn))
+        Sk, Zk, ik = francis(H, Z, m, th)
+        (Sp, Zp, ip), plain_ms = timed(lambda: _small_schur_plain(H, Z, m, th))
+        check(int(ik) == 0 and int(ip) == 0, f"B2 w={w}: info {int(ik)} {int(ip)}")
+        form_k, form_p = schur_form_error(Sk), schur_form_error(Sp)
+        Skn, Zkn = Sk.cpu().numpy(), Zk.cpu().numpy()
+        nh = np.linalg.norm(Hn)
+        res = np.linalg.norm(Zkn @ Skn @ Zkn.T - Hn) / nh / U
+        orth = np.linalg.norm(Zkn @ Zkn.T - np.eye(w)) / np.sqrt(w) / U
+        d = float(np.abs(block_eigs(Sk, m) - block_eigs(Sp, m)).max())
+        elem = float((Sk - Sp).abs().max()) / nh
+        log(f"  B2 w={w} m={m}: Schur form error kernel {form_k} plain {form_p}; "
+            f"block eigenvalues max abs err {d:.2e} ({d / nh:.2e} |H|); "
+            f"kernel residual {res:.1f}u orth {orth:.1f}u; S diff {elem:.2e} |H| "
+            f"(the deflation order may differ by roundoff)")
+        # both outputs standardized quasi-triangular; the eigenvalues of the
+        # two backward-stable solves agree to the eigenvalue condition
+        # times u, and random windows stay below 1e-10 |H|
+        check(form_k == 0.0 and form_p == 0.0, f"B2 w={w}: S not in Schur form")
+        check(d < 1e-10 * nh and res < GATE_U and orth < GATE_U,
+              f"B2 w={w} fails")
+        err = max(err, d)
+    ms = cuda_ms(lambda: francis(H, Z, 322, th), 3)
+    log(f"  B2 w=322 window solve: kernel {ms:.1f} ms, plain {plain_ms:.1f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def _hop_case(B, G, seed, dev):
+    """G windows with trains at different hops, one of them parked."""
+    import numpy as np
+    import torch
+    WC, HOP = 6 * B + 4, 3 * B
+    rng = np.random.default_rng(seed)
+    W = np.stack([hessenberg_np(WC, seed + g) for g in range(G)])
+    sh = rng.standard_normal((G, B, 4))
+    sh[:, :, 3] = -sh[:, :, 1]
+    first = 3 * (B - 1) + 1
+    trains = [(first, WC + 40, 0), (1, 0, 0), (first - HOP, WC + 40, HOP),
+              (first - HOP, first + HOP // 2, HOP)]
+    trains = (trains * G)[:G]
+    l_rel, ihi_rel, s0 = (list(t) for t in zip(*trains))
+    return (torch.from_numpy(W).to(dev), torch.from_numpy(sh).to(dev),
+            list(range(G)), l_rel, ihi_rel, s0, B, HOP)
+
+
+def phase_train_hops(dev):
+    from starneig_tpu_torch.ops.gpu_schur import train_hops
+    from starneig_tpu_torch.ops.schur import _train_hop
+    err = 0.0
+    for B, G in ((3, 4), (25, 5)):          # (25, 5): the main path's B, TMAX
+        W, sh, gidx, lr, ir, s0, B_, HOP = _hop_case(B, G, 11 + B, dev)
+        Wk, Qk = train_hops(W, sh, gidx, lr, ir, s0, B_, HOP)
+        Wp, Qp = _train_hop(W, sh[gidx], lr, ir, s0, B_, HOP)
+        scale = float(W.abs().max())
+        dw, dq = float((Wk - Wp).abs().max()), float((Qk - Qp).abs().max())
+        log(f"  B3 B={B} WC={6 * B + 4} G={G}: max abs err window {dw:.2e} "
+            f"(|W| {scale:.2f}), Qw {dq:.2e}")
+        # the same operations; FMA contraction and summation order only
+        check(dw < 1e-12 * scale and dq < 1e-12, f"B3 B={B} disagrees")
+        err = max(err, dw, dq)
+    ms = cuda_ms(lambda: train_hops(W, sh, gidx, lr, ir, s0, B_, HOP), 20)
+    pms = cuda_ms(lambda: _train_hop(W, sh[gidx], lr, ir, s0, B_, HOP), 2)
+    log(f"  B3 one hop, B=25 WC=154 G=5: kernel {ms:.3f} ms, plain {pms:.1f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms)
+
+
+def _deflate_case(WA, w, seed, dev, plants=None):
+    """A Schur-form window with planted 2x2 blocks; (40, 40, 5, (6, 14, 30))
+    is the input of tests/test_pallas_kernels.py:107-115."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    T = np.zeros((WA, WA))
+    T[:w, :w] = np.triu(rng.standard_normal((w, w)))
+    for p in plants or range(6, w - 2, 8):
+        T[p + 1, p] = -abs(rng.standard_normal())
+        T[p, p + 1] = abs(rng.standard_normal())
+    V = np.eye(WA)
+    V[:w, :w], _ = np.linalg.qr(np.eye(w) + 0.05 * rng.standard_normal((w, w)))
+    return torch.from_numpy(T).to(dev), torch.from_numpy(V).to(dev)
+
+
+def phase_deflate(dev):
+    import numpy as np
+    from starneig_tpu_torch.ops.gpu_schur import aed_deflate
+    from starneig_tpu_torch.ops.schur import _aed_deflate
+    err = 0.0
+    s, th = 0.8, 1e-13
+    plain_ms = {}
+    # (WA, w): the planted w=40 case; the main path's WA=322 buffer with a
+    # 60-row active window (as when the segment is short); and the full
+    # w=322 window, where no spike entry deflates and every block moves
+    for WA, w, seed, plants in ((40, 40, 5, (6, 14, 30)), (322, 60, 5, None),
+                                (322, 322, 6, None)):
+        T, V = _deflate_case(WA, w, seed, dev, plants)
+        Tk, Vk, kk, fk = aed_deflate(T, V, s, w, th)
+        (Tp, Vp, kp, fp), plain_ms[w] = timed(
+            lambda: _aed_deflate(T, V, s, w, th))
+        check(int(kk) == int(kp) and int(fk) == int(fp),
+              f"B4 WA={WA} w={w}: kbot/fail {int(kk)},{int(fk)} vs "
+              f"{int(kp)},{int(fp)}")
+        scale = float(T.abs().max())
+        dt, dv = float((Tk - Tp).abs().max()), float((Vk - Vp).abs().max())
+        Tn, Vn, Tkn, Vkn = (x.cpu().numpy() for x in (T, V, Tk, Vk))
+        Us = Vn.T @ Vkn
+        res = np.linalg.norm(Us.T @ Tn @ Us - Tkn) / np.linalg.norm(Tn) / U
+        log(f"  B4 WA={WA} w={w}: kbot {int(kk)} fail {int(fk)}, max abs err "
+            f"T {dt:.2e} (|T| {scale:.2f}), V {dv:.2e}, kernel similarity "
+            f"residual {res:.1f}u")
+        # the same swap sequence (739, 1,705 and 43,646 swaps); FMA
+        # contraction and summation order differ
+        check(dt < 1e-10 * scale and dv < 1e-10 and res < GATE_U,
+              f"B4 WA={WA} w={w} disagrees: {dt}, {dv}, {res}")
+        err = max(err, dt, dv)
+    ms = cuda_ms(lambda: aed_deflate(T, V, s, 322, th), 3)
+    T60, V60 = _deflate_case(322, 60, 5, dev)
+    ms60 = cuda_ms(lambda: aed_deflate(T60, V60, s, 60, th), 5)
+    log(f"  B4 WA=322 w=322: kernel {ms:.1f} ms, plain {plain_ms[322]:.1f} ms; "
+        f"w=60: kernel {ms60:.2f} ms, plain {plain_ms[60]:.1f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms[322],
+                detail=dict(w60_ms=ms60, w60_plain_ms=plain_ms[60]))
+
+
+def solve(A):
+    import torch
+    from starneig_tpu_torch.api import sep
+    sync = torch.cuda.synchronize if A.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    H, Q = sep.hessenberg(A)
+    sync()
+    t1 = time.perf_counter()
+    stats = {}
+    S, Q2, er, ei, info = sep.schur(H, Q, stats=stats)
+    sync()
+    t2 = time.perf_counter()
+    return S, Q2, er, ei, int(info), (t1 - t0) * 1e3, (t2 - t1) * 1e3, stats
+
+
+def gates(A, S, Q):
+    import torch
+    n = A.shape[0]
+    res = float(torch.linalg.norm(Q @ S @ Q.T - A) / torch.linalg.norm(A)) / U
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    orth = float(torch.linalg.norm(Q @ Q.T - eye)) / n ** 0.5 / U
+    return res, orth
+
+
+def phase_main(dev):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.convert import from_numpy, to_numpy
+    from starneig_tpu_torch.testing.hooks import schur_form_error
+
+    # small input against numpy and against the port's CPU (plain) path
+    A_np = np.random.default_rng(0).standard_normal((200, 200))
+    Sg, Qg, erg, eig, info_g, *_ = solve(from_numpy(A_np, dev))
+    Sc, Qc, erc, eic, info_c, *_ = solve(from_numpy(A_np))
+    ref = np.sort_complex(np.linalg.eigvals(A_np))
+    eg = np.sort_complex(to_numpy(erg) + 1j * to_numpy(eig))
+    ec = np.sort_complex(to_numpy(erc) + 1j * to_numpy(eic))
+    na = np.linalg.norm(A_np)
+    d_np, d_cpu = np.abs(eg - ref).max() / na, np.abs(eg - ec).max() / na
+    res_s, orth_s = gates(from_numpy(A_np, dev), Sg, Qg)
+    form_s = schur_form_error(Sg)
+    log(f"  n=200: info {info_g}/{info_c}, eig diff vs numpy {d_np:.2e} |A|, "
+        f"vs CPU port {d_cpu:.2e} |A|, residual {res_s:.1f}u orth {orth_s:.1f}u, "
+        f"Schur form error {form_s}")
+    check(info_g == 0 and info_c == 0 and d_np < 1e-10 and d_cpu < 1e-10
+          and res_s < GATE_U and orth_s < GATE_U and form_s == 0.0,
+          "n=200 check fails")
+
+    n = MAIN_N
+    A = from_numpy(np.random.default_rng(0).standard_normal((n, n)), dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    S, Q2, er, ei, info, hess_ms, schur_ms, stats = solve(A)
+    launches = dict(kernels.LAUNCHES)
+    res, orth = gates(A, S, Q2)
+    finite = bool(torch.isfinite(S).all() and torch.isfinite(Q2).all())
+    form = schur_form_error(S)
+    log(f"  n={n}: info {info} hessenberg_ms {hess_ms:.1f} schur_ms "
+        f"{schur_ms:.1f} residual_u {res:.1f} orthogonality_u {orth:.1f} "
+        f"schur_form_error {form} rounds {stats.get('rounds')} "
+        f"geometry {stats} launches {launches}")
+    check(info == 0, f"n=4000 info {info}")
+    check(finite and tuple(S.shape) == (n, n), "n=4000 output not finite")
+    check(form == 0.0, f"n=4000: S not in standardized Schur form ({form})")
+    check(res < GATE_U and orth < GATE_U, f"n=4000 gates: {res}, {orth}")
+    for k, c in launches.items():
+        check(c > 0, f"kernel {k} was not launched on the main path")
+    return dict(info=info, hessenberg_ms=hess_ms, schur_ms=schur_ms,
+                residual_u=res, orthogonality_u=orth, schur_form_error=form,
+                stats=stats,
+                launches=launches, n200=dict(eig_vs_numpy=d_np,
+                                             eig_vs_cpu=d_cpu, residual_u=res_s,
+                                             orthogonality_u=orth_s))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write all results as JSON here")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        import starneig_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not here ({exc})", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+
+    log("== 1. device")
+    smi = phase_device()
+    log("== 2. build")
+    build_s = phase_build()
+    log("== 3. kernels against their plain versions")
+    results = {"hess_gemv": phase_gemv(dev), "francis": phase_francis(dev),
+               "train_hops": phase_train_hops(dev),
+               "aed_deflate": phase_deflate(dev)}
+    log("== 4. main path")
+    main_res = phase_main(dev)
+
+    table = [dict(name=k, route="cuda", source=SOURCES[k],
+                  replaces=REPLACES[k], launches=main_res["launches"][k],
+                  max_abs_err=r["max_abs_err"], ms=r["ms"],
+                  plain_ms=r["plain_ms"]) for k, r in results.items()]
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            dict(card=smi, build_s=build_s, kernels=results, main=main_res,
+                 torch=torch.__version__, cuda=torch.version.cuda),
+            indent=1, default=str))
+    print(smi)
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

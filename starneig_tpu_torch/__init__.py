@@ -1,0 +1,18 @@
+"""starneig_tpu_torch — the PyTorch/CUDA port of starneig_tpu.
+
+A second package beside the JAX reference ``starneig_tpu``, for one
+NVIDIA H100 in native fp64.  Ported so far: the SEP main path,
+Hessenberg reduction then multishift QR with AED to real Schur form
+(``api.sep.hessenberg``, ``api.sep.schur``, ``api.sep.eigenvalues``).
+
+Every function takes torch tensors and runs on their device.  The
+hand-written CUDA kernels (``kernels/csrc``) build with nvcc on the first
+launch on a CUDA tensor; on CPU tensors each kernel's plain PyTorch twin
+runs instead.  Importing the package builds nothing and imports no JAX.
+"""
+
+from starneig_tpu_torch import config, errors
+
+__version__ = "0.1.0"
+
+__all__ = ["config", "errors"]

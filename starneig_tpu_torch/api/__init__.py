@@ -1,0 +1,6 @@
+"""Public API umbrella of the PyTorch port.
+
+  api.sep     — standard eigenvalue problem, single process
+"""
+
+from starneig_tpu_torch.api import sep

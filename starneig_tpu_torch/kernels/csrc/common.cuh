@@ -1,0 +1,367 @@
+// Scalar device primitives shared by the Schur kernels (fp64).
+//
+// Device twins of starneig_tpu_torch/ops/primitives.py and ops/swaps.py:
+// the same formulas, the same guards (sdiv maps a zero denominator to 0,
+// sgn(0) == +1, householder pre-scales by max|x|), so each kernel's control
+// flow matches its plain PyTorch version step for step.  Every function
+// runs on one thread over registers; the kernels broadcast the results
+// through shared memory.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+
+#define DEVI __device__ __forceinline__
+
+DEVI double sdiv(double num, double den) { return den != 0.0 ? num / den : 0.0; }
+
+DEVI double sgn(double x) { return x >= 0.0 ? 1.0 : -1.0; }
+
+DEVI double dmax(double a, double b) { return a >= b ? a : b; }
+
+DEVI double dmin(double a, double b) { return a <= b ? a : b; }
+
+DEVI int clampi(int x, int lo, int hi) { return x < lo ? lo : (x > hi ? hi : x); }
+
+DEVI double hypot2(double x, double y) {
+  double ax = fabs(x), ay = fabs(y);
+  double w = dmax(ax, ay), z = dmin(ax, ay);
+  double r = sdiv(z, w);
+  return w == 0.0 ? 0.0 : w * sqrt(1.0 + r * r);
+}
+
+// dlarfg on x[0..m) (m <= 4); bit i of mask marks entry i active.
+DEVI void householder(const double* xin, unsigned mask, int m, double* v,
+                      double& tau, double& beta) {
+  double xs[4];
+  double mx = 0.0;
+  for (int i = 0; i < m; ++i) {
+    xs[i] = ((mask >> i) & 1u) ? xin[i] : 0.0;
+    mx = dmax(mx, fabs(xs[i]));
+  }
+  double msafe = mx == 0.0 ? 1.0 : mx;
+  for (int i = 0; i < m; ++i) xs[i] = xs[i] / msafe;
+  double alpha = xs[0];
+  double ss = 0.0;
+  for (int i = 1; i < m; ++i) ss += xs[i] * xs[i];
+  double xnorm = sqrt(ss);
+  double b = -sgn(alpha) * hypot2(alpha, xnorm);
+  bool degen = xnorm == 0.0;
+  tau = degen ? 0.0 : sdiv(b - alpha, b);
+  double scale = sdiv(1.0, alpha - b);
+  v[0] = 1.0;
+  for (int i = 1; i < m; ++i)
+    v[i] = (degen || !((mask >> i) & 1u)) ? 0.0 : xs[i] * scale;
+  beta = (degen ? alpha : b) * msafe;
+}
+
+DEVI void givens(double f, double g, double& c, double& s, double& r) {
+  double rmag = hypot2(f, g);
+  double r0 = sgn(f) * rmag;
+  double rsafe = r0 == 0.0 ? 1.0 : r0;
+  c = g == 0.0 ? 1.0 : (f == 0.0 ? 0.0 : f / rsafe);
+  s = g == 0.0 ? 0.0 : (f == 0.0 ? 1.0 : g / rsafe);
+  r = g == 0.0 ? f : (f == 0.0 ? g : r0);
+}
+
+DEVI void eig2x2(double a, double b, double c, double d, double& l1r,
+                 double& l1i, double& l2r, double& l2i) {
+  double sc = fabs(a) + fabs(b) + fabs(c) + fabs(d);
+  sc = sc == 0.0 ? 1.0 : sc;
+  a /= sc; b /= sc; c /= sc; d /= sc;
+  double p = 0.5 * (a - d);
+  double bc = b * c;
+  double disc = p * p + bc;
+  double sq = sqrt(fabs(disc));
+  double mid = 0.5 * (a + d);
+  if (disc >= 0.0) {
+    double z = p + sgn(p) * sq;
+    l1r = d + z;
+    l2r = z == 0.0 ? d : d - sdiv(bc, z);
+    l1i = 0.0;
+    l2i = 0.0;
+  } else {
+    l1r = mid;
+    l2r = mid;
+    l1i = sq;
+    l2i = -sq;
+  }
+  l1r *= sc; l1i *= sc; l2r *= sc; l2i *= sc;
+}
+
+// dlanv2: out = {aa, bb, cc, dd, cs, sn}
+DEVI void standardize_2x2(double a, double b, double c, double d, double* out) {
+  double aa, bb, cc, dd, cs, sn;
+  double temp0 = a - d;
+  if (c == 0.0) {
+    aa = a; bb = b; cc = c; dd = d; cs = 1.0; sn = 0.0;
+  } else if (b == 0.0) {
+    aa = d; bb = -c; cc = 0.0; dd = a; cs = 0.0; sn = 1.0;
+  } else if (temp0 == 0.0 && sgn(b) != sgn(c)) {
+    aa = a; bb = b; cc = c; dd = d; cs = 1.0; sn = 0.0;
+  } else {
+    double p0 = 0.5 * temp0;
+    double bcmax = dmax(fabs(b), fabs(c));
+    double bcmis = dmin(fabs(b), fabs(c)) * sgn(b) * sgn(c);
+    double scale = dmax(fabs(p0), bcmax);
+    double z0 = sdiv(p0, scale) * p0 + sdiv(bcmax, scale) * bcmis;
+    if (z0 >= 4.0 * DBL_EPSILON) {
+      double zr = p0 + sgn(p0) * sqrt(dmax(scale, 0.0)) * sqrt(dmax(z0, 0.0));
+      aa = d + zr;
+      dd = d - sdiv(bcmax, zr) * bcmis;
+      double tau_r = hypot2(c, zr);
+      cs = sdiv(zr, tau_r);
+      sn = sdiv(c, tau_r);
+      bb = b - c;
+      cc = 0.0;
+    } else {
+      double sigma = b + c;
+      double tau_c = hypot2(sigma, temp0);
+      double cs_c = sqrt(0.5 * (1.0 + sdiv(fabs(sigma), tau_c)));
+      double sn_c = -sdiv(p0, tau_c * cs_c) * sgn(sigma);
+      double a0 = a * cs_c + b * sn_c;
+      double b0 = -a * sn_c + b * cs_c;
+      double c0 = c * cs_c + d * sn_c;
+      double d0 = -c * sn_c + d * cs_c;
+      double a1 = a0 * cs_c + c0 * sn_c;
+      double b1 = b0 * cs_c + d0 * sn_c;
+      double c1 = -a0 * sn_c + c0 * cs_c;
+      double d1 = -b0 * sn_c + d0 * cs_c;
+      double tmid = 0.5 * (a1 + d1);
+      if (c1 != 0.0 && b1 != 0.0 && sgn(b1) == sgn(c1)) {
+        double sab = sqrt(fabs(b1));
+        double sac = sqrt(fabs(c1));
+        double p1 = sgn(c1) * sab * sac;
+        double tau1 = sdiv(1.0, sqrt(dmax(fabs(b1 + c1), DBL_MIN)));
+        aa = tmid + p1;
+        dd = tmid - p1;
+        bb = b1 - c1;
+        cc = 0.0;
+        double cs1 = sab * tau1;
+        double sn1 = sac * tau1;
+        cs = cs_c * cs1 - sn_c * sn1;
+        sn = cs_c * sn1 + sn_c * cs1;
+      } else if (c1 != 0.0 && b1 == 0.0) {
+        aa = tmid; dd = tmid; bb = -c1; cc = 0.0; cs = -sn_c; sn = cs_c;
+      } else {
+        aa = tmid; dd = tmid; bb = b1; cc = c1; cs = cs_c; sn = sn_c;
+      }
+    }
+  }
+  if (cc != 0.0) dd = aa;  // a standardized complex block has aa == dd
+  out[0] = aa; out[1] = bb; out[2] = cc; out[3] = dd; out[4] = cs; out[5] = sn;
+}
+
+// dlaqr1 on the 3x3 block h (row-major); v gets 3 entries.
+DEVI void first_column_shifted(const double* h, double sr1, double si1,
+                               double sr2, double si2, bool use3, double* v) {
+  double h11 = h[0], h12 = h[1], h13 = h[2];
+  double h21 = h[3], h22 = h[4], h23 = h[5];
+  double h31 = h[6], h32 = h[7], h33 = h[8];
+  if (use3) {
+    double s3 = fabs(h11 - sr2) + fabs(si2) + fabs(h21) + fabs(h31);
+    double h21s3 = sdiv(h21, s3), h31s3 = sdiv(h31, s3);
+    double v1 = (h11 - sr1) * sdiv(h11 - sr2, s3) - si1 * sdiv(si2, s3)
+                + h12 * h21s3 + h13 * h31s3;
+    double v2 = h21s3 * (h11 + h22 - sr1 - sr2) + h23 * h31s3;
+    double v3 = h31s3 * (h11 + h33 - sr1 - sr2) + h21s3 * h32;
+    bool z = s3 == 0.0;
+    v[0] = z ? 0.0 : v1; v[1] = z ? 0.0 : v2; v[2] = z ? 0.0 : v3;
+  } else {
+    double s2 = fabs(h11 - sr2) + fabs(si2) + fabs(h21);
+    double h21s2 = sdiv(h21, s2);
+    double v1 = h21s2 * h12 + (h11 - sr1) * sdiv(h11 - sr2, s2)
+                - si1 * sdiv(si2, s2);
+    double v2 = h21s2 * (h11 + h22 - sr1 - sr2);
+    bool z = s2 == 0.0;
+    v[0] = z ? 0.0 : v1; v[1] = z ? 0.0 : v2; v[2] = 0.0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// adjacent block swap on a 4x4 (row-major, double[16]); ops/swaps.py twin
+// ---------------------------------------------------------------------------
+
+DEVI void matmul4_tn(const double* A, const double* B, double* C) {  // A^T B
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      double s = 0.0;
+      for (int k = 0; k < 4; ++k) s += A[k * 4 + i] * B[k * 4 + j];
+      C[i * 4 + j] = s;
+    }
+}
+
+DEVI void matmul4_nn(const double* A, const double* B, double* C) {  // A B
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      double s = 0.0;
+      for (int k = 0; k < 4; ++k) s += A[i * 4 + k] * B[k * 4 + j];
+      C[i * 4 + j] = s;
+    }
+}
+
+DEVI void eye4(double* Q) {
+  for (int i = 0; i < 16; ++i) Q[i] = (i % 5 == 0) ? 1.0 : 0.0;
+}
+
+DEVI void solve4(double* M /* 4x5 */, double* x) {
+  for (int k = 0; k < 4; ++k) {
+    int piv = 0;
+    double best = -2.0;
+    for (int i = 0; i < 4; ++i) {
+      double val = i >= k ? fabs(M[i * 5 + k]) : -1.0;
+      if (val > best) { best = val; piv = i; }
+    }
+    for (int c = 0; c < 5; ++c) {
+      double t = M[k * 5 + c];
+      M[k * 5 + c] = M[piv * 5 + c];
+      M[piv * 5 + c] = t;
+    }
+    double pivval = M[k * 5 + k];
+    pivval = pivval == 0.0 ? DBL_MIN : pivval;
+    double rowk[5];
+    for (int c = 0; c < 5; ++c) rowk[c] = M[k * 5 + c];
+    for (int i = 0; i < 4; ++i) {
+      double f = i == k ? 0.0 : M[i * 5 + k] / pivval;
+      for (int c = 0; c < 5; ++c) M[i * 5 + c] = M[i * 5 + c] - f * rowk[c];
+    }
+  }
+  for (int i = 0; i < 4; ++i) {
+    double dg = M[i * 5 + i];
+    dg = dg == 0.0 ? DBL_MIN : dg;
+    x[i] = M[i * 5 + 4] / dg;
+  }
+}
+
+DEVI bool swap_11(const double* D, double* Q, double* Dh) {
+  double t11 = D[0], t12 = D[1], t22 = D[5];
+  double cs, sn, r;
+  givens(t12, t22 - t11, cs, sn, r);
+  eye4(Q);
+  Q[0] = cs; Q[4] = sn; Q[1] = -sn; Q[5] = cs;
+  double T[16];
+  matmul4_tn(Q, D, T);
+  matmul4_nn(T, Q, Dh);
+  Dh[0] = t22; Dh[5] = t11; Dh[4] = 0.0;
+  return true;
+}
+
+DEVI bool swap_general(const double* D, int p, int q, double* Q, double* Dh) {
+  int d = p + q;
+  double T11[4] = {0, 0, 0, 0}, T22[4] = {0, 0, 0, 0}, T12[4] = {0, 0, 0, 0};
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) {
+      if (i < p && j < p) T11[i * 2 + j] = D[i * 4 + j];
+      if (i < q && j < q) T22[i * 2 + j] = D[(p + i) * 4 + p + j];
+      if (i < p && j < q) T12[i * 2 + j] = D[i * 4 + p + j];
+    }
+  double M[20];
+  for (int i = 0; i < 20; ++i) M[i] = 0.0;
+  for (int k = 0; k < 4; ++k) {
+    int i = k % 2, j = k / 2;
+    if (i < p && j < q) {
+      M[k * 5 + 2 * j + 0] += T11[i * 2 + 0];
+      M[k * 5 + 2 * j + 1] += T11[i * 2 + 1];
+      M[k * 5 + 0 + i] += -T22[0 * 2 + j];
+      M[k * 5 + 2 + i] += -T22[1 * 2 + j];
+      M[k * 5 + 4] = -T12[i * 2 + j];
+    } else {
+      M[k * 5 + k] = 1.0;
+    }
+  }
+  double x[4];
+  solve4(M, x);
+  // X[i][j] = x[2 j + i];  Mx = [X; I_q] in the first d rows (4x2)
+  double Mx[8];
+  for (int r = 0; r < 4; ++r)
+    for (int c = 0; c < 2; ++c) {
+      double val = r < p ? x[2 * c + r] : 0.0;
+      if (r >= p && r - p == c && c < q) val += 1.0;
+      Mx[r * 2 + c] = val;
+    }
+  double col[4], v1[4], tau1, b1;
+  for (int r = 0; r < 4; ++r) col[r] = Mx[r * 2 + 0];
+  unsigned mask1 = (1u << d) - 1u;
+  householder(col, mask1, 4, v1, tau1, b1);
+  double w[2];
+  for (int c = 0; c < 2; ++c) {
+    double s = 0.0;
+    for (int r = 0; r < 4; ++r) s += v1[r] * Mx[r * 2 + c];
+    w[c] = s;
+  }
+  double M1c1[4];
+  for (int r = 0; r < 4; ++r) M1c1[r] = Mx[r * 2 + 1] - tau1 * (v1[r] * w[1]);
+  // second reflector on rows [1, d) (rolled so the pivot sits first)
+  double x2[4], v2r[4], tau2, b2;
+  for (int i = 0; i < 3; ++i) x2[i] = M1c1[i + 1];
+  x2[3] = 0.0;
+  unsigned mask2 = 0u;
+  for (int i = 0; i < 3; ++i)
+    if (i + 1 < d) mask2 |= 1u << i;
+  householder(x2, mask2, 4, v2r, tau2, b2);
+  double v2[4] = {v2r[3], v2r[0], v2r[1], v2r[2]};
+  if (q <= 1) tau2 = 0.0;
+  double Qa[16], Qb[16];
+  eye4(Qa);
+  for (int pass = 0; pass < 2; ++pass) {
+    const double* v = pass == 0 ? v1 : v2;
+    double tau = pass == 0 ? tau1 : tau2;
+    double ww[4];
+    for (int c = 0; c < 4; ++c) {
+      double s = 0.0;
+      for (int r = 0; r < 4; ++r) s += v[r] * Qa[r * 4 + c];
+      ww[c] = s;
+    }
+    for (int r = 0; r < 4; ++r)
+      for (int c = 0; c < 4; ++c)
+        Qb[r * 4 + c] = Qa[r * 4 + c] - tau * (v[r] * ww[c]);
+    for (int i = 0; i < 16; ++i) Qa[i] = Qb[i];
+  }
+  for (int r = 0; r < 4; ++r)
+    for (int c = 0; c < 4; ++c) Q[r * 4 + c] = Qa[c * 4 + r];
+  double T[16];
+  matmul4_tn(Q, D, T);
+  matmul4_nn(T, Q, Dh);
+  double dnorm = 0.0, err = 0.0;
+  for (int r = 0; r < 4; ++r)
+    for (int c = 0; c < 4; ++c) {
+      bool act = r < d && c < d;
+      if (act) dnorm = dmax(dnorm, fabs(D[r * 4 + c]));
+      if (act && r >= q && c < q) {
+        err = dmax(err, fabs(Dh[r * 4 + c]));
+        Dh[r * 4 + c] = 0.0;
+      }
+    }
+  return err <= dmax(10.0 * DBL_EPSILON * dnorm, DBL_MIN);
+}
+
+DEVI void standardize_at(double* Dh, double* Q, int off) {
+  double o[6];
+  standardize_2x2(Dh[off * 4 + off], Dh[off * 4 + off + 1],
+                  Dh[(off + 1) * 4 + off], Dh[(off + 1) * 4 + off + 1], o);
+  double cs = o[4], sn = o[5];
+  double G[16], T[16], D2[16], Q2[16];
+  eye4(G);
+  G[off * 4 + off] = cs; G[(off + 1) * 4 + off] = sn;
+  G[off * 4 + off + 1] = -sn; G[(off + 1) * 4 + off + 1] = cs;
+  matmul4_tn(G, Dh, T);
+  matmul4_nn(T, G, D2);
+  D2[off * 4 + off] = o[0]; D2[off * 4 + off + 1] = o[1];
+  D2[(off + 1) * 4 + off] = o[2]; D2[(off + 1) * 4 + off + 1] = o[3];
+  matmul4_nn(Q, G, Q2);
+  for (int i = 0; i < 16; ++i) { Dh[i] = D2[i]; Q[i] = Q2[i]; }
+}
+
+// swap the (p, q) blocks at the top of D; returns accept (Q = I, Dh = D if not)
+DEVI bool swap_adjacent(const double* D, int p, int q, double* Q, double* Dh) {
+  bool accept = (p == 1 && q == 1) ? swap_11(D, Q, Dh)
+                                   : swap_general(D, p, q, Q, Dh);
+  if (accept && q == 2) standardize_at(Dh, Q, 0);
+  if (accept && p == 2) standardize_at(Dh, Q, q);
+  if (!accept) {
+    eye4(Q);
+    for (int i = 0; i < 16; ++i) Dh[i] = D[i];
+  }
+  return accept;
+}

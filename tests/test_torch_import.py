@@ -1,0 +1,67 @@
+"""The port stands alone: importing it pulls in no JAX and builds nothing,
+its CPU path never touches the kernel library, and ``chip_smoke.py``
+refuses to run without a CUDA card or without the port beside it."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+torch.set_num_threads(1)
+
+
+def _run(code_or_args, cwd=ROOT):
+    args = ["-c", code_or_args] if isinstance(code_or_args, str) else code_or_args
+    env = dict(os.environ, PYTHONPATH=str(cwd))
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_import_pulls_no_jax_and_builds_nothing():
+    proc = _run(
+        "import sys\n"
+        "import starneig_tpu_torch\n"
+        "from starneig_tpu_torch.api import sep\n"
+        "from starneig_tpu_torch.ops import gpu_hess, gpu_schur, schur\n"
+        "from starneig_tpu_torch import kernels, convert\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'starneig_tpu' or m.startswith('starneig_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert kernels._lib is None and kernels.build_seconds is None\n"
+        "print('clean')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert "clean" in proc.stdout
+
+
+def test_cpu_path_launches_no_kernel():
+    from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.api import sep
+    before = dict(kernels.LAUNCHES)
+    A = torch.as_tensor(np.random.default_rng(0).standard_normal((70, 70)))
+    H, Q = sep.hessenberg(A)
+    S, Q2, er, ei, info = sep.schur(H, Q)
+    assert int(info) == 0
+    assert kernels.LAUNCHES == before
+    assert kernels._lib is None
+
+
+def test_chip_smoke_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the script runs instead")
+    proc = _run([str(ROOT / "chip_smoke.py")])
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_needs_the_port(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run([str(tmp_path / "chip_smoke.py")], cwd=tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,101 @@
+"""Each hand-written CUDA kernel against its plain PyTorch twin, on the card.
+
+These tests need a CUDA device and nvcc; without a card every test skips
+(the CPU suite covers the plain twins against the JAX package instead).
+On the card, ``python -m pytest tests/test_torch_kernels.py`` builds the
+kernels and runs them.  Tolerances are stated per test: the kernels and
+the twins run the same operations, differing only in summation order and
+fused multiply-adds.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from starneig_tpu_torch import kernels
+from starneig_tpu_torch.ops import gpu_hess, gpu_schur
+from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
+from starneig_tpu_torch.ops.schur import _aed_deflate, _train_hop
+from starneig_tpu_torch.ops.small_schur import _small_schur_plain
+from starneig_tpu_torch.testing.hooks import schur_form_error
+
+U = np.finfo(np.float64).eps
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda:0")
+
+
+def _hess(w, seed):
+    return np.triu(np.random.default_rng(seed).standard_normal((w, w)), -1)
+
+
+def _block_eigs(S, m):
+    """Sorted eigenvalues read off the diagonal blocks of S[:m, :m]."""
+    er, ei = extract_eigenvalues(S[:m, :m])
+    return np.sort_complex(er.cpu().numpy() + 1j * ei.cpu().numpy())
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_gemv(cuda, trans):
+    rng = np.random.default_rng(int(trans))
+    M = torch.as_tensor(rng.standard_normal((700, 500)), device=cuda)[37:, 11:]
+    x = torch.as_tensor(rng.standard_normal(M.shape[0] if trans else M.shape[1]),
+                        device=cuda)
+    n0 = kernels.LAUNCHES["hess_gemv"]
+    got = gpu_hess.gemv(M, x, trans)
+    assert kernels.LAUNCHES["hess_gemv"] == n0 + 1
+    want = gpu_hess.gemv_plain(M, x, trans)
+    scale = float(gpu_hess.gemv_plain(M.abs(), x.abs(), trans).max())
+    assert float((got - want).abs().max()) <= 1e-13 * scale
+
+
+@pytest.mark.parametrize("w,m", [(16, 16), (40, 40), (40, 31)])
+def test_francis(cuda, w, m):
+    Hn = _hess(w, w + m)
+    Hn[m:], Hn[:, m:] = 0.0, 0.0
+    H = torch.as_tensor(Hn, device=cuda)
+    Z = torch.eye(w, dtype=torch.float64, device=cuda)
+    th = U / 2 * np.linalg.norm(Hn)
+    Sk, Zk, ik = gpu_schur.francis(H, Z, m, th)
+    Sp, Zp, ip = _small_schur_plain(H, Z, m, th)
+    assert int(ik) == int(ip) == 0
+    assert schur_form_error(Sk) == 0.0 and schur_form_error(Sp) == 0.0
+    assert np.abs(_block_eigs(Sk, m) - _block_eigs(Sp, m)).max() \
+        <= 1e-10 * np.linalg.norm(Hn)
+    S, Zn = Sk.cpu().numpy(), Zk.cpu().numpy()
+    assert np.linalg.norm(Zn @ S @ Zn.T - Hn) / np.linalg.norm(Hn) / U < 500
+
+
+def test_train_hops(cuda):
+    B, WC, HOP = 3, 22, 9
+    rng = np.random.default_rng(3)
+    W = torch.as_tensor(np.stack([_hess(WC, g) for g in range(4)]), device=cuda)
+    sh = rng.standard_normal((4, B, 4))
+    sh[:, :, 3] = -sh[:, :, 1]
+    sh = torch.as_tensor(sh, device=cuda)
+    args = ([0, 1, 2, 3], [7, 1, -2, -2], [62, 0, 62, 11], [0, 0, 9, 9])
+    Wk, Qk = gpu_schur.train_hops(W, sh, *args, B=B, HOP=HOP)
+    Wp, Qp = _train_hop(W, sh, *args[1:], B=B, HOP=HOP)
+    assert float((Wk - Wp).abs().max()) <= 1e-12 * float(W.abs().max())
+    assert float((Qk - Qp).abs().max()) <= 1e-12
+    assert torch.equal(Wk[1], W[1])          # the parked train
+
+
+def test_aed_deflate(cuda):
+    w = 40
+    rng = np.random.default_rng(5)
+    T = np.triu(rng.standard_normal((w, w)))
+    for p in (6, 14, 30):
+        T[p + 1, p] = -abs(rng.standard_normal())
+        T[p, p + 1] = abs(rng.standard_normal())
+    V, _ = np.linalg.qr(np.eye(w) + 0.05 * rng.standard_normal((w, w)))
+    T, V = torch.as_tensor(T, device=cuda), torch.as_tensor(V, device=cuda)
+    Tk, Vk, kk, fk = gpu_schur.aed_deflate(T, V, 0.8, w, 1e-13)
+    Tp, Vp, kp, fp = _aed_deflate(T, V, 0.8, w, 1e-13)
+    assert (int(kk), int(fk)) == (int(kp), int(fp))
+    assert float((Tk - Tp).abs().max()) <= 1e-11 * float(T.abs().max())
+    assert float((Vk - Vp).abs().max()) <= 1e-11
