@@ -14,11 +14,17 @@ Phases (any failure raises; the exit code is then nonzero):
      the tolerances stated below; CUDA-event times of both (the plain
      twins' one timed run at the main path's shape comes after their runs
      at the smaller shapes, which serve as the warm-up);
-  4. main path: a seeded n=200 solve checked against numpy and the CPU
-     run of the port, then n=4000 through api.sep.hessenberg and
-     api.sep.schur (A from default_rng(0)), gated on info == 0, S in
-     standardized real Schur form, residual and orthogonality < 500 u, and
-     every kernel launched at least once.
+  4. main path: a seeded n=200 solve and a seeded n=200 api.sep.reduce
+     (Re(lambda) > 0) checked against numpy and the CPU run of the port;
+     then n=4000 (A from default_rng(0)) through api.sep.hessenberg,
+     api.sep.schur, api.sep.select(Re(lambda) > 0), api.sep.reorder_schur
+     and api.sep.eigenvectors of the leading selected block, gated on
+     info, S in standardized real Schur form before and after reordering,
+     residual and orthogonality < 500 u, the leading eigenvalues, the
+     spectrum kept by the reordering, the eigenvector residuals, and the
+     launch counts, zeroed before each of the two paths (Hessenberg ->
+     Schur; select -> reorder -> eigenvectors) and read after it: every
+     kernel of a path launched at least once there.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  ``--out`` also writes all results as JSON.
@@ -38,14 +44,28 @@ ROOT = Path(__file__).resolve().parent
 U = 2.220446049250313e-16          # float64 eps: the unit of the gates
 GATE_U = 500.0                     # reference warn gate (BASELINE.md)
 MAIN_N = 4000                      # bench.py's size
+# eigenvalues moved by the reordering, relative to max |lambda|: a
+# backward-stable reordering (residual < 500 u) moves each by at most its
+# condition number times 500 u ||A||; random matrices stay far below 1e-8
+EIG_MOVE = 1e-8
+# eigenvector residual ||A x - lambda x|| / (||A||_F ||x||): the chain's
+# backward error (< 500 u) plus the backsolve's rounding (at most n u =
+# 8.9e-13 relative at n=4000), with a margin of 100 over the latter
+EVEC_BOUND = 1e-10
 
 REPLACES = {
     "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
     "francis": "starneig_tpu/ops/pallas_schur.py:131",
     "train_hops": "starneig_tpu/ops/pallas_schur.py:537",
     "aed_deflate": "starneig_tpu/ops/pallas_schur.py:797",
+    "recondense": "starneig_tpu/ops/pallas_schur.py:1109",
+    # no Pallas kernel there: the JAX package ran the bubble as an XLA
+    # while-loop (_run_bubble_b), which the TPU executed
+    "reorder_bubble": "starneig_tpu/ops/reorder.py:156",
 }
 SOURCES = {k: f"starneig_tpu_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+# the kernels of Hessenberg -> Schur; the reordering runs reorder_bubble
+SCHUR_KERNELS = ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense")
 
 
 def log(*a):
@@ -295,6 +315,130 @@ def phase_deflate(dev):
                 detail=dict(w60_ms=ms60, w60_plain_ms=plain_ms[60]))
 
 
+def recondense_contract(T, V0, s, kbot, To, Vo, beta):
+    """How far (To, Vo, beta) is from a recondense of (T, V0): similarity
+    residual, orthogonality, structure below the subdiagonal of the
+    reduced block, and the spike's distance from beta e1."""
+    import numpy as np
+    Us = V0.T @ Vo
+    res = np.linalg.norm(Us.T @ T @ Us - To) / np.linalg.norm(T)
+    orth = np.linalg.norm(Us.T @ Us - np.eye(len(T)))
+    struct = np.abs(np.tril(To[:kbot, :kbot], -2)).max(initial=0.0)
+    spike = Us.T @ np.where(np.arange(len(T)) < kbot, s * V0[0], 0.0)
+    sp = max(abs(spike[0] - beta), np.abs(spike[1:kbot]).max(initial=0.0))
+    return res, orth, struct, sp
+
+
+def phase_recondense(dev):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops.gpu_schur import aed_recondense, francis
+    from starneig_tpu_torch.ops.schur import _aed_recondense
+    err = 0.0
+    # the input of tests/test_pallas_kernels.py:74
+    rng = np.random.default_rng(3)
+    T = np.triu(rng.standard_normal((40, 40)))
+    Q, _ = np.linalg.qr(rng.standard_normal((40, 40)))
+    Td, Qd = torch.as_tensor(T, device=dev), torch.as_tensor(Q, device=dev)
+    for kbot in (10, 1, 0):
+        Tk, Vk, bk = aed_recondense(Td, Qd, 0.37, kbot)
+        Tp, Vp, bp = _aed_recondense(Td, Qd, 0.37, kbot)
+        dt, dv = float((Tk - Tp).abs().max()), float((Vk - Vp).abs().max())
+        db = abs(float(bk) - float(bp))
+        log(f"  B5 WA=40 kbot={kbot}: max abs err T {dt:.2e} V {dv:.2e} beta {db:.2e}")
+        # the same reflectors in another summation order
+        check(dt <= 1e-12 * np.abs(T).max() and dv <= 1e-12 and db <= 1e-12,
+              f"B5 kbot={kbot} disagrees")
+        err = max(err, dt, dv, db)
+    # kbot=25 on this input reduces to a subdiagonal of 3.8e-10 (ROADMAP
+    # section C): past it the Hessenberg form is not determined by
+    # roundoff-level data, so both sides are held to the contract there
+    Tk, Vk, bk = aed_recondense(Td, Qd, 0.37, 25)
+    Tp, Vp, bp = _aed_recondense(Td, Qd, 0.37, 25)
+    for name, To, Vo, b in (("kernel", Tk, Vk, bk), ("plain", Tp, Vp, bp)):
+        res, orth, struct, sp = recondense_contract(
+            T, Q, 0.37, 25, To.cpu().numpy(), Vo.cpu().numpy(), float(b))
+        log(f"  B5 WA=40 kbot=25 {name}: similarity {res:.2e}, orth {orth:.2e}, "
+            f"below-subdiagonal {struct}, spike {sp:.2e}")
+        check(res < 1e-14 and orth < 1e-13 and struct == 0.0 and sp < 1e-13,
+              f"B5 kbot=25 {name} breaks the contract")
+    check(abs(float(bk) - float(bp)) <= 1e-12, "B5 kbot=25: beta differs")
+    # the main path's window: the Hessenberg form of a dense matrix, solved
+    # by B2 at WA=322 as an AED round does, and kbot at a block boundary
+    # near 300 (the n=4000 rounds deflate a few to tens of rows).  Such a
+    # window keeps its reduced subdiagonals O(1), and the recondense is
+    # determined elementwise (the JAX and torch versions agree to 6e-14
+    # |T| on it, against O(|T|) on a random Hessenberg window, whose
+    # eigenvalues are exponentially ill-conditioned).
+    from starneig_tpu_torch.api import sep
+    Hw, _ = sep.hessenberg(torch.as_tensor(
+        np.random.default_rng(2).standard_normal((322, 322)), device=dev))
+    Sw, Zw, info = francis(Hw, torch.eye(322, dtype=torch.float64, device=dev),
+                           322, U / 2 * float(torch.linalg.norm(Hw)))
+    check(int(info) == 0, "B5 input: window solve failed")
+    Swn = Sw.cpu().numpy()
+    kb = 300 if Swn[300, 299] == 0 else 301
+    Tk, Vk, bk = aed_recondense(Sw, Zw, 0.3, kb)
+    (Tp, Vp, bp), plain_ms = timed(lambda: _aed_recondense(Sw, Zw, 0.3, kb))
+    scale = float(Sw.abs().max())
+    dt, dv = float((Tk - Tp).abs().max()), float((Vk - Vp).abs().max())
+    db = abs(float(bk) - float(bp))
+    res, orth, struct, sp = recondense_contract(
+        Swn, Zw.cpu().numpy(), 0.3, kb, Tk.cpu().numpy(), Vk.cpu().numpy(), float(bk))
+    log(f"  B5 WA=322 kbot={kb}: max abs err T {dt:.2e} (|T| {scale:.2f}), V "
+        f"{dv:.2e}, beta {db:.2e}; kernel similarity {res:.2e}, orth {orth:.2e}, "
+        f"below-subdiagonal {struct}, spike {sp:.2e}")
+    # the same reflectors in another summation order, on a well-determined
+    # reduction
+    check(dt <= 1e-10 * scale and dv <= 1e-10 and db <= 1e-12,
+          f"B5 WA=322 disagrees: {dt}, {dv}, {db}")
+    check(res < 1e-13 and orth < 1e-12 and struct == 0.0 and sp < 1e-13,
+          "B5 WA=322 kernel breaks the contract")
+    err = max(err, dt, dv, db)
+    ms = cuda_ms(lambda: aed_recondense(Sw, Zw, 0.3, kb), 5)
+    log(f"  B5 WA=322 kbot={kb}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_bubble(dev):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops.gpu_reorder import window_bubble
+    from starneig_tpu_torch.ops.reorder import _window_bubble
+    from starneig_tpu_torch.testing.generators import planted_windows
+    err = 0.0
+    # (G, W, seed, limits): small windows with a frozen top row, a frozen
+    # bottom row and a capped insertion; then a batch at the n=4000
+    # reordering's window W=160.  Window 0 of each rejects a swap.
+    for G, W, seed, lims in ((3, 24, 4, ([0, 1, 0], [24, 24, 6], [24, 23, 24])),
+                             (2, 160, 7, ([0, 1], [160, 160], [160, 159]))):
+        Ts, sels = planted_windows(G, W, seed)
+        Td = torch.as_tensor(Ts, device=dev)
+        (Tk, Qk, selk, dstk, nfk, nsk), _ = timed(lambda: window_bubble(Td, sels, *lims))
+        plain_ms = 0.0
+        for g in range(G):
+            (Tp, Qp, selp, dstp, nfp, nsp), t = timed(
+                lambda: _window_bubble(Td[g], sels[g], lims[0][g], lims[1][g],
+                                       lims[2][g]))
+            plain_ms += t
+            dt = float((Tk[g] - Tp).abs().max())
+            dq = float((Qk[g] - Qp).abs().max())
+            check((dstk[g], nfk[g], nsk[g]) == (dstp, nfp, nsp)
+                  and np.array_equal(selk[g], selp),
+                  f"bubble W={W} window {g}: dst/nfail/swaps/sel differ")
+            # the same swap sequence; FMA contraction and summation order
+            check(dt <= 1e-10 * float(Td[g].abs().max()) and dq <= 1e-10,
+                  f"bubble W={W} window {g}: T {dt}, Q {dq}")
+            err = max(err, dt, dq)
+        check(nfk[0] >= 1, f"bubble W={W}: the planted swap was not rejected")
+        log(f"  bubble G={G} W={W}: swaps {nsk.tolist()}, failed {nfk.tolist()}, "
+            f"dst {dstk.tolist()}: equal to the plain twin; max abs err {err:.2e}")
+    ms = cuda_ms(lambda: window_bubble(Td, sels, *lims), 3)
+    log(f"  bubble G=2 W=160 ({int(nsk.sum())} swaps): kernel {ms:.2f} ms, "
+        f"plain {plain_ms:.1f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 def solve(A):
     import torch
     from starneig_tpu_torch.api import sep
@@ -320,12 +464,66 @@ def gates(A, S, Q):
     return res, orth
 
 
+def positive_real(lam):
+    return lam.real > 0
+
+
+def eigenvector_residual(A, S, X, m):
+    """Worst ||A x - lambda x|| / (||A||_F ||x||) over the eigenvectors X of
+    the leading m x m block of S (a real column per real eigenvalue, a
+    (Re, Im) column pair per complex pair)."""
+    import torch
+    from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
+    er, ei = extract_eigenvalues(S[:m, :m])
+    first = ei > 0                       # the pair's (Re, Im) columns start here
+    keep = first | (ei == 0)
+    c = torch.arange(m, device=A.device)
+    partner = torch.where(first, c + 1, c).clamp_max(m - 1)
+    AX = A @ X
+    Xi = torch.where(first, X[:, partner], 0.0)
+    AXi = torch.where(first, AX[:, partner], 0.0)
+    Rr = AX - (er * X - ei * Xi)
+    Ri = AXi - (er * Xi + ei * X)
+    rn = torch.sqrt((Rr * Rr + Ri * Ri).sum(0))
+    xn = torch.sqrt((X * X + Xi * Xi).sum(0))
+    return float((rn / (torch.linalg.norm(A) * xn))[keep].max())
+
+
+def phase_reduce(dev):
+    """api.sep.reduce at n=200 on the card against the port's CPU run."""
+    import numpy as np
+    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.convert import from_numpy
+    from starneig_tpu_torch.testing.hooks import schur_form_error
+    A_np = np.random.default_rng(42).standard_normal((200, 200))
+    Sg, Qg, _er, _ei, mg, infog = sep.reduce(from_numpy(A_np, dev), positive_real)
+    Sc, Qc, _er, _ei, mc, infoc = sep.reduce(from_numpy(A_np), positive_real)
+    na = np.linalg.norm(A_np)
+    d = float(np.abs(block_eigs(Sg, mg) - block_eigs(Sc, mc)).max()) / na \
+        if mg == mc else np.inf
+    lead_ok = bool((block_eigs(Sg, mg).real > 0).all())
+    res, orth = gates(from_numpy(A_np, dev), Sg, Qg)
+    form = schur_form_error(Sg)
+    want = int((np.linalg.eigvals(A_np).real > 0).sum())
+    log(f"  reduce n=200: info {int(infog)}/{int(infoc)}, selected rows {mg}/{mc} "
+        f"(numpy count {want}), leading eigenvalues vs CPU {d:.2e} |A|, residual "
+        f"{res:.1f}u orth {orth:.1f}u, Schur form error {form}")
+    # the Schur forms of the two runs differ by roundoff (B2's deflation
+    # order); their leading eigenvalues agree to 1e-10 |A|
+    check(int(infog) == int(infoc) == 0 and mg == mc == want and d < 1e-10
+          and lead_ok and res < GATE_U and orth < GATE_U and form == 0.0,
+          "reduce n=200 check fails")
+    return dict(selected=mg, eig_vs_cpu=d, residual_u=res, orthogonality_u=orth)
+
+
 def phase_main(dev):
     import numpy as np
     import torch
     from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.api import sep
     from starneig_tpu_torch.convert import from_numpy, to_numpy
-    from starneig_tpu_torch.testing.hooks import schur_form_error
+    from starneig_tpu_torch.errors import Error
+    from starneig_tpu_torch.testing.hooks import eigenvalue_error, schur_form_error
 
     # small input against numpy and against the port's CPU (plain) path
     A_np = np.random.default_rng(0).standard_normal((200, 200))
@@ -345,31 +543,94 @@ def phase_main(dev):
           and res_s < GATE_U and orth_s < GATE_U and form_s == 0.0,
           "n=200 check fails")
 
+    n200_reduce = phase_reduce(dev)
+
     n = MAIN_N
     A = from_numpy(np.random.default_rng(0).standard_normal((n, n)), dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
     S, Q2, er, ei, info, hess_ms, schur_ms, stats = solve(A)
-    launches = dict(kernels.LAUNCHES)
+    schur_launches = dict(kernels.LAUNCHES)
     res, orth = gates(A, S, Q2)
     finite = bool(torch.isfinite(S).all() and torch.isfinite(Q2).all())
     form = schur_form_error(S)
     log(f"  n={n}: info {info} hessenberg_ms {hess_ms:.1f} schur_ms "
         f"{schur_ms:.1f} residual_u {res:.1f} orthogonality_u {orth:.1f} "
         f"schur_form_error {form} rounds {stats.get('rounds')} "
-        f"geometry {stats} launches {launches}")
+        f"geometry {stats} launches {schur_launches}")
     check(info == 0, f"n=4000 info {info}")
     check(finite and tuple(S.shape) == (n, n), "n=4000 output not finite")
     check(form == 0.0, f"n=4000: S not in standardized Schur form ({form})")
     check(res < GATE_U and orth < GATE_U, f"n=4000 gates: {res}, {orth}")
-    for k, c in launches.items():
-        check(c > 0, f"kernel {k} was not launched on the main path")
+
+    # the same (S, Q) through select -> reorder_schur -> eigenvectors, with
+    # the counts read for this path alone
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    sel = sep.select(S, positive_real)
+    select_ms = (time.perf_counter() - t0) * 1e3
+    rstats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S2, Q3, m, rinfo = sep.reorder_schur(S, Q2, sel, stats=rstats)
+    torch.cuda.synchronize()
+    reorder_ms = (time.perf_counter() - t0) * 1e3
+    lead = np.arange(n) < m
+    t0 = time.perf_counter()
+    X, xinfo = sep.eigenvectors(S2, Q3, lead)
+    torch.cuda.synchronize()
+    eigenvectors_ms = (time.perf_counter() - t0) * 1e3
+    chain_launches = dict(kernels.LAUNCHES)
+    launches = {k: schur_launches[k] + chain_launches[k] for k in schur_launches}
+
+    res2, orth2 = gates(A, S2, Q3)
+    form2 = schur_form_error(S2)
+    before = to_numpy(er) + 1j * to_numpy(ei)
+    er2, ei2 = sep.eigenvalues(S2)
+    after = to_numpy(er2) + 1j * to_numpy(ei2)
+    moved = eigenvalue_error(after, before) * U
+    lead_ok = bool((after[:m].real > 0).all())
+    evec = eigenvector_residual(A, S2, X, m)
+    log(f"  n={n} reorder: info {int(rinfo)} selected {int(sel.sum())} rows, "
+        f"leading block {m} rows, reorder_ms {reorder_ms:.1f} (select_ms "
+        f"{select_ms:.1f}), stats {rstats}, residual_u {res2:.1f} "
+        f"orthogonality_u {orth2:.1f} schur_form_error {form2}, eigenvalues "
+        f"moved {moved:.2e} max|lambda|")
+    log(f"  n={n} eigenvectors: info {int(xinfo)}, {tuple(X.shape)}, "
+        f"eigenvectors_ms {eigenvectors_ms:.1f}, worst residual {evec:.2e}; "
+        f"launches {chain_launches}")
+    check(rinfo in (Error.SUCCESS, Error.PARTIAL_REORDERING), f"reorder info {rinfo}")
+    if rinfo == Error.PARTIAL_REORDERING:
+        log(f"  PARTIAL_REORDERING: {rstats.get('failed_swaps')} failed swaps")
+    else:
+        check(m == int(sel.sum()), f"leading block {m} != {int(sel.sum())}")
+    check(form2 == 0.0, f"reordered S not in standardized Schur form ({form2})")
+    check(res2 < GATE_U and orth2 < GATE_U, f"reorder gates: {res2}, {orth2}")
+    check(lead_ok, "a leading eigenvalue fails the predicate")
+    check(moved < EIG_MOVE, f"the reordering moved eigenvalues by {moved}")
+    check(xinfo in (Error.SUCCESS, Error.CLOSE_EIGENVALUES), f"eigenvectors info {xinfo}")
+    check(tuple(X.shape) == (n, m) and bool(torch.isfinite(X).all()),
+          "eigenvectors: wrong shape or not finite")
+    check(evec < EVEC_BOUND, f"eigenvector residual {evec}")
+    for k in SCHUR_KERNELS:
+        check(schur_launches[k] > 0, f"kernel {k} was not launched by Hessenberg -> Schur")
+    check(chain_launches["reorder_bubble"] > 0,
+          "kernel reorder_bubble was not launched by the reordering")
     return dict(info=info, hessenberg_ms=hess_ms, schur_ms=schur_ms,
                 residual_u=res, orthogonality_u=orth, schur_form_error=form,
-                stats=stats,
+                stats=stats, schur_launches=schur_launches,
+                reorder=dict(info=int(rinfo), selected=int(sel.sum()), lead=m,
+                             reorder_ms=reorder_ms, select_ms=select_ms,
+                             stats=rstats, residual_u=res2,
+                             orthogonality_u=orth2, schur_form_error=form2,
+                             eig_moved=moved),
+                eigenvectors=dict(info=int(xinfo), eigenvectors_ms=eigenvectors_ms,
+                                  worst_residual=evec),
                 launches=launches, n200=dict(eig_vs_numpy=d_np,
                                              eig_vs_cpu=d_cpu, residual_u=res_s,
-                                             orthogonality_u=orth_s))
+                                             orthogonality_u=orth_s),
+                n200_reduce=n200_reduce)
 
 
 def main() -> int:
@@ -396,7 +657,9 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     results = {"hess_gemv": phase_gemv(dev), "francis": phase_francis(dev),
                "train_hops": phase_train_hops(dev),
-               "aed_deflate": phase_deflate(dev)}
+               "aed_deflate": phase_deflate(dev),
+               "recondense": phase_recondense(dev),
+               "reorder_bubble": phase_bubble(dev)}
     log("== 4. main path")
     main_res = phase_main(dev)
 

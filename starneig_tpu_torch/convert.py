@@ -17,9 +17,9 @@ from starneig_tpu_torch import config as _config
 
 
 def from_numpy(a, device="cpu"):
-    """A contiguous float64 tensor on ``device`` from an array-like."""
-    return torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64),
-                           device=device).contiguous()
+    """A contiguous float64 tensor on ``device`` from an array-like; a copy,
+    so a read-only array (a JAX array's numpy view) is never aliased."""
+    return torch.tensor(np.asarray(a, dtype=np.float64), device=device)
 
 
 def to_numpy(t):

@@ -26,9 +26,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
-LAUNCHES = {"hess_gemv": 0, "francis": 0, "train_hops": 0, "aed_deflate": 0}
+LAUNCHES = {"hess_gemv": 0, "francis": 0, "train_hops": 0, "aed_deflate": 0,
+            "recondense": 0, "reorder_bubble": 0}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "train_hops": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # Tp, Vp, WA, w, s, thresh, stat, stream
     "aed_deflate": [_P, _P, _I, _I, _D, _D, _P, _P],
+    # T, V, WA, kbot, s, beta, stream
+    "recondense": [_P, _P, _I, _I, _D, _P, _P],
+    # Tp, Qp, sel, state, G, W, stream
+    "reorder_bubble": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None
@@ -66,7 +71,8 @@ def _sources():
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into one .so keyed by the sources' content."""
+    """Compile csrc/*.cu into one .so keyed by the sources' content: one
+    nvcc per source, all started together, then one link."""
     global build_seconds
     h = hashlib.sha256()
     for p in _sources():
@@ -77,16 +83,37 @@ def build(verbose: bool = False) -> Path:
         build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors, logs = [], []
+    for src, obj, proc in jobs:
+        _out, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            errors.append(f"{src.name} ({proc.returncode}):\n{err}")
+    objs = [str(obj) for _s, obj, _p in jobs]
+    try:
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for o in objs:
+            Path(o).unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, flush=True)
+    if verbose:
+        print("".join(logs), flush=True)
     os.replace(tmp, out)
     return out
 

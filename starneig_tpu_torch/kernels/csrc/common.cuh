@@ -56,6 +56,57 @@ DEVI void householder(const double* xin, unsigned mask, int m, double* v,
   beta = (degen ? alpha : b) * msafe;
 }
 
+// ---------------------------------------------------------------------------
+// block-wide reductions and reflector (every thread of the block calls them;
+// red is __shared__ scratch of at least blockDim.x / 32 doubles)
+// ---------------------------------------------------------------------------
+
+DEVI double block_reduce(double v, double* red, bool is_max) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const double u = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? dmax(v, u) : v + u;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // the previous reduction's readers are done with red
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = red[0];
+  for (int i = 1; i < (int)(blockDim.x >> 5); ++i)
+    v = is_max ? dmax(v, red[i]) : v + red[i];
+  return v;
+}
+
+// dlarfg on x[0..m) (m >= 1) in shared memory, the block-wide twin of
+// householder() above and of ops/primitives.py:householder: pre-scaled by
+// max|x|, sdiv guards on the zero denominators.  On return x holds v
+// (v[0] == 1, v == 0 past x[0] when the tail is zero) and every thread
+// holds tau and beta.  blockDim.x must be a multiple of 32.
+DEVI void block_householder(double* x, int m, double* red, double& tau,
+                            double& beta) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  double mx = 0.0;
+  for (int i = tid; i < m; i += nt) mx = dmax(mx, fabs(x[i]));
+  mx = block_reduce(mx, red, true);
+  const double msafe = mx == 0.0 ? 1.0 : mx;
+  double ss = 0.0;
+  for (int i = tid; i < m; i += nt) {
+    const double xs = x[i] / msafe;
+    if (i >= 1) ss += xs * xs;  // x[0] is alpha, outside the tail norm
+  }
+  ss = block_reduce(ss, red, false);
+  const double alpha = x[0] / msafe;
+  const double xnorm = sqrt(ss);
+  const double b = -sgn(alpha) * hypot2(alpha, xnorm);
+  const bool degen = xnorm == 0.0;
+  tau = degen ? 0.0 : sdiv(b - alpha, b);
+  const double scale = sdiv(1.0, alpha - b);
+  beta = (degen ? alpha : b) * msafe;
+  __syncthreads();  // every thread has read x[0]
+  for (int i = tid; i < m; i += nt)
+    x[i] = i == 0 ? 1.0 : (degen ? 0.0 : (x[i] / msafe) * scale);
+  __syncthreads();
+}
+
 DEVI void givens(double f, double g, double& c, double& s, double& r) {
   double rmag = hypot2(f, g);
   double r0 = sgn(f) * rmag;

@@ -1,12 +1,12 @@
-"""Wrappers of the Schur solver's window kernels B2, B3 and B4.
+"""Wrappers of the Schur solver's window kernels B2, B3, B4 and B5.
 
 Port of ``starneig_tpu/ops/pallas_schur.py``.  The TPU kernels there ran
 the serial window work in df32 with the window resident in VMEM; the
 H100 kernels (``kernels/csrc/francis.cu``, ``train_hops.cu``,
-``aed_deflate.cu``) run it in native fp64 with one thread block per
-window, the window in global memory / L2.  Each wrapper here launches
-its kernel on CUDA tensors and raises on any other.  The op that owns the
-plain PyTorch twin dispatches on the device:
+``aed_deflate.cu``, ``recondense.cu``) run it in native fp64 with one
+thread block per window, the window in global memory / L2.  Each wrapper
+here launches its kernel on CUDA tensors and raises on any other.  The op
+that owns the plain PyTorch twin dispatches on the device:
 
   wrapper          kernel            dispatcher and plain twin
   ---------------  ----------------  -----------------------------------------
@@ -14,10 +14,8 @@ plain PyTorch twin dispatches on the device:
                                      _small_schur_plain
   train_hops       train_hops.cu     ops/schur.py: train_hops, _train_hop
   aed_deflate      aed_deflate.cu    ops/schur.py: aed_deflate, _aed_deflate
-
-The AED recondense (TPU kernel B5, ``_recondense_kernel``) has no kernel
-here yet: ``ops/schur.py:_aed_recondense`` runs as plain PyTorch on every
-device.
+  aed_recondense   recondense.cu     ops/schur.py: aed_recondense,
+                                     _aed_recondense
 """
 
 from __future__ import annotations
@@ -97,3 +95,26 @@ def aed_deflate(Tw, Vw, s: float, w: int, thresh: float):
                                   kernels.stream_ptr(Tw)), "aed_deflate")
     return (Tp[:WA, :WA].contiguous(), Vp[:, :WA].contiguous(),
             stat[0], stat[1])
+
+
+def aed_recondense(Tw, Vw, s: float, kbot: int):
+    """Kernel B5: the spike reflector and the Hessenberg re-reduction of
+    the leading kbot x kbot block, on CUDA tensors (see
+    :func:`starneig_tpu_torch.ops.schur._aed_recondense`).  Returns
+    (T, V, beta), beta a 0-d tensor."""
+    WA = Tw.shape[0]
+    if tuple(Tw.shape) != (WA, WA) or tuple(Vw.shape) != (WA, WA):
+        raise ValueError(f"aed_recondense: T {tuple(Tw.shape)} and V "
+                         f"{tuple(Vw.shape)} must both be ({WA}, {WA})")
+    if not 0 <= kbot <= WA:
+        raise ValueError(f"aed_recondense: kbot {kbot} outside [0, {WA}]")
+    T = Tw.contiguous().clone()
+    V = Vw.contiguous().clone()
+    beta = T.new_zeros(1)
+    kernels.require_cuda_f64("aed_recondense", T, V)
+    lib = kernels.lib()
+    kernels.LAUNCHES["recondense"] += 1
+    kernels.check(lib.recondense(T.data_ptr(), V.data_ptr(), WA, int(kbot),
+                                 float(s), beta.data_ptr(),
+                                 kernels.stream_ptr(Tw)), "recondense")
+    return T, V, beta[0]

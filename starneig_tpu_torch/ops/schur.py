@@ -14,11 +14,11 @@ live on the host, so every slice is a plain tensor index.  Each round reads
 the device twice: the subdiagonal after the negligible-entry scan (to place
 the window) and one status vector after the window solve and deflation
 (info, kbot, the window eigenvalues).  Nothing syncs per step: the window
-solve, the deflation and the train hops are one kernel launch each on
-CUDA (B2, B4, B3 in :mod:`starneig_tpu_torch.ops.gpu_schur`; the
-dispatchers :func:`aed_deflate` and :func:`train_hops` run the plain twins
-for CPU tensors), and the hop count of a sweep is computed on the host from
-the status.
+solve, the deflation, the recondense and the train hops are one kernel
+launch each on CUDA (B2, B4, B5, B3 in :mod:`starneig_tpu_torch.ops.gpu_schur`;
+the dispatchers :func:`aed_deflate`, :func:`aed_recondense` and
+:func:`train_hops` run the plain twins for CPU tensors), and the hop count
+of a sweep is computed on the host from the status.
 
 Where the JAX version relied on ``lax.dynamic_slice`` clamping an
 out-of-range start (and on scatters dropping or wrapping out-of-range
@@ -234,8 +234,8 @@ def _aed_recondense(Tw, Vw, s: float, kbot: int):
 
     Applies (1) a reflector turning s * Vw[0, :kbot] into beta e1 and (2)
     an unblocked Householder Hessenberg reduction of the leading kbot x
-    kbot block, both to T from both sides and to V.  Plain PyTorch on
-    every device (TPU kernel B5 is not ported yet).  Returns (Tw, Vw, beta).
+    kbot block, both to T from both sides and to V: the plain twin of B5.
+    Returns (Tw, Vw, beta).
     """
     T = Tw.clone()
     V = Vw.clone()
@@ -258,6 +258,14 @@ def _aed_recondense(Tw, Vw, s: float, kbot: int):
         T[shift + 1:kbot, j] = 0.0
         T[shift, j] = b
     return T, V, beta
+
+
+def aed_recondense(Tw, Vw, s: float, kbot: int):
+    """Recondense: kernel B5 for a CUDA tensor, :func:`_aed_recondense`
+    for a CPU tensor.  Returns (Tw, Vw, beta)."""
+    if Tw.is_cuda:
+        return gpu_schur.aed_recondense(Tw, Vw, s, kbot)
+    return _aed_recondense(Tw, Vw, s, kbot)
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +497,7 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
     shifts_h, npairs = _pack_shifts(er_h, ei_h, tsub, kbot, NS, B, TMAX)
     shifts = torch.from_numpy(shifts_h).to(dev)
 
-    Tw, Vw, beta = _aed_recondense(Tw, Vw, s_spike, kbot)
+    Tw, Vw, beta = aed_recondense(Tw, Vw, s_spike, kbot)
 
     # window transform at full extents (Vw is the identity outside the
     # active block): rows, then columns, then the exact window plant

@@ -31,3 +31,8 @@ enable_compilation_cache()
 
 assert jax.devices()[0].platform == "cpu", "tests must run on CPU"
 assert len(jax.devices()) == 8, "expected 8 virtual CPU devices"
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc; skips without one")

@@ -30,6 +30,8 @@ def test_import_pulls_no_jax_and_builds_nothing():
         "import starneig_tpu_torch\n"
         "from starneig_tpu_torch.api import sep\n"
         "from starneig_tpu_torch.ops import gpu_hess, gpu_schur, schur\n"
+        "from starneig_tpu_torch.ops import gpu_reorder, reorder, eigenvectors\n"
+        "from starneig_tpu_torch.testing import hooks\n"
         "from starneig_tpu_torch import kernels, convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'starneig_tpu' or m.startswith('starneig_tpu.')]\n"
@@ -48,7 +50,26 @@ def test_cpu_path_launches_no_kernel():
     H, Q = sep.hessenberg(A)
     S, Q2, er, ei, info = sep.schur(H, Q)
     assert int(info) == 0
+    sel = sep.select(S, lambda lam: lam.real > 0)
+    S2, Q3, m, rinfo = sep.reorder_schur(S, Q2, sel)
+    X, xinfo = sep.eigenvectors(S2, Q3, np.arange(70) < m)
+    assert int(rinfo) == 0 and int(xinfo) == 0 and X.shape == (70, m)
     assert kernels.LAUNCHES == before
+    assert kernels._lib is None
+
+
+@pytest.mark.parametrize("wrapper", ["aed_recondense", "window_bubble"])
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    """A wrapper launches its kernel or raises: a CPU tensor never reaches
+    the kernel library."""
+    from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.ops import gpu_reorder, gpu_schur
+    T = torch.eye(8, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        if wrapper == "aed_recondense":
+            gpu_schur.aed_recondense(T, T, 0.5, 4)
+        else:
+            gpu_reorder.window_bubble(T[None], np.ones((1, 8), bool), [0], [8], [8])
     assert kernels._lib is None
 
 

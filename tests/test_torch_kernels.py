@@ -13,13 +13,17 @@ import pytest
 import torch
 
 from starneig_tpu_torch import kernels
-from starneig_tpu_torch.ops import gpu_hess, gpu_schur
+from starneig_tpu_torch.ops import gpu_hess, gpu_reorder, gpu_schur
 from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
-from starneig_tpu_torch.ops.schur import _aed_deflate, _train_hop
+from starneig_tpu_torch.ops.reorder import _window_bubble
+from starneig_tpu_torch.ops.schur import _aed_deflate, _aed_recondense, _train_hop
 from starneig_tpu_torch.ops.small_schur import _small_schur_plain
+from starneig_tpu_torch.testing.generators import planted_windows
 from starneig_tpu_torch.testing.hooks import schur_form_error
 
 U = np.finfo(np.float64).eps
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -99,3 +103,54 @@ def test_aed_deflate(cuda):
     assert (int(kk), int(fk)) == (int(kp), int(fp))
     assert float((Tk - Tp).abs().max()) <= 1e-11 * float(T.abs().max())
     assert float((Vk - Vp).abs().max()) <= 1e-11
+
+
+def _recondense_input(cuda):
+    # the input of tests/test_pallas_kernels.py:74
+    rng = np.random.default_rng(3)
+    T = np.triu(rng.standard_normal((40, 40)))
+    Q, _ = np.linalg.qr(rng.standard_normal((40, 40)))
+    return T, Q, torch.as_tensor(T, device=cuda), torch.as_tensor(Q, device=cuda)
+
+
+@pytest.mark.parametrize("kbot", [10, 1, 0])
+def test_recondense(cuda, kbot):
+    T, Q, Td, Qd = _recondense_input(cuda)
+    Tk, Vk, bk = gpu_schur.aed_recondense(Td, Qd, 0.37, kbot)
+    Tp, Vp, bp = _aed_recondense(Td, Qd, 0.37, kbot)
+    # the same reflectors in another summation order
+    assert float((Tk - Tp).abs().max()) <= 1e-12 * float(Td.abs().max())
+    assert float((Vk - Vp).abs().max()) <= 1e-12
+    assert abs(float(bk) - float(bp)) <= 1e-12
+
+
+def test_recondense_near_breakdown(cuda):
+    """kbot = 25 reduces to a subdiagonal of 3.8e-10 (ROADMAP section C):
+    hold the kernel to the contract, as tests/test_torch_schur.py does."""
+    T, Q, Td, Qd = _recondense_input(cuda)
+    kbot, s = 25, 0.37
+    Tk, Vk, bk = gpu_schur.aed_recondense(Td, Qd, s, kbot)
+    To, Vo = Tk.cpu().numpy(), Vk.cpu().numpy()
+    Us = Q.T @ Vo
+    assert np.linalg.norm(Us.T @ T @ Us - To) / np.linalg.norm(T) < 1e-14
+    assert np.linalg.norm(Us.T @ Us - np.eye(40)) < 1e-13
+    assert np.abs(np.tril(To[:kbot, :kbot], -2)).max() == 0.0
+    spike = Us.T @ np.where(np.arange(40) < kbot, s * Q[0], 0.0)
+    assert abs(spike[0] - float(bk)) < 1e-13 and np.abs(spike[1:kbot]).max() < 1e-13
+
+
+def test_reorder_bubble(cuda):
+    G, W = 3, 24
+    Ts, sels = planted_windows(G, W, 4)     # window 0 rejects a swap
+    Td = torch.as_tensor(Ts, device=cuda)
+    lims = ([0, 1, 0], [W, W, 6], [W, W - 1, W])
+    Tk, Qk, selk, dstk, nfk, nsk = gpu_reorder.window_bubble(Td, sels, *lims)
+    assert nfk[0] >= 1
+    for g in range(G):
+        Tp, Qp, selp, dstp, nfp, nsp = _window_bubble(
+            Td[g], sels[g], lims[0][g], lims[1][g], lims[2][g])
+        assert (dstk[g], nfk[g], nsk[g]) == (dstp, nfp, nsp)
+        np.testing.assert_array_equal(selk[g], selp)
+        # the same swap sequence; FMA contraction and summation order only
+        assert float((Tk[g] - Tp).abs().max()) <= 1e-10 * float(Td[g].abs().max())
+        assert float((Qk[g] - Qp).abs().max()) <= 1e-10

@@ -137,6 +137,42 @@ def test_aed_recondense_near_breakdown():
         assert abs(spike[0] - b) < 1e-13 and np.abs(spike[1:kbot]).max() < 1e-13
 
 
+def test_aed_recondense_against_pallas_kernel():
+    """The port's recondense against the JAX package's Pallas kernel B5 in
+    interpret mode, on the input of tests/test_pallas_kernels.py:74, held
+    to that test's CPU tolerance 2e-6 (its df32 arithmetic floors near
+    1e-9 in interpret mode): a similarity with an orthogonal transform, the
+    spike condensed into beta e1, the same beta, exact Hessenberg
+    structure of the reduced block on both sides."""
+    from starneig_tpu.ops.pallas_schur import aed_recondense_pallas
+    tol, kbot = 2e-6, 25
+    T, Q, s = _recondense_input()
+    Tp, Vp, bp = aed_recondense_pallas(jnp.asarray(T), jnp.asarray(Q),
+                                       jnp.float64(s), jnp.int32(kbot),
+                                       interpret=True)
+    Tt, Vt, bt = tschur._aed_recondense(from_numpy(T), from_numpy(Q), s, kbot)
+    assert abs(float(bt) - float(bp)) < 10 * tol
+    spm = np.where(np.arange(len(T)) < kbot, s * Q[0], 0.0)
+    for To, Vo, b in ((np.asarray(Tp), np.asarray(Vp), float(bp)),
+                      (to_numpy(Tt), to_numpy(Vt), float(bt))):
+        Us = Q.T @ Vo
+        assert np.linalg.norm(Us.T @ T @ Us - To) / np.linalg.norm(T) < tol
+        assert np.linalg.norm(Us.T @ Us - np.eye(len(T))) < 10 * tol
+        out = Us.T @ spm
+        assert abs(out[0] - b) < 10 * tol and np.abs(out[1:kbot]).max() < 10 * tol
+        assert np.abs(np.tril(To[:kbot, :kbot], -2)).max() == 0.0
+
+
+@pytest.mark.parametrize("kbot", [25, 10, 1, 0])
+def test_aed_recondense_dispatch_cpu(kbot):
+    """On a CPU tensor the dispatcher is the plain recondense, bit for bit."""
+    T, Q, s = _recondense_input()
+    got = tschur.aed_recondense(from_numpy(T), from_numpy(Q), s, kbot)
+    want = tschur._aed_recondense(from_numpy(T), from_numpy(Q), s, kbot)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.as_tensor(g), torch.as_tensor(w))
+
+
 def test_standardize_blocks():
     n = 12
     rng = np.random.default_rng(31)
