@@ -13,7 +13,11 @@ Phases (any failure raises; the exit code is then nonzero):
      small shapes and at the shapes the n=4000 main path gives it, with
      the tolerances stated below; CUDA-event times of both (the plain
      twins' one timed run at the main path's shape comes after their runs
-     at the smaller shapes, which serve as the warm-up);
+     at the smaller shapes, which serve as the warm-up); each kernel's
+     bound (bytes over HBM_BPS or fp64 operations over F64_FLOPS, counted
+     from this run's inputs); B1's transposed mode beside M.T @ x, in
+     turns, by CUDA events and by profiler device time, and checked
+     bit-for-bit across two launches; B2's chase steps;
   4. main path: a seeded n=200 solve and a seeded n=200 api.sep.reduce
      (Re(lambda) > 0) checked against numpy and the CPU run of the port;
      then n=4000 (A from default_rng(0)) through api.sep.hessenberg,
@@ -33,6 +37,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import subprocess
@@ -52,6 +57,9 @@ EIG_MOVE = 1e-8
 # backward error (< 500 u) plus the backsolve's rounding (at most n u =
 # 8.9e-13 relative at n=4000), with a margin of 100 over the latter
 EVEC_BOUND = 1e-10
+# B2's reflector chain, per chase step: about 0.6 us (clock64 counters
+# on the H100, PERF.md section 6); steps x this is the serial floor
+CHAIN_US = 0.6
 
 REPLACES = {
     "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
@@ -64,6 +72,10 @@ REPLACES = {
     "reorder_bubble": "starneig_tpu/ops/reorder.py:156",
 }
 SOURCES = {k: f"starneig_tpu_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+# the card's peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): HBM
+# bytes per second and fp64 operations per second outside the tensor cores
+HBM_BPS = 3.35e12
+F64_FLOPS = 34e12
 # the kernels of Hessenberg -> Schur; the reordering runs reorder_bubble
 SCHUR_KERNELS = ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense")
 
@@ -89,6 +101,48 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    nbytes through HBM and do flops fp64 operations."""
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / F64_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+@contextlib.contextmanager
+def tally(module, name, count):
+    """Wrap module.name for the block: each call adds count(*args) to the
+    yielded one-element list.  Counts the work of a plain twin's run."""
+    orig = getattr(module, name)
+    box = [0]
+
+    def wrapper(*a, **kw):
+        box[0] += count(*a, **kw)
+        return orig(*a, **kw)
+    setattr(module, name, wrapper)
+    try:
+        yield box
+    finally:
+        setattr(module, name, orig)
+
+
+def device_ms(fn, reps: int):
+    """Device time of the kernels fn() launches, per call, from
+    torch.profiler (a kernel's own time, without the host's launch gaps);
+    None if the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def timed(fn):
@@ -152,6 +206,7 @@ def phase_gemv(dev):
     n, nb, row0 = 4000, 288, 1152
     A = torch.randn(n, n, generator=g, dtype=torch.float64).to(dev)
     V = torch.randn(n, nb, generator=g, dtype=torch.float64).to(dev)
+    T = torch.randn(nb, nb, generator=g, dtype=torch.float64).to(dev)
     xs = {k: torch.randn(k, generator=g, dtype=torch.float64).to(dev)
           for k in (n, n - row0, nb)}
     cases = [("A x", A, xs[n], False),
@@ -159,27 +214,60 @@ def phase_gemv(dev):
              ("V^T a", V, xs[n], True),
              ("V[row0:]^T a", V[row0:], xs[n - row0], True),
              ("V y", V, xs[nb], False)]
+    # the transposed mode at the panel loop's shapes: V[:, :j] (ld 288) and
+    # T[:j, :j]
+    for j in (1, 32, 33, 144, 288):
+        cases.append((f"V[:, :{j}]^T a", V[:, :j], xs[n], True))
+    for j in (32, 144, 288):
+        cases.append((f"T[:{j}, :{j}]^T w", T[:j, :j], xs[nb][:j].contiguous(), True))
     err = 0.0
     for name, M, x, tr in cases:
         uk, up = gemv(M, x, tr), gemv_plain(M, x, tr)
         scale = float(gemv_plain(M.abs(), x.abs(), tr).max())
         d = float((uk - up).abs().max())
-        log(f"  B1 {name}: max abs err {d:.2e}, relative {d / scale:.2e}")
+        same = torch.equal(uk, gemv(M, x, tr)) if tr else True
+        log(f"  B1 {name}: max abs err {d:.2e}, relative {d / scale:.2e}"
+            + ("; two launches bit-for-bit equal" if tr and same else ""))
         check(d < 1e-12 * scale, f"B1 {name} disagrees: {d}")  # summation order
+        check(same, f"B1 {name}: two launches differ")
         err = max(err, d)
     ms = cuda_ms(lambda: gemv(A, xs[n]), 50)
     pms = cuda_ms(lambda: gemv_plain(A, xs[n]), 50)
-    msT = cuda_ms(lambda: gemv(V, xs[n], True), 50)
-    pmsT = cuda_ms(lambda: gemv_plain(V, xs[n], True), 50)
-    log(f"  B1 n=4000 A x: kernel {ms:.4f} ms, plain {pms:.4f} ms; "
-        f"V^T a (4000x288): kernel {msT:.4f} ms, plain {pmsT:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                detail=dict(trans_ms=msT, trans_plain_ms=pmsT))
+    lms = cuda_ms(lambda: torch.mv(A, xs[n]), 50)
+    bms, by = bound(8 * (n * n + 2 * n), 2 * n * n)
+    log(f"  B1 n=4000 A x: kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.mv "
+        f"{lms:.4f} ms, bound {bms:.4f} ms ({by})")
+    # transposed mode against M.T @ x (cuBLAS), in turns kernel, library,
+    # library, kernel: CUDA events over 200 calls back to back (the host's
+    # launch rate bounds these small calls), then the device time of 200
+    # calls under the profiler
+    trans = {}
+    for name, M, x in ([(f"V[:, :{j}]", V[:, :j], xs[n]) for j in (1, 32, 144, 288)]
+                       + [(f"T[:{j}, :{j}]", T[:j, :j], xs[nb][:j].contiguous())
+                          for j in (32, 144, 288)]):
+        kern = lambda: gemv(M, x, True)          # noqa: E731
+        libr = lambda: torch.mv(M.T, x)           # noqa: E731
+        t = [cuda_ms(f, 200) for f in (kern, libr, libr, kern)]
+        d = [device_ms(f, 200) for f in (kern, libr, libr, kern)]
+        r, c = M.shape
+        tb, tby = bound(8 * (r * c + r + c), 2 * r * c)
+        trans[name] = dict(kernel_ms=[t[0], t[3]], library_ms=[t[1], t[2]],
+                           kernel_device_ms=[d[0], d[3]],
+                           library_device_ms=[d[1], d[2]],
+                           bound_ms=tb, bound_by=tby)
+        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"     # noqa: E731
+        log(f"  B1 {name}^T x ({r}x{c}): kernel {t[0]:.4f}/{t[3]:.4f} ms, "
+            f"M.T @ x {t[1]:.4f}/{t[2]:.4f} ms; device time kernel "
+            f"{fmt(d[0])}/{fmt(d[3])} ms, M.T @ x {fmt(d[1])}/{fmt(d[2])} ms; "
+            f"bound {tb:.5f} ms ({tby})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                bound_ms=bms, bound_by=by, detail=dict(trans=trans))
 
 
 def phase_francis(dev):
     import numpy as np
     import torch
+    from starneig_tpu_torch.ops import small_schur
     from starneig_tpu_torch.ops.gpu_schur import francis
     from starneig_tpu_torch.ops.small_schur import _small_schur_plain
     from starneig_tpu_torch.testing.hooks import schur_form_error
@@ -194,7 +282,10 @@ def phase_francis(dev):
         Z = torch.eye(w, dtype=torch.float64, device=dev)
         th = U / 2 * float(np.linalg.norm(Hn))
         Sk, Zk, ik = francis(H, Z, m, th)
-        (Sp, Zp, ip), plain_ms = timed(lambda: _small_schur_plain(H, Z, m, th))
+        # the plain twin's chase steps: a sweep over [l, i] runs i - l
+        with tally(small_schur, "_sweep", lambda Hp, Zp, l, i, *a: i - l) as steps:
+            (Sp, Zp, ip), plain_ms = timed(lambda: _small_schur_plain(H, Z, m, th))
+        steps = steps[0]
         check(int(ik) == 0 and int(ip) == 0, f"B2 w={w}: info {int(ik)} {int(ip)}")
         form_k, form_p = schur_form_error(Sk), schur_form_error(Sp)
         Skn, Zkn = Sk.cpu().numpy(), Zk.cpu().numpy()
@@ -215,8 +306,17 @@ def phase_francis(dev):
               f"B2 w={w} fails")
         err = max(err, d)
     ms = cuda_ms(lambda: francis(H, Z, 322, th), 3)
-    log(f"  B2 w=322 window solve: kernel {ms:.1f} ms, plain {plain_ms:.1f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # a step's 3-element reflector updates rows k..k+2 right of column k-1,
+    # H's rows 0..k+3 and Z's w rows in columns k..k+2: 14 flops an entry
+    # triple over 2w + 7 triples
+    bms, by = bound(8 * 4 * w * w, steps * 14 * (2 * w + 7))
+    floor_ms = steps * CHAIN_US * 1e-3
+    log(f"  B2 w=322 window solve: kernel {ms:.1f} ms, plain {plain_ms:.1f} ms; "
+        f"{steps} chase steps ({ms / steps * 1e3:.3f} us a step); roofline "
+        f"{bms:.4f} ms ({by}); serial floor {floor_ms:.1f} ms (steps x "
+        f"{CHAIN_US} us of reflector chain)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, detail=dict(steps=steps, serial_floor_ms=floor_ms))
 
 
 def _hop_case(B, G, seed, dev):
@@ -254,8 +354,15 @@ def phase_train_hops(dev):
         err = max(err, dw, dq)
     ms = cuda_ms(lambda: train_hops(W, sh, gidx, lr, ir, s0, B_, HOP), 20)
     pms = cuda_ms(lambda: _train_hop(W, sh[gidx], lr, ir, s0, B_, HOP), 2)
-    log(f"  B3 one hop, B=25 WC=154 G=5: kernel {ms:.3f} ms, plain {pms:.1f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    # active bulge steps: each updates 3 rows and 3 columns of its window
+    # and 3 columns of Qw, 14 flops an entry triple
+    G, WC = W.shape[0], W.shape[1]
+    active = sum(lr[g] <= lr[g] + s0[g] + t - 3 * b <= ir[g] - 2
+                 for g in range(G) for t in range(HOP) for b in range(B_))
+    bms, by = bound(8 * 3 * G * WC * WC, active * 14 * 3 * WC)
+    log(f"  B3 one hop, B=25 WC=154 G=5: kernel {ms:.3f} ms, plain {pms:.1f} ms, "
+        f"{active} bulge steps, bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
 
 
 def _deflate_case(WA, w, seed, dev, plants=None):
@@ -276,6 +383,7 @@ def _deflate_case(WA, w, seed, dev, plants=None):
 
 def phase_deflate(dev):
     import numpy as np
+    from starneig_tpu_torch.ops import schur
     from starneig_tpu_torch.ops.gpu_schur import aed_deflate
     from starneig_tpu_torch.ops.schur import _aed_deflate
     err = 0.0
@@ -288,8 +396,14 @@ def phase_deflate(dev):
                                 (322, 322, 6, None)):
         T, V = _deflate_case(WA, w, seed, dev, plants)
         Tk, Vk, kk, fk = aed_deflate(T, V, s, w, th)
-        (Tp, Vp, kp, fp), plain_ms[w] = timed(
-            lambda: _aed_deflate(T, V, s, w, th))
+        # each swap of a p- and a q-block applies an m x m transform (m =
+        # p + q) to m rows and m columns of T and m columns of V: at least
+        # (2m - 1) flops an entry over m (2 WA + m) entries
+        with tally(schur, "swap_adjacent",
+                   lambda T4, p, q: (2 * (p + q) - 1) * (p + q) * (2 * WA + p + q)) \
+                as flops, tally(schur, "swap_adjacent", lambda *a: 1) as swaps:
+            (Tp, Vp, kp, fp), plain_ms[w] = timed(
+                lambda: _aed_deflate(T, V, s, w, th))
         check(int(kk) == int(kp) and int(fk) == int(fp),
               f"B4 WA={WA} w={w}: kbot/fail {int(kk)},{int(fk)} vs "
               f"{int(kp)},{int(fp)}")
@@ -298,7 +412,7 @@ def phase_deflate(dev):
         Tn, Vn, Tkn, Vkn = (x.cpu().numpy() for x in (T, V, Tk, Vk))
         Us = Vn.T @ Vkn
         res = np.linalg.norm(Us.T @ Tn @ Us - Tkn) / np.linalg.norm(Tn) / U
-        log(f"  B4 WA={WA} w={w}: kbot {int(kk)} fail {int(fk)}, max abs err "
+        log(f"  B4 WA={WA} w={w}: {swaps[0]} swaps; kbot {int(kk)} fail {int(fk)}, max abs err "
             f"T {dt:.2e} (|T| {scale:.2f}), V {dv:.2e}, kernel similarity "
             f"residual {res:.1f}u")
         # the same swap sequence (739, 1,705 and 43,646 swaps); FMA
@@ -307,11 +421,14 @@ def phase_deflate(dev):
               f"B4 WA={WA} w={w} disagrees: {dt}, {dv}, {res}")
         err = max(err, dt, dv)
     ms = cuda_ms(lambda: aed_deflate(T, V, s, 322, th), 3)
+    bms, by = bound(8 * 4 * 322 * 322, flops[0])
     T60, V60 = _deflate_case(322, 60, 5, dev)
     ms60 = cuda_ms(lambda: aed_deflate(T60, V60, s, 60, th), 5)
     log(f"  B4 WA=322 w=322: kernel {ms:.1f} ms, plain {plain_ms[322]:.1f} ms; "
-        f"w=60: kernel {ms60:.2f} ms, plain {plain_ms[60]:.1f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms[322],
+        f"w=60: kernel {ms60:.2f} ms, plain {plain_ms[60]:.1f} ms; w=322 "
+        f"bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms[322], bound_ms=bms,
+                bound_by=by,
                 detail=dict(w60_ms=ms60, w60_plain_ms=plain_ms[60]))
 
 
@@ -371,8 +488,8 @@ def phase_recondense(dev):
     # |T| on it, against O(|T|) on a random Hessenberg window, whose
     # eigenvalues are exponentially ill-conditioned).
     from starneig_tpu_torch.api import sep
-    Hw, _ = sep.hessenberg(torch.as_tensor(
-        np.random.default_rng(2).standard_normal((322, 322)), device=dev))
+    Hw, _ = sep.hessenberg(np.random.default_rng(2).standard_normal((322, 322)),
+                           device=dev)
     Sw, Zw, info = francis(Hw, torch.eye(322, dtype=torch.float64, device=dev),
                            322, U / 2 * float(torch.linalg.norm(Hw)))
     check(int(info) == 0, "B5 input: window solve failed")
@@ -396,8 +513,15 @@ def phase_recondense(dev):
           "B5 WA=322 kernel breaks the contract")
     err = max(err, dt, dv, db)
     ms = cuda_ms(lambda: aed_recondense(Sw, Zw, 0.3, kb), 5)
-    log(f"  B5 WA=322 kbot={kb}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # each reflector of length L on rows/columns lo..kbot: 4 flops an entry
+    # over T's rows right of its column, T's kbot rows and V's WA rows
+    WA = 322
+    flops = 4 * kb * (2 * WA + kb) + sum(
+        4 * (kb - j - 1) * ((WA - j) + kb + WA) for j in range(kb - 1))
+    bms, by = bound(8 * 4 * WA * WA, flops)
+    log(f"  B5 WA=322 kbot={kb}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def phase_bubble(dev):
@@ -434,9 +558,12 @@ def phase_bubble(dev):
         log(f"  bubble G={G} W={W}: swaps {nsk.tolist()}, failed {nfk.tolist()}, "
             f"dst {dstk.tolist()}: equal to the plain twin; max abs err {err:.2e}")
     ms = cuda_ms(lambda: window_bubble(Td, sels, *lims), 3)
+    # each swap at least a 2 x 2 rotation of 2 rows and 2 columns of T and
+    # 2 columns of Q: 3 flops an entry over 2 (2 W + 2) entries
+    bms, by = bound(8 * 3 * G * W * W, int(nsk.sum()) * 6 * (2 * W + 2))
     log(f"  bubble G=2 W=160 ({int(nsk.sum())} swaps): kernel {ms:.2f} ms, "
-        f"plain {plain_ms:.1f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def solve(A):
@@ -445,11 +572,11 @@ def solve(A):
     sync = torch.cuda.synchronize if A.is_cuda else (lambda: None)
     sync()
     t0 = time.perf_counter()
-    H, Q = sep.hessenberg(A)
+    H, Q = sep.hessenberg(A, device=A.device)
     sync()
     t1 = time.perf_counter()
     stats = {}
-    S, Q2, er, ei, info = sep.schur(H, Q, stats=stats)
+    S, Q2, er, ei, info = sep.schur(H, Q, stats=stats, device=A.device)
     sync()
     t2 = time.perf_counter()
     return S, Q2, er, ei, int(info), (t1 - t0) * 1e3, (t2 - t1) * 1e3, stats
@@ -497,7 +624,8 @@ def phase_reduce(dev):
     from starneig_tpu_torch.testing.hooks import schur_form_error
     A_np = np.random.default_rng(42).standard_normal((200, 200))
     Sg, Qg, _er, _ei, mg, infog = sep.reduce(from_numpy(A_np, dev), positive_real)
-    Sc, Qc, _er, _ei, mc, infoc = sep.reduce(from_numpy(A_np), positive_real)
+    Sc, Qc, _er, _ei, mc, infoc = sep.reduce(from_numpy(A_np), positive_real,
+                                             device="cpu")
     na = np.linalg.norm(A_np)
     d = float(np.abs(block_eigs(Sg, mg) - block_eigs(Sc, mc)).max()) / na \
         if mg == mc else np.inf
@@ -666,7 +794,9 @@ def main() -> int:
     table = [dict(name=k, route="cuda", source=SOURCES[k],
                   replaces=REPLACES[k], launches=main_res["launches"][k],
                   max_abs_err=r["max_abs_err"], ms=r["ms"],
-                  plain_ms=r["plain_ms"]) for k, r in results.items()]
+                  plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                  bound_by=r["bound_by"], library_ms=r.get("library_ms"))
+             for k, r in results.items()]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

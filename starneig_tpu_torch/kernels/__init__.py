@@ -33,8 +33,8 @@ LAUNCHES = {"hess_gemv": 0, "francis": 0, "train_hops": 0, "aed_deflate": 0,
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
-    # M, ld, rows, cols, x, u, trans, scratch, stream
-    "hess_gemv": [_P, _LL, _I, _I, _P, _P, _I, _P, _P],
+    # M, ld, rows, cols, x, u, trans, stream
+    "hess_gemv": [_P, _LL, _I, _I, _P, _P, _I, _P],
     # Hp, Zp, w, m, ilo, maxiter, thresh, info, stream
     "francis": [_P, _P, _I, _I, _I, _I, _D, _P, _P],
     # wnd, qw, shifts, G, B, WC, HOP, gidx, l_rel, ihi_rel, s0, stream
@@ -138,9 +138,15 @@ def check(code: int, name: str):
 
 
 def stream_ptr(t) -> int:
-    """The current CUDA stream of tensor t's device, as a raw pointer."""
+    """The current CUDA stream of tensor t's device, as a raw pointer.
+
+    Read with the raw-stream call PyTorch's own kernel launchers use
+    (``torch._inductor`` imports it as ``get_raw_stream``): it skips the
+    ``torch.cuda.Stream`` object that ``torch.cuda.current_stream`` builds,
+    which costs the panel loop's small launches several microseconds of
+    host time each."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_cuda_f64(name: str, *tensors):

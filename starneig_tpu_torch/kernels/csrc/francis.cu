@@ -8,53 +8,97 @@
 // floor, Wilkinson shifts made exceptional every 10 iterations, a
 // 3-element bulge chase, 2x2 standardization, Z accumulation).
 //
-// What bounds it on the H100: latency, not flops or bytes.  Each chase step
-// is a serial dependency chain (reflector -> 3 rows -> 3 columns); a window
-// solve runs ~w^2 such steps.  At the main path's w = 322 the padded H and
-// Z are 2 x 0.83 MB: too large for one block's 227 KB of shared memory, so
-// they stay in global memory and live in L1/L2.
+// What bounds it on the H100: the serial chain of the chase, not flops or
+// bytes.  A window solve runs ~w^2 chase steps (about 10^5 at the main
+// path's w = 322), and each step's reflector depends on the previous
+// step's updates: max|x|, a square root, then the divides for tau and the
+// scale, some hundreds of cycles a step.  The steps' other work (the
+// deferred row and column updates, O(w) per step) is parallel and must be
+// kept off that chain.  At w = 322 the padded H and Z are 2 x 0.83 MB: too
+// large for one block's 227 KB of shared memory, so they stay in global
+// memory and live in L1/L2.
 //
-// Design: keep on the serial path only what the next reflector reads.  The
-// iteration state (i, its, total) lives in registers, the same in every
-// thread.  Step k of a sweep needs rows k..k+2 (left update) and then rows
+// Design.  Step k of a sweep needs rows k..k+2 (left update) and then rows
 // k+1..k+3 of columns k..k+2 (right update), which leave the next chase
-// column in shared memory.  Nothing later in the sweep reads
+// column.  Nothing later in the sweep reads
 //   * rows 0..k (above the bulge): their right updates from step k on,
 //   * Z: all its right updates,
 //   * columns right of the bulge's reach: their left updates,
-// so the sweep runs in blocks of kBlockSteps steps.  A block copies its
-// near-diagonal window (rows k0..k1+3, columns k0-1..k1+2, at most 36 x 36)
-// into shared memory, one warp runs the block's steps there (each lane
-// computes the reflector itself; __syncwarp between the two updates) and
-// buffers the reflectors, the window goes back, and every thread then
-// applies the buffered reflectors to its own rows or columns in step
-// order, the strip held in registers, with no barrier.  Each matrix entry
-// sees the same operations in the same order as in the plain version (up
-// to FMA contraction).  The row updates run at full height above the bulge
-// (band-limiting them from above is unsound: upper content migrates into
-// later decisions); rows below k+3 and columns left of k-1 are exactly zero
-// there and skipped.
+// so the sweep runs in blocks of kBlockSteps steps, and those updates are
+// deferred to the end of their block.  The block's near-diagonal window
+// (rows k0..k1+3, columns k0-1..k1+2, at most 36 x 36) lives in shared
+// memory while its steps run.
+//
+// Warp 0 is the chase warp; warps 1..7 are update warps, and the two run
+// a pipeline one block deep.  The chase warp copies the window of block b
+// in, runs its steps (each lane computes the reflector itself; __syncwarp
+// between the two updates),
+// buffers the reflectors in one of two ring slots, writes the window back
+// and hands the slot to the update warps (a named barrier).  It then
+// applies block b's left updates itself to the 32 columns right of the
+// window, which block b+1's window and near strips need, and goes on to
+// block b+1 while the update warps apply the rest of block b: the far
+// columns nearest the diagonal first (then a barrier for the chase warp,
+// which slides them for block b+1), the other far columns, and the row
+// strips of H above the bulge and of Z.  A row strip is staged 32 rows x
+// 34 columns at a time in shared memory with coalesced loads, each lane
+// slides its row there in registers, and the tile goes back coalesced.
+// Every entry sees the same operations in the same order as in the plain
+// version (up to FMA contraction).  The row updates run at full height
+// above the bulge (band-limiting them from above is unsound: upper content
+// migrates into later decisions); rows below k+3 and columns left of k-1
+// are exactly zero there and skipped.  The deflation scan, the shifts and
+// the 2x2 standardization are whole-block phases between sweeps, and a
+// sweep's last block drains the pipeline.
+//
+// The chain itself is kept short: the chase warp's reflector
+// (chase_reflector) takes one square root and one reciprocal of
+// (alpha - beta), and pre-scales by max|x| only where a square could leave
+// the normal range; the right update's inputs (rows k+1, k+2 of columns
+// k..k+2) come from the left update's lanes by shuffle, and the next chase
+// column goes to every lane by shuffle, with no shared-memory round trip.
+// (Its measured times: PERF.md.)
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kUpd = kThreads - 32;  // threads of the update warps
 constexpr int kItmaxPerBlock = 30;
 constexpr int kBlockSteps = 32;
+constexpr int kNear = 32;            // columns the chase warp slides itself
+constexpr int kTileLd = kBlockSteps + 3;  // odd: conflict-free lane rows
+
+// named barriers (0 is __syncthreads); each kind alternates two ids by the
+// block's parity, so one instance completes before its id is reused
+constexpr int kBarReady = 1;  // chase -> update: the block's reflectors
+constexpr int kBarNear = 3;   // update -> chase: the near far columns done
+constexpr int kBarFree = 5;   // update -> chase: the ring slot is free
+
+__device__ __forceinline__ void bar_sync(int id) {
+  __syncwarp();
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(kThreads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  __threadfence_block();
+  __syncwarp();
+  asm volatile("barrier.arrive %0, %1;" ::"r"(id), "r"(kThreads) : "memory");
+}
 
 // Apply the buffered reflectors of steps kfirst..klast (ref[k - k0] holds
-// v0, v1, v2, tau of step k) to the strip p[k * stride], k = kfirst ..
-// klast + 2, in step order: one 3-element update per step.  The strip (at
-// most kBlockSteps + 2 entries) is loaded into registers first, so its
-// loads overlap instead of chaining.
-__device__ __forceinline__ void slide(double* p, int stride, int kfirst,
-                                      int klast, int k0,
+// v0, v1, v2, tau of step k) to the strip p[(k - origin) * stride], k =
+// kfirst .. klast + 2, in step order: one 3-element update per step.  The
+// strip (at most kBlockSteps + 2 entries) is loaded into registers first,
+// so its loads overlap instead of chaining.
+__device__ __forceinline__ void slide(double* p, int stride, int origin,
+                                      int kfirst, int klast, int k0,
                                       const double (*ref)[4]) {
   const int n = klast - kfirst + 3;
+  p += (long long)(kfirst - origin) * stride;
   double seg[kBlockSteps + 2];
 #pragma unroll
   for (int j = 0; j < kBlockSteps + 2; ++j)
-    if (j < n) seg[j] = p[(kfirst + j) * stride];
+    if (j < n) seg[j] = p[j * stride];
 #pragma unroll
   for (int j = 0; j < kBlockSteps; ++j) {
     if (j < n - 2) {
@@ -67,7 +111,69 @@ __device__ __forceinline__ void slide(double* p, int stride, int kfirst,
   }
 #pragma unroll
   for (int j = 0; j < kBlockSteps + 2; ++j)
-    if (j < n) p[(kfirst + j) * stride] = seg[j];
+    if (j < n) p[j * stride] = seg[j];
+}
+
+// The right updates of block [k0, k1] on rows r0 .. r0+31 (< rend) of the
+// row-major matrix M (leading dimension ld), columns k0 .. k1+2, staged
+// through the warp's tile.  Row r takes the steps from max(r, k0) on when
+// diag (H above the bulge), else all of them (Z).
+__device__ __forceinline__ void row_tile(double* M, int ld, int r0, int rend,
+                                         int k0, int k1, bool diag,
+                                         double* tile, const double (*ref)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int nc = k1 - k0 + 3;  // <= kBlockSteps + 2
+  const int nr = min(32, rend - r0);
+  for (int e = lane; e < nr * nc; e += 32)
+    tile[(e / nc) * kTileLd + e % nc] = M[(size_t)(r0 + e / nc) * ld + k0 + e % nc];
+  __syncwarp();
+  const int r = r0 + lane;
+  if (lane < nr) {
+    const int kf = diag && r > k0 ? r : k0;
+    if (kf <= k1) slide(tile + lane * kTileLd, 1, k0, kf, k1, k0, ref);
+  }
+  __syncwarp();
+  for (int e = lane; e < nr * nc; e += 32)
+    M[(size_t)(r0 + e / nc) * ld + k0 + e % nc] = tile[(e / nc) * kTileLd + e % nc];
+  __syncwarp();  // the tile is free
+}
+
+// dlarfg on (a, x1, x2) for the chase step, on the chain: the guards of
+// householder() keep their results (tau = 0 and v = e1 when the tail is
+// zero; sgn(0) = +1), but the entries are pre-scaled by max|x| only where
+// a square could leave the normal range (as LAPACK's dlarfg rescales only
+// near underflow), and one reciprocal of (a - beta) replaces the divides.
+// Returns v1, v2 (v0 = 1), tau and beta.
+__device__ __forceinline__ void chase_reflector(double a, double x1, double x2,
+                                                double& v1, double& v2,
+                                                double& tau, double& beta) {
+  constexpr double kTiny = 0x1p-500, kHuge = 0x1p+500;
+  const double m1 = fabs(x1), m2 = fabs(x2);
+  const double mx = dmax(fabs(a), dmax(m1, m2));
+  double sc = 1.0;
+  if (mx > kHuge || (m1 != 0.0 && m1 < kTiny) || (m2 != 0.0 && m2 < kTiny)) {
+    const double r = 1.0 / mx;
+    a *= r;
+    x1 *= r;
+    x2 *= r;
+    sc = mx;
+  }
+  const double ss = x1 * x1 + x2 * x2;
+  if (ss == 0.0) {
+    v1 = 0.0;
+    v2 = 0.0;
+    tau = 0.0;
+    beta = a * sc;
+    return;
+  }
+  const double nrm = sqrt(a * a + ss);
+  const double b = a >= 0.0 ? -nrm : nrm;
+  const double d = a - b;  // |d| >= nrm > 0
+  const double rd = 1.0 / d;
+  tau = -d / b;
+  v1 = x1 * rd;
+  v2 = x2 * rd;
+  beta = b * sc;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -76,13 +182,15 @@ francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
   const int wp = w + 2;  // H is (w+2) x (w+2), Z is w x (w+2), row-major
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
   const double ulp = DBL_EPSILON;
 
   __shared__ int s_l;
-  __shared__ double s_x[3], s_rot[6];
-  __shared__ double s_ref[kBlockSteps][4];
+  __shared__ double s_rot[6];
+  __shared__ double s_ref[2][kBlockSteps][4];
   // the block's near-diagonal window: rows k0..k1+3, columns k0-1..k1+2
   __shared__ double s_win[kBlockSteps + 4][kBlockSteps + 5];
+  extern __shared__ double s_tiles[];  // a 32 x kTileLd tile per update warp
 
   int i = m - 1, its = 0, total = 0;
   bool failed = false;
@@ -159,20 +267,28 @@ francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
       sr2 = real_pair ? sr1 : rt2r;
       si1 = real_pair ? 0.0 : rt1i;
     }
+    // thread 0's zeroing of H[l, l-1] is visible to the chase warp
+    __syncthreads();
 
     // one bulge chase over the active block [l, i], in blocks of steps
-    for (int k0 = l; k0 <= i - 1; k0 += kBlockSteps) {
-      const int k1 = min(k0 + kBlockSteps - 1, i - 1);
-      const int c_hi = k1 + 3;  // columns the block's right updates reach; < wp
-      const int R0 = k0, C0 = k0 - 1 > 0 ? k0 - 1 : 0;
-      const int nR = k1 + 4 - R0, nC = c_hi - C0;  // k1 + 3 <= i + 2 < wp
-      // the window is current: the previous block's deferred updates (and
-      // thread 0's zeroing of H[l, l-1]) are done and visible
-      __syncthreads();
-      for (int e = tid; e < nR * nC; e += nt)
-        s_win[e / nC][e % nC] = H[(R0 + e / nC) * wp + C0 + e % nC];
-      __syncthreads();
-      if (tid < 32) {  // the block's steps, on one warp
+    const int nblk = (i - l + kBlockSteps - 1) / kBlockSteps;
+    if (warp == 0) {
+      // ---- the chase warp ----
+      double x0 = 0.0, x1 = 0.0, x2 = 0.0;  // the next chase column
+      for (int b = 0; b < nblk; ++b) {
+        const int k0 = l + b * kBlockSteps;
+        const int k1 = min(k0 + kBlockSteps - 1, i - 1);
+        const int c_hi = k1 + 3;  // columns the block's right updates reach
+        const int R0 = k0, C0 = k0 - 1 > 0 ? k0 - 1 : 0;
+        const int nR = k1 + 4 - R0, nC = c_hi - C0;  // k1 + 3 <= i + 2 < wp
+        double(*ref)[4] = s_ref[b & 1];
+        // the window is current: block b-1's window went back and its
+        // near strips were slid by this warp
+        for (int e = lane; e < nR * nC; e += 32)
+          s_win[e / nC][e % nC] = H[(R0 + e / nC) * wp + C0 + e % nC];
+        // the ring slot's previous block (b-2) is applied
+        if (b >= 2) bar_sync(kBarFree + (b & 1));
+        __syncwarp();
         for (int k = k0; k <= k1; ++k) {
           const bool use3 = k <= i - 2;
           double x[3];
@@ -184,17 +300,25 @@ francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
             first_column_shifted(h3, sr1, si1, sr2, -si1, use3, x);
             __syncwarp();  // every lane has read the block before it changes
           } else {
-            x[0] = s_x[0];
-            x[1] = s_x[1];
-            x[2] = use3 ? s_x[2] : 0.0;
+            x[0] = x0;
+            x[1] = x1;
+            x[2] = use3 ? x2 : 0.0;
           }
-          double v[3], tau, beta;
-          householder(x, use3 ? 7u : 3u, 3, v, tau, beta);
-          const double v0 = v[0], v1 = v[1], v2 = v[2];
+          // row k+3 of columns k..k+2: no update of this block has reached it
+          double q0 = 0.0, q1 = 0.0, q2 = 0.0;
+          if (lane == 2) {
+            q0 = s_win[k + 3 - R0][k - C0];
+            q1 = s_win[k + 3 - R0][k + 1 - C0];
+            q2 = s_win[k + 3 - R0][k + 2 - C0];
+          }
+          const double v0 = 1.0;
+          double v1, v2, tau, beta;
+          chase_reflector(x[0], x[1], use3 ? x[2] : 0.0, v1, v2, tau, beta);
           // rows k..k+2, columns k-1 .. c_hi-1, then the exact plant of the
           // chase column; the columns from c_hi on wait for the block's end
           const int c0 = k - 1 > 0 ? k - 1 : 0;
-          for (int c = c0 + tid; c < c_hi; c += 32) {
+          double t1 = 0.0, t2 = 0.0;  // rows k+1, k+2 of this lane's column
+          for (int c = c0 + lane; c < c_hi; c += 32) {
             double* w0 = &s_win[k - R0][c - C0];
             double* w1 = &s_win[k + 1 - R0][c - C0];
             double* w2 = &s_win[k + 2 - R0][c - C0];
@@ -211,47 +335,90 @@ francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
             *w0 = r0;
             *w1 = r1;
             *w2 = r2;
+            if (c < c0 + 32) {
+              t1 = r1;
+              t2 = r2;
+            }
           }
-          __syncwarp();
-          // rows k+1..k+3 of columns k..k+2; column k of them is the next
-          // chase column
-          if (tid < 3) {
-            double* row = &s_win[k + 1 + tid - R0][k - C0];
-            double s = row[0] * v0 + row[1] * v1 + row[2] * v2;
-            row[0] -= tau * (s * v0);
-            row[1] -= tau * (s * v1);
-            row[2] -= tau * (s * v2);
-            s_x[tid] = row[0];
+          // rows k+1..k+3 of columns k..k+2, passed by shuffle from the
+          // lanes that updated them; column k of them is the next chase
+          // column
+          const int j0 = k - c0;
+          const double a0 = __shfl_sync(0xffffffffu, t1, j0);
+          const double a1 = __shfl_sync(0xffffffffu, t1, j0 + 1);
+          const double a2 = __shfl_sync(0xffffffffu, t1, j0 + 2);
+          const double b0 = __shfl_sync(0xffffffffu, t2, j0);
+          const double b1 = __shfl_sync(0xffffffffu, t2, j0 + 1);
+          const double b2 = __shfl_sync(0xffffffffu, t2, j0 + 2);
+          double e0 = lane == 0 ? a0 : (lane == 1 ? b0 : q0);
+          double e1 = lane == 0 ? a1 : (lane == 1 ? b1 : q1);
+          double e2 = lane == 0 ? a2 : (lane == 1 ? b2 : q2);
+          __syncwarp();  // the left update's stores precede these
+          double nx = 0.0;
+          if (lane < 3) {
+            double s = e0 * v0 + e1 * v1 + e2 * v2;
+            e0 -= tau * (s * v0);
+            e1 -= tau * (s * v1);
+            e2 -= tau * (s * v2);
+            double* row = &s_win[k + 1 + lane - R0][k - C0];
+            row[0] = e0;
+            row[1] = e1;
+            row[2] = e2;
+            nx = e0;
           }
-          if (tid == 0) {
-            s_ref[k - k0][0] = v0;
-            s_ref[k - k0][1] = v1;
-            s_ref[k - k0][2] = v2;
-            s_ref[k - k0][3] = tau;
+          if (lane == 0) {
+            ref[k - k0][0] = v0;
+            ref[k - k0][1] = v1;
+            ref[k - k0][2] = v2;
+            ref[k - k0][3] = tau;
           }
+          x0 = __shfl_sync(0xffffffffu, nx, 0);
+          x1 = __shfl_sync(0xffffffffu, nx, 1);
+          x2 = __shfl_sync(0xffffffffu, nx, 2);
           __syncwarp();
         }
+        for (int e = lane; e < nR * nC; e += 32)
+          H[(R0 + e / nC) * wp + C0 + e % nC] = s_win[e / nC][e % nC];
+        __syncwarp();
+        bar_arrive(kBarReady + (b & 1));  // the update warps take block b
+        // block b's left updates of the kNear columns right of the window,
+        // after block b-1's (the update warps did those that were far
+        // columns of b-1)
+        if (b >= 1) bar_sync(kBarNear + ((b - 1) & 1));
+        const int c = c_hi + lane;
+        if (b + 1 < nblk && c < wp) slide(H + c, wp, 0, k0, k1, k0, ref);
+        __syncwarp();
       }
-      __syncthreads();
-      for (int e = tid; e < nR * nC; e += nt)
-        H[(R0 + e / nC) * wp + C0 + e % nC] = s_win[e / nC][e % nC];
-      __syncthreads();
-      // the block's deferred updates, each strip by one thread in step
-      // order: the left updates of columns c_hi.., the right updates of
-      // rows 0..k1 from step max(r, k0) on, and those of every row of Z
-      const int nfar = wp - c_hi, nrows = k1 + 1;
-      for (int e = tid; e < nfar + nrows + w; e += nt) {
-        if (e < nfar) {
-          slide(H + c_hi + e, wp, k0, k1, k0, s_ref);
-        } else if (e < nfar + nrows) {
-          const int r = e - nfar;
-          slide(H + r * wp, 1, r > k0 ? r : k0, k1, k0, s_ref);
-        } else {
-          slide(Z + (e - nfar - nrows) * wp, 1, k0, k1, k0, s_ref);
+    } else {
+      // ---- the update warps ----
+      const int ut = tid - 32, uw = ut >> 5;
+      double* tile = s_tiles + uw * 32 * kTileLd;
+      for (int b = 0; b < nblk; ++b) {
+        const int k0 = l + b * kBlockSteps;
+        const int k1 = min(k0 + kBlockSteps - 1, i - 1);
+        const int c_hi = k1 + 3;
+        const double(*ref)[4] = s_ref[b & 1];
+        const bool last = b + 1 == nblk;
+        bar_sync(kBarReady + (b & 1));
+        // far columns: the chase warp took [c_hi, c_hi + kNear) unless this
+        // is the sweep's last block; the first kNear after that go first
+        const int cs = last ? c_hi : min(c_hi + kNear, wp);
+        int c = cs + ut;
+        if (c < wp) slide(H + c, wp, 0, k0, k1, k0, ref);
+        if (b + 1 < nblk) bar_arrive(kBarNear + (b & 1));
+        for (c += kUpd; c < wp; c += kUpd) slide(H + c, wp, 0, k0, k1, k0, ref);
+        // row strips: H rows 0..k1 from step max(r, k0) on, then Z
+        const int nh = (k1 + 1 + 31) / 32, nz = (w + 31) / 32;
+        for (int t = uw; t < nh + nz; t += kUpd / 32) {
+          if (t < nh)
+            row_tile(H, wp, t * 32, k1 + 1, k0, k1, true, tile, ref);
+          else
+            row_tile(Z, wp, (t - nh) * 32, w, k0, k1, false, tile, ref);
         }
+        if (b + 2 < nblk) bar_arrive(kBarFree + (b & 1));
       }
     }
-    __syncthreads();  // the last block's deferred updates are visible
+    __syncthreads();  // the sweep's last block is applied and visible
     its += 1;
     total += 1;
     failed = its >= kItmaxPerBlock;
@@ -259,11 +426,20 @@ francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
   if (tid == 0) info[0] = failed ? i + 1 : 0;
 }
 
+constexpr int kTileBytes = (kThreads / 32 - 1) * 32 * kTileLd * sizeof(double);
+
 }  // namespace
 
 extern "C" int francis(void* H, void* Z, int w, int m, int ilo, int maxiter,
                        double thresh, void* info, void* stream) {
-  francis_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        francis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  francis_kernel<<<1, kThreads, kTileBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<double*>(H), static_cast<double*>(Z), w, m, ilo, maxiter,
       thresh, static_cast<int*>(info));
   return static_cast<int>(cudaGetLastError());

@@ -16,8 +16,6 @@ import torch
 
 from starneig_tpu_torch import kernels
 
-_ROW_CHUNK = 128  # rows per partial-sum chunk of the transposed mode
-
 
 def gemv_plain(M, x, trans: bool = False):
     """u = M x (or M^T x): the plain twin of the kernel."""
@@ -39,12 +37,9 @@ def gemv(M, x, trans: bool = False):
     if rows == 0 or cols == 0:
         return M.new_zeros(cols if trans else rows)
     u = M.new_empty(cols if trans else rows)
-    scratch = (M.new_empty(((rows + _ROW_CHUNK - 1) // _ROW_CHUNK) * cols)
-               if trans else None)
     lib = kernels.lib()
     kernels.LAUNCHES["hess_gemv"] += 1
     kernels.check(lib.hess_gemv(
         M.data_ptr(), M.stride(0), rows, cols, x.data_ptr(), u.data_ptr(),
-        int(trans), None if scratch is None else scratch.data_ptr(),
-        kernels.stream_ptr(M)), "hess_gemv")
+        int(trans), kernels.stream_ptr(M)), "hess_gemv")
     return u

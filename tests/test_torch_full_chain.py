@@ -46,7 +46,8 @@ def test_sep_reduce_then_eigenvectors():
     A = random_dense(n, seed=42)
     pred = lambda lam: lam.real > 0          # noqa: E731
     Sj, Qj, erj, eij, nj, infoj = jsep.reduce(jnp.asarray(A), predicate=pred)
-    St, Qt, ert, eit, nt, infot = tsep.reduce(from_numpy(A), predicate=pred)
+    St, Qt, ert, eit, nt, infot = tsep.reduce(from_numpy(A), predicate=pred,
+                                               device="cpu")
     assert int(infot) == int(infoj) == Error.SUCCESS
     assert nt == nj == int((np.linalg.eigvals(A).real > 0).sum())
     Sj, St, Qt = np.asarray(Sj), to_numpy(St), to_numpy(Qt)
@@ -61,7 +62,8 @@ def test_sep_reduce_then_eigenvectors():
     assert eigenvalue_error(ev, np.linalg.eigvals(A)) < 10000
 
     sel = np.arange(n) < nt
-    X, xinfo = tsep.eigenvectors(from_numpy(St), from_numpy(Qt), sel)
+    X, xinfo = tsep.eigenvectors(from_numpy(St), from_numpy(Qt), sel,
+                                   device="cpu")
     assert xinfo == Error.SUCCESS
     X = to_numpy(X)
     assert X.shape == (n, nt)       # a column per real value, two per pair

@@ -47,12 +47,12 @@ def test_cpu_path_launches_no_kernel():
     from starneig_tpu_torch.api import sep
     before = dict(kernels.LAUNCHES)
     A = torch.as_tensor(np.random.default_rng(0).standard_normal((70, 70)))
-    H, Q = sep.hessenberg(A)
-    S, Q2, er, ei, info = sep.schur(H, Q)
+    H, Q = sep.hessenberg(A, device="cpu")
+    S, Q2, er, ei, info = sep.schur(H, Q, device="cpu")
     assert int(info) == 0
     sel = sep.select(S, lambda lam: lam.real > 0)
-    S2, Q3, m, rinfo = sep.reorder_schur(S, Q2, sel)
-    X, xinfo = sep.eigenvectors(S2, Q3, np.arange(70) < m)
+    S2, Q3, m, rinfo = sep.reorder_schur(S, Q2, sel, device="cpu")
+    X, xinfo = sep.eigenvectors(S2, Q3, np.arange(70) < m, device="cpu")
     assert int(rinfo) == 0 and int(xinfo) == 0 and X.shape == (70, m)
     assert kernels.LAUNCHES == before
     assert kernels._lib is None

@@ -43,21 +43,48 @@ def _block_eigs(S, m):
     return np.sort_complex(er.cpu().numpy() + 1j * ei.cpu().numpy())
 
 
-@pytest.mark.parametrize("trans", [False, True])
-def test_gemv(cuda, trans):
-    rng = np.random.default_rng(int(trans))
-    M = torch.as_tensor(rng.standard_normal((700, 500)), device=cuda)[37:, 11:]
+def _gemv_case(kind, trans, j, cuda):
+    """(M, x) for a B1 case: a view with offsets into a small matrix; the
+    panel loop's V[:, :j] (4000 rows, ld 288, a row offset); or T[:j, :j]
+    (ld 288)."""
+    rng = np.random.default_rng(int(trans) if j is None else j + int(trans))
+    if kind == "view":
+        M = torch.as_tensor(rng.standard_normal((700, 500)), device=cuda)[37:, 11:]
+    elif kind == "panel":
+        M = torch.as_tensor(rng.standard_normal((4100, 288)), device=cuda)[100:, :j]
+    else:
+        M = torch.as_tensor(rng.standard_normal((288, 288)), device=cuda)[:j, :j]
     x = torch.as_tensor(rng.standard_normal(M.shape[0] if trans else M.shape[1]),
                         device=cuda)
+    return M, x
+
+
+@pytest.mark.parametrize("kind,trans,j,tol", [
+    ("view", False, None, 1e-13), ("view", True, None, 1e-13),
+    *[("panel", True, j, 1e-12) for j in (1, 31, 32, 33, 288)],
+    *[("T", True, j, 1e-12) for j in (32, 144, 288)]])
+def test_gemv(cuda, kind, trans, j, tol):
+    M, x = _gemv_case(kind, trans, j, cuda)
     n0 = kernels.LAUNCHES["hess_gemv"]
     got = gpu_hess.gemv(M, x, trans)
     assert kernels.LAUNCHES["hess_gemv"] == n0 + 1
     want = gpu_hess.gemv_plain(M, x, trans)
     scale = float(gpu_hess.gemv_plain(M.abs(), x.abs(), trans).max())
-    assert float((got - want).abs().max()) <= 1e-13 * scale
+    # summation order only
+    assert float((got - want).abs().max()) <= tol * scale
 
 
-@pytest.mark.parametrize("w,m", [(16, 16), (40, 40), (40, 31)])
+@pytest.mark.parametrize("kind,j", [("panel", 288), ("panel", 33), ("T", 144)])
+def test_gemv_trans_repeatable(cuda, kind, j):
+    """The transposed mode sums across blocks in a fixed order: two launches
+    give the same bits."""
+    M, x = _gemv_case(kind, True, j, cuda)
+    first = gpu_hess.gemv(M, x, True)
+    assert torch.equal(first, gpu_hess.gemv(M, x, True))
+
+
+# at w = 96 and 130 several 32-step blocks of a sweep are in flight at once
+@pytest.mark.parametrize("w,m", [(16, 16), (40, 40), (40, 31), (96, 96), (130, 130)])
 def test_francis(cuda, w, m):
     Hn = _hess(w, w + m)
     Hn[m:], Hn[:, m:] = 0.0, 0.0

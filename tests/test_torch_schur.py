@@ -227,10 +227,10 @@ def test_hessenberg_schur_slice(n, conf):
     A = np.random.default_rng(n).standard_normal((n, n))
     Hj, Qj = jsep.hessenberg(jnp.asarray(A))
     Sj, Qj2, erj, eij, infoj = jsep.schur(Hj, Qj, conf=conf)
-    Ht, Qt = tsep.hessenberg(from_numpy(A))
+    Ht, Qt = tsep.hessenberg(from_numpy(A), device="cpu")
     stats = {}
     St, Qt2, ert, eit, infot = tsep.schur(Ht, Qt, conf=conf_from_jax(conf),
-                                          stats=stats)
+                                          stats=stats, device="cpu")
     assert int(infot) == int(infoj) == 0
     assert stats["path"] == ("small" if n == 96 else "aed")
     if n == 200:
