@@ -17,7 +17,10 @@ Phases (any failure raises; the exit code is then nonzero):
      bound (bytes over HBM_BPS or fp64 operations over F64_FLOPS, counted
      from this run's inputs); B1's transposed mode beside M.T @ x, in
      turns, by CUDA events and by profiler device time, and checked
-     bit-for-bit across two launches; B2's chase steps;
+     bit-for-bit across two launches; B2's chase steps; B4's and the
+     bubble's swaps, microseconds a swap and serial-chain floor (swaps x
+     SWAP_CYCLES), on inputs that include rejected swaps mid-segment, frozen
+     rows and an insertion limit;
   4. main path: a seeded n=200 solve and a seeded n=200 api.sep.reduce
      (Re(lambda) > 0) checked against numpy and the CPU run of the port;
      then n=4000 (A from default_rng(0)) through api.sep.hessenberg,
@@ -60,6 +63,12 @@ EVEC_BOUND = 1e-10
 # B2's reflector chain, per chase step: about 0.6 us (clock64 counters
 # on the H100, PERF.md section 6); steps x this is the serial floor
 CHAIN_US = 0.6
+# B4's and the bubble's chain: cycles of swap_adjacent_warp on the chain
+# warp by block sizes (p, q), clock64 counters on the H100 at about 1.99
+# GHz (chip_ab.py clock; PERF.md section 6); swaps x these over SM_HZ is
+# their floor
+SWAP_CYCLES = {(1, 1): 1442, (1, 2): 9750, (2, 1): 10660, (2, 2): 11424}
+SM_HZ = 1.98e9
 
 REPLACES = {
     "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
@@ -381,55 +390,117 @@ def _deflate_case(WA, w, seed, dev, plants=None):
     return torch.from_numpy(T).to(dev), torch.from_numpy(V).to(dev)
 
 
-def phase_deflate(dev):
+def _deflate_reject_case(WA, w, seed, gap, dev):
+    """A window whose first move is rejected after `gap` accepted swaps:
+    the bottom 2x2 block and its exact twin `gap` rows above it (as
+    testing/generators.py:planted_windows plants a rejected swap), the 1x1
+    blocks between uncoupled from the bottom block's columns, so the block
+    reaches its twin unchanged and their Sylvester equation is singular."""
     import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    T = np.zeros((WA, WA))
+    T[:w, :w] = np.triu(rng.standard_normal((w, w)))
+    b, t = w - 2, w - 4 - gap
+    for p in range(6, t - 2, 8):
+        T[p + 1, p] = -abs(rng.standard_normal())
+        T[p, p + 1] = abs(rng.standard_normal())
+    for r in (b, t):
+        T[r:r + 2, r:r + 2] = [[1.0, 2.0], [-0.5, 1.0]]
+    T[t + 2:b, b:b + 2] = 0.0
+    T[t:t + 2, b:b + 2] = [[3.0, -1.0], [2.0, 5.0]]
+    V = np.eye(WA)
+    V[:w, :w], _ = np.linalg.qr(np.eye(w) + 0.05 * rng.standard_normal((w, w)))
+    return torch.from_numpy(T).to(dev), torch.from_numpy(V).to(dev)
+
+
+# B4's inputs: (label, WA, w, make(dev) -> (T, V)).  The planted w=40 case;
+# the main path's WA=322 buffer with a 60-row active window (as when the
+# segment is short); the full w=322 window, where no spike entry deflates
+# and every block moves; two moves rejected mid-segment, the second in the
+# move's second segment (40 swaps > the engine's 32 a segment).
+DEFLATE_CASES = (
+    ("w=40", 40, 40, lambda dev: _deflate_case(40, 40, 5, dev, (6, 14, 30))),
+    ("w=60", 322, 60, lambda dev: _deflate_case(322, 60, 5, dev)),
+    ("w=322", 322, 322, lambda dev: _deflate_case(322, 322, 6, dev)),
+    ("w=322, rejected after 20 swaps", 322, 322,
+     lambda dev: _deflate_reject_case(322, 322, 9, 20, dev)),
+    ("w=60, rejected after 40 swaps", 322, 60,
+     lambda dev: _deflate_reject_case(322, 60, 9, 40, dev)),
+)
+DEFLATE_S, DEFLATE_TH = 0.8, 1e-13
+
+
+def similarity_residual(T, V, Tk, Vk):
+    """||Us^T T Us - Tk||_F / ||T||_F in units of u, Us = V^T Vk: how far
+    (Tk, Vk) is from a similarity of (T, V)."""
+    import numpy as np
+    Tn, Vn, Tkn, Vkn = (x.cpu().numpy() for x in (T, V, Tk, Vk))
+    Us = Vn.T @ Vkn
+    return np.linalg.norm(Us.T @ Tn @ Us - Tkn) / np.linalg.norm(Tn) / U
+
+
+def deflate_check(label, T, V, out, ref):
+    """Hold a B4 result out = (T, V, kbot, fail) to the plain twin's ref:
+    the same integers, T and V within 1e-10 relative, a similarity residual
+    < 500 u.  Returns (max abs err, residual in u)."""
+    Tk, Vk, kk, fk = out
+    Tp, Vp, kp, fp = ref
+    check(int(kk) == int(kp) and int(fk) == int(fp),
+          f"B4 {label}: kbot/fail {int(kk)},{int(fk)} vs {int(kp)},{int(fp)}")
+    scale = float(T.abs().max())
+    dt, dv = float((Tk - Tp).abs().max()), float((Vk - Vp).abs().max())
+    res = similarity_residual(T, V, Tk, Vk)
+    # the same swap sequence; FMA contraction, summation order and the
+    # flushes' accumulated transforms change the rounding only
+    check(dt < 1e-10 * scale and dv < 1e-10 and res < GATE_U,
+          f"B4 {label} disagrees: T {dt}, V {dv}, residual {res}u")
+    return max(dt, dv), res
+
+
+def phase_deflate(dev):
     from starneig_tpu_torch.ops import schur
     from starneig_tpu_torch.ops.gpu_schur import aed_deflate
     from starneig_tpu_torch.ops.schur import _aed_deflate
     err = 0.0
-    s, th = 0.8, 1e-13
-    plain_ms = {}
-    # (WA, w): the planted w=40 case; the main path's WA=322 buffer with a
-    # 60-row active window (as when the segment is short); and the full
-    # w=322 window, where no spike entry deflates and every block moves
-    for WA, w, seed, plants in ((40, 40, 5, (6, 14, 30)), (322, 60, 5, None),
-                                (322, 322, 6, None)):
-        T, V = _deflate_case(WA, w, seed, dev, plants)
-        Tk, Vk, kk, fk = aed_deflate(T, V, s, w, th)
+    s, th = DEFLATE_S, DEFLATE_TH
+    plain_ms, nswaps, chain_ms, inputs = {}, {}, {}, {}
+    for label, WA, w, make in DEFLATE_CASES:
+        T, V = make(dev)
+        inputs[label] = (T, V, w)
+        out = aed_deflate(T, V, s, w, th)
         # each swap of a p- and a q-block applies an m x m transform (m =
         # p + q) to m rows and m columns of T and m columns of V: at least
         # (2m - 1) flops an entry over m (2 WA + m) entries
         with tally(schur, "swap_adjacent",
                    lambda T4, p, q: (2 * (p + q) - 1) * (p + q) * (2 * WA + p + q)) \
-                as flops, tally(schur, "swap_adjacent", lambda *a: 1) as swaps:
-            (Tp, Vp, kp, fp), plain_ms[w] = timed(
-                lambda: _aed_deflate(T, V, s, w, th))
-        check(int(kk) == int(kp) and int(fk) == int(fp),
-              f"B4 WA={WA} w={w}: kbot/fail {int(kk)},{int(fk)} vs "
-              f"{int(kp)},{int(fp)}")
-        scale = float(T.abs().max())
-        dt, dv = float((Tk - Tp).abs().max()), float((Vk - Vp).abs().max())
-        Tn, Vn, Tkn, Vkn = (x.cpu().numpy() for x in (T, V, Tk, Vk))
-        Us = Vn.T @ Vkn
-        res = np.linalg.norm(Us.T @ Tn @ Us - Tkn) / np.linalg.norm(Tn) / U
-        log(f"  B4 WA={WA} w={w}: {swaps[0]} swaps; kbot {int(kk)} fail {int(fk)}, max abs err "
-            f"T {dt:.2e} (|T| {scale:.2f}), V {dv:.2e}, kernel similarity "
-            f"residual {res:.1f}u")
-        # the same swap sequence (739, 1,705 and 43,646 swaps); FMA
-        # contraction and summation order differ
-        check(dt < 1e-10 * scale and dv < 1e-10 and res < GATE_U,
-              f"B4 WA={WA} w={w} disagrees: {dt}, {dv}, {res}")
-        err = max(err, dt, dv)
-    ms = cuda_ms(lambda: aed_deflate(T, V, s, 322, th), 3)
-    bms, by = bound(8 * 4 * 322 * 322, flops[0])
-    T60, V60 = _deflate_case(322, 60, 5, dev)
-    ms60 = cuda_ms(lambda: aed_deflate(T60, V60, s, 60, th), 5)
-    log(f"  B4 WA=322 w=322: kernel {ms:.1f} ms, plain {plain_ms[322]:.1f} ms; "
-        f"w=60: kernel {ms60:.2f} ms, plain {plain_ms[60]:.1f} ms; w=322 "
-        f"bound {bms:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms[322], bound_ms=bms,
+                as flops, tally(schur, "swap_adjacent", lambda *a: 1) as swaps, \
+                tally(schur, "swap_adjacent", lambda T4, p, q: SWAP_CYCLES[p, q]) as cyc:
+            ref, plain_ms[label] = timed(lambda: _aed_deflate(T, V, s, w, th))
+        nswaps[label], chain_ms[label] = swaps[0], cyc[0] / SM_HZ * 1e3
+        d, res = deflate_check(label, T, V, out, ref)
+        log(f"  B4 WA={WA} {label}: {swaps[0]} swaps; kbot {int(out[2])} fail "
+            f"{int(out[3])}, max abs err {d:.2e} (|T| {float(T.abs().max()):.2f}), "
+            f"kernel similarity residual {res:.1f}u")
+        if label == "w=322":
+            w322_flops = flops[0]
+        err = max(err, d)
+    times = {}
+    for label in ("w=322", "w=60"):
+        T, V, w = inputs[label]
+        times[label] = cuda_ms(lambda: aed_deflate(T, V, s, w, th), 3 if w > 60 else 5)
+    ms, ms60 = times["w=322"], times["w=60"]
+    bms, by = bound(8 * 4 * 322 * 322, w322_flops)
+    log(f"  B4 WA=322 w=322: kernel {ms:.1f} ms ({ms / nswaps['w=322'] * 1e3:.2f} us a "
+        f"swap), plain {plain_ms['w=322']:.1f} ms; w=60: kernel {ms60:.2f} ms "
+        f"({ms60 / nswaps['w=60'] * 1e3:.2f} us a swap), plain {plain_ms['w=60']:.1f} "
+        f"ms; w=322 bound {bms:.4f} ms ({by}); serial chain {chain_ms['w=322']:.1f} ms "
+        f"at w=322, {chain_ms['w=60']:.2f} ms at w=60 (swaps x swap_adjacent cycles)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms["w=322"], bound_ms=bms,
                 bound_by=by,
-                detail=dict(w60_ms=ms60, w60_plain_ms=plain_ms[60]))
+                detail=dict(w60_ms=ms60, w60_plain_ms=plain_ms["w=60"], swaps=nswaps,
+                            us_a_swap={k: times[k] / nswaps[k] * 1e3 for k in times},
+                            serial_chain_ms=chain_ms))
 
 
 def recondense_contract(T, V0, s, kbot, To, Vo, beta):
@@ -524,46 +595,81 @@ def phase_recondense(dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
-def phase_bubble(dev):
+# the bubble's inputs (G, W, seed, (dst0s, dst_limits, wlims)): small
+# windows with a frozen top row, a frozen bottom row and a capped
+# insertion; a batch at the n=4000 reordering's window W=160; and W=160
+# windows with frozen rows at both ends and an insertion limit that stops
+# a window's chain early.  Window 0 of each rejects a swap
+# (testing/generators.py:planted_windows).
+BUBBLE_CASES = ((3, 24, 4, ([0, 1, 0], [24, 24, 6], [24, 23, 24])),
+                (2, 160, 7, ([0, 1], [160, 160], [160, 159])),
+                (3, 160, 8, ([3, 1, 0], [160, 40, 160], [159, 160, 159])))
+
+
+def bubble_check(label, Tw, out, ref):
+    """Hold a bubble window's result out = (T, Q, sel, dst, nfail, nswaps)
+    to the plain twin's ref: the same integers and selection, T and Q within
+    1e-10 relative.  Returns the max abs err."""
     import numpy as np
+    Tk, Qk, selk, dstk, nfk, nsk = out
+    Tp, Qp, selp, dstp, nfp, nsp = ref
+    check((int(dstk), int(nfk), int(nsk)) == (dstp, nfp, nsp)
+          and np.array_equal(selk, selp),
+          f"bubble {label}: dst/nfail/swaps/sel {(int(dstk), int(nfk), int(nsk))} "
+          f"vs {(dstp, nfp, nsp)}")
+    dt, dq = float((Tk - Tp).abs().max()), float((Qk - Qp).abs().max())
+    # the same swap sequence; FMA contraction, summation order and the
+    # flushes' accumulated transforms change the rounding only
+    check(dt <= 1e-10 * float(Tw.abs().max()) and dq <= 1e-10,
+          f"bubble {label}: T {dt}, Q {dq}")
+    return max(dt, dq)
+
+
+def phase_bubble(dev):
     import torch
+    from starneig_tpu_torch.ops import reorder
     from starneig_tpu_torch.ops.gpu_reorder import window_bubble
     from starneig_tpu_torch.ops.reorder import _window_bubble
     from starneig_tpu_torch.testing.generators import planted_windows
     err = 0.0
-    # (G, W, seed, limits): small windows with a frozen top row, a frozen
-    # bottom row and a capped insertion; then a batch at the n=4000
-    # reordering's window W=160.  Window 0 of each rejects a swap.
-    for G, W, seed, lims in ((3, 24, 4, ([0, 1, 0], [24, 24, 6], [24, 23, 24])),
-                             (2, 160, 7, ([0, 1], [160, 160], [160, 159]))):
+    timed_case = {}
+    for G, W, seed, lims in BUBBLE_CASES:
         Ts, sels = planted_windows(G, W, seed)
         Td = torch.as_tensor(Ts, device=dev)
-        (Tk, Qk, selk, dstk, nfk, nsk), _ = timed(lambda: window_bubble(Td, sels, *lims))
-        plain_ms = 0.0
+        Tk, Qk, selk, dstk, nfk, nsk = window_bubble(Td, sels, *lims)
+        plain_ms, chain = 0.0, 0
         for g in range(G):
-            (Tp, Qp, selp, dstp, nfp, nsp), t = timed(
-                lambda: _window_bubble(Td[g], sels[g], lims[0][g], lims[1][g],
-                                       lims[2][g]))
+            with tally(reorder, "swap_adjacent",
+                       lambda T4, p, q: SWAP_CYCLES[p, q]) as cyc:
+                ref, t = timed(lambda: _window_bubble(Td[g], sels[g], lims[0][g],
+                                                      lims[1][g], lims[2][g]))
             plain_ms += t
-            dt = float((Tk[g] - Tp).abs().max())
-            dq = float((Qk[g] - Qp).abs().max())
-            check((dstk[g], nfk[g], nsk[g]) == (dstp, nfp, nsp)
-                  and np.array_equal(selk[g], selp),
-                  f"bubble W={W} window {g}: dst/nfail/swaps/sel differ")
-            # the same swap sequence; FMA contraction and summation order
-            check(dt <= 1e-10 * float(Td[g].abs().max()) and dq <= 1e-10,
-                  f"bubble W={W} window {g}: T {dt}, Q {dq}")
-            err = max(err, dt, dq)
+            chain = max(chain, cyc[0])       # the windows run side by side
+            err = max(err, bubble_check(f"W={W} window {g}", Td[g],
+                                        (Tk[g], Qk[g], selk[g], dstk[g], nfk[g], nsk[g]),
+                                        ref))
         check(nfk[0] >= 1, f"bubble W={W}: the planted swap was not rejected")
-        log(f"  bubble G={G} W={W}: swaps {nsk.tolist()}, failed {nfk.tolist()}, "
-            f"dst {dstk.tolist()}: equal to the plain twin; max abs err {err:.2e}")
+        log(f"  bubble G={G} W={W} dst0 {lims[0]} dst_limit {lims[1]} wlim {lims[2]}: "
+            f"swaps {nsk.tolist()}, failed {nfk.tolist()}, dst {dstk.tolist()}: equal "
+            f"to the plain twin; max abs err {err:.2e}")
+        if (G, W) == (2, 160):
+            timed_case = dict(Td=Td, sels=sels, lims=lims, nsw=int(nsk.sum()),
+                              nmax=int(nsk.max()), plain_ms=plain_ms,
+                              chain_ms=chain / SM_HZ * 1e3)
+    Td, sels, lims = timed_case["Td"], timed_case["sels"], timed_case["lims"]
+    G, W = Td.shape[0], Td.shape[1]
     ms = cuda_ms(lambda: window_bubble(Td, sels, *lims), 3)
     # each swap at least a 2 x 2 rotation of 2 rows and 2 columns of T and
     # 2 columns of Q: 3 flops an entry over 2 (2 W + 2) entries
-    bms, by = bound(8 * 3 * G * W * W, int(nsk.sum()) * 6 * (2 * W + 2))
-    log(f"  bubble G=2 W=160 ({int(nsk.sum())} swaps): kernel {ms:.2f} ms, "
-        f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    bms, by = bound(8 * 3 * G * W * W, timed_case["nsw"] * 6 * (2 * W + 2))
+    log(f"  bubble G=2 W=160 ({timed_case['nsw']} swaps, at most {timed_case['nmax']} "
+        f"a window): kernel {ms:.2f} ms ({ms / timed_case['nmax'] * 1e3:.2f} us a swap "
+        f"of the longest window), plain {timed_case['plain_ms']:.1f} ms, bound "
+        f"{bms:.4f} ms ({by}), serial chain {timed_case['chain_ms']:.2f} ms (the "
+        f"longest window's swaps x swap_adjacent cycles)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=timed_case["plain_ms"], bound_ms=bms,
+                bound_by=by, detail=dict(us_a_swap=ms / timed_case["nmax"] * 1e3,
+                                         serial_chain_ms=timed_case["chain_ms"]))
 
 
 def solve(A):

@@ -1,5 +1,5 @@
 // B4: AED spike deflation with block moves, the whole test/move state
-// machine in one thread block.
+// machine in one thread block, on the swap-chain engine (swap_chain.cuh).
 //
 // Replaces starneig_tpu/ops/pallas_schur.py:_deflate_kernel/_deflate_body
 // (pallas_call at :985, wrapper aed_deflate_pallas).  Plain twin:
@@ -7,138 +7,110 @@
 // (schur.py:225-312).  A test step checks the bottom 1x1/2x2 block's spike
 // entries s * V[0, .] against max(ulp |diag|, thresh): a negligible block
 // deflates, any other block is moved toward the top by adjacent swaps
-// (swap_adjacent: 4x4 Sylvester solve, Householder step, acceptance test).
-// The step cap is 4 WA^2.  Returns (T, V, kbot, fail).
+// (swap_adjacent_warp: 4x4 Sylvester solve, Householder step, acceptance
+// test).  The step cap is 4 WA^2.  Returns (T, V, kbot, fail).
 //
-// What bounds it on the H100: latency.  Every step is a scalar decision
-// followed, for a move, by a rank-4 similarity on 4 rows and 4 columns of
-// the (WA+4)^2 window and 4 columns of V (~50 WA flops).  The window at
-// WA = 322 is 0.86 MB and stays in global memory / L2.  Thread 0 runs the
-// state machine and the 4x4 swap on registers; the block applies the
-// 4-row and 4-column updates; two barriers per move step, one per test.
-#include "common.cuh"
+// What bounds it on the H100: the serial swap chain (latency).  A move of a
+// block is a chain of swaps, each a scalar decision on a 4x4 that the
+// previous swap produced; the rank-4 similarity around it (4 rows and 4
+// columns of the (WA+4)^2 window, 4 columns of V, ~50 WA flops) is
+// parallel.  The window at WA = 322 is 0.86 MB and stays in global memory
+// / L2.  The chain warp runs the test steps and the moves' segments in
+// shared memory, reading T's diagonal, its subdiagonal and the spike (V's
+// row 0, updated swap by swap in the chain warp) from shared memory; the
+// update warps apply each segment's accumulated transform to the rest of T
+// and to V's rows 1.. (the engine's notes in swap_chain.cuh).
+#include "swap_chain.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace swap_chain;
 
 __global__ void __launch_bounds__(kThreads)
 aed_deflate_kernel(double* __restrict__ T, double* __restrict__ V, int WA,
                    int w, double s, double thresh, int* __restrict__ stat) {
+  extern __shared__ __align__(16) double smem[];
+  __shared__ Meta meta;
   const int WP = WA + 4;  // T is WP x WP, V is WA x WP, row-major
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const double ulp = DBL_EPSILON;
-  const long long cap = 4LL * WA * WA;
+  const int tid = threadIdx.x;
+  const Smem sm = carve(smem, WA);
+  double* spike = sm.extra;  // V's row 0
 
-  __shared__ int s_kbot, s_ilst, s_src, s_fail, s_a, s_q, s_accept;
-  __shared__ long long s_steps;
-  __shared__ double s_Q[16], s_Dh[16];
-
-  if (tid == 0) {
-    s_kbot = w;
-    s_ilst = 0;
-    s_src = -1;
-    s_fail = 0;
-    s_steps = 0;
+  for (int i = tid; i < WP; i += kThreads) {
+    sm.diag[i] = T[(size_t)i * WP + i];
+    sm.sub[i] = i + 1 < WP ? T[(size_t)(i + 1) * WP + i] : 0.0;
+    spike[i] = V[i];
   }
   __syncthreads();
 
-  while (true) {
-    const bool go = s_kbot > s_ilst && !s_fail && s_steps < cap;
-    const bool test = s_src < 0;
-    __syncthreads();  // every thread has read the state before it changes
-    if (!go) break;
-    if (test) {  // test the bottom block
-      if (tid == 0) {
-        const int kbot = s_kbot, e = kbot - 1;
-        const int sz = (e >= 1 && T[e * WP + e - 1] != 0.0) ? 2 : 1;
-        const int start = kbot - sz;
-        double sp0 = s * V[start > 0 ? start : 0];
-        double sp1 = s * V[kbot - 1 > 0 ? kbot - 1 : 0];
-        double foot = dmax(fabs(sp0), fabs(sp1) * (sz == 2 ? 1.0 : 0.0));
-        double tst = fabs(T[start * WP + start]) +
-                     (sz == 2 ? fabs(T[(kbot - 1) * WP + kbot - 1]) : 0.0);
-        bool deflatable = foot <= dmax(ulp * tst, thresh);
-        int src = deflatable ? -1 : start;
-        if (deflatable) s_kbot = start;
-        if (!deflatable && start == s_ilst) {
-          s_ilst += sz;
-          src = -1;
-        }
-        s_src = src;
-        s_steps += 1;
-      }
-      __syncthreads();
-      continue;
-    }
-    // move the block starting at src one position up
-    if (tid == 0) {
-      const int src = s_src;
-      const int e = src - 1;
-      const int p = (e >= 1 && T[e * WP + e - 1] != 0.0) ? 2 : 1;
-      const int a = src - p;
-      const int q = (src + 1 < WA && T[(src + 1) * WP + src] != 0.0) ? 2 : 1;
-      double D[16], Qs[16], Dh[16];
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) D[r * 4 + c] = T[(a + r) * WP + a + c];
-      bool accept = swap_adjacent(D, p, q, Qs, Dh);
-      for (int i = 0; i < 16; ++i) { s_Q[i] = Qs[i]; s_Dh[i] = Dh[i]; }
-      s_a = a;
-      s_q = q;
-      s_accept = accept;
-    }
-    __syncthreads();
-    const int a = s_a;
-    // rows a..a+3 <- Qs^T rows, full width
-    for (int c = tid; c < WP; c += nt) {
-      double r[4], o[4];
-      for (int j = 0; j < 4; ++j) r[j] = T[(a + j) * WP + c];
+  if (tid >= 32) {
+    update_warps(T, WP, V, 1, WA, sm, meta);
+  } else {
+    const int lane = tid;
+    const double ulp = DBL_EPSILON;
+    Chain ch{T, WP, WA, sm, &meta};
+    ch.cap = 4LL * WA * WA;
+    int kbot = w, ilst = 0;
+    bool fail = false;
+    // V's row 0 takes each swap in the chain warp, in the plain twin's order
+    auto on_swap = [&](int c, int p, int q, bool accept, const double* Qs) {
+      if (!accept) return;
+      const int d = p + q;
+      double x[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) x[t] = t < d ? spike[c + t] : 0.0;
+      __syncwarp();  // every lane has read the entries before they change
+#pragma unroll
       for (int i = 0; i < 4; ++i) {
         double acc = 0.0;
-        for (int j = 0; j < 4; ++j) acc += s_Q[j * 4 + i] * r[j];
-        o[i] = acc;
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (t < d) acc += x[t] * Qs[t * 4 + i];
+        if (i == lane && i < d) spike[c + i] = acc;
       }
-      for (int i = 0; i < 4; ++i) T[(a + i) * WP + c] = o[i];
-    }
-    __syncthreads();
-    // columns a..a+3 <- cols Qs, full height; then V's columns
-    for (int r = tid; r < WP + WA; r += nt) {
-      double* row = r < WP ? T + r * WP + a : V + (r - WP) * WP + a;
-      double x[4], o[4];
-      for (int j = 0; j < 4; ++j) x[j] = row[j];
-      for (int i = 0; i < 4; ++i) {
-        double acc = 0.0;
-        for (int j = 0; j < 4; ++j) acc += x[j] * s_Q[j * 4 + i];
-        o[i] = acc;
+    };
+    while (kbot > ilst && !fail && ch.steps < ch.cap) {
+      // test the bottom block
+      const int sz = (kbot - 1 >= 1 && sm.sub[kbot - 2] != 0.0) ? 2 : 1;
+      const int start = kbot - sz;
+      const double sp0 = s * spike[start > 0 ? start : 0];
+      const double sp1 = s * spike[kbot - 1 > 0 ? kbot - 1 : 0];
+      const double foot = dmax(fabs(sp0), fabs(sp1) * (sz == 2 ? 1.0 : 0.0));
+      const double tst = fabs(sm.diag[start]) +
+                         (sz == 2 ? fabs(sm.diag[kbot - 1]) : 0.0);
+      ch.steps += 1;
+      if (foot <= dmax(ulp * tst, thresh)) {
+        kbot = start;
+      } else if (start == ilst) {
+        ilst += sz;
+      } else {
+        fail = ch.move(start, ilst, on_swap) == kRejected;
       }
-      for (int i = 0; i < 4; ++i) row[i] = o[i];
     }
-    __syncthreads();
-    if (tid == 0) {
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) T[(a + r) * WP + a + c] = s_Dh[r * 4 + c];
-      int src = s_accept ? a : -1;
-      if (s_accept && src == s_ilst) {
-        s_ilst += s_q;
-        src = -1;
-      }
-      s_src = src;
-      s_fail = s_fail || !s_accept;
-      s_steps += 1;
+    ch.drain();
+    ch.stop();
+    if (lane == 0) {
+      stat[0] = kbot;
+      stat[1] = fail;
     }
-    __syncthreads();
   }
-  if (tid == 0) {
-    stat[0] = s_kbot;
-    stat[1] = s_fail;
-  }
+  __syncthreads();
+  for (int i = tid; i < WP; i += kThreads) V[i] = spike[i];
 }
 
 }  // namespace
 
 extern "C" int aed_deflate(void* T, void* V, int WA, int w, double s,
                            double thresh, void* stat, void* stream) {
-  aed_deflate_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  static size_t configured = 0;
+  const size_t bytes = smem_bytes(WA);
+  if (bytes > configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        aed_deflate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = bytes;
+  }
+  aed_deflate_kernel<<<1, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<double*>(T), static_cast<double*>(V), WA, w, s, thresh,
       static_cast<int*>(stat));
   return static_cast<int>(cudaGetLastError());

@@ -3,9 +3,9 @@
 // Device twins of starneig_tpu_torch/ops/primitives.py and ops/swaps.py:
 // the same formulas, the same guards (sdiv maps a zero denominator to 0,
 // sgn(0) == +1, householder pre-scales by max|x|), so each kernel's control
-// flow matches its plain PyTorch version step for step.  Every function
-// runs on one thread over registers; the kernels broadcast the results
-// through shared memory.
+// flow matches its plain PyTorch version step for step.  The scalar
+// functions run on one thread over registers; the block_* functions on a
+// whole block, the *_warp functions on a whole warp.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -231,87 +231,108 @@ DEVI void first_column_shifted(const double* h, double sr1, double si1,
 }
 
 // ---------------------------------------------------------------------------
-// adjacent block swap on a 4x4 (row-major, double[16]); ops/swaps.py twin
+// adjacent block swap on a 4x4 (row-major, double[16]) on a warp; the twin
+// of ops/swaps.py:swap_adjacent
 // ---------------------------------------------------------------------------
-
-DEVI void matmul4_tn(const double* A, const double* B, double* C) {  // A^T B
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) {
-      double s = 0.0;
-      for (int k = 0; k < 4; ++k) s += A[k * 4 + i] * B[k * 4 + j];
-      C[i * 4 + j] = s;
-    }
-}
-
-DEVI void matmul4_nn(const double* A, const double* B, double* C) {  // A B
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) {
-      double s = 0.0;
-      for (int k = 0; k < 4; ++k) s += A[i * 4 + k] * B[k * 4 + j];
-      C[i * 4 + j] = s;
-    }
-}
+// Every lane of a warp calls swap_adjacent_warp with the same D, p, q and
+// gets the same Q, Dh and accept: the plain twin's formulas in its order.
+// p and q become template arguments, so no array is indexed by a run-time
+// value and every intermediate stays in registers; the 4x4 products run an
+// entry a lane on 16 lanes and reach every lane by shuffles; the Sylvester
+// elimination runs a row a lane on lanes 0..3, each step's pivot chosen from
+// the four candidates gathered by shuffles.
 
 DEVI void eye4(double* Q) {
   for (int i = 0; i < 16; ++i) Q[i] = (i % 5 == 0) ? 1.0 : 0.0;
 }
 
-DEVI void solve4(double* M /* 4x5 */, double* x) {
-  for (int k = 0; k < 4; ++k) {
-    int piv = 0;
-    double best = -2.0;
-    for (int i = 0; i < 4; ++i) {
-      double val = i >= k ? fabs(M[i * 5 + k]) : -1.0;
-      if (val > best) { best = val; piv = i; }
-    }
-    for (int c = 0; c < 5; ++c) {
-      double t = M[k * 5 + c];
-      M[k * 5 + c] = M[piv * 5 + c];
-      M[piv * 5 + c] = t;
-    }
-    double pivval = M[k * 5 + k];
-    pivval = pivval == 0.0 ? DBL_MIN : pivval;
-    double rowk[5];
-    for (int c = 0; c < 5; ++c) rowk[c] = M[k * 5 + c];
-    for (int i = 0; i < 4; ++i) {
-      double f = i == k ? 0.0 : M[i * 5 + k] / pivval;
-      for (int c = 0; c < 5; ++c) M[i * 5 + c] = M[i * 5 + c] - f * rowk[c];
-    }
-  }
-  for (int i = 0; i < 4; ++i) {
-    double dg = M[i * 5 + i];
-    dg = dg == 0.0 ? DBL_MIN : dg;
-    x[i] = M[i * 5 + 4] / dg;
-  }
+DEVI double sel4(double v0, double v1, double v2, double v3, int i) {
+  return i == 0 ? v0 : (i == 1 ? v1 : (i == 2 ? v2 : v3));
 }
 
-DEVI bool swap_11(const double* D, double* Q, double* Dh) {
+// C = A^T B (TN) or A B (row-major 4x4), an entry a lane, k in order
+template <bool TN>
+DEVI void matmul4_warp(const double* A, const double* B, double* C) {
+  const int lane = threadIdx.x & 31, i = (lane >> 2) & 3, j = lane & 3;
+  double s = 0.0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const double a = TN ? sel4(A[k * 4], A[k * 4 + 1], A[k * 4 + 2], A[k * 4 + 3], i)
+                        : sel4(A[k], A[4 + k], A[8 + k], A[12 + k], i);
+    const double b = sel4(B[k * 4], B[k * 4 + 1], B[k * 4 + 2], B[k * 4 + 3], j);
+    s += a * b;
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) C[e] = __shfl_sync(0xffffffffu, s, e);
+}
+
+// solve4 with row r of M on the lanes r (mod 4)
+DEVI void solve4_warp(const double* M /* 4x5 */, double* x) {
+  const int r = threadIdx.x & 3;
+  double m[5];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) m[c] = sel4(M[c], M[5 + c], M[10 + c], M[15 + c], r);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const double val = r >= k ? fabs(m[k]) : -1.0;
+    int piv = 0;
+    double best = -2.0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const double vi = __shfl_sync(0xffffffffu, val, i);
+      if (vi > best) { best = vi; piv = i; }
+    }
+    const int src = r == k ? piv : (r == piv ? k : r);
+#pragma unroll
+    for (int c = 0; c < 5; ++c) m[c] = __shfl_sync(0xffffffffu, m[c], src);
+    double rowk[5];
+#pragma unroll
+    for (int c = 0; c < 5; ++c) rowk[c] = __shfl_sync(0xffffffffu, m[c], k);
+    double pivval = rowk[k];
+    pivval = pivval == 0.0 ? DBL_MIN : pivval;
+    const double f = r == k ? 0.0 : m[k] / pivval;
+#pragma unroll
+    for (int c = 0; c < 5; ++c) m[c] = m[c] - f * rowk[c];
+  }
+  double dg = sel4(m[0], m[1], m[2], m[3], r);
+  dg = dg == 0.0 ? DBL_MIN : dg;
+  const double xr = m[4] / dg;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = __shfl_sync(0xffffffffu, xr, i);
+}
+
+DEVI bool swap_11_warp(const double* D, double* Q, double* Dh) {
   double t11 = D[0], t12 = D[1], t22 = D[5];
   double cs, sn, r;
   givens(t12, t22 - t11, cs, sn, r);
   eye4(Q);
   Q[0] = cs; Q[4] = sn; Q[1] = -sn; Q[5] = cs;
   double T[16];
-  matmul4_tn(Q, D, T);
-  matmul4_nn(T, Q, Dh);
+  matmul4_warp<true>(Q, D, T);
+  matmul4_warp<false>(T, Q, Dh);
   Dh[0] = t22; Dh[5] = t11; Dh[4] = 0.0;
   return true;
 }
 
-DEVI bool swap_general(const double* D, int p, int q, double* Q, double* Dh) {
-  int d = p + q;
+template <int P, int Qn>
+DEVI bool swap_general_warp(const double* D, double* Q, double* Dh) {
+  constexpr int d = P + Qn;
   double T11[4] = {0, 0, 0, 0}, T22[4] = {0, 0, 0, 0}, T12[4] = {0, 0, 0, 0};
+#pragma unroll
   for (int i = 0; i < 2; ++i)
+#pragma unroll
     for (int j = 0; j < 2; ++j) {
-      if (i < p && j < p) T11[i * 2 + j] = D[i * 4 + j];
-      if (i < q && j < q) T22[i * 2 + j] = D[(p + i) * 4 + p + j];
-      if (i < p && j < q) T12[i * 2 + j] = D[i * 4 + p + j];
+      if (i < P && j < P) T11[i * 2 + j] = D[i * 4 + j];
+      if (i < Qn && j < Qn) T22[i * 2 + j] = D[(P + i) * 4 + P + j];
+      if (i < P && j < Qn) T12[i * 2 + j] = D[i * 4 + P + j];
     }
   double M[20];
+#pragma unroll
   for (int i = 0; i < 20; ++i) M[i] = 0.0;
+#pragma unroll
   for (int k = 0; k < 4; ++k) {
-    int i = k % 2, j = k / 2;
-    if (i < p && j < q) {
+    const int i = k % 2, j = k / 2;
+    if (i < P && j < Qn) {
       M[k * 5 + 2 * j + 0] += T11[i * 2 + 0];
       M[k * 5 + 2 * j + 1] += T11[i * 2 + 1];
       M[k * 5 + 0 + i] += -T22[0 * 2 + j];
@@ -322,64 +343,76 @@ DEVI bool swap_general(const double* D, int p, int q, double* Q, double* Dh) {
     }
   }
   double x[4];
-  solve4(M, x);
-  // X[i][j] = x[2 j + i];  Mx = [X; I_q] in the first d rows (4x2)
+  solve4_warp(M, x);
   double Mx[8];
+#pragma unroll
   for (int r = 0; r < 4; ++r)
+#pragma unroll
     for (int c = 0; c < 2; ++c) {
-      double val = r < p ? x[2 * c + r] : 0.0;
-      if (r >= p && r - p == c && c < q) val += 1.0;
+      double val = r < P ? x[2 * c + r] : 0.0;
+      if (r >= P && r - P == c && c < Qn) val += 1.0;
       Mx[r * 2 + c] = val;
     }
   double col[4], v1[4], tau1, b1;
+#pragma unroll
   for (int r = 0; r < 4; ++r) col[r] = Mx[r * 2 + 0];
-  unsigned mask1 = (1u << d) - 1u;
+  constexpr unsigned mask1 = (1u << d) - 1u;
   householder(col, mask1, 4, v1, tau1, b1);
   double w[2];
+#pragma unroll
   for (int c = 0; c < 2; ++c) {
     double s = 0.0;
+#pragma unroll
     for (int r = 0; r < 4; ++r) s += v1[r] * Mx[r * 2 + c];
     w[c] = s;
   }
   double M1c1[4];
+#pragma unroll
   for (int r = 0; r < 4; ++r) M1c1[r] = Mx[r * 2 + 1] - tau1 * (v1[r] * w[1]);
-  // second reflector on rows [1, d) (rolled so the pivot sits first)
   double x2[4], v2r[4], tau2, b2;
+#pragma unroll
   for (int i = 0; i < 3; ++i) x2[i] = M1c1[i + 1];
   x2[3] = 0.0;
-  unsigned mask2 = 0u;
-  for (int i = 0; i < 3; ++i)
-    if (i + 1 < d) mask2 |= 1u << i;
+  constexpr unsigned mask2 = (d > 1 ? 1u : 0u) | (d > 2 ? 2u : 0u) | (d > 3 ? 4u : 0u);
   householder(x2, mask2, 4, v2r, tau2, b2);
-  double v2[4] = {v2r[3], v2r[0], v2r[1], v2r[2]};
-  if (q <= 1) tau2 = 0.0;
+  const double v2[4] = {v2r[3], v2r[0], v2r[1], v2r[2]};
+  if (Qn <= 1) tau2 = 0.0;
   double Qa[16], Qb[16];
   eye4(Qa);
+#pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
     const double* v = pass == 0 ? v1 : v2;
-    double tau = pass == 0 ? tau1 : tau2;
+    const double tau = pass == 0 ? tau1 : tau2;
     double ww[4];
+#pragma unroll
     for (int c = 0; c < 4; ++c) {
       double s = 0.0;
+#pragma unroll
       for (int r = 0; r < 4; ++r) s += v[r] * Qa[r * 4 + c];
       ww[c] = s;
     }
+#pragma unroll
     for (int r = 0; r < 4; ++r)
-      for (int c = 0; c < 4; ++c)
-        Qb[r * 4 + c] = Qa[r * 4 + c] - tau * (v[r] * ww[c]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) Qb[r * 4 + c] = Qa[r * 4 + c] - tau * (v[r] * ww[c]);
+#pragma unroll
     for (int i = 0; i < 16; ++i) Qa[i] = Qb[i];
   }
+#pragma unroll
   for (int r = 0; r < 4; ++r)
+#pragma unroll
     for (int c = 0; c < 4; ++c) Q[r * 4 + c] = Qa[c * 4 + r];
   double T[16];
-  matmul4_tn(Q, D, T);
-  matmul4_nn(T, Q, Dh);
+  matmul4_warp<true>(Q, D, T);
+  matmul4_warp<false>(T, Q, Dh);
   double dnorm = 0.0, err = 0.0;
+#pragma unroll
   for (int r = 0; r < 4; ++r)
+#pragma unroll
     for (int c = 0; c < 4; ++c) {
-      bool act = r < d && c < d;
+      const bool act = r < d && c < d;
       if (act) dnorm = dmax(dnorm, fabs(D[r * 4 + c]));
-      if (act && r >= q && c < q) {
+      if (act && r >= Qn && c < Qn) {
         err = dmax(err, fabs(Dh[r * 4 + c]));
         Dh[r * 4 + c] = 0.0;
       }
@@ -387,32 +420,50 @@ DEVI bool swap_general(const double* D, int p, int q, double* Q, double* Dh) {
   return err <= dmax(10.0 * DBL_EPSILON * dnorm, DBL_MIN);
 }
 
-DEVI void standardize_at(double* Dh, double* Q, int off) {
+template <int OFF>
+DEVI void standardize_at_warp(double* Dh, double* Q) {
   double o[6];
-  standardize_2x2(Dh[off * 4 + off], Dh[off * 4 + off + 1],
-                  Dh[(off + 1) * 4 + off], Dh[(off + 1) * 4 + off + 1], o);
-  double cs = o[4], sn = o[5];
+  standardize_2x2(Dh[OFF * 4 + OFF], Dh[OFF * 4 + OFF + 1],
+                  Dh[(OFF + 1) * 4 + OFF], Dh[(OFF + 1) * 4 + OFF + 1], o);
+  const double cs = o[4], sn = o[5];
   double G[16], T[16], D2[16], Q2[16];
   eye4(G);
-  G[off * 4 + off] = cs; G[(off + 1) * 4 + off] = sn;
-  G[off * 4 + off + 1] = -sn; G[(off + 1) * 4 + off + 1] = cs;
-  matmul4_tn(G, Dh, T);
-  matmul4_nn(T, G, D2);
-  D2[off * 4 + off] = o[0]; D2[off * 4 + off + 1] = o[1];
-  D2[(off + 1) * 4 + off] = o[2]; D2[(off + 1) * 4 + off + 1] = o[3];
-  matmul4_nn(Q, G, Q2);
+  G[OFF * 4 + OFF] = cs; G[(OFF + 1) * 4 + OFF] = sn;
+  G[OFF * 4 + OFF + 1] = -sn; G[(OFF + 1) * 4 + OFF + 1] = cs;
+  matmul4_warp<true>(G, Dh, T);
+  matmul4_warp<false>(T, G, D2);
+  D2[OFF * 4 + OFF] = o[0]; D2[OFF * 4 + OFF + 1] = o[1];
+  D2[(OFF + 1) * 4 + OFF] = o[2]; D2[(OFF + 1) * 4 + OFF + 1] = o[3];
+  matmul4_warp<false>(Q, G, Q2);
+#pragma unroll
   for (int i = 0; i < 16; ++i) { Dh[i] = D2[i]; Q[i] = Q2[i]; }
 }
 
-// swap the (p, q) blocks at the top of D; returns accept (Q = I, Dh = D if not)
-DEVI bool swap_adjacent(const double* D, int p, int q, double* Q, double* Dh) {
-  bool accept = (p == 1 && q == 1) ? swap_11(D, Q, Dh)
-                                   : swap_general(D, p, q, Q, Dh);
-  if (accept && q == 2) standardize_at(Dh, Q, 0);
-  if (accept && p == 2) standardize_at(Dh, Q, q);
+template <int P, int Qn>
+DEVI bool swap_adjacent_warp_pq(const double* D, double* Q, double* Dh) {
+  bool accept;
+  if constexpr (P == 1 && Qn == 1)
+    accept = swap_11_warp(D, Q, Dh);
+  else
+    accept = swap_general_warp<P, Qn>(D, Q, Dh);
+  if constexpr (Qn == 2)
+    if (accept) standardize_at_warp<0>(Dh, Q);
+  if constexpr (P == 2)
+    if (accept) standardize_at_warp<Qn>(Dh, Q);
   if (!accept) {
     eye4(Q);
+#pragma unroll
     for (int i = 0; i < 16; ++i) Dh[i] = D[i];
   }
   return accept;
+}
+
+// swap the (p, q) blocks at the top of D on the whole warp; returns accept
+// (Q = I, Dh = D if not)
+DEVI bool swap_adjacent_warp(const double* D, int p, int q, double* Q, double* Dh) {
+  if (p == 1)
+    return q == 1 ? swap_adjacent_warp_pq<1, 1>(D, Q, Dh)
+                  : swap_adjacent_warp_pq<1, 2>(D, Q, Dh);
+  return q == 1 ? swap_adjacent_warp_pq<2, 1>(D, Q, Dh)
+                : swap_adjacent_warp_pq<2, 2>(D, Q, Dh);
 }

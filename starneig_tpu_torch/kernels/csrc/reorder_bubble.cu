@@ -1,5 +1,6 @@
 // Window bubble of the eigenvalue reordering: selected 1x1/2x2 blocks move
-// to the top of each window by adjacent swaps, one thread block per window.
+// to the top of each window by adjacent swaps, one thread block per window,
+// on the swap-chain engine (swap_chain.cuh).
 //
 // No TPU kernel to replace: the JAX package runs this state machine as one
 // vmapped XLA while-loop (starneig_tpu/ops/reorder.py:_run_bubble_b,
@@ -7,7 +8,7 @@
 // ops/reorder.py:_window_bubble, which matches it step for step.  A scan
 // step finds the first selected block start in [dst, wlim); a block at dst
 // advances dst, any other block becomes the source.  A swap step exchanges
-// the source with the block above it (swap_adjacent in common.cuh: 4x4
+// the source with the block above it (swap_adjacent_warp in common.cuh: 4x4
 // Sylvester solve, Householder step, acceptance test), applies the 4x4
 // transform to 4 rows and 4 columns of the (W+4)^2 window and to 4 columns
 // of the W x (W+4) transform, and moves the selection flags; a rejected
@@ -19,156 +20,94 @@
 // dst_limit, wlim, 0}; rows < dst0 and >= wlim are frozen.  On return
 // state = {dst, nfail, steps, swaps}.
 //
-// What bounds it on the H100: latency, as in B4 (aed_deflate.cu).  Every
-// swap is a scalar decision and the 4x4 swap on thread 0's registers, then
-// a rank-4 similarity on 4 rows and 4 columns (~40 W flops) behind
-// barriers; the window at W = 160 is 0.22 MB and stays in global memory /
-// L2.  The windows of one pass are independent, so a launch runs them on
-// as many SMs.
-#include "common.cuh"
+// What bounds it on the H100: the serial swap chain of each window, as in
+// B4 (aed_deflate.cu).  The chain warp scans the selection flags and T's
+// subdiagonal in shared memory (a ballot over 32 rows at a time), moves
+// each block by the engine's segments, and updates the flags swap by swap;
+// the update warps apply each segment's transform to the rest of the
+// window and to Qp.  The window at W = 160 is 0.22 MB and stays in global
+// memory / L2.  The windows of one pass are independent, so a launch runs
+// them on as many SMs.
+#include "swap_chain.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace swap_chain;
 
 __global__ void __launch_bounds__(kThreads)
 reorder_bubble_kernel(double* __restrict__ Tall, double* __restrict__ Qall,
                       int* __restrict__ sall, int* __restrict__ stall, int W) {
+  extern __shared__ __align__(16) double smem[];
+  __shared__ Meta meta;
   const int g = blockIdx.x;
   const int WP = W + 4;
   double* T = Tall + (size_t)g * WP * WP;
   double* Q = Qall + (size_t)g * W * WP;
   int* sel = sall + (size_t)g * (W + 4);
   int* st = stall + 4 * g;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long long cap = 4LL * W * W;
+  const int tid = threadIdx.x;
+  const Smem sm = carve(smem, W);
+  int* flags = reinterpret_cast<int*>(sm.extra);
 
-  __shared__ int s_dst, s_src, s_nfail, s_done, s_cand, s_swaps;
-  __shared__ int s_dst_limit, s_wlim, s_a, s_c, s_q, s_accept;
-  __shared__ long long s_steps;
-  __shared__ double s_Q[16], s_Dh[16];
-
-  if (tid == 0) {
-    s_dst = st[0];
-    s_dst_limit = st[1];
-    s_wlim = st[2];
-    s_src = -1;
-    s_nfail = 0;
-    s_done = 0;
-    s_steps = 0;
-    s_swaps = 0;
-    s_cand = W;
+  for (int i = tid; i < WP; i += kThreads) {
+    sm.diag[i] = T[(size_t)i * WP + i];
+    sm.sub[i] = i + 1 < WP ? T[(size_t)(i + 1) * WP + i] : 0.0;
+    flags[i] = sel[i];
   }
   __syncthreads();
 
-  // a block of the window starts at row i (i < W)
-  auto block_start = [&](int i) { return i == 0 || T[i * WP + i - 1] == 0.0; };
-  // size of the block starting at row i
-  auto bsize = [&](int i) {
-    return (i + 1 < W && T[(i + 1) * WP + i] != 0.0) ? 2 : 1;
-  };
-
-  while (true) {
-    const bool go = !s_done && s_steps < cap;
-    const bool scan = s_src < 0;
-    const int dst = s_dst;
-    __syncthreads();  // every thread has read the state before it changes
-    if (!go) break;
-    if (scan) {
-      const int hi = s_wlim < W ? s_wlim : W;
-      int best = W;
-      for (int i = dst + tid; i < hi; i += nt)
-        if (i >= 0 && sel[i] && block_start(i)) { best = i; break; }
-      if (best < W) atomicMin(&s_cand, best);
-      __syncthreads();
-      if (tid == 0) {
-        const int s = s_cand;
-        const bool done = s >= W || dst >= s_dst_limit;
-        const bool at_dst = s == dst && !done;
-        if (at_dst) s_dst = dst + bsize(s < W - 1 ? s : W - 1);
-        s_src = (done || at_dst) ? -1 : s;
-        s_done = done;
-        s_steps += 1;
-        s_cand = W;
+  if (tid >= 32) {
+    update_warps(T, WP, Q, 0, W, sm, meta);
+  } else {
+    const int lane = tid;
+    Chain ch{T, WP, W, sm, &meta};
+    ch.cap = 4LL * W * W;
+    int dst = st[0];
+    const int dst_limit = st[1], wlim = st[2];
+    int nfail = 0, swaps = 0;
+    bool done = false;
+    // the flags of the swapped rows: a moved block takes its selection
+    // along, a stuck one is deselected
+    auto on_swap = [&](int c, int p, int q, bool accept, const double*) {
+      if (lane < 4) {
+        const int old = flags[c + lane];
+        const int moved = lane < q ? 1 : (lane < p + q ? 0 : old);
+        const int stuck = (lane >= p && lane < p + q) ? 0 : old;
+        flags[c + lane] = accept ? moved : stuck;
       }
-      __syncthreads();
-      continue;
-    }
-    // swap the source block with the block above it
-    if (tid == 0) {
-      const int src = s_src;
-      const int a = (src >= 2 && !block_start(src - 1)) ? src - 2 : src - 1;
-      const int p = src - a;
-      const int q = bsize(src);
-      // a < 0 only when dst0 splits a 2x2 block, which the reorder routines
-      // never do; the slices then start at 0 and stay in bounds (as in the twin)
-      const int ac = a > 0 ? a : 0;
-      double D[16], Qs[16], Dh[16];
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) D[r * 4 + c] = T[(ac + r) * WP + ac + c];
-      const bool accept = swap_adjacent(D, p, q, Qs, Dh);
-      for (int i = 0; i < 16; ++i) { s_Q[i] = Qs[i]; s_Dh[i] = Dh[i]; }
-      s_a = a;
-      s_c = ac;
-      s_q = q;
-      s_accept = accept;
-      int flags[4];
-      for (int i = 0; i < 4; ++i) {
-        const int old = sel[ac + i];
-        const int moved = i < q ? 1 : (i < p + q ? 0 : old);
-        const int stuck = (i >= p && i < p + q) ? 0 : old;
-        flags[i] = accept ? moved : stuck;
+      ++swaps;
+    };
+    while (!done && ch.steps < ch.cap) {
+      // scan: the first selected block start in [dst, min(wlim, W))
+      const int hi = wlim < W ? wlim : W;
+      int s = W;
+      for (int base = dst > 0 ? dst : 0; base < hi; base += 32) {
+        const int i = base + lane;
+        const bool hit = i < hi && flags[i] && (i == 0 || sm.sub[i - 1] == 0.0);
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (m) {
+          s = base + __ffs(m) - 1;
+          break;
+        }
       }
-      for (int i = 0; i < 4; ++i) sel[ac + i] = flags[i];
+      done = s >= W || dst >= dst_limit;
+      const bool at_dst = s == dst && !done;
+      if (at_dst) dst += ch.bsize(s < W - 1 ? s : W - 1);
+      ch.steps += 1;
+      if (done || at_dst) continue;
+      if (ch.move(s, dst, on_swap) == kRejected) nfail += 1;
     }
-    __syncthreads();
-    const int a = s_c;
-    // rows a..a+3 <- Qs^T rows, full width
-    for (int c = tid; c < WP; c += nt) {
-      double r[4], o[4];
-      for (int j = 0; j < 4; ++j) r[j] = T[(a + j) * WP + c];
-      for (int i = 0; i < 4; ++i) {
-        double acc = 0.0;
-        for (int j = 0; j < 4; ++j) acc += s_Q[j * 4 + i] * r[j];
-        o[i] = acc;
-      }
-      for (int i = 0; i < 4; ++i) T[(a + i) * WP + c] = o[i];
+    ch.drain();
+    ch.stop();
+    if (lane == 0) {
+      st[0] = dst;
+      st[1] = nfail;
+      st[2] = (int)ch.steps;
+      st[3] = swaps;
     }
-    __syncthreads();
-    // columns a..a+3 <- cols Qs, full height; then Q's columns
-    for (int r = tid; r < WP + W; r += nt) {
-      double* row = r < WP ? T + r * WP + a : Q + (r - WP) * WP + a;
-      double x[4], o[4];
-      for (int j = 0; j < 4; ++j) x[j] = row[j];
-      for (int i = 0; i < 4; ++i) {
-        double acc = 0.0;
-        for (int j = 0; j < 4; ++j) acc += x[j] * s_Q[j * 4 + i];
-        o[i] = acc;
-      }
-      for (int i = 0; i < 4; ++i) row[i] = o[i];
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int r = 0; r < 4; ++r)
-        for (int c = 0; c < 4; ++c) T[(a + r) * WP + a + c] = s_Dh[r * 4 + c];
-      int src = s_accept ? s_a : -1;
-      if (s_accept && src == s_dst) {
-        s_dst += s_q;
-        src = -1;
-      }
-      s_src = src;
-      s_nfail += s_accept ? 0 : 1;
-      s_steps += 1;
-      s_swaps += 1;
-    }
-    __syncthreads();
   }
-  if (tid == 0) {
-    st[0] = s_dst;
-    st[1] = s_nfail;
-    st[2] = (int)s_steps;
-    st[3] = s_swaps;
-  }
+  __syncthreads();
+  for (int i = tid; i < W + 4; i += kThreads) sel[i] = flags[i];
 }
 
 }  // namespace
@@ -176,7 +115,15 @@ reorder_bubble_kernel(double* __restrict__ Tall, double* __restrict__ Qall,
 extern "C" int reorder_bubble(void* Tp, void* Qp, void* sel, void* state, int G,
                               int W, void* stream) {
   if (G < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  reorder_bubble_kernel<<<G, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  static size_t configured = 0;
+  const size_t bytes = smem_bytes(W);
+  if (bytes > configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        reorder_bubble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = bytes;
+  }
+  reorder_bubble_kernel<<<G, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<double*>(Tp), static_cast<double*>(Qp), static_cast<int*>(sel),
       static_cast<int*>(state), W);
   return static_cast<int>(cudaGetLastError());

@@ -116,20 +116,53 @@ def test_train_hops(cuda):
     assert torch.equal(Wk[1], W[1])          # the parked train
 
 
-def test_aed_deflate(cuda):
-    w = 40
-    rng = np.random.default_rng(5)
-    T = np.triu(rng.standard_normal((w, w)))
-    for p in (6, 14, 30):
+def _deflate_input(WA, w, seed, plants=None, reject_gap=None):
+    """A Schur-form window with planted 2x2 blocks.  With reject_gap, the
+    bottom 2x2 block has an exact twin reject_gap rows above it (as
+    testing/generators.py:planted_windows plants a rejected swap) and the
+    1x1 blocks between are uncoupled from it, so its move is rejected after
+    reject_gap accepted swaps."""
+    rng = np.random.default_rng(seed)
+    T = np.zeros((WA, WA))
+    T[:w, :w] = np.triu(rng.standard_normal((w, w)))
+    top = w - 4 - reject_gap if reject_gap else w
+    for p in plants or range(6, top - 2, 8):
         T[p + 1, p] = -abs(rng.standard_normal())
         T[p, p + 1] = abs(rng.standard_normal())
-    V, _ = np.linalg.qr(np.eye(w) + 0.05 * rng.standard_normal((w, w)))
-    T, V = torch.as_tensor(T, device=cuda), torch.as_tensor(V, device=cuda)
-    Tk, Vk, kk, fk = gpu_schur.aed_deflate(T, V, 0.8, w, 1e-13)
-    Tp, Vp, kp, fp = _aed_deflate(T, V, 0.8, w, 1e-13)
+    if reject_gap:
+        b = w - 2
+        for r in (b, top):
+            T[r:r + 2, r:r + 2] = [[1.0, 2.0], [-0.5, 1.0]]
+        T[top + 2:b, b:b + 2] = 0.0
+        T[top:top + 2, b:b + 2] = [[3.0, -1.0], [2.0, 5.0]]
+    V = np.eye(WA)
+    V[:w, :w], _ = np.linalg.qr(np.eye(w) + 0.05 * rng.standard_normal((w, w)))
+    return T, V
+
+
+# the planted w=40 window; the n=4000 path's WA=322 buffer with w=60 and
+# w=322, whose moves cross many of the engine's 32-swap segments; moves
+# rejected after 20 swaps (mid-segment) and after 40 (in the second segment)
+@pytest.mark.parametrize("WA,w,seed,plants,gap,fail", [
+    (40, 40, 5, (6, 14, 30), None, 0), (322, 60, 5, None, None, 0),
+    (322, 322, 6, None, None, 0), (322, 322, 9, None, 20, 1),
+    (322, 60, 9, None, 40, 1)])
+def test_aed_deflate(cuda, WA, w, seed, plants, gap, fail):
+    T, V = _deflate_input(WA, w, seed, plants, gap)
+    Td, Vd = torch.as_tensor(T, device=cuda), torch.as_tensor(V, device=cuda)
+    Tk, Vk, kk, fk = gpu_schur.aed_deflate(Td, Vd, 0.8, w, 1e-13)
+    # the plain twin on the CPU: the same swap sequence, 10^2-10^4 times
+    # faster there than its host-driven loop on the card
+    Tp, Vp, kp, fp = _aed_deflate(torch.as_tensor(T), torch.as_tensor(V), 0.8, w, 1e-13)
     assert (int(kk), int(fk)) == (int(kp), int(fp))
-    assert float((Tk - Tp).abs().max()) <= 1e-11 * float(T.abs().max())
-    assert float((Vk - Vp).abs().max()) <= 1e-11
+    assert int(fk) == fail
+    # FMA contraction, summation order and the engine's accumulated segment
+    # transforms change the rounding only
+    Tk, Vk = Tk.cpu(), Vk.cpu()
+    assert float((Tk - Tp).abs().max()) <= 1e-10 * float(np.abs(T).max())
+    assert float((Vk - Vp).abs().max()) <= 1e-10
+    Us = V.T @ Vk.numpy()
+    assert np.linalg.norm(Us.T @ T @ Us - Tk.numpy()) / np.linalg.norm(T) / U < 500
 
 
 def _recondense_input(cuda):
@@ -166,18 +199,24 @@ def test_recondense_near_breakdown(cuda):
     assert abs(spike[0] - float(bk)) < 1e-13 and np.abs(spike[1:kbot]).max() < 1e-13
 
 
-def test_reorder_bubble(cuda):
-    G, W = 3, 24
-    Ts, sels = planted_windows(G, W, 4)     # window 0 rejects a swap
+# (G, W, seed, (dst0s, dst_limits, wlims)): frozen top and bottom rows and a
+# capped insertion at W=24; at the n=4000 reordering's W=160, frozen rows at
+# both ends and an insertion limit that stops window 1's chain early
+@pytest.mark.parametrize("G,W,seed,lims", [
+    (3, 24, 4, ([0, 1, 0], [24, 24, 6], [24, 23, 24])),
+    (3, 160, 8, ([3, 1, 0], [160, 40, 160], [159, 160, 159]))])
+def test_reorder_bubble(cuda, G, W, seed, lims):
+    Ts, sels = planted_windows(G, W, seed)     # window 0 rejects a swap
     Td = torch.as_tensor(Ts, device=cuda)
-    lims = ([0, 1, 0], [W, W, 6], [W, W - 1, W])
     Tk, Qk, selk, dstk, nfk, nsk = gpu_reorder.window_bubble(Td, sels, *lims)
     assert nfk[0] >= 1
+    Tk, Qk = Tk.cpu(), Qk.cpu()
     for g in range(G):
         Tp, Qp, selp, dstp, nfp, nsp = _window_bubble(
-            Td[g], sels[g], lims[0][g], lims[1][g], lims[2][g])
+            torch.as_tensor(Ts[g]), sels[g], lims[0][g], lims[1][g], lims[2][g])
         assert (dstk[g], nfk[g], nsk[g]) == (dstp, nfp, nsp)
         np.testing.assert_array_equal(selk[g], selp)
-        # the same swap sequence; FMA contraction and summation order only
+        # the same swap sequence; FMA contraction, summation order and the
+        # engine's accumulated segment transforms change the rounding only
         assert float((Tk[g] - Tp).abs().max()) <= 1e-10 * float(Td[g].abs().max())
         assert float((Qk[g] - Qp).abs().max()) <= 1e-10
