@@ -5,15 +5,19 @@
     python3 chip_ab.py gemv NAME=path/to/hess_gemv_NAME.cu [...]
     python3 chip_ab.py deflate NAME=path/to/aed_deflate_NAME.cu [...]
     python3 chip_ab.py bubble NAME=path/to/reorder_bubble_NAME.cu [...]
-    python3 chip_ab.py mainpath ROOT [ROOT ...]
+    python3 chip_ab.py hops NAME=path/to/train_hops_NAME.cu [...]
+    python3 chip_ab.py recondense NAME=path/to/recondense_NAME.cu [...]
+    python3 chip_ab.py mainpath [--n N] ROOT [ROOT ...]
+    python3 chip_ab.py clock [deflate|hops|recondense] [--skip-cur] [NAME=PATH ...]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
-``reorder_bubble.cu`` the window bubble) whose C entry point is renamed
-to ``ENTRY_NAME`` (for example the parent commit's file, exported under
-another symbol); it is compiled beside the repo's kernels, with
-``kernels/csrc`` on the include path, and the repo's own version runs as
-``cur``.  A B1 version whose entry point takes a ``scratch`` argument
+``reorder_bubble.cu`` the window bubble, ``train_hops.cu`` B3,
+``recondense.cu`` B5) whose C entry point is renamed to ``ENTRY_NAME``
+(for example the parent commit's file, exported under another symbol);
+it is compiled beside the repo's kernels, with its own directory and
+then ``kernels/csrc`` on the include path, and the repo's own version
+runs as ``cur``.  A B1 version whose entry point takes a ``scratch`` argument
 (the earlier two-pass transposed mode) gets a scratch buffer of
 ceil(rows / 128) * cols doubles.
 
@@ -39,12 +43,32 @@ twin run on the CPU (dst, nfail, swaps and the selection equal, T and Q
 within 1e-10), then the G=2, W=160 batch timed in turns, with the
 microseconds a swap of its longest window.
 
+hops: every version on ``chip_smoke.HOP_CASES`` (B = 3, 25, 65, 132 with
+the zero plants a sweep gives at the introductions, and B = 25 without
+them) against the plain twin on the card (``chip_smoke.hop_errors``'
+tolerances, the similarity and orthogonality of
+``chip_smoke.hop_contract``, the parked train unchanged), bit for bit
+against ``cur``, and the plain twin on the card against the CPU; then the
+B=25, G=5 hop with the plants timed in turns, as a sweep launches it
+(without the parked train).  A version that refuses B > 64 (as the
+kernel did before it took any B) is reported there, not failed.
+
+recondense: every version through ``chip_smoke.recondense_checks``
+(WA=40, 322 and 802), then WA=322 and WA=802 timed in turns.
+
 mainpath: each ROOT (a checkout holding its own ``starneig_tpu_torch``,
 such as this repo and an unpacked parent commit) in a process of its
-own, in the order given: n=4000 (A from default_rng(0)) through
-hessenberg, schur, select(Re > 0) and reorder_schur, timed, then schur
-and reorder_schur again under torch.profiler; prints one JSON line a
-root with the phase times and each kernel's device total and launches.
+own, in the order given: size N (default 4000; A from default_rng(0))
+through hessenberg, schur, select(Re > 0) and reorder_schur, timed, then
+schur and reorder_schur again under torch.profiler; prints one JSON line
+a root with the phase times, residual, orthogonality, the AED rounds'
+(w, kbot, trains) and each kernel's device total and launches.
+
+clock: where a version spends its cycles (B4 a swap, B3 a chase step,
+B5 a reduction step), from clock64 counters that literal edits put into a
+copy of the source under ``kernels/_build/clock`` (an edit list for each
+design: the kernels as they ship, and the one-block B3/B5 and one-thread
+B4 before them); the shipped kernels carry no counters.
 
 Prints the card's name and power limit first; exits nonzero if a check
 fails.  Needs a CUDA card and nvcc.
@@ -330,11 +354,116 @@ def ab_bubble(specs) -> bool:
     return ok
 
 
-def mainpath_one(root: str) -> None:
-    """In a fresh process: the n=4000 path of the package under root
+def run_hops(fn, W, sh, gidx, lr, ir, s0, B, HOP):
+    """The wrapper ops/gpu_schur.py:train_hops around another version;
+    returns (W, Qw), or None if the version refuses the launch."""
+    from starneig_tpu_torch.ops.gpu_schur import _ints
+    out = W.contiguous().clone()
+    Qw = torch.empty_like(out)
+    rc = fn(out.data_ptr(), Qw.data_ptr(), sh.data_ptr(), W.shape[0], B, W.shape[1], HOP,
+            _ints(gidx), _ints(lr), _ints(ir), _ints(s0), kernels.stream_ptr(W))
+    if rc != 0:
+        return None
+    return out, Qw
+
+
+def ab_hops(specs) -> bool:
+    """hops NAME=PATH ...: every B3 version against the plain twin on the
+    card at chip_smoke.HOP_CASES (W and Qw within chip_smoke.hop_errors'
+    tolerances, the parked train equal, similarity < 1e-13 and
+    orthogonality < 1e-12 by chip_smoke.hop_contract), and bit for bit
+    against the repo's version; then the (25, 5) hop with the zero plants
+    and without its parked train (chip_smoke.hop_launched) timed in turns.  A version that refuses B > 64 (the parent) is
+    reported, not failed, there."""
+    from chip_smoke import (HOP_CASES, _hop_case, hop_contract, hop_errors, hop_launched,
+                            torch_equal_parked)
+    from starneig_tpu_torch.ops.schur import _train_hop
+    fns = build("train_hops", specs)
+    dev = torch.device("cuda:0")
+    ok, timed_case = True, None
+    for B, G, subdiag in HOP_CASES:
+        case = _hop_case(B, G, 11 + B, dev, subdiag)
+        W, sh, gidx, lr, ir, s0, B_, HOP = case
+        label = f"B={B} G={G}" + (" nonzero subdiagonals" if subdiag else "")
+        Wp, Qp = _train_hop(W, sh[gidx], lr, ir, s0, B_, HOP)
+        outs = {}
+        for name, (fn, _s) in fns.items():
+            got = run_hops(fn, *case)
+            if got is None:
+                good = B > 64 and name != "cur"
+                ok &= good
+                print(f"{name} {label}: launch refused{'' if good else ' FAIL'}", flush=True)
+                continue
+            torch.cuda.synchronize()
+            outs[name] = got
+            ew, eq, tw, tq = hop_errors(case, *got, Wp, Qp)
+            parked = torch_equal_parked(W, got[0], lr, ir)
+            same = name == "cur" or ("cur" in outs and all(
+                torch.equal(a, b) for a, b in zip(got, outs["cur"])))
+            sim, orth = hop_contract(W, *got)
+            good = (bool((ew <= tw).all()) and bool((eq <= tq).all()) and parked
+                    and sim < 1e-13 and orth < 1e-12)
+            ok &= good
+            print(f"{name} {label}: max err by window (error/tolerance) W "
+                  + ", ".join(f"{e:.1e}/{t:.1e}" for e, t in zip(ew.tolist(), tw.tolist()))
+                  + "; Qw " + ", ".join(f"{e:.1e}/{t:.1e}" for e, t in
+                                        zip(eq.tolist(), tq.tolist()))
+                  + f"; similarity {sim:.2e}, orthogonality {orth:.2e}; parked train equal "
+                  f"{parked}; bit for bit equal to cur {same}: {'ok' if good else 'FAIL'}",
+                  flush=True)
+        Wc, Qc = _train_hop(W.cpu(), sh[gidx].cpu(), lr, ir, s0, B_, HOP)
+        print(f"plain twin {label}, card against CPU: W "
+              f"{float((Wp.cpu() - Wc).abs().max()):.2e}, Qw "
+              f"{float((Qp.cpu() - Qc).abs().max()):.2e}", flush=True)
+        if (B, G, subdiag) == (25, 5, False):
+            timed_case = hop_launched(case)
+    t = turns(fns, "B3 hop B=25, 4 trains",
+              lambda f: cuda_ms(lambda: run_hops(f, *timed_case), 20))
+    for name, ms in t.items():
+        print(f"  {name}: {min(ms) / timed_case[-1] * 1e3:.3f} us a step", flush=True)
+    return ok
+
+
+def run_recondense(fn, T, V, kbot, s):
+    T, V = T.contiguous().clone(), V.contiguous().clone()
+    beta = T.new_zeros(1)
+    kernels.check(fn(T.data_ptr(), V.data_ptr(), T.shape[0], int(kbot), float(s),
+                     beta.data_ptr(), kernels.stream_ptr(T)), "recondense")
+    return T, V, beta[0]
+
+
+def ab_recondense(specs) -> bool:
+    """recondense NAME=PATH ...: every B5 version on chip_smoke's inputs
+    (chip_smoke.recondense_checks: the WA=40 input at kbot 10, 1, 0 within
+    1e-12 of the plain twin and at kbot 25 to the contract; the B2-solved
+    window at WA=322, kbot near 300, within 1e-10 |T| and to the contract;
+    at WA=802, kbot near 780, to the contract), then WA=322 and WA=802
+    timed in turns."""
+    from chip_smoke import recondense_checks
+    fns = build("recondense", specs)
+    dev = torch.device("cuda:0")
+    ok, timed = True, {}
+    for name, (fn, _s) in fns.items():
+        try:
+            _err, cases = recondense_checks(
+                dev, lambda T, V, s, kbot, fn=fn: run_recondense(fn, T, V, kbot, s),
+                log=lambda *a: print(name, *a, flush=True))
+            timed = cases
+        except AssertionError as exc:
+            ok = False
+            print(f"{name}: FAIL ({exc})", flush=True)
+    for label, (T, V, kb) in timed.items():
+        turns(fns, f"B5 {label} kbot={kb}",
+              lambda f: cuda_ms(lambda: run_recondense(f, T, V, kb, 0.3), 5))
+    return ok
+
+
+def mainpath_one(root: str, n: int) -> None:
+    """In a fresh process: the size-n path of the package under root
     (hessenberg, schur, select, reorder_schur) timed, then schur and
     reorder_schur again under torch.profiler: each kernel's device total
-    and launches.  Prints one JSON line."""
+    and launches, the AED rounds' (w, kbot, trains) where the package logs
+    them, residual and orthogonality.  Prints one JSON line."""
     import json
     import time
     from torch.profiler import ProfilerActivity, profile
@@ -342,14 +471,15 @@ def mainpath_one(root: str) -> None:
     from starneig_tpu_torch.convert import from_numpy
     assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
     kernels.lib()
-    A = from_numpy(np.random.default_rng(0).standard_normal((4000, 4000)), "cuda")
+    A = from_numpy(np.random.default_rng(0).standard_normal((n, n)), "cuda")
     sync = torch.cuda.synchronize
     sync()
     t0 = time.perf_counter()
     H, Q = sep.hessenberg(A)
     sync()
     t1 = time.perf_counter()
-    S, Q2, *_rest, info = sep.schur(H, Q)
+    stats = {}
+    S, Q2, *_rest, info = sep.schur(H, Q, stats=stats)
     sync()
     t2 = time.perf_counter()
     sel = sep.select(S, lambda lam: lam.real > 0)
@@ -358,10 +488,21 @@ def mainpath_one(root: str) -> None:
     S2, Q3, m, rinfo = sep.reorder_schur(S, Q2, sel)
     sync()
     t4 = time.perf_counter()
-    res = float(torch.linalg.norm(Q3 @ S2 @ Q3.T - A) / torch.linalg.norm(A)) / U
-    out = dict(root=root, info=int(info), rinfo=int(rinfo), hessenberg_ms=(t1 - t0) * 1e3,
-               schur_ms=(t2 - t1) * 1e3, reorder_ms=(t4 - t3) * 1e3,
-               reorder_residual_u=res, kernels={})
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+
+    def gates(S_, Q_):
+        res = float(torch.linalg.norm(Q_ @ S_ @ Q_.T - A) / torch.linalg.norm(A)) / U
+        return res, float(torch.linalg.norm(Q_ @ Q_.T - eye)) / n ** 0.5 / U
+    res, orth = gates(S, Q2)
+    rres, rorth = gates(S2, Q3)
+    from starneig_tpu_torch.testing.hooks import schur_form_error
+    out = dict(root=root, n=n, info=int(info), rinfo=int(rinfo),
+               hessenberg_ms=(t1 - t0) * 1e3, schur_ms=(t2 - t1) * 1e3,
+               reorder_ms=(t4 - t3) * 1e3, residual_u=res, orthogonality_u=orth,
+               schur_form_error=schur_form_error(S), reorder_residual_u=rres,
+               reorder_orthogonality_u=rorth, rounds=stats.get("rounds"),
+               geometry={k: stats.get(k) for k in ("WA", "NS", "B", "WC", "TMAX")},
+               aed_log=stats.get("aed_log"), kernels={})
     phases = (("schur", lambda: sep.schur(H, Q)),
               ("reorder", lambda: sep.reorder_schur(S, Q2, sel)))
     for phase, fn in phases:
@@ -376,12 +517,16 @@ def mainpath_one(root: str) -> None:
     print("MAINPATH " + json.dumps(out), flush=True)
 
 
-def ab_mainpath(roots) -> bool:
-    """Each ROOT (a checkout with its own starneig_tpu_torch) in its own
-    process, in the order given (parent, change, change, parent)."""
+def ab_mainpath(args) -> bool:
+    """[--n N] ROOT ...: each ROOT (a checkout with its own
+    starneig_tpu_torch) in its own process, in the order given (parent,
+    change, change, parent)."""
+    n = 4000
+    if args[:1] == ["--n"]:
+        n, args = int(args[1]), args[2:]
     ok = True
-    for root in roots:
-        r = subprocess.run([sys.executable, __file__, "_mainpath_one", root],
+    for root in args:
+        r = subprocess.run([sys.executable, __file__, "_mainpath_one", root, str(n)],
                            capture_output=True, text=True)
         lines = [ln for ln in r.stdout.splitlines() if ln.startswith("MAINPATH ")]
         if r.returncode != 0 or not lines:
@@ -393,7 +538,7 @@ def ab_mainpath(roots) -> bool:
     return ok
 
 
-# clock: where a B4 version spends its cycles.  The counters go into
+# clock: where a kernel version spends its cycles.  The counters go into
 # copies of the sources made here, under kernels/_build/clock; the kernels
 # that ship have none.
 def _patch(text: str, edits) -> str:
@@ -535,8 +680,8 @@ def clock_build(name: str, path: Path):
     return fn, engine
 
 
-def ab_clock(specs) -> bool:
-    """clock NAME=PATH ...: the cycle split of each B4 version (PATH a
+def clock_deflate(specs) -> bool:
+    """clock [deflate] NAME=PATH ...: the cycle split of each B4 version (PATH a
     one-thread aed_deflate .cu, or a directory with an engine version;
     the repo's own engine runs as "cur") on WA=322 at w=322 and w=60
     (chip_smoke's inputs) and on the real Schur form of a random 322 x 322
@@ -594,13 +739,308 @@ def ab_clock(specs) -> bool:
     return True
 
 
+def _lit(text: str, edits) -> str:
+    """_patch with literal strings."""
+    import re
+    return _patch(text, [(re.escape(a), b) for a, b in edits])
+
+
+_TK = ("#define TK(i) { const long long n_ = clock64(); clk_[i] += n_ - tc_; "
+       "tc_ = n_; }\n")
+
+# B3 in its one-block design (the kernel before this PR's redesign):
+# thread 0's cycles a step in the loop-top barrier, the reflectors, the
+# barrier after them, the left update, its barrier, the plants, their
+# barrier, and the right update of W and of Qw (split into two loops here)
+HOPS_ONE_BLOCK_EDITS = [
+    ('#include "common.cuh"\n', '#include "common.cuh"\n' + _TK),
+    ("const double* __restrict__ shifts, HopParams prm) {\n",
+     "const double* __restrict__ shifts, HopParams prm,\n"
+     "                  long long* __restrict__ ctr) {\n"
+     "  long long clk_[12] = {}; long long tc_ = clock64(); const long long t0_ = tc_;\n"),
+    ("(e % (WC + 1) == 0) ? 1.0 : 0.0;\n", "(e % (WC + 1) == 0) ? 1.0 : 0.0;\n  TK(9)\n"),
+    ("    const int s = s0 + t;\n    __syncthreads();\n",
+     "    const int s = s0 + t;\n    __syncthreads();\n    TK(0)\n"),
+    ("      s_use3[b] = use3;\n    }\n    __syncthreads();\n",
+     "      s_use3[b] = use3;\n    }\n    TK(1)\n    __syncthreads();\n    TK(2)\n"),
+    ("      p[2 * WC] = r2 - (tau * v2) * sum;\n    }\n    __syncthreads();\n",
+     "      p[2 * WC] = r2 - (tau * v2) * sum;\n    }\n    TK(3)\n    __syncthreads();\n    TK(4)\n"),
+    ("      if (s_use3[b]) W[(kc + 2) * WC + kc - 1] = 0.0;\n    }\n    __syncthreads();\n",
+     "      if (s_use3[b]) W[(kc + 2) * WC + kc - 1] = 0.0;\n    }\n    TK(5)\n"
+     "    __syncthreads();\n    TK(6)\n"),
+    ("    for (int e = tid; e < 2 * WC * B; e += nt) {\n"
+     "      const int half = e / (WC * B), rem = e % (WC * B);\n",
+     "    for (int half = 0; half < 2; ++half) {\n"
+     "    for (int e = tid; e < WC * B; e += nt) {\n      const int rem = e;\n"),
+    ("      p[2] -= ts * v2;\n    }\n",
+     "      p[2] -= ts * v2;\n    }\n    if (half == 0) TK(7) else TK(8)\n    }\n"),
+    ("    }\n  }\n}\n\n}  // namespace",
+     "    }\n  }\n  if (tid == 0) {\n    clk_[10] = clock64() - t0_; clk_[11] = HOP;\n"
+     "    for (int i_ = 0; i_ < 12; ++i_) ctr[g * 32 + i_] = clk_[i_];\n  }\n}\n\n}  // namespace"),
+    ('extern "C" int train_hops(', 'extern "C" int train_hops_clk('),
+    ("void* stream) {", "void* ctr, void* stream) {"),
+    ("static_cast<const double*>(shifts), prm);",
+     "static_cast<const double*>(shifts), prm, static_cast<long long*>(ctr));"),
+]
+HOPS_ONE_BLOCK_NAMES = ["loop-top barrier", "reflectors", "barrier", "left update", "barrier ",
+                        "plants", "barrier  ", "W right update", "Qw right update"]
+
+# B5 in its one-block design: thread 0's cycles a step in the dlarfg (the
+# column copy and block_householder with its barriers), the column pass, its
+# barrier, the row pass, its barrier, and the plants with their barrier
+RECONDENSE_ONE_BLOCK_EDITS = [
+    ('#include "common.cuh"\n', '#include "common.cuh"\n' + _TK),
+    ("int lo, int m, int c0) {\n",
+     "int lo, int m, int c0, long long* clk_) {\n  long long tc_ = clock64();\n"),
+    ("    for (int i = 0; i < m; ++i) col[(size_t)i * WA] -= tau * (v[i] * w);\n  }\n"
+     "  __syncthreads();\n",
+     "    for (int i = 0; i < m; ++i) col[(size_t)i * WA] -= tau * (v[i] * w);\n  }\n"
+     "  TK(1)\n  __syncthreads();\n  TK(2)\n"),
+    ("    for (int j = lane; j < m; j += 32) row[j] -= tau * (y * v[j]);\n  }\n"
+     "  __syncthreads();\n}",
+     "    for (int j = lane; j < m; j += 32) row[j] -= tau * (y * v[j]);\n  }\n"
+     "  TK(3)\n  __syncthreads();\n  TK(4)\n}"),
+    ("int kbot, double s, double* __restrict__ beta_out) {\n",
+     "int kbot, double s, double* __restrict__ beta_out,\n"
+     "                  long long* __restrict__ ctr) {\n"
+     "  long long clk_[8] = {}; long long tc_ = clock64(); const long long t0_ = tc_;\n"),
+    ("  apply_both(T, V, WA, s_v, tau, 0, kbot, 0);\n",
+     "  apply_both(T, V, WA, s_v, tau, 0, kbot, 0, clk_);\n"),
+    ("    const int lo = j + 1, m = kbot - lo;\n",
+     "    tc_ = clock64();\n    const int lo = j + 1, m = kbot - lo;\n"),
+    ("    block_householder(s_v, m, s_red, tau, b);\n",
+     "    block_householder(s_v, m, s_red, tau, b);\n    TK(0)\n"),
+    ("    if (tau != 0.0) apply_both(T, V, WA, s_v, tau, lo, m, lo);\n",
+     "    if (tau != 0.0) apply_both(T, V, WA, s_v, tau, lo, m, lo, clk_);\n"
+     "    tc_ = clock64();\n"),
+    ("      T[(size_t)(lo + i) * WA + j] = i == 0 ? b : 0.0;\n    __syncthreads();\n  }\n}",
+     "      T[(size_t)(lo + i) * WA + j] = i == 0 ? b : 0.0;\n    __syncthreads();\n"
+     "    TK(5)\n    clk_[6] += 1;\n  }\n"
+     "  if (tid == 0) {\n    clk_[7] = clock64() - t0_;\n"
+     "    for (int i_ = 0; i_ < 8; ++i_) ctr[i_] = clk_[i_];\n  }\n}"),
+    ('extern "C" int recondense(', 'extern "C" int recondense_clk('),
+    ("void* beta, void* stream) {", "void* beta, void* ctr, void* stream) {"),
+    ("static_cast<double*>(beta));",
+     "static_cast<double*>(beta), static_cast<long long*>(ctr));"),
+]
+RECONDENSE_ONE_BLOCK_NAMES = ["dlarfg", "column pass", "barrier", "row pass", "barrier ",
+                              "plants and barrier"]
+
+
+# the counters of the current designs, inserted by the edits below: the
+# entry point takes a counter pointer before its stream, and the counting
+# thread's SN_CLK(i) adds the cycles since its last mark to slot i; slot 30
+# counts steps where the kernel does, slot 31 is the total
+CLK_MACROS = """
+#define SN_CLK_PARAM , void* sn_ctr
+#define SN_CLK_KPARAM , long long* __restrict__ sn_ctr
+#define SN_CLK_ARG , static_cast<long long*>(sn_ctr)
+#define SN_CLK_FWD , sn_ctr
+#define SN_CLK_DECL long long sn_clk_[32] = {}; long long sn_tc_ = clock64(); \\
+  const long long sn_t0_ = sn_tc_;
+#define SN_CLK(i) { const long long n_ = clock64(); sn_clk_[i] += n_ - sn_tc_; sn_tc_ = n_; }
+#define SN_CLK_ADD(i, v) sn_clk_[i] += (v);
+#define SN_CLK_OUT(base, lo, hi) { sn_clk_[31] = clock64() - sn_t0_; \\
+  for (int i_ = (lo); i_ < (hi); ++i_) sn_ctr[(base) + i_] = sn_clk_[i_]; }
+"""
+
+# B3 as it ships (the chase group and the Qw group): each group's first
+# thread, a step: the ring-slot wait, the reflectors, the left update, the
+# plants and W's right update with a group barrier after each; Qw's wait for
+# a slot, its right update and its barrier
+HOPS_EDITS = [
+    ('#include "common.cuh"\n', '#include "common.cuh"\n' + CLK_MACROS),
+    ("int* s_posted, const int* s_freed) {", "int* s_posted, const int* s_freed SN_CLK_KPARAM) {"),
+    ("ihi_rel = prm.ihi_rel[g], s0 = prm.s0[g];\n",
+     "ihi_rel = prm.ihi_rel[g], s0 = prm.s0[g];\n  SN_CLK_DECL\n"),
+    ("// the slot is free\n", "// the slot is free\n    SN_CLK(0)\n"),
+    ("    __threadfence_block();\n    group_sync(kBarChase);\n",
+     "    __threadfence_block();\n    SN_CLK(1)\n    group_sync(kBarChase);\n    SN_CLK(2)\n"),
+    ("ref, warp, lane);\n    group_sync(kBarChase);\n",
+     "ref, warp, lane);\n    SN_CLK(3)\n    group_sync(kBarChase);\n    SN_CLK(4)\n"),
+    ("kc - 1] = 0.0;\n    }\n    group_sync(kBarChase);\n",
+     "kc - 1] = 0.0;\n    }\n    SN_CLK(5)\n    group_sync(kBarChase);\n    SN_CLK(6)\n"),
+    ("                             warp, lane);\n    group_sync(kBarChase);\n  }\n",
+     "                             warp, lane);\n    SN_CLK(7)\n    group_sync(kBarChase);\n"
+     "    SN_CLK(8)\n  }\n  if (tid == 0) {\n    SN_CLK_OUT(g * 32, 0, 10)\n"
+     "    SN_CLK_OUT(g * 32, 31, 32)\n  }\n"),
+    ("HopParams prm) {", "HopParams prm SN_CLK_KPARAM) {"),
+    ("&s_posted, &s_freed);", "&s_posted, &s_freed SN_CLK_FWD);"),
+    ("&s_posted, &s_freed);", "&s_posted, &s_freed SN_CLK_FWD);"),
+    ("lane = tq & 31;\n", "lane = tq & 31;\n    SN_CLK_DECL\n"),
+    ("      wait_until(&s_posted, t + 1);\n", "      wait_until(&s_posted, t + 1);\n      SN_CLK(10)\n"),
+    ("      group_sync(kBarUpd);", "      SN_CLK(11)\n      group_sync(kBarUpd);"),
+    ("the slot is read\n", "the slot is read\n      SN_CLK(12)\n"),
+    ("(&s_freed) = t + 1;\n      }\n    }\n",
+     "(&s_freed) = t + 1;\n      }\n    }\n    if (tq == 0) { SN_CLK_OUT(g * 32, 10, 20) }\n"),
+    ('extern "C" int train_hops(', 'extern "C" int train_hops_clk('),
+    ("const int* s0,\n                          void* stream)",
+     "const int* s0\n                          SN_CLK_PARAM, void* stream)"),
+    ("static_cast<const double*>(shifts), prm);",
+     "static_cast<const double*>(shifts), prm SN_CLK_ARG);"),
+]
+HOPS_NAMES = ["ring-slot wait", "reflectors", "barrier", "left update", "barrier ", "plants",
+              "barrier  ", "W right update", "barrier   ", "", "Qw: wait for a slot",
+              "Qw: right update", "Qw: barrier"]
+
+# B5 as it ships (a cluster of blocks): block 0's first thread, a step: the
+# gather and the dlarfg, the partial v^T T, a cluster barrier, the sum and
+# the left update, the right update, the plants and the publication, a
+# cluster barrier
+RECONDENSE_EDITS = [
+    ('#include "common.cuh"\n', '#include "common.cuh"\n' + CLK_MACROS),
+    ("int slab_smem) {", "int slab_smem SN_CLK_KPARAM) {"),
+    ("xb[i] = s * rowV(0)[i];\n", "xb[i] = s * rowV(0)[i];\n  SN_CLK_DECL\n"),
+    ("beta_out[0] = beta;\n", "beta_out[0] = beta;\n    SN_CLK(0)\n"),
+    ("        p_pub[c] = w;\n      }\n      cluster.sync();\n",
+     "        p_pub[c] = w;\n      }\n      SN_CLK(1)\n      cluster.sync();\n      SN_CLK(2)\n"),
+    ("      __syncthreads();\n      // right update",
+     "      __syncthreads();\n      SN_CLK(3)\n      // right update"),
+    ("row[i] -= tau * (y * s_v[i]);\n      }\n",
+     "row[i] -= tau * (y * s_v[i]);\n      }\n      SN_CLK(4)\n"),
+    ("rowT(r)[j + 1];\n    cluster.sync();\n",
+     "rowT(r)[j + 1];\n    SN_CLK(5)\n    cluster.sync();\n    SN_CLK(6)\n    SN_CLK_ADD(30, 1)\n"),
+    ("      V[(size_t)r_lo * WA + e] = sV[e];\n    }\n  }\n",
+     "      V[(size_t)r_lo * WA + e] = sV[e];\n    }\n  }\n"
+     "  if (q == 0 && tid == 0) { SN_CLK_OUT(0, 0, 32) }\n"),
+    ('extern "C" int recondense(', 'extern "C" int recondense_clk('),
+    ("void* beta, void* stream)", "void* beta SN_CLK_PARAM, void* stream)"),
+    ("slab ? 1 : 0);", "slab ? 1 : 0 SN_CLK_ARG);"),
+]
+RECONDENSE_NAMES = ["gather and dlarfg", "partial v^T T", "cluster barrier",
+                    "sum and left update", "right update", "plants and publish",
+                    "cluster barrier "]
+
+
+def clock_build_src(name: str, entry: str, path: Path, edits, one_block_edits,
+                    one_block_mark):
+    """Instrument one version of a kernel source by literal edits in a copy:
+    the one-block design (the source holds one_block_mark) by
+    one_block_edits, the current design by edits.  Returns (the ctypes
+    function, which takes the entry's arguments plus a counter pointer
+    before the stream, is_one_block)."""
+    out = kernels.BUILD_DIR / "clock" / name
+    out.mkdir(parents=True, exist_ok=True)
+    text = path.read_text()
+    one_block = one_block_mark in text
+    text = _lit(text, one_block_edits if one_block else edits)
+    for hdr in path.parent.glob("*.cuh"):     # a version's own headers beside it
+        (out / hdr.name).write_text(hdr.read_text())
+    src = out / f"{entry}_clk.cu"
+    src.write_text(text)
+    so = out / "clk.so"
+    r = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+                        "-shared", "-I", str(out), "-I", str(kernels.CSRC), "-o", str(so),
+                        str(src)], capture_output=True, text=True)
+    print(f"--- build {name} ({path}): rc {r.returncode}\n"
+          + "\n".join(ln for ln in r.stderr.splitlines() if "stack frame" in ln
+                      or "registers" in ln or "error" in ln), flush=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the instrumented {path}:\n{r.stderr[-3000:]}")
+    fn = getattr(ctypes.CDLL(str(so)), f"{entry}_clk")
+    sig = kernels._SIGNATURES[entry]
+    fn.argtypes = sig[:-1] + [_P, _P]
+    fn.restype = ctypes.c_int
+    return fn, one_block
+
+
+def _clock_versions(entry, specs):
+    """[(name, path)]: the repo's version as "cur" (unless --skip-cur),
+    then each NAME=PATH."""
+    cur = [] if "--skip-cur" in specs else [("cur", str(kernels.CSRC / f"{entry}.cu"))]
+    return cur + [tuple(s.split("=", 1)) for s in specs if s != "--skip-cur"]
+
+
+def clock_hops(specs) -> bool:
+    """clock hops [NAME=PATH ...]: where each B3 version spends a chase
+    step's cycles, on chip_smoke's hop cases at B=25 (the n=4000 path's B,
+    TMAX) and, for a version that takes it, B=65.  Block g's counters are
+    train g's; train 2 runs all HOP steps with every bulge active, as a hop
+    inside a sweep does."""
+    from chip_smoke import _hop_case
+    from starneig_tpu_torch.ops.gpu_schur import _ints
+    dev = torch.device("cuda:0")
+    fns = {name: clock_build_src(name, "train_hops", Path(p), HOPS_EDITS,
+                                 HOPS_ONE_BLOCK_EDITS, "kMaxB")
+           for name, p in _clock_versions("train_hops", specs)}
+    for B, G in ((25, 5), (65, 5)):
+        W, sh, gidx, lr, ir, s0, B_, HOP = _hop_case(B, G, 11 + B, dev)
+        for name, (fn, one_block) in fns.items():
+            if one_block and B > 64:
+                continue
+            ctr = torch.zeros(G * 32, dtype=torch.int64, device=dev)
+
+            def run(fn=fn, ctr=ctr):
+                out = W.contiguous().clone()
+                Qw = torch.empty_like(out)
+                kernels.check(fn(out.data_ptr(), Qw.data_ptr(), sh.data_ptr(), G, B_,
+                                 W.shape[1], HOP, _ints(gidx), _ints(lr), _ints(ir),
+                                 _ints(s0), ctr.data_ptr(), kernels.stream_ptr(W)),
+                              "train_hops_clk")
+            run()
+            ms = cuda_ms(run, 5)
+            c = ctr.view(G, -1).cpu().tolist()
+            names = HOPS_ONE_BLOCK_NAMES if one_block else HOPS_NAMES
+            for g in range(G):
+                row = c[g]
+                steps = HOP
+                total = row[10] if one_block else row[31]
+                print(f"hops B={B} G={G} {name} train {g} (l_rel {lr[g]}, ihi_rel {ir[g]}, "
+                      f"s0 {s0[g]}): {ms:.3f} ms a hop, {total / steps:.0f} cycles a step "
+                      f"({total / (ms * 1e6):.3f} GHz); cycles a step: "
+                      + ", ".join(f"{k.strip()} {row[i] / steps:.0f}" for i, k in
+                                  enumerate(names) if k), flush=True)
+    return True
+
+
+def clock_recondense(specs) -> bool:
+    """clock recondense [NAME=PATH ...]: where each B5 version spends a
+    reduction step's cycles, on chip_smoke's B2-solved window at WA=322
+    (kbot near 300) and at WA=802 (the n=10,000 geometry, kbot near 780)."""
+    from chip_smoke import recondense_window
+    dev = torch.device("cuda:0")
+    fns = {name: clock_build_src(name, "recondense", Path(p), RECONDENSE_EDITS,
+                                 RECONDENSE_ONE_BLOCK_EDITS, "int lo, int m, int c0) {")
+           for name, p in _clock_versions("recondense", specs)}
+    for WA, near in ((322, 300), (802, 780)):
+        Sw, Zw, kb = recondense_window(WA, near, dev)
+        for name, (fn, one_block) in fns.items():
+            ctr = torch.zeros(64, dtype=torch.int64, device=dev)
+
+            def run(fn=fn, ctr=ctr):
+                T, V = Sw.clone(), Zw.clone()
+                beta = T.new_zeros(1)
+                kernels.check(fn(T.data_ptr(), V.data_ptr(), WA, kb, 0.3, beta.data_ptr(),
+                                 ctr.data_ptr(), kernels.stream_ptr(T)), "recondense_clk")
+            run()
+            ms = cuda_ms(run, 3)
+            c = ctr.cpu().tolist()
+            names = RECONDENSE_ONE_BLOCK_NAMES if one_block else RECONDENSE_NAMES
+            steps = max(c[6] if one_block else c[30], 1)
+            total = c[7] if one_block else c[31]
+            print(f"recondense WA={WA} kbot={kb} {name}: {ms:.3f} ms, {steps} steps, "
+                  f"{total / steps:.0f} cycles a step ({total / (ms * 1e6):.3f} GHz); "
+                  "cycles a step: " + ", ".join(f"{k.strip()} {c[i] / steps:.0f}" for i, k in
+                                                 enumerate(names) if k), flush=True)
+    return True
+
+
+def ab_clock(args) -> bool:
+    """clock [deflate|hops|recondense] [--skip-cur] [NAME=PATH ...]"""
+    kind = args[0] if args and "=" not in args[0] else "deflate"
+    rest = args[1:] if args and "=" not in args[0] else args
+    return {"deflate": clock_deflate, "hops": clock_hops,
+            "recondense": clock_recondense}[kind](rest)
+
+
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
-         "bubble": ab_bubble, "mainpath": ab_mainpath, "clock": ab_clock}
+         "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
+         "mainpath": ab_mainpath, "clock": ab_clock}
 
 
 def main() -> int:
-    if len(sys.argv) >= 3 and sys.argv[1] == "_mainpath_one":
-        mainpath_one(sys.argv[2])
+    if len(sys.argv) >= 4 and sys.argv[1] == "_mainpath_one":
+        mainpath_one(sys.argv[2], int(sys.argv[3]))
         return 0
     if len(sys.argv) < 2 or sys.argv[1] not in MODES:
         print(__doc__, file=sys.stderr)

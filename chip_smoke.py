@@ -15,13 +15,21 @@ Phases (any failure raises; the exit code is then nonzero):
      twins' one timed run at the main path's shape comes after their runs
      at the smaller shapes, which serve as the warm-up); each kernel's
      bound (bytes over HBM_BPS or fp64 operations over F64_FLOPS, counted
-     from this run's inputs); B1's transposed mode beside M.T @ x, in
-     turns, by CUDA events and by profiler device time, and checked
-     bit-for-bit across two launches; B2's chase steps; B4's and the
-     bubble's swaps, microseconds a swap and serial-chain floor (swaps x
+     from this run's inputs), and under each kernel's detail its serial
+     chain from cycle counts of earlier runs (chip_ab.py clock); B1's
+     transposed mode beside M.T @ x, in turns, by CUDA events and by
+     profiler device time, and checked bit-for-bit across two launches;
+     B2's chase steps; B3 at B = 3, 25, 65 and 132 (the n=4000, 10,000 and
+     20,000 geometries) with the zero plant a sweep gives at each
+     introduction, and at B = 25 without it (the full-range path); B4's and
+     the bubble's swaps, microseconds a swap and serial-chain floor (swaps x
      SWAP_CYCLES), on inputs that include rejected swaps mid-segment, frozen
-     rows and an insertion limit;
-  4. main path: a seeded n=200 solve and a seeded n=200 api.sep.reduce
+     rows and an insertion limit; B5 at WA=40, 322 and 802;
+  4. n=1200 with B=70: api.sep.hessenberg and api.sep.schur with a
+     geometry of 70 bulges a train, gated on info, residual,
+     orthogonality, the Schur form, the eigenvalues against numpy and B3's
+     launches;
+  5. main path: a seeded n=200 solve and a seeded n=200 api.sep.reduce
      (Re(lambda) > 0) checked against numpy and the CPU run of the port;
      then n=4000 (A from default_rng(0)) through api.sep.hessenberg,
      api.sep.schur, api.sep.select(Re(lambda) > 0), api.sep.reorder_schur
@@ -69,6 +77,13 @@ CHAIN_US = 0.6
 # their floor
 SWAP_CYCLES = {(1, 1): 1442, (1, 2): 9750, (2, 1): 10660, (2, 2): 11424}
 SM_HZ = 1.98e9
+# B3's chain a step and B5's a reduction step, in cycles (clock64 counters
+# in instrumented copies of the kernels as shipped, chip_ab.py clock hops /
+# recondense, PERF.md section 6): the reflectors' phase of a hop step at B=25 (the shortest over
+# the trains), and a recondense step's gather and dlarfg, the partial
+# products, the cluster barrier and the sum at WA=322, kbot=300
+HOP_STEP_CYCLES = 2725
+RECONDENSE_STEP_CYCLES = 6648
 
 REPLACES = {
     "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
@@ -87,6 +102,11 @@ HBM_BPS = 3.35e12
 F64_FLOPS = 34e12
 # the kernels of Hessenberg -> Schur; the reordering runs reorder_bubble
 SCHUR_KERNELS = ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense")
+
+
+def _b70_conf():
+    from starneig_tpu_torch.config import SchurConf
+    return SchurConf(aed_window_size=200, aed_shift_count=160, shifts_per_window=140)
 
 
 def log(*a):
@@ -328,8 +348,12 @@ def phase_francis(dev):
                 bound_by=by, detail=dict(steps=steps, serial_floor_ms=floor_ms))
 
 
-def _hop_case(B, G, seed, dev):
-    """G windows with trains at different hops, one of them parked."""
+def _hop_case(B, G, seed, dev, subdiag=False):
+    """G windows with trains at different hops, one of them parked.  A
+    train that introduces its bulges at l_rel meets W[l_rel, l_rel - 1] = 0,
+    as a sweep gives it (a sweep starts at a zero subdiagonal); with
+    subdiag that entry keeps its random value, the input on which B3 runs
+    its full ranges."""
     import numpy as np
     import torch
     WC, HOP = 6 * B + 4, 3 * B
@@ -342,36 +366,143 @@ def _hop_case(B, G, seed, dev):
               (first - HOP, first + HOP // 2, HOP)]
     trains = (trains * G)[:G]
     l_rel, ihi_rel, s0 = (list(t) for t in zip(*trains))
+    if not subdiag:
+        for g in range(G):
+            if s0[g] == 0 and ihi_rel[g] > l_rel[g]:
+                W[g, l_rel[g], l_rel[g] - 1] = 0.0
     return (torch.from_numpy(W).to(dev), torch.from_numpy(sh).to(dev),
             list(range(G)), l_rel, ihi_rel, s0, B, HOP)
+
+
+# B3's inputs (B, G, subdiag): a small case; the n=4000 path's (B, TMAX) =
+# (25, 5); n=10,000's B = 65 with TMAX 5; n=20,000's B = 132 with two
+# trains; then (25, 5) with nonzero subdiagonals at the introductions, the
+# one case of the kernel's full-range path
+HOP_CASES = ((3, 4, False), (25, 5, False), (65, 5, False), (132, 2, False), (25, 5, True))
+
+
+def hop_launched(case):
+    """The case as a sweep launches it: without its parked trains, which
+    ops/schur.py:_sweep_wave leaves out of the launch (in the kernel a
+    parked train runs every step with zero reflectors over full ranges,
+    the slowest block of the hop)."""
+    W, sh, gidx, lr, ir, s0, B, HOP = case
+    keep = [g for g in range(W.shape[0]) if (lr[g], ir[g]) != (1, 0)]
+    return (W[keep].contiguous(), sh, [gidx[g] for g in keep], [lr[g] for g in keep],
+            [ir[g] for g in keep], [s0[g] for g in keep], B, HOP)
+
+
+def hop_sensitivity(case, Wp, Qp):
+    """How far one ulp of input moves the plain twin's hop, per window:
+    (max |dW| / max |W|, max |dQw|) between (Wp, Qp), the twin's result on
+    the case, and its result on W with every nonzero entry moved one ulp up
+    or down (seeded signs; the zeros stay)."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops.schur import _train_hop
+    W, sh, gidx, lr, ir, s0, B, HOP = case
+    sign = torch.from_numpy(np.random.default_rng(5).choice([-1.0, 1.0], W.shape)).to(W.device)
+    Wu = torch.where(W == 0, W, torch.nextafter(W, sign * float("inf")))
+    Wb, Qb = _train_hop(Wu, sh[gidx], lr, ir, s0, B, HOP)
+    return ((Wb - Wp).abs().amax(dim=(1, 2)) / W.abs().amax(dim=(1, 2)),
+            (Qb - Qp).abs().amax(dim=(1, 2)))
+
+
+def hop_errors(case, Wk, Qk, Wp, Qp):
+    """B3's result (Wk, Qk) on one of HOP_CASES against the plain twin's
+    (Wp, Qp), per window: (max |Wk - Wp| / max |W|, max |Qk - Qp|, and the
+    tolerance on each).  The same operations in another summation order
+    and with other FMA contractions: 1e-12 at B < 65 (the full-range case
+    included).  From B = 65 on, 1e-11, or 4 times the plain twin's own
+    hop_sensitivity where that is larger: the introduction of B bulges into
+    a random window amplifies a one-ulp change of its input by up to ~1e5
+    (W moves by up to 1.2e-11 |W| at B = 65 and 2.3e-11 |W| at B = 132 on
+    these cases, with or without the zero plant), and the kernel and the
+    twin each round every step of it, up to twice such a change."""
+    import torch
+    W, B = case[0], case[6]
+    ew = (Wk - Wp).abs().amax(dim=(1, 2)) / W.abs().amax(dim=(1, 2))
+    eq = (Qk - Qp).abs().amax(dim=(1, 2))
+    if B < 65:
+        tw = tq = torch.full_like(ew, 1e-12)
+    else:
+        sw, sq = hop_sensitivity(case, Wp, Qp)
+        tw, tq = (torch.clamp(4 * x, min=1e-11) for x in (sw, sq))
+    return ew, eq, tw, tq
+
+
+def hop_contract(W, Wk, Qk):
+    """(similarity, orthogonality) of a hop's result, worst over the
+    windows: ||Qw^T W Qw - W2||_F / ||W||_F and ||Qw^T Qw - I||_F.  The
+    plain twin gives at most 2.2e-15 and 7.9e-14 on HOP_CASES (CPU), so the
+    kernel is held to 1e-13 and 1e-12."""
+    import numpy as np
+    sim = orth = 0.0
+    for g in range(W.shape[0]):
+        Wn, Wo, Q = (x[g].cpu().numpy() for x in (W, Wk, Qk))
+        sim = max(sim, np.linalg.norm(Q.T @ Wn @ Q - Wo) / np.linalg.norm(Wn))
+        orth = max(orth, np.linalg.norm(Q.T @ Q - np.eye(len(Q))))
+    return sim, orth
+
+
+def hop_chain_ms(B):
+    """B3's serial floor for one hop: HOP = 3B steps, each at least one
+    bulge's reflector plus the W updates it waits for (HOP_STEP_CYCLES)."""
+    return 3 * B * HOP_STEP_CYCLES / SM_HZ * 1e3
 
 
 def phase_train_hops(dev):
     from starneig_tpu_torch.ops.gpu_schur import train_hops
     from starneig_tpu_torch.ops.schur import _train_hop
-    err = 0.0
-    for B, G in ((3, 4), (25, 5)):          # (25, 5): the main path's B, TMAX
-        W, sh, gidx, lr, ir, s0, B_, HOP = _hop_case(B, G, 11 + B, dev)
+    err, detail, cases = 0.0, {}, {}
+    for B, G, subdiag in HOP_CASES:
+        case = _hop_case(B, G, 11 + B, dev, subdiag)
+        W, sh, gidx, lr, ir, s0, B_, HOP = case
+        if not subdiag:
+            cases[B] = case
         Wk, Qk = train_hops(W, sh, gidx, lr, ir, s0, B_, HOP)
         Wp, Qp = _train_hop(W, sh[gidx], lr, ir, s0, B_, HOP)
-        scale = float(W.abs().max())
-        dw, dq = float((Wk - Wp).abs().max()), float((Qk - Qp).abs().max())
-        log(f"  B3 B={B} WC={6 * B + 4} G={G}: max abs err window {dw:.2e} "
-            f"(|W| {scale:.2f}), Qw {dq:.2e}")
-        # the same operations; FMA contraction and summation order only
-        check(dw < 1e-12 * scale and dq < 1e-12, f"B3 B={B} disagrees")
-        err = max(err, dw, dq)
-    ms = cuda_ms(lambda: train_hops(W, sh, gidx, lr, ir, s0, B_, HOP), 20)
-    pms = cuda_ms(lambda: _train_hop(W, sh[gidx], lr, ir, s0, B_, HOP), 2)
-    # active bulge steps: each updates 3 rows and 3 columns of its window
-    # and 3 columns of Qw, 14 flops an entry triple
-    G, WC = W.shape[0], W.shape[1]
-    active = sum(lr[g] <= lr[g] + s0[g] + t - 3 * b <= ir[g] - 2
-                 for g in range(G) for t in range(HOP) for b in range(B_))
-    bms, by = bound(8 * 3 * G * WC * WC, active * 14 * 3 * WC)
-    log(f"  B3 one hop, B=25 WC=154 G=5: kernel {ms:.3f} ms, plain {pms:.1f} ms, "
-        f"{active} bulge steps, bound {bms:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+        ew, eq, tw, tq = hop_errors(case, Wk, Qk, Wp, Qp)
+        parked = torch_equal_parked(W, Wk, lr, ir)
+        sim, orth = hop_contract(W, Wk, Qk)
+        label = f"B3 B={B} WC={6 * B + 4} G={G}" + (
+            ", nonzero subdiagonals (full ranges)" if subdiag else "")
+        log(f"  {label}: max err by window (error/tolerance) W relative to |W| "
+            + ", ".join(f"{e:.1e}/{t:.1e}" for e, t in zip(ew.tolist(), tw.tolist()))
+            + "; Qw " + ", ".join(f"{e:.1e}/{t:.1e}" for e, t in zip(eq.tolist(), tq.tolist()))
+            + f"; similarity {sim:.2e}, orthogonality {orth:.2e}; parked train equal {parked}")
+        check(bool((ew <= tw).all()) and bool((eq <= tq).all()) and parked,
+              f"{label} disagrees")
+        check(sim < 1e-13 and orth < 1e-12, f"{label} breaks the contract")
+        err = max(err, float((Wk - Wp).abs().max()), float(eq.max()))
+    # timed as a sweep launches the trains: the parked one left out
+    for B in (25, 65, 132):
+        W, sh, gidx, lr, ir, s0, B_, HOP = hop_launched(cases[B])
+        G = W.shape[0]
+        ms = cuda_ms(lambda: train_hops(W, sh, gidx, lr, ir, s0, B_, HOP), 20 if B < 100 else 5)
+        pms = cuda_ms(lambda: _train_hop(W, sh[gidx], lr, ir, s0, B_, HOP), 2 if B < 100 else 1)
+        # active bulge steps: each updates 3 rows and 3 columns of its window
+        # and 3 columns of Qw, 14 flops an entry triple
+        WC = W.shape[1]
+        active = sum(lr[g] <= lr[g] + s0[g] + t - 3 * b <= ir[g] - 2
+                     for g in range(G) for t in range(HOP) for b in range(B_))
+        bms, by = bound(8 * 3 * G * WC * WC, active * 14 * 3 * WC)
+        chain = hop_chain_ms(B)
+        log(f"  B3 one hop, B={B} WC={WC} G={G}: kernel {ms:.3f} ms ({ms / HOP * 1e3:.2f} us "
+            f"a step), plain {pms:.1f} ms, {active} bulge steps, bound {bms:.4f} ms ({by}), "
+            f"serial chain {chain:.4f} ms ({HOP} steps x {HOP_STEP_CYCLES} cycles)")
+        detail[f"B={B}"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                serial_chain_ms=chain)
+    main = detail["B=25"]
+    return dict(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"], detail=detail)
+
+
+def torch_equal_parked(W, Wk, l_rel, ihi_rel):
+    """Every parked train's window (l_rel = 1, ihi_rel = 0) left as it was."""
+    import torch
+    return all(torch.equal(Wk[g], W[g]) for g in range(W.shape[0])
+               if (l_rel[g], ihi_rel[g]) == (1, 0))
 
 
 def _deflate_case(WA, w, seed, dev, plants=None):
@@ -517,10 +648,29 @@ def recondense_contract(T, V0, s, kbot, To, Vo, beta):
     return res, orth, struct, sp
 
 
-def phase_recondense(dev):
+def recondense_window(WA, near, dev):
+    """B5's input as an AED round gives it at window size WA: the
+    Hessenberg form of a seeded dense matrix, solved by B2, and kbot the
+    block boundary at `near` (near + 1 if a 2x2 block straddles it).
+    Returns (T, V, kbot)."""
     import numpy as np
     import torch
-    from starneig_tpu_torch.ops.gpu_schur import aed_recondense, francis
+    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.ops.gpu_schur import francis
+    Hw, _ = sep.hessenberg(np.random.default_rng(2).standard_normal((WA, WA)),
+                           device=dev)
+    Sw, Zw, info = francis(Hw, torch.eye(WA, dtype=torch.float64, device=dev),
+                           WA, U / 2 * float(torch.linalg.norm(Hw)))
+    check(int(info) == 0, f"B5 input WA={WA}: window solve failed")
+    return Sw, Zw, near if float(Sw[near, near - 1]) == 0 else near + 1
+
+
+def recondense_checks(dev, kernel, log=log):
+    """Hold kernel(T, V, s, kbot) -> (T, V, beta) (B5 or a version of it) to
+    the plain twin and to the contract on B5's inputs; raises on a miss.
+    Returns (max abs err, {label: (T, V, kbot)} of the timed windows)."""
+    import numpy as np
+    import torch
     from starneig_tpu_torch.ops.schur import _aed_recondense
     err = 0.0
     # the input of tests/test_pallas_kernels.py:74
@@ -529,7 +679,7 @@ def phase_recondense(dev):
     Q, _ = np.linalg.qr(rng.standard_normal((40, 40)))
     Td, Qd = torch.as_tensor(T, device=dev), torch.as_tensor(Q, device=dev)
     for kbot in (10, 1, 0):
-        Tk, Vk, bk = aed_recondense(Td, Qd, 0.37, kbot)
+        Tk, Vk, bk = kernel(Td, Qd, 0.37, kbot)
         Tp, Vp, bp = _aed_recondense(Td, Qd, 0.37, kbot)
         dt, dv = float((Tk - Tp).abs().max()), float((Vk - Vp).abs().max())
         db = abs(float(bk) - float(bp))
@@ -541,7 +691,7 @@ def phase_recondense(dev):
     # kbot=25 on this input reduces to a subdiagonal of 3.8e-10 (ROADMAP
     # section C): past it the Hessenberg form is not determined by
     # roundoff-level data, so both sides are held to the contract there
-    Tk, Vk, bk = aed_recondense(Td, Qd, 0.37, 25)
+    Tk, Vk, bk = kernel(Td, Qd, 0.37, 25)
     Tp, Vp, bp = _aed_recondense(Td, Qd, 0.37, 25)
     for name, To, Vo, b in (("kernel", Tk, Vk, bk), ("plain", Tp, Vp, bp)):
         res, orth, struct, sp = recondense_contract(
@@ -557,42 +707,64 @@ def phase_recondense(dev):
     # window keeps its reduced subdiagonals O(1), and the recondense is
     # determined elementwise (the JAX and torch versions agree to 6e-14
     # |T| on it, against O(|T|) on a random Hessenberg window, whose
-    # eigenvalues are exponentially ill-conditioned).
-    from starneig_tpu_torch.api import sep
-    Hw, _ = sep.hessenberg(np.random.default_rng(2).standard_normal((322, 322)),
-                           device=dev)
-    Sw, Zw, info = francis(Hw, torch.eye(322, dtype=torch.float64, device=dev),
-                           322, U / 2 * float(torch.linalg.norm(Hw)))
-    check(int(info) == 0, "B5 input: window solve failed")
-    Swn = Sw.cpu().numpy()
-    kb = 300 if Swn[300, 299] == 0 else 301
-    Tk, Vk, bk = aed_recondense(Sw, Zw, 0.3, kb)
-    (Tp, Vp, bp), plain_ms = timed(lambda: _aed_recondense(Sw, Zw, 0.3, kb))
-    scale = float(Sw.abs().max())
-    dt, dv = float((Tk - Tp).abs().max()), float((Vk - Vp).abs().max())
-    db = abs(float(bk) - float(bp))
-    res, orth, struct, sp = recondense_contract(
-        Swn, Zw.cpu().numpy(), 0.3, kb, Tk.cpu().numpy(), Vk.cpu().numpy(), float(bk))
-    log(f"  B5 WA=322 kbot={kb}: max abs err T {dt:.2e} (|T| {scale:.2f}), V "
-        f"{dv:.2e}, beta {db:.2e}; kernel similarity {res:.2e}, orth {orth:.2e}, "
-        f"below-subdiagonal {struct}, spike {sp:.2e}")
-    # the same reflectors in another summation order, on a well-determined
-    # reduction
-    check(dt <= 1e-10 * scale and dv <= 1e-10 and db <= 1e-12,
-          f"B5 WA=322 disagrees: {dt}, {dv}, {db}")
-    check(res < 1e-13 and orth < 1e-12 and struct == 0.0 and sp < 1e-13,
-          "B5 WA=322 kernel breaks the contract")
-    err = max(err, dt, dv, db)
-    ms = cuda_ms(lambda: aed_recondense(Sw, Zw, 0.3, kb), 5)
-    # each reflector of length L on rows/columns lo..kbot: 4 flops an entry
-    # over T's rows right of its column, T's kbot rows and V's WA rows
-    WA = 322
-    flops = 4 * kb * (2 * WA + kb) + sum(
+    # eigenvalues are exponentially ill-conditioned).  Then n=10,000's
+    # WA=802 at kbot near 780, held to the contract: 780 reflectors of
+    # length up to 780 add about sqrt(WA) WA u = 5e-13 to the similarity and
+    # orthogonality in the Frobenius norm, so 1e-12 and 1e-11 there.
+    cases = {}
+    for WA, near, lim in ((322, 300, (1e-13, 1e-12, 1e-13)),
+                          (802, 780, (1e-12, 1e-11, 1e-12))):
+        Sw, Zw, kb = recondense_window(WA, near, dev)
+        cases[f"WA={WA}"] = (Sw, Zw, kb)
+        Tk, Vk, bk = kernel(Sw, Zw, 0.3, kb)
+        Tp, Vp, bp = _aed_recondense(Sw, Zw, 0.3, kb)
+        scale = float(Sw.abs().max())
+        dt, dv = float((Tk - Tp).abs().max()), float((Vk - Vp).abs().max())
+        db = abs(float(bk) - float(bp))
+        res, orth, struct, sp = recondense_contract(
+            Sw.cpu().numpy(), Zw.cpu().numpy(), 0.3, kb, Tk.cpu().numpy(),
+            Vk.cpu().numpy(), float(bk))
+        log(f"  B5 WA={WA} kbot={kb}: max abs err T {dt:.2e} (|T| {scale:.2f}), V "
+            f"{dv:.2e}, beta {db:.2e}; kernel similarity {res:.2e}, orth {orth:.2e}, "
+            f"below-subdiagonal {struct}, spike {sp:.2e}")
+        if WA == 322:
+            # the same reflectors in another summation order, on a
+            # well-determined reduction
+            check(dt <= 1e-10 * scale and dv <= 1e-10 and db <= 1e-12,
+                  f"B5 WA=322 disagrees: {dt}, {dv}, {db}")
+            err = max(err, dt, dv, db)
+        check(res < lim[0] and orth < lim[1] and struct == 0.0 and sp < lim[2],
+              f"B5 WA={WA} kernel breaks the contract")
+    return err, cases
+
+
+def recondense_flops(WA, kb):
+    """A recondense's fp64 operations: each reflector of length L on
+    rows/columns lo..kbot, 4 flops an entry over T's rows right of its
+    column, T's kbot rows and V's WA rows."""
+    return 4 * kb * (2 * WA + kb) + sum(
         4 * (kb - j - 1) * ((WA - j) + kb + WA) for j in range(kb - 1))
-    bms, by = bound(8 * 4 * WA * WA, flops)
-    log(f"  B5 WA=322 kbot={kb}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
-        f"bound {bms:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def phase_recondense(dev):
+    from starneig_tpu_torch.ops.gpu_schur import aed_recondense
+    from starneig_tpu_torch.ops.schur import _aed_recondense
+    err, cases = recondense_checks(dev, aed_recondense)
+    detail = {}
+    for label, (Sw, Zw, kb) in cases.items():
+        WA = Sw.shape[0]
+        ms = cuda_ms(lambda: aed_recondense(Sw, Zw, 0.3, kb), 5)
+        _out, plain_ms = timed(lambda: _aed_recondense(Sw, Zw, 0.3, kb))
+        bms, by = bound(8 * 4 * WA * WA, recondense_flops(WA, kb))
+        chain = kb * RECONDENSE_STEP_CYCLES / SM_HZ * 1e3
+        log(f"  B5 {label} kbot={kb}: kernel {ms:.3f} ms ({ms / kb * 1e3:.2f} us a step), "
+            f"plain {plain_ms:.1f} ms, bound {bms:.4f} ms ({by}), serial chain "
+            f"{chain:.3f} ms ({kb} steps x {RECONDENSE_STEP_CYCLES} cycles)")
+        detail[label] = dict(kbot=kb, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             serial_chain_ms=chain)
+    main = detail["WA=322"]
+    return dict(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"], detail=detail)
 
 
 # the bubble's inputs (G, W, seed, (dst0s, dst_limits, wlims)): small
@@ -669,7 +841,7 @@ def phase_bubble(dev):
         f"longest window's swaps x swap_adjacent cycles)")
     return dict(max_abs_err=err, ms=ms, plain_ms=timed_case["plain_ms"], bound_ms=bms,
                 bound_by=by, detail=dict(us_a_swap=ms / timed_case["nmax"] * 1e3,
-                                         serial_chain_ms=timed_case["chain_ms"]))
+                            serial_chain_ms=timed_case["chain_ms"]))
 
 
 def solve(A):
@@ -748,6 +920,46 @@ def phase_reduce(dev):
           and lead_ok and res < GATE_U and orth < GATE_U and form == 0.0,
           "reduce n=200 check fails")
     return dict(selected=mg, eig_vs_cpu=d, residual_u=res, orthogonality_u=orth)
+
+
+def phase_schur_b70(dev):
+    """sep.hessenberg -> sep.schur at n=1,200 with a geometry of B=70 bulges
+    a train (WA=202, NS=160, B=70, WC=424, TMAX=2): B3 above the old limit
+    of 64 on the main path's own calls."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.convert import from_numpy, to_numpy
+    from starneig_tpu_torch.testing.hooks import schur_form_error
+    n = 1200
+    A_np = np.random.default_rng(1200).standard_normal((n, n))
+    A = from_numpy(A_np, dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    H, Q = sep.hessenberg(A, device=dev)
+    stats = {}
+    S, Q2, er, ei, info = sep.schur(H, Q, conf=_b70_conf(), stats=stats, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    res, orth = gates(A, S, Q2)
+    form = schur_form_error(S)
+    geo = tuple(stats.get(k) for k in ("WA", "NS", "B", "WC", "TMAX"))
+    ev = np.sort_complex(to_numpy(er) + 1j * to_numpy(ei))
+    d = float(np.abs(ev - np.sort_complex(np.linalg.eigvals(A_np))).max()) / np.linalg.norm(A_np)
+    log(f"  n={n} B=70: info {int(info)}, geometry (WA, NS, B, WC, TMAX) {geo}, rounds "
+        f"{stats.get('rounds')}, residual {res:.1f}u orth {orth:.1f}u, Schur form error "
+        f"{form}, eigenvalues vs numpy {d:.2e} |A|, launches {launches}")
+    check(geo == (202, 160, 70, 424, 2), f"n={n}: geometry {geo}")
+    check(int(info) == 0 and res < GATE_U and orth < GATE_U and form == 0.0,
+          f"n={n} B=70 gates: info {int(info)}, {res}, {orth}, {form}")
+    # a backward-stable Schur form (residual < 500 u) moves each eigenvalue
+    # by at most its condition number times 500 u ||A||; the eigenvalues of a
+    # random matrix stay far below 1e-10 ||A||_F (the n=200 check's bound)
+    check(d < 1e-10, f"n={n} B=70: eigenvalues differ from numpy by {d}")
+    check(launches["train_hops"] > 0, f"n={n} B=70: B3 was not launched")
+    return dict(info=int(info), residual_u=res, orthogonality_u=orth, schur_form_error=form,
+                eig_vs_numpy=d, rounds=stats.get("rounds"), launches=launches)
 
 
 def phase_main(dev):
@@ -894,7 +1106,9 @@ def main() -> int:
                "aed_deflate": phase_deflate(dev),
                "recondense": phase_recondense(dev),
                "reorder_bubble": phase_bubble(dev)}
-    log("== 4. main path")
+    log("== 4. n=1200 with B=70")
+    b70 = phase_schur_b70(dev)
+    log("== 5. main path")
     main_res = phase_main(dev)
 
     table = [dict(name=k, route="cuda", source=SOURCES[k],
@@ -906,7 +1120,7 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(card=smi, build_s=build_s, kernels=results, main=main_res,
+            dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70, main=main_res,
                  torch=torch.__version__, cuda=torch.version.cuda),
             indent=1, default=str))
     print(smi)

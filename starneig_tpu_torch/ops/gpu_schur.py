@@ -3,8 +3,9 @@
 Port of ``starneig_tpu/ops/pallas_schur.py``.  The TPU kernels there ran
 the serial window work in df32 with the window resident in VMEM; the
 H100 kernels (``kernels/csrc/francis.cu``, ``train_hops.cu``,
-``aed_deflate.cu``, ``recondense.cu``) run it in native fp64 with one
-thread block per window, the window in global memory / L2.  Each wrapper
+``aed_deflate.cu``, ``recondense.cu``) run it in native fp64: one thread
+block per window (B3: per train, W in shared memory where it fits), and
+for B5 a cluster of blocks that split the window's rows.  Each wrapper
 here launches its kernel on CUDA tensors and raises on any other.  The op
 that owns the plain PyTorch twin dispatches on the device:
 

@@ -453,7 +453,7 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
     window Schur solve (B2), spike deflation with block moves (B4), shift
     extraction, recondense, and the window-transform GEMMs.  Returns
     (shifts (TMAX, B, 4) tensor, status) with status the host ints
-    (new_ihi, l, ntr, sfail, nd, npairs).
+    (new_ihi, l, ntr, sfail, nd, npairs, w), w the window's active size.
     """
     NP = Spad.shape[0]
     n = NP - 2 * P
@@ -471,7 +471,7 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
     zb = np.nonzero(sub[:max(ihi - 1, 0)] == 0.0)[0]
     l = int(zb[-1]) + 1 if len(zb) and ihi > 0 else 0
     if ihi <= 0:
-        return Spad.new_zeros((TMAX, B, 4)), (ihi, 0, 0, False, 0, 0)
+        return Spad.new_zeros((TMAX, B, 4)), (ihi, 0, 0, False, 0, 0, 0)
 
     seg = ihi - l                         # >= 2 after the peel
     w = min(WA, seg)
@@ -523,7 +523,7 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
     skip_sweep = ((nd > 0 and 100 * nd >= nibble * w)
                   or new_ihi - l <= 2 or sfail)
     ntr = 0 if skip_sweep else (npairs + B - 1) // B
-    return shifts, (new_ihi, l, ntr, bool(sfail), nd, npairs)
+    return shifts, (new_ihi, l, ntr, bool(sfail), nd, npairs, w)
 
 
 # ---------------------------------------------------------------------------
@@ -531,18 +531,23 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
 # ---------------------------------------------------------------------------
 
 def _schur_iter(Spad, Qpad, thresh: float, eyeW, P: int, WA: int, NS: int,
-                B: int, TMAX: int, nibble: int, itmax: int, n: int):
+                B: int, TMAX: int, nibble: int, itmax: int, n: int,
+                log: Optional[list] = None):
     """The multishift-QR iteration: a host loop over AED rounds, each
-    followed by a wavefront sweep when the round asks for one.
+    followed by a wavefront sweep when the round asks for one.  ``log``,
+    if a list, receives (w, kbot, ntr) for each round: the window's active
+    size, the rows it left undeflated, and the trains of its sweep.
 
     Returns (ihi, fail, rounds): converged when ihi == 0, failed when
     fail != 0.
     """
     ihi, it_seg, last_ihi, fail, rounds = n, 0, n, 0, 0
     while ihi > 0 and fail == 0 and rounds < 2 * n + 10:
-        shifts, (new_ihi, l, ntr, _sfail, _nd, _np) = _aed_round(
+        shifts, (new_ihi, l, ntr, _sfail, nd, _np, w) = _aed_round(
             Spad, Qpad, ihi, thresh, eyeW, P=P, WA=WA, NS=NS, B=B,
             TMAX=TMAX, nibble=nibble)
+        if log is not None:
+            log.append((w, w - nd, ntr))
         it_seg = (0 if new_ihi != last_ihi else it_seg) + 1
         # a non-converged AED window is not fatal (dlaqr3 semantics); only
         # the per-segment iteration limit fails
@@ -575,7 +580,8 @@ def schur(H, Q=None, conf: Optional[SchurConf] = None,
     """Reduce an upper Hessenberg H to real Schur form S = Qs^T H Qs.
 
     Q (if given) accumulates on the right.  Runs on H's device.  If
-    ``stats`` is a dict it receives the geometry and the round count.
+    ``stats`` is a dict it receives the geometry, the round count and
+    ``aed_log``, the (w, kbot, ntr) of each round.
 
     Returns:
       (S, Q, eig_real, eig_imag, info) with info Error.SUCCESS or
@@ -614,13 +620,14 @@ def schur(H, Q=None, conf: Optional[SchurConf] = None,
     Qpad[:, P:P + n] = Q
     eyeW = torch.eye(WA, dtype=dtype, device=dev)
 
+    log = []
     ihi, fail, rounds = _schur_iter(
         Spad, Qpad, thresh, eyeW, P=P, WA=WA, NS=NS, B=B, TMAX=TMAX,
-        nibble=conf.aed_nibble, itmax=conf.iteration_limit, n=n)
+        nibble=conf.aed_nibble, itmax=conf.iteration_limit, n=n, log=log)
     info = Error.DID_NOT_CONVERGE if (fail or ihi > 0) else Error.SUCCESS
     if stats is not None:
         stats.update(path="aed", rounds=rounds, WA=WA, NS=NS, B=B, WC=WC,
-                     TMAX=TMAX, P=P, NP=NP)
+                     TMAX=TMAX, P=P, NP=NP, aed_log=log)
 
     S, Qf = standardize_blocks(Spad[P:P + n, P:P + n], Qpad[:, P:P + n])
     er, ei = extract_eigenvalues(S)

@@ -116,6 +116,67 @@ def test_train_hops(cuda):
     assert torch.equal(Wk[1], W[1])          # the parked train
 
 
+def _hop_case(B, G, seed, cuda, subdiag=False):
+    """G windows of B-bulge trains (WC = 6B + 4, HOP = 3B): a train entering
+    its range, a parked train, a train one hop later, one leaving its range,
+    repeated to G.  A train entering its range at l_rel meets W[l_rel,
+    l_rel - 1] = 0, as a sweep gives it, unless subdiag (then the kernel
+    runs its full ranges)."""
+    WC, HOP = 6 * B + 4, 3 * B
+    rng = np.random.default_rng(seed)
+    W = np.stack([_hess(WC, seed + g) for g in range(G)])
+    sh = rng.standard_normal((G, B, 4))
+    sh[:, :, 3] = -sh[:, :, 1]
+    first = 3 * (B - 1) + 1
+    trains = ([(first, WC + 40, 0), (1, 0, 0), (first - HOP, WC + 40, HOP),
+               (first - HOP, first + HOP // 2, HOP)] * G)[:G]
+    l_rel, ihi_rel, s0 = (list(t) for t in zip(*trains))
+    if not subdiag:
+        for g in range(G):
+            if s0[g] == 0 and ihi_rel[g] > l_rel[g]:
+                W[g, l_rel[g], l_rel[g] - 1] = 0.0
+    return (torch.as_tensor(W, device=cuda), torch.as_tensor(sh, device=cuda), list(range(G)),
+            l_rel, ihi_rel, s0, HOP)
+
+
+# the n=4000 path's (B, TMAX), n=10,000's B with five trains, and n=20,000's
+# B with two: B above the old kernel's limit of 64 (ROADMAP fault C1); then
+# the n=4000 shape with nonzero subdiagonals at the introductions, the one
+# input of the kernel's full-range path
+@pytest.mark.parametrize("B,G,subdiag", [(25, 5, False), (65, 5, False), (132, 2, False),
+                                         (25, 5, True)],
+                         ids=["25-5", "65-5", "132-2", "25-5-subdiag"])
+def test_train_hops_geometry(cuda, B, G, subdiag):
+    W, sh, gidx, l_rel, ihi_rel, s0, HOP = _hop_case(B, G, 11 + B, cuda, subdiag)
+    Wk, Qk = gpu_schur.train_hops(W, sh, gidx, l_rel, ihi_rel, s0, B=B, HOP=HOP)
+    Wp, Qp = _train_hop(W, sh, l_rel, ihi_rel, s0, B=B, HOP=HOP)
+    # per window, the same operations in another summation order and with
+    # other FMA contractions: 1e-12 (W relative to |W|) below B = 65.  From
+    # B = 65 on, 1e-11, or 4 times what one ulp of input moves the plain
+    # twin's result where that is larger: the introduction of B bulges into
+    # a random window amplifies a one-ulp change by up to ~1e5 (1.2e-11 |W|
+    # at B = 65, 2.3e-11 |W| at B = 132 here), and each of the two rounds
+    # every step of it
+    scale = W.abs().amax(dim=(1, 2))
+    ew = (Wk - Wp).abs().amax(dim=(1, 2)) / scale
+    eq = (Qk - Qp).abs().amax(dim=(1, 2))
+    if B < 65:
+        tw = tq = torch.full_like(ew, 1e-12)
+    else:
+        sign = torch.as_tensor(np.random.default_rng(5).choice([-1.0, 1.0], W.shape),
+                               device=cuda)
+        Wu = torch.where(W == 0, W, torch.nextafter(W, sign * float("inf")))
+        Wb, Qb = _train_hop(Wu, sh, l_rel, ihi_rel, s0, B=B, HOP=HOP)
+        tw = torch.clamp(4 * (Wb - Wp).abs().amax(dim=(1, 2)) / scale, min=1e-11)
+        tq = torch.clamp(4 * (Qb - Qp).abs().amax(dim=(1, 2)), min=1e-11)
+    assert bool((ew <= tw).all()) and bool((eq <= tq).all()), (ew, tw, eq, tq)
+    assert torch.equal(Wk[1], W[1])          # the parked train
+    for g in range(G):
+        Wn, Wo, Qn = W[g].cpu().numpy(), Wk[g].cpu().numpy(), Qk[g].cpu().numpy()
+        assert np.linalg.norm(Qn.T @ Wn @ Qn - Wo) / np.linalg.norm(Wn) < 1e-13
+        assert np.linalg.norm(Qn.T @ Qn - np.eye(len(Qn))) < 1e-12
+
+
 def _deflate_input(WA, w, seed, plants=None, reject_gap=None):
     """A Schur-form window with planted 2x2 blocks.  With reject_gap, the
     bottom 2x2 block has an exact twin reject_gap rows above it (as
@@ -197,6 +258,68 @@ def test_recondense_near_breakdown(cuda):
     assert np.abs(np.tril(To[:kbot, :kbot], -2)).max() == 0.0
     spike = Us.T @ np.where(np.arange(40) < kbot, s * Q[0], 0.0)
     assert abs(spike[0] - float(bk)) < 1e-13 and np.abs(spike[1:kbot]).max() < 1e-13
+
+
+def _recondense_contract(T, V0, s, kbot, To, Vo, beta):
+    """(similarity, orthogonality, below-subdiagonal, spike) of a recondense
+    (To, Vo, beta) of (T, V0), as chip_smoke.recondense_contract."""
+    Us = V0.T @ Vo
+    res = np.linalg.norm(Us.T @ T @ Us - To) / np.linalg.norm(T)
+    orth = np.linalg.norm(Us.T @ Us - np.eye(len(T)))
+    struct = np.abs(np.tril(To[:kbot, :kbot], -2)).max(initial=0.0)
+    spike = Us.T @ np.where(np.arange(len(T)) < kbot, s * V0[0], 0.0)
+    return res, orth, struct, max(abs(spike[0] - beta), np.abs(spike[1:kbot]).max(initial=0.0))
+
+
+# the window an AED round gives B5: the Hessenberg form of a dense matrix
+# solved by B2, kbot at a block boundary.  WA=322 (n=4000), near 300: the
+# reduction is determined elementwise there, so 1e-10 |T| of the plain twin
+# and the contract; WA=802 (n=10,000), near 780: the contract, whose
+# similarity and orthogonality grow as sqrt(WA) WA u (5e-13 at WA=802)
+@pytest.mark.parametrize("WA,near,lim", [(322, 300, (1e-13, 1e-12, 1e-13)),
+                                         (802, 780, (1e-12, 1e-11, 1e-12))])
+def test_recondense_window(cuda, WA, near, lim):
+    from starneig_tpu_torch.api import sep
+    Hw, _ = sep.hessenberg(np.random.default_rng(2).standard_normal((WA, WA)), device=cuda)
+    Sw, Zw, info = gpu_schur.francis(Hw, torch.eye(WA, dtype=torch.float64, device=cuda),
+                                     WA, U / 2 * float(torch.linalg.norm(Hw)))
+    assert int(info) == 0
+    kb = near if float(Sw[near, near - 1]) == 0 else near + 1
+    n0 = kernels.LAUNCHES["recondense"]
+    Tk, Vk, bk = gpu_schur.aed_recondense(Sw, Zw, 0.3, kb)
+    assert kernels.LAUNCHES["recondense"] == n0 + 1
+    res, orth, struct, sp = _recondense_contract(
+        Sw.cpu().numpy(), Zw.cpu().numpy(), 0.3, kb, Tk.cpu().numpy(), Vk.cpu().numpy(),
+        float(bk))
+    assert res < lim[0] and orth < lim[1] and struct == 0.0 and sp < lim[2]
+    if WA == 322:
+        Tp, Vp, bp = _aed_recondense(Sw, Zw, 0.3, kb)
+        assert float((Tk - Tp).abs().max()) <= 1e-10 * float(Sw.abs().max())
+        assert float((Vk - Vp).abs().max()) <= 1e-10
+        assert abs(float(bk) - float(bp)) <= 1e-12
+
+
+def test_schur_b70(cuda):
+    """sep.schur at n=1,200 with 70 bulges a train (WA=202, NS=160, B=70,
+    WC=424, TMAX=2): B3 above the old limit of 64 on the solver's own calls,
+    held to the reference's gates (info 0, residual and orthogonality <
+    500 u, standardized Schur form)."""
+    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.config import SchurConf
+    n = 1200
+    A = np.random.default_rng(1200).standard_normal((n, n))
+    kernels.reset_launches()
+    H, Q = sep.hessenberg(A, device=cuda)
+    stats = {}
+    S, Qs, _er, _ei, info = sep.schur(
+        H, Q, conf=SchurConf(aed_window_size=200, aed_shift_count=160, shifts_per_window=140),
+        stats=stats, device=cuda)
+    assert tuple(stats[k] for k in ("WA", "NS", "B", "WC", "TMAX")) == (202, 160, 70, 424, 2)
+    assert int(info) == 0 and kernels.LAUNCHES["train_hops"] > 0
+    assert schur_form_error(S) == 0.0
+    S, Qs = S.cpu().numpy(), Qs.cpu().numpy()
+    assert np.linalg.norm(Qs @ S @ Qs.T - A) / np.linalg.norm(A) / U < 500
+    assert np.linalg.norm(Qs @ Qs.T - np.eye(n)) / np.sqrt(n) / U < 500
 
 
 # (G, W, seed, (dst0s, dst_limits, wlims)): frozen top and bottom rows and a

@@ -49,12 +49,21 @@ def _sorted_eigs(er, ei):
 # range, a parked train, a train one hop later, and one leaving its range
 HOP_CASES = {"intro": (7, 62, 0), "parked": (1, 0, 0), "second": (-2, 62, 9),
              "exit": (-2, 11, 9)}
+# the same for B = 65 (WC = 394, HOP = 195), n=10,000's geometry: a train
+# entering its range and one a hop later
+HOP_CASES_65 = {"intro": (193, 434, 0), "second": (-2, 434, 195)}
 
 
-@pytest.mark.parametrize("case", sorted(HOP_CASES))
-def test_train_hop(case):
-    B, WC, HOP = 3, 22, 9
-    l_rel, ihi_rel, s0 = HOP_CASES[case]
+# B = 3 keeps its four cases under their own ids; B = 65 adds two.  The
+# tolerance: the same operations in another summation order and with other
+# FMA contractions, 1e-12 |W| over B = 3's 9 steps; over B = 65's 195 steps
+# the two differ by 1.07e-12 |W| on W and 5.5e-13 on Qw, so 1e-11 there.
+@pytest.mark.parametrize("B,case", [pytest.param(3, c, id=c) for c in sorted(HOP_CASES)]
+                         + [pytest.param(65, c, id=f"B65-{c}") for c in sorted(HOP_CASES_65)])
+def test_train_hop(B, case):
+    WC, HOP = 6 * B + 4, 3 * B
+    l_rel, ihi_rel, s0 = (HOP_CASES if B == 3 else HOP_CASES_65)[case]
+    tol = 1e-12 if B == 3 else 1e-11
     rng = np.random.default_rng(7)
     W = np.triu(rng.standard_normal((WC, WC)), -1)
     sh = rng.standard_normal((B, 4))
@@ -65,8 +74,8 @@ def test_train_hop(case):
     Wt, Qt = tschur._train_hop(from_numpy(W)[None], from_numpy(sh)[None],
                                [l_rel], [ihi_rel], [s0], B=B, HOP=HOP)
     np.testing.assert_allclose(to_numpy(Wt[0]), np.asarray(Wj), rtol=0,
-                               atol=1e-12 * np.abs(W).max())
-    np.testing.assert_allclose(to_numpy(Qt[0]), np.asarray(Qj), rtol=0, atol=1e-12)
+                               atol=tol * np.abs(W).max())
+    np.testing.assert_allclose(to_numpy(Qt[0]), np.asarray(Qj), rtol=0, atol=tol)
     if case == "parked":
         np.testing.assert_array_equal(to_numpy(Wt[0]), W)
 
