@@ -9,6 +9,7 @@
     python3 chip_ab.py recondense NAME=path/to/recondense_NAME.cu [...]
     python3 chip_ab.py mainpath [--n N] ROOT [ROOT ...]
     python3 chip_ab.py clock [deflate|hops|recondense] [--skip-cur] [NAME=PATH ...]
+    python3 chip_ab.py qzinf
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -69,6 +70,16 @@ B5 a reduction step), from clock64 counters that literal edits put into a
 copy of the source under ``kernels/_build/clock`` (an edit list for each
 design: the kernels as they ship, and the one-block B3/B5 and one-thread
 B4 before them); the shipped kernels carry no counters.
+
+qzinf: why G2 (``qz_window.cu``) and its plain twin may end an
+infinite-eigenvalue chase at different steps.  On ``chip_smoke.py``'s w=84
+window with 8 T-diagonal zeros it runs the shipped kernel, two copies of it
+under ``kernels/_build/qzinf`` that print every stop test of the chase
+(|T[jc+1, jc+1]|, |T[jc, jc+1]| and the threshold) built once as shipped
+and once with ``-fmad=false`` (no fused multiply-adds), and the plain twin
+with the same record; prints each version's exact-zero and tiny
+(<= 1e-12 max|beta|) beta counts and the first stop test where each
+kernel's record departs from the plain twin's.
 
 Prints the card's name and power limit first; exits nonzero if a check
 fails.  Needs a CUDA card and nvcc.
@@ -1033,9 +1044,213 @@ def ab_clock(args) -> bool:
             "recondense": clock_recondense}[kind](rest)
 
 
+# G2's infinite-eigenvalue decisions, printed in a copy: T-diagonal
+# entries near the detection threshold that are not exact zeros (QZFIND),
+# each chase (QZCALL) and each stop test of a chase (QZINF)
+QZINF_EDITS = [
+    ('#include "gep_common.cuh"\n', '#include <cstdio>\n#include "gep_common.cuh"\n'),
+    ("      if (fabs(T[idx * wp + idx]) <= tsmall) atomicMin(&s_jinf, idx);\n",
+     "      if (fabs(T[idx * wp + idx]) <= tsmall) atomicMin(&s_jinf, idx);\n"
+     "    for (int idx = l + tid; idx <= i; idx += blockDim.x) {\n"
+     "      const double t_ = fabs(T[idx * wp + idx]);\n"
+     "      if (t_ != 0.0 && t_ <= 1e3 * tsmall)\n"
+     "        printf(\"QZFIND %d %d %d %d %.17g %.17g %d\\n\", total, l, i, idx, t_, tsmall,\n"
+     "               (int)(t_ <= tsmall));\n"
+     "    }\n"),
+    ("      if (tid == 0) T[jinf * wp + jinf] = 0.0;\n",
+     "      if (tid == 0) {\n"
+     "        printf(\"QZCALL %d %d %d %d\\n\", total, jinf, l, i);\n"
+     "        T[jinf * wp + jinf] = 0.0;\n"
+     "      }\n"),
+    ("          if (!tsig) T[(jc + 1) * wp + jc + 1] = 0.0;\n",
+     "          printf(\"QZINF %d %d %d %d %.17g %.17g %.17g %d\\n\", total, jinf, jc, i,\n"
+     "                 fabs(T[(jc + 1) * wp + jc + 1]), fabs(T[jc * wp + jc + 1]),\n"
+     "                 dmax(thresh_t, ulp * fabs(T[jc * wp + jc + 1])), (int)tsig);\n"
+     "          if (!tsig) T[(jc + 1) * wp + jc + 1] = 0.0;\n"),
+    ('extern "C" int qz_window(', 'extern "C" int qz_window_log('),
+]
+
+
+def qzinf_build():
+    """{name: ctypes function}: G2 with the stop tests printed, as shipped
+    ("log") and without fused multiply-adds ("nofma")."""
+    out = kernels.BUILD_DIR / "qzinf"
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / "qz_window_log.cu"
+    src.write_text(_lit((kernels.CSRC / "qz_window.cu").read_text(), QZINF_EDITS))
+    jobs = {}
+    for name, extra in (("log", []), ("nofma", ["-fmad=false"])):
+        so = out / f"{name}.so"
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *extra, "-shared",
+               "-I", str(kernels.CSRC), "-o", str(so), str(src)]
+        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True))
+    fns = {}
+    for name, (so, proc) in jobs.items():
+        _out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} ({name}):\n{err[-3000:]}")
+        fn = ctypes.CDLL(str(so)).qz_window_log
+        fn.argtypes = kernels._SIGNATURES["qz_window"]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def qzinf_run(fn, H, T, w, th, tt):
+    """G2 through fn on the window; returns (S, Tt, Q, Z, info, the
+    kernel's printed records).  Device printf goes to the process's
+    stdout, so file descriptor 1 points at a file during the call."""
+    import os
+    import tempfile
+    dev = torch.device("cuda:0")
+    WP = w + 3
+    Hp = torch.zeros(WP, WP, dtype=torch.float64, device=dev)
+    Tp = torch.zeros_like(Hp)
+    Hp[:w, :w], Tp[:w, :w] = H, T
+    Qp = torch.zeros(w, WP, dtype=torch.float64, device=dev)
+    Qp[:, :w] = torch.eye(w, dtype=torch.float64)
+    Zp = Qp.clone()
+    info = torch.zeros(1, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile(mode="w+", dir=kernels.BUILD_DIR) as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            kernels.check(fn(Hp.data_ptr(), Tp.data_ptr(), Qp.data_ptr(), Zp.data_ptr(),
+                             w, w, th, tt, info.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream), "qz_window_log")
+            torch.cuda.synchronize()
+            ctypes.CDLL(None).fflush(None)     # the C stdio buffer, into the file
+        finally:
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        recs = sorted((tuple(ln.split()) for ln in f if ln.startswith("QZ")), key=qzinf_order)
+    return (Hp[:w, :w].cpu(), Tp[:w, :w].cpu(), Qp[:, :w].cpu(), Zp[:, :w].cpu(),
+            int(info), recs)
+
+
+QZINF_KINDS = ("QZFIND", "QZCALL", "QZINF")
+
+
+def qzinf_order(rec):
+    """Records in the order the plain twin makes them: by iteration, then
+    detection, chase, stop tests, each by its row (the kernel's threads
+    print a detection pass in any order)."""
+    return (int(rec[1]), QZINF_KINDS.index(rec[0]), int(rec[4 if rec[0] == "QZFIND" else 3]))
+
+
+def qzinf_plain(H, T, w, th, tt):
+    """The plain twin with its decisions recorded in the kernel's format
+    (a wrapper of ops/qz.py:_find_inf, a logged copy of _process_inf)."""
+    from starneig_tpu_torch.ops import primitives as prim
+    from starneig_tpu_torch.ops import qz
+    recs = []
+    total = [-1]        # the machine's iteration: one detection pass each
+    find_inf = qz._find_inf
+
+    def find_logged(Hp, Tp, w_, l, i, thresh_h, thresh_t):
+        total[0] += 1
+        td = torch.diagonal(Tp[:w_, :w_]).abs()
+        tsmall = max(float(qz.ULP * td.max()), thresh_t)
+        for idx in range(l, i + 1):
+            t_ = float(td[idx])
+            if t_ != 0.0 and t_ <= 1e3 * tsmall:
+                recs.append(("QZFIND", str(total[0]), str(l), str(i), str(idx), f"{t_:.17g}",
+                             f"{tsmall:.17g}", str(int(t_ <= tsmall))))
+        return find_inf(Hp, Tp, w_, l, i, thresh_h, thresh_t)
+
+    def process_inf(Hp, Tp, Qp, Zp, j, l, i, thresh_t):
+        recs.append(("QZCALL", str(total[0]), str(j), str(l), str(i)))
+        Tp[j, j] = 0.0
+        for jc in range(j, i):
+            c, s, _ = prim.givens(Hp[jc, jc], Hp[jc + 1, jc])
+            qz.rot_rows(Hp, jc + 1, c, s)
+            Hp[jc + 1, jc] = 0.0
+            if jc == j and jc > l and jc >= 1:
+                Hp[jc + 1, jc - 1] = 0.0
+            qz.rot_rows(Tp, jc + 1, c, s)
+            qz.rot_cols(Qp, jc + 1, c, s)
+            a, b = float(Tp[jc + 1, jc + 1].abs()), float(Tp[jc, jc + 1].abs())
+            thr = max(thresh_t, qz.ULP * b)
+            recs.append(("QZINF",) + tuple(str(x) for x in (total[0], j, jc, i))
+                        + tuple(f"{x:.17g}" for x in (a, b, thr)) + (str(int(a > thr)),))
+            if a > thr:
+                return i
+            Tp[jc + 1, jc + 1] = 0.0
+        c, s, _ = prim.givens(Hp[i, i], Hp[i, i - 1])
+        qz.rot_cols(Hp, i, c, -s)
+        Hp[i, i - 1] = 0.0
+        qz.rot_cols(Tp, i, c, -s)
+        Tp[i, i - 1] = 0.0
+        qz.rot_cols(Zp, i, c, -s)
+        return i - 1
+
+    orig = qz._process_inf
+    qz._process_inf, qz._find_inf = process_inf, find_logged
+    try:
+        eye = torch.eye(w, dtype=torch.float64)
+        out = qz._small_qz_plain(torch.as_tensor(H), torch.as_tensor(T), eye, eye, w, th, tt)
+    finally:
+        qz._process_inf, qz._find_inf = orig, find_inf
+    return (*out[:4], int(out[4]), recs)
+
+
+def ab_qzinf(_args) -> bool:
+    """qzinf"""
+    from chip_smoke import ht_window_np
+    from starneig_tpu_torch.ops import gpu_gep
+    w, ninf = 84, 8
+    Hn, Tn = ht_window_np(w, w + ninf, ninf)
+    th, tt = U / 2 * np.linalg.norm(Hn), U / 2 * np.linalg.norm(Tn)
+    H, T = torch.as_tensor(Hn), torch.as_tensor(Tn)
+    dev = torch.device("cuda:0")
+    kernels.build()
+    fns = qzinf_build()
+    eye = torch.eye(w, dtype=torch.float64, device=dev)
+    cur = gpu_gep.qz_window(H.to(dev), T.to(dev), eye, eye, w, th, tt)
+    runs = {"cur": (*(x.cpu() for x in cur[:4]), int(cur[4]), None),
+            "plain": qzinf_plain(Hn, Tn, w, th, tt)}
+    for name, fn in fns.items():
+        runs[name] = qzinf_run(fn, H.to(dev), T.to(dev), w, th, tt)
+    ok = True
+    for name, (S, Tt, Q, Z, info, recs) in runs.items():
+        d = torch.diagonal(Tt).abs()
+        exact, tiny = int((d == 0).sum()), int((d <= 1e-12 * d.max()).sum())
+        print(f"{name}: info {info}, betas exactly 0: {exact} at "
+              f"{torch.where(d == 0)[0].tolist()}, <= 1e-12 max|beta|: {tiny}; the "
+              f"others there {[f'{float(x):.3e}' for x in d[(d != 0) & (d <= 1e-12 * d.max())]]}"
+              + ("" if recs is None else f"; records {len(recs)}"), flush=True)
+        ok &= info == 0 and tiny >= ninf
+    plain = runs["plain"][5]
+
+    def key(rec):        # the record's tag and integers (indices, decisions)
+        return tuple(x for x in rec if x.startswith("QZ") or x.lstrip("-").isdigit())
+    print("records: QZFIND iteration l i idx |T[idx,idx]| threshold found (a T-diagonal "
+          "entry within 1e3 x the threshold, not 0), QZCALL iteration jinf l i (a chase), "
+          "QZINF iteration jinf jc i |T[jc+1,jc+1]| |T[jc,jc+1]| threshold stop (its stop "
+          "test)", flush=True)
+    for name in fns:
+        recs = runs[name][5]
+        k = next((k for k, (a, b) in enumerate(zip(recs, plain)) if key(a) != key(b)), None)
+        if k is None and len(recs) == len(plain):
+            print(f"{name}: every record decides as the plain twin's", flush=True)
+            continue
+        k = min(len(recs), len(plain)) if k is None else k
+        print(f"{name}: first departure at record {k}:", flush=True)
+        for lo in range(max(0, k - 2), k + 2):
+            if lo < len(plain):
+                print(f"  plain  {' '.join(plain[lo])}", flush=True)
+            if lo < len(recs):
+                print(f"  {name:6s} {' '.join(recs[lo])}", flush=True)
+    return ok
+
+
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
-         "mainpath": ab_mainpath, "clock": ab_clock}
+         "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf}
 
 
 def main() -> int:

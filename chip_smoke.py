@@ -24,7 +24,16 @@ Phases (any failure raises; the exit code is then nonzero):
      introduction, and at B = 25 without it (the full-range path); B4's and
      the bubble's swaps, microseconds a swap and serial-chain floor (swaps x
      SWAP_CYCLES), on inputs that include rejected swaps mid-segment, frozen
-     rows and an insertion limit; B5 at WA=40, 322 and 802;
+     rows and an insertion limit; B5 at WA=40, 322 and 802; the GEP
+     kernels against their plain twins (run on CPU copies of the inputs):
+     G1 at n=192 and in window mode at WA=84 and 162 (kbot 10 elementwise,
+     kbot=WA-4 by contract), G2 at w=84 (with and without 8 infinite
+     eigenvalues) and 162 by contract, G3 for a whole train at n=512 and one
+     hop, G4 at WA=84 and 162 (kbot, fail and steps equal); G1 also at
+     the GEP path's n=2000 on a regular pencil (A and B Gaussian, B made
+     triangular, seed 2000): the kernel here, its plain twin in a child
+     process started at the top of this phase, which runs on the host
+     while the later phases use the card (compared in phase 8);
   4. n=1200 with B=70: api.sep.hessenberg and api.sep.schur with a
      geometry of 70 bulges a train, gated on info, residual,
      orthogonality, the Schur form, the eigenvalues against numpy and B3's
@@ -39,9 +48,26 @@ Phases (any failure raises; the exit code is then nonzero):
      spectrum kept by the reordering, the eigenvector residuals, and the
      launch counts, zeroed before each of the two paths (Hessenberg ->
      Schur; select -> reorder -> eigenvectors) and read after it: every
-     kernel of a path launched at least once there.
+     kernel of a path launched at least once there;
+  6. GEP path: known_spectrum_pencil(2000, complex_ratio=0.3, inf_ratio=0.1,
+     seed=0) through api.gep.hessenberg_triangular and api.gep.schur, gated
+     on info, residuals and orthogonality < 500 u and exact structure,
+     printing the zero betas and the chordal error against the planted
+     spectrum, the rounds, the infinite-push rounds and calls, and the
+     launch counts (zeroed before the path, read after it; every GEP kernel
+     at least once); the HT phase runs under torch.profiler (each kernel's
+     device total, G1's time), the QZ phase again under it afterwards;
+  7. GEP n=512 infinite-rich: api.gep.schur on tests/test_qz_driver.py's
+     HT pencil with 51 exact T-diagonal zeros, under that test's gates;
+  8. G1 at the GEP path's shape: phase 3's n=2000 result against the
+     plain cascade of the child process, within 1e-11 max|M|; G1's row in
+     the kernel table is this n=2000 run.  (The GEP path's own pencil has
+     a singular B, where the cascade is ill-conditioned elementwise: one
+     ulp of input moves its result by more than 1e-10 already at n=192,
+     tests/test_torch_gep_ht.py::test_ht_one_ulp; the path is held to its
+     gates instead.)
 
-The line before the last is the kernel table as JSON; the last line is
+The smoke prints its total wall seconds.  The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  ``--out`` also writes all results as JSON.
 """
 
@@ -94,6 +120,13 @@ REPLACES = {
     # no Pallas kernel there: the JAX package ran the bubble as an XLA
     # while-loop (_run_bubble_b), which the TPU executed
     "reorder_bubble": "starneig_tpu/ops/reorder.py:156",
+    # the GEP path has no Pallas kernel either: G1-G4 replace its serial XLA
+    # loops (the HT cascade, the window QZ machine, the QZ train sweep, the
+    # GEP spike deflation's moves)
+    "ht_cascade": "starneig_tpu/ops/hess_triangular.py:36",
+    "qz_window": "starneig_tpu/ops/qz.py:215",
+    "qz_sweep": "starneig_tpu/ops/qz_driver.py:444",
+    "aed_deflate_gep": "starneig_tpu/ops/qz_driver.py:121",
 }
 SOURCES = {k: f"starneig_tpu_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 # the card's peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): HBM
@@ -102,6 +135,11 @@ HBM_BPS = 3.35e12
 F64_FLOPS = 34e12
 # the kernels of Hessenberg -> Schur; the reordering runs reorder_bubble
 SCHUR_KERNELS = ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense")
+# the kernels of the GEP path hessenberg_triangular -> schur
+GEP_KERNELS = ("ht_cascade", "qz_window", "qz_sweep", "aed_deflate_gep")
+GEP_N = 2000                       # the GEP chain's size
+SMOKE_DEADLINE_S = 1100.0          # phase 8 waits for the plain cascade until then
+GEP_INF_GATE_U = 5000.0            # tests/test_qz_driver.py's gates (n=512 infinite-rich)
 
 
 def _b70_conf():
@@ -1079,6 +1117,497 @@ def phase_main(dev):
                 n200_reduce=n200_reduce)
 
 
+
+# ---------------------------------------------------------------------------
+# GEP: kernels G1-G4 against their plain twins, then the reduction path
+# ---------------------------------------------------------------------------
+# The plain twins are host loops of small torch calls; they run on CPU
+# copies of the card's inputs, where such loops run several times faster
+# than on the card, so that each stays near 20 s.  plain_ms of the GEP rows
+# is that CPU time.
+
+
+def _cpu(*xs):
+    return [x.detach().cpu() for x in xs]
+
+
+def _rel(a, b):
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return float((a - b).abs().max()) / max(float(a.abs().max()), 1e-300)
+
+
+def host_ms(fn):
+    """Run fn() once; return (its result, its host wall time in ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def ht_cascade_flops(n):
+    """fp64 operations of the HT cascade of an n x n pencil: step (j, i) of
+    pass j rotates A's row pair from column j, B's from column i-1, the
+    column pairs of A, Q and Z (n rows) and of B (rows 0..i), 6 operations
+    an entry pair: 6 (5n - j + 2) a step."""
+    return sum(6 * (n - j - 2) * (5 * n - j + 2) for j in range(n - 2))
+
+
+def ht_window_steps(kbot):
+    """Rotation pairs of the GEP recondense: the spike chase, then the
+    cascade on the leading kbot block."""
+    return max(kbot - 1, 0) + max(kbot - 2, 0) * max(kbot - 1, 0) // 2
+
+
+def ht_plain_job(conn, A, B, Q, Z):
+    """In a child process: the plain cascade on CPU copies of G1's input;
+    sends back the result as numpy arrays and its wall time in ms."""
+    import torch
+    from starneig_tpu_torch.ops.hess_triangular import _ht_reduce
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = _ht_reduce(*(torch.from_numpy(x) for x in (A, B, Q, Z)))
+    conn.send(([x.numpy() for x in out], (time.perf_counter() - t0) * 1e3))
+    conn.close()
+
+
+def ht_regular_input(n, dev):
+    """G1's input at size n from a regular pencil: A Gaussian, B the upper
+    triangle of a Gaussian (nonsingular), Q = Z = I (seed n)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(rng.standard_normal((n, n)), device=dev)
+    B = torch.triu(torch.as_tensor(rng.standard_normal((n, n)), device=dev))
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    return A, B, eye, eye.clone()
+
+
+def start_ht_plain(dev):
+    """Start the plain cascade on a CPU copy of G1's n=GEP_N input in a
+    child process; returns (the process, the receiving end of its pipe,
+    the input on the card)."""
+    import multiprocessing as mp
+    inp = ht_regular_input(GEP_N, dev)
+    ctx = mp.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=ht_plain_job, daemon=True,
+                       args=(send, *(x.cpu().numpy() for x in inp)))
+    proc.start()
+    send.close()
+    log(f"  G1 n={GEP_N}: the plain cascade runs in process {proc.pid} until phase 8")
+    return proc, recv, inp
+
+
+def finish_ht_plain(handle, g1, deadline_s):
+    """Phase 8: wait for the child's plain cascade (at most deadline_s) and
+    hold phase 3's n=GEP_N kernel result to it within 1e-11 max|M| (the
+    same rotations in the same order, other rounding).  G1's kernel-table
+    row becomes this run; the n=192 numbers stay under its detail."""
+    import torch
+    proc, recv, _inp = handle
+    check(recv.poll(max(deadline_s, 1.0)), f"G1 n={GEP_N}: the plain cascade did not "
+          f"finish within {deadline_s:.0f} s")
+    want, plain_ms = recv.recv()
+    recv.close()
+    proc.join()
+    got = g1.pop("out_n2000")
+    errs = [_rel(torch.from_numpy(w), g) for g, w in zip(got, want)]
+    err = max(errs)
+    d = g1["detail"][f"full n={GEP_N}"]
+    log(f"  G1 n={GEP_N}: max err {err:.2e} max|M| (A, B, Q, Z: "
+        + ", ".join(f"{e:.2e}" for e in errs) + f"); kernel {d['ms']:.1f} ms "
+        f"({d['us_a_step']:.3f} us a step of {d['steps']}), plain (CPU, child process) "
+        f"{plain_ms:.1f} ms, bound {d['bound_ms']:.2f} ms ({d['bound_by']})")
+    check(err <= 1e-11, f"G1 n={GEP_N}: {errs}")
+    d.update(errors_a_b_q_z=errs, plain_ms=plain_ms)
+    g1.update(max_abs_err=err, ms=d["ms"], plain_ms=plain_ms, bound_ms=d["bound_ms"],
+              bound_by=d["bound_by"])
+
+
+def phase_ht_cascade(dev, inp2000):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.hess_triangular import _ht_reduce
+    from starneig_tpu_torch.ops.qz_driver import _aed_recondense_gep
+    from starneig_tpu_torch.testing.generators import planted_schur_pair
+    # full mode at n=192 (tests/test_torch_gep_kernels.py's shape)
+    n = 192
+    A, B, eye, _ = ht_regular_input(n, dev)
+    got = gpu_gep.ht_cascade(A, B, eye, eye)
+    want, plain_ms = host_ms(lambda: _ht_reduce(*_cpu(A, B, eye, eye)))
+    err = max(_rel(w, g) for g, w in zip(got, want))
+    check(err <= 1e-11, f"G1 n={n}: {err}")     # the same rotations, other rounding
+    ms = cuda_ms(lambda: gpu_gep.ht_cascade(A, B, eye, eye), 3)
+    steps = (n - 2) * (n - 1) // 2
+    bms, by = bound(8 * 8 * n * n, ht_cascade_flops(n))
+    log(f"  G1 n={n}: max err {err:.2e} max|M|; kernel {ms:.2f} ms "
+        f"({ms / steps * 1e3:.3f} us a step of {steps}), plain (CPU) {plain_ms:.1f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    # window mode (the GEP recondense) at the AED windows of n=512 and 2000
+    detail = {}
+    for WA in (84, 162):
+        S, T, Q, Z = (torch.as_tensor(x, device=dev) for x in planted_schur_pair(WA, WA, WA))
+        s_ = 0.37
+        for kbot in (10, WA - 4):
+            gk = gpu_gep.ht_recondense(S, T, Q, Z, s_, kbot)
+            gp, pms = host_ms(lambda: _aed_recondense_gep(*_cpu(S, T, Q, Z), s_, kbot))
+            e = max(_rel(w, g) for g, w in zip(gk[:4], gp[:4]))
+            S2, T2, Q2, Z2 = (x.cpu().numpy() for x in gk[:4])
+            Sn, Tn, Qn, Zn = (x.cpu().numpy() for x in (S, T, Q, Z))
+            Ul, Vr = Qn.T @ Q2, Zn.T @ Z2
+            sim = max(np.linalg.norm(Ul.T @ Sn @ Vr - S2) / np.linalg.norm(Sn),
+                      np.linalg.norm(Ul.T @ Tn @ Vr - T2) / np.linalg.norm(Tn))
+            struct = max(np.abs(np.tril(S2[:kbot, :kbot], -2)).max(),
+                         np.abs(np.tril(T2[:kbot, :kbot], -1)).max())
+            spike = np.abs(s_ * Q2[0, 1:kbot]).max()
+            log(f"  G1 window WA={WA} kbot={kbot}: max err {e:.2e} (held to 1e-12 at "
+                f"kbot=10; by contract above: ill-conditioned re-reduction), similarity "
+                f"{sim:.1e}, structure {struct}, spike tail {spike:.1e}")
+            check(sim < 1e-13 and struct == 0.0 and spike < 1e-14 * WA
+                  and (kbot != 10 or e <= 1e-12), f"G1 window WA={WA} kbot={kbot}")
+        kbot = WA - 4
+        wms = cuda_ms(lambda: gpu_gep.ht_recondense(S, T, Q, Z, s_, kbot), 3)
+        st = ht_window_steps(kbot)
+        wb, wby = bound(8 * 8 * WA * WA, st * 36 * WA)
+        log(f"  G1 window WA={WA} kbot={kbot}: kernel {wms:.3f} ms ({wms / st * 1e3:.3f} us "
+            f"a step of {st}), plain (CPU) {pms:.1f} ms, bound {wb:.5f} ms ({wby})")
+        detail[f"window WA={WA}"] = dict(kbot=kbot, ms=wms, plain_ms=pms, bound_ms=wb,
+                                         bound_by=wby, steps=st)
+    detail["full n=192"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                bound_by=by, us_a_step=ms / steps * 1e3)
+    # full mode at the GEP path's n; its plain twin runs in the child process
+    n = GEP_N
+    out, ms = timed(lambda: gpu_gep.ht_cascade(*inp2000))
+    steps = (n - 2) * (n - 1) // 2
+    bms, by = bound(8 * 8 * n * n, ht_cascade_flops(n))
+    log(f"  G1 n={n}: kernel {ms:.1f} ms ({ms / steps * 1e3:.3f} us a step of {steps}); "
+        f"its plain twin is compared in phase 8")
+    detail[f"full n={n}"] = dict(ms=ms, bound_ms=bms, bound_by=by, steps=steps,
+                                 us_a_step=ms / steps * 1e3)
+    # the n=192 numbers stand until phase 8 replaces them with n=2000's
+    d192 = detail["full n=192"]
+    return dict(max_abs_err=err, ms=d192["ms"], plain_ms=plain_ms, bound_ms=d192["bound_ms"],
+                bound_by=d192["bound_by"], detail=detail, out_n2000=out)
+
+
+def ht_window_np(w, seed, ninf=0):
+    """A random HT window (H Hessenberg, T triangular + 3 I) with ninf
+    non-adjacent exact zeros on T's diagonal."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    H = np.triu(rng.standard_normal((w, w)), -1)
+    T = np.triu(rng.standard_normal((w, w))) + 3 * np.eye(w)
+    for j in range(5, w - 5, max((w - 10) // max(ninf, 1), 2))[:ninf]:
+        T[j, j] = 0.0
+    return H, T
+
+
+def qz_contract(H, T, out):
+    """(info, max of residuals and orthogonality in u, structure errors,
+    betas with |beta| <= 1e-12 max|beta|) of a window QZ result."""
+    import numpy as np
+    from starneig_tpu_torch.testing import hooks
+    S, Tt, Q, Z, info = out
+    ra, rb = hooks.residual_gep(H, T, S, Tt, Q, Z)
+    worst = max(ra, rb, hooks.orthogonality(Q), hooks.orthogonality(Z))
+    d = np.abs(np.diagonal(Tt.cpu().numpy()))
+    return (int(info), worst, hooks.schur_structure_error(S),
+            hooks.triangular_structure_error(Tt), int((d <= 1e-12 * d.max()).sum()))
+
+
+def spectra_chordal(out_a, out_b):
+    """Chordal distance between the generalized spectra of two window QZ
+    results (greedy matching, hooks.chordal_eigenvalue_error)."""
+    from starneig_tpu_torch.ops.eigvals import extract_eigenvalues_gen
+    from starneig_tpu_torch.testing import hooks
+    ar, ai, bt = (x.cpu() for x in extract_eigenvalues_gen(out_b[0], out_b[1]))
+    return hooks.chordal_eigenvalue_error(*extract_eigenvalues_gen(out_a[0], out_a[1]),
+                                          (ar + 1j * ai).numpy(), bt.numpy()) * U
+
+
+def phase_qz_window(dev):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep, qz
+    from starneig_tpu_torch.ops.qz import _small_qz_plain
+    res = {}
+    for w, ninf in ((84, 0), (84, 8), (162, 0)):
+        Hn, Tn = ht_window_np(w, w + ninf, ninf)
+        H, T = (torch.as_tensor(x, device=dev) for x in (Hn, Tn))
+        eye = torch.eye(w, dtype=torch.float64, device=dev)
+        th, tt = U / 2 * np.linalg.norm(Hn), U / 2 * np.linalg.norm(Tn)
+        got = gpu_gep.qz_window(H, T, eye, eye, w, th, tt)
+        with tally(qz, "_sweep", lambda Hp, Tp, Qp, Zp, w_, l, i, its: i - l) as steps:
+            want, pms = host_ms(lambda: _small_qz_plain(*_cpu(H, T, eye, eye), w, th, tt))
+        ck, cp = qz_contract(Hn, Tn, got), qz_contract(Hn, Tn, want)
+        chordal = spectra_chordal(got, want)
+        log(f"  G2 w={w} ({ninf} T-diagonal zeros): kernel (info, worst residual/orth u, "
+            f"S, T structure, betas <= 1e-12 max) {ck[0]}, {ck[1]:.1f}, {ck[2]}, {ck[3]}, "
+            f"{ck[4]}; plain {cp[0]}, {cp[1]:.1f}, {cp[2]}, {cp[3]}, {cp[4]}; spectra "
+            f"within chordal {chordal:.2e}")
+        # by contract: the deflation order, and whether an infinite
+        # eigenvalue is detected (T-diagonal entries at rounding level
+        # against u max|T|; chip_ab.py qzinf), may differ by rounding; the
+        # spectra of the two backward-stable results agree to their
+        # condition times u, below 1e-10 on these windows
+        check(ck[0] == cp[0] == 0 and ck[1] < GATE_U and cp[1] < GATE_U
+              and ck[2:4] == (0.0, 0.0) and cp[2:4] == (0.0, 0.0)
+              and min(ck[4], cp[4]) >= ninf and chordal < 1e-10,
+              f"G2 w={w} ninf={ninf} fails its contract")
+        res[(w, ninf)] = (H, T, eye, th, tt, pms, steps[0], max(ck[1], cp[1]), chordal)
+    H, T, eye, th, tt, pms, steps, worst, chordal = res[(162, 0)]
+    w = 162
+    ms = cuda_ms(lambda: gpu_gep.qz_window(H, T, eye, eye, w, th, tt), 3)
+    wp = w + 3
+    # a chase step: a left 3-reflector on 2 (w+3)-wide rows triples and w Q
+    # triples, a right one on as many column triples (14 flops a triple),
+    # a rotation on as many column pairs (6 a pair)
+    bms, by = bound(8 * 8 * w * w, steps * 34 * (2 * wp + w))
+    log(f"  G2 w={w}: kernel {ms:.2f} ms ({ms / steps * 1e3:.3f} us a step of the plain "
+        f"twin's {steps} chase steps), plain (CPU) {pms:.1f} ms, bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=max(r[8] for r in res.values()), ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by,
+                detail=dict(steps=steps, us_a_step=ms / steps * 1e3, worst_u=worst,
+                            w84_plain_ms=res[(84, 0)][5]))
+
+
+def padded_pencil(n, B, seed, dev):
+    """A padded HT pencil (S, T, Q, Z) as the QZ driver holds it, with the
+    padding a train's windows need at both ends; returns (P, S, T, Q, Z)."""
+    import numpy as np
+    import torch
+    P = 6 * B + 6
+    NP = n + 2 * P
+    rng = np.random.default_rng(seed)
+    S = np.zeros((NP, NP))
+    T = np.zeros((NP, NP))
+    S[P:P + n, P:P + n] = np.triu(rng.standard_normal((n, n)), -1)
+    T[P:P + n, P:P + n] = np.triu(rng.standard_normal((n, n))) + 3 * np.eye(n)
+    Q = np.zeros((n, NP))
+    Q[:, P:P + n] = np.eye(n)
+    return P, *(torch.as_tensor(x.copy(), device=dev) for x in (S, T, Q, Q))
+
+
+def phase_qz_sweep(dev):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.qz_driver import _qz_sweep, _qz_train_hop
+    n, B = 512, 12
+    WC, HOP = 6 * B + 4, 3 * B
+    P, S, T, Q, Z = padded_pencil(n, B, 512, dev)
+    sh_np = np.random.default_rng(513).standard_normal((B, 4))
+    sh_np[:, 3] = -sh_np[:, 1]
+    sh = torch.as_tensor(sh_np, device=dev)
+    cpu = _cpu(S, T, Q, Z)
+    # one hop's window before the train reaches it: the second hop of the
+    # train as the sweep cuts it
+    ws = P + HOP - 3 * (B - 1) - 1
+    hop = (S[ws:ws + WC, ws:ws + WC].contiguous(), T[ws:ws + WC, ws:ws + WC].contiguous())
+    torch.cuda.synchronize()
+    _, train_ms = timed(lambda: _qz_sweep(S, T, Q, Z, P, P + n, sh, B))
+    _, plain_train_ms = host_ms(lambda: _qz_sweep(*cpu, P, P + n, sh.cpu(), B))
+    err = max(_rel(w, g) for g, w in zip((S, T, Q, Z), cpu))
+    log(f"  G3 one train n={n} B={B}: max err {err:.2e} relative; the sweep with the "
+        f"kernel {train_ms:.1f} ms, plain (CPU) {plain_train_ms:.1f} ms")
+    check(err <= 1e-11, f"G3 train n={n}: {err}")   # the same steps, other rounding
+    # one hop at the train's first full window (the bulges all active)
+    lr, ir = P - ws, P + n - ws
+    gk = gpu_gep.qz_sweep(*hop, sh, lr, ir, HOP, B, HOP)
+    gp, pms = host_ms(lambda: _qz_train_hop(*_cpu(*hop), sh.cpu(), lr, ir, HOP, B, HOP))
+    herr = max(_rel(w, g) for g, w in zip(gk, gp))
+    check(herr <= 1e-12, f"G3 hop: {herr}")
+    ms = cuda_ms(lambda: gpu_gep.qz_sweep(*hop, sh, lr, ir, HOP, B, HOP), 20)
+    active = sum(lr <= lr + HOP + t - 3 * b <= ir - 2 for t in range(HOP) for b in range(B))
+    # a bulge step: left 3-reflector on S, T rows and Qw columns, right
+    # 3-reflector on S, T, Zw columns (3 WC triples each, 14 flops a triple),
+    # rotation on 3 WC pairs (6 a pair)
+    bms, by = bound(8 * 6 * WC * WC, active * 102 * WC)
+    log(f"  G3 one hop B={B} WC={WC}: max err {herr:.2e}; kernel {ms:.4f} ms "
+        f"({ms / HOP * 1e3:.2f} us a step), plain (CPU) {pms:.1f} ms, {active} bulge steps, "
+        f"bound {bms:.5f} ms ({by})")
+    return dict(max_abs_err=max(err, herr), ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                detail=dict(train_ms=train_ms, plain_train_ms=plain_train_ms))
+
+
+def phase_aed_deflate_gep(dev):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep, qz_driver
+    from starneig_tpu_torch.ops.qz_driver import _aed_deflate_gep
+    from starneig_tpu_torch.testing.generators import planted_schur_pair
+    err = 0.0
+    for WA, s_ in ((84, 1e-13), (162, 1.5e-13)):
+        x = [torch.as_tensor(a, device=dev) for a in planted_schur_pair(WA, WA - 2, WA + 1)]
+        thresh = U / 2 * float(torch.linalg.norm(x[0]))
+        gk = gpu_gep.aed_deflate_gep(*x, s_, WA - 2, thresh)
+        with tally(qz_driver, "swap_adjacent_gep", lambda *a: 1) as swaps:
+            gp, pms = host_ms(lambda: _aed_deflate_gep(*_cpu(*x), s_, WA - 2, thresh))
+        ints_k, ints_p = [int(v) for v in gk[4:]], [int(v) for v in gp[4:]]
+        e = max(_rel(w, g) for g, w in zip(gk[:4], gp[:4]))
+        log(f"  G4 WA={WA}: (kbot, fail, steps) kernel {ints_k} plain {ints_p}, "
+            f"{swaps[0]} swaps, max err {e:.2e} relative")
+        # the same swaps, other rounding
+        check(ints_k == ints_p and e <= 1e-11, f"G4 WA={WA} disagrees")
+        err = max(err, e)
+    ms = cuda_ms(lambda: gpu_gep.aed_deflate_gep(*x, s_, WA - 2, thresh), 3)
+    wp = WA + 4
+    # a swap: the 4x4 transforms on 2 wp-wide row strips and on the column
+    # strips of S, T (wp rows) and Q, Z (WA rows), 32 flops a 4-vector
+    bms, by = bound(8 * 8 * WA * WA, swaps[0] * 32 * (4 * wp + 2 * WA))
+    log(f"  G4 WA={WA}: kernel {ms:.2f} ms ({ms / swaps[0] * 1e3:.2f} us a swap), plain "
+        f"(CPU) {pms:.1f} ms, bound {bms:.5f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                detail=dict(swaps=swaps[0], us_a_swap=ms / swaps[0] * 1e3))
+
+
+def gep_gates(A, B, S, T, Q, Z, bt):
+    """(residuals of A and B, orthogonality of Q and Z, structure errors of
+    S and T, count of |beta| <= 1e-12 max|beta|)."""
+    import numpy as np
+    from starneig_tpu_torch.testing import hooks
+    ra, rb = hooks.residual_gep(A, B, S, T, Q, Z)
+    bt = bt.cpu().numpy()
+    return (ra, rb, hooks.orthogonality(Q), hooks.orthogonality(Z),
+            hooks.schur_structure_error(S), hooks.triangular_structure_error(T),
+            int((np.abs(bt) <= 1e-12 * np.abs(bt).max()).sum()))
+
+
+def profiled_kernels(fn):
+    """Run fn() under torch.profiler; return (its result, {kernel name:
+    (device ms, calls)} for the device events, longest first, and fn()'s
+    CUDA-event time in ms inside the profiled region)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, ms = timed(fn)
+    tot = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0.0)
+        tot[e.key] = (us / 1e3, e.count)
+    return out, dict(sorted(tot.items(), key=lambda kv: -kv[1][0])), ms
+
+
+def phase_gep(dev):
+    """The GEP path at n=2000: known_spectrum_pencil(2000, complex_ratio 0.3,
+    inf_ratio 0.1, seed 0), the GEP_BENCH mix, through
+    api.gep.hessenberg_triangular -> api.gep.schur (default geometry: WA=162,
+    NS=120, B=12, TMAX=5), gated at 500 u; then the same QZ phase again
+    under torch.profiler for each kernel's device total."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.ops import qz_driver
+    from starneig_tpu_torch.testing import hooks
+    from starneig_tpu_torch.testing.generators import known_spectrum_pencil
+    n = GEP_N
+    A_np, B_np, alpha, beta = known_spectrum_pencil(n, complex_ratio=0.3, inf_ratio=0.1, seed=0)
+    A, B = (torch.as_tensor(x, device=dev) for x in (A_np, B_np))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    # the HT phase once, under the profiler (a few launches: its overhead is
+    # negligible), for its time and each kernel's device total
+    (H, T, Q, Z), prof_ht, ht_ms = profiled_kernels(lambda: gep.hessenberg_triangular(A, B))
+    ht_kernel_ms = sum(v[0] for k, v in prof_ht.items()
+                       if "ht_full_kernel" in k or "ht_apply_kernel" in k)
+    stats = {}
+    with tally(qz_driver, "_inf_chase_kernel", lambda *a: 1) as inf_calls:
+        out, qz_ms = timed(lambda: gep.schur(H, T, Q, Z, stats=stats))
+    launches = {k: kernels.LAUNCHES[k] for k in GEP_KERNELS}
+    S, Tt, Qo, Zo, ar, ai, bt, info = out
+    ra, rb, oq, oz, fs, ft, ninf = gep_gates(A_np, B_np, S, Tt, Qo, Zo, bt)
+    chordal = hooks.chordal_eigenvalue_error(ar, ai, bt, alpha, beta)
+    steps = (n - 2) * (n - 1) // 2
+    ht_bound, ht_by = bound(8 * 8 * n * n, ht_cascade_flops(n))
+    geo = {k: stats[k] for k in ("WA", "NS", "B", "WC", "TMAX")}
+    log(f"  GEP n={n}: info {int(info)} ht_ms {ht_ms:.1f} (G1 {ht_kernel_ms:.1f} ms device "
+        f"time, {ht_kernel_ms / steps * 1e3:.2f} us a cascade step, the Q/Z update included; "
+        f"G1's bound {ht_bound:.2f} ms, {ht_by}) "
+        f"qz_ms {qz_ms:.1f}; residual A {ra:.1f}u "
+        f"B {rb:.1f}u, orthogonality Q {oq:.1f}u Z {oz:.1f}u, structure S {fs} T {ft}; "
+        f"{ninf} betas <= 1e-12 max|beta| of {int((beta == 0).sum())} planted infinities, "
+        f"chordal error {chordal:.3e}u; geometry {geo}, rounds {stats['rounds']} "
+        f"({stats['inf_rounds']} with the infinite push, {inf_calls[0]} _inf_chase_kernel "
+        f"calls), recondense calls (G1 window mode) {stats['recondense_calls']}; "
+        f"launches {launches}")
+    check(int(info) == 0, f"GEP n={n}: info {int(info)}")
+    check(max(ra, rb, oq, oz) < GATE_U, f"GEP n={n} gates: {ra} {rb} {oq} {oz}")
+    check(fs == 0.0 and ft == 0.0, f"GEP n={n}: structure {fs} {ft}")
+    check(geo == dict(WA=162, NS=120, B=12, WC=76, TMAX=5), f"GEP n={n}: geometry {geo}")
+    for k in GEP_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the GEP path")
+    check(stats["recondense_calls"] > 0, "G1's window mode did not run")
+    check(ht_kernel_ms > 0, f"GEP n={n}: the profiler saw no G1 device time")
+    # the QZ phase again under the profiler: each kernel's device total, and
+    # the plain infinite push's time (CUDA events around each call)
+    inf_ms = [0.0]
+    orig = qz_driver._inf_chase_kernel
+
+    def timed_chase(*a):
+        out_, t = timed(lambda: orig(*a))
+        inf_ms[0] += t
+        return out_
+    qz_driver._inf_chase_kernel = timed_chase
+    try:
+        _, prof, _ms = profiled_kernels(lambda: gep.schur(H, T, Q, Z))
+    finally:
+        qz_driver._inf_chase_kernel = orig
+    top = {k: (round(v[0], 3), v[1]) for k, v in list(prof.items())[:12]}
+    log(f"  GEP n={n} QZ device time by kernel (ms, calls; under the profiler): {top}")
+    log(f"  GEP n={n} HT device time by kernel: "
+        f"{ {k: (round(v[0], 3), v[1]) for k, v in list(prof_ht.items())[:6]} }")
+    log(f"  GEP n={n} plain infinite push: {inf_calls[0]} _inf_chase_kernel calls, "
+        f"{inf_ms[0]:.1f} ms (CUDA events around each call, under the profiler)")
+    return dict(info=int(info), ht_ms=ht_ms, qz_ms=qz_ms, ht_kernel_ms=ht_kernel_ms,
+                ht_us_a_step=ht_kernel_ms / steps * 1e3,
+                ht_bound_ms=ht_bound, ht_bound_by=ht_by,
+                residual_a_u=ra, residual_b_u=rb, orth_q_u=oq, orth_z_u=oz,
+                structure=(fs, ft), zero_betas=ninf, chordal_u=chordal,
+                rounds=stats["rounds"], inf_rounds=stats["inf_rounds"],
+                inf_chase_calls=inf_calls[0], inf_chase_ms=inf_ms[0],
+                recondense_calls=stats["recondense_calls"], launches=launches,
+                qz_log=stats["qz_log"], profile_qz=prof, profile_ht=prof_ht)
+
+
+def phase_gep_inf(dev):
+    """api.gep.schur on tests/test_qz_driver.py:103-132's pencil (n=512 in HT
+    form, 51 exact T-diagonal zeros, seed 21) under that test's gates, with
+    >= 90% of the infinities back with |beta| <= 1e-12 max|beta|."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.api import gep
+    n = 512
+    rng = np.random.default_rng(21)
+    H0 = np.triu(rng.standard_normal((n, n)), -1)
+    T0 = np.triu(rng.standard_normal((n, n))) + 3 * np.eye(n)
+    inf_pos = rng.choice(np.arange(1, n - 1), size=n // 10, replace=False)
+    for j in inf_pos:
+        T0[j, j] = 0.0
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    stats = {}
+    out, qz_ms = timed(lambda: gep.schur(H0, T0, stats=stats, device=dev))
+    launches = {k: kernels.LAUNCHES[k] for k in GEP_KERNELS}
+    S, Tt, Qo, Zo, _ar, _ai, bt, info = out
+    ra, rb, oq, oz, fs, ft, ninf = gep_gates(H0, T0, S, Tt, Qo, Zo, bt)
+    log(f"  GEP n={n} infinite-rich: info {int(info)} qz_ms {qz_ms:.1f}; residual "
+        f"{ra:.1f}u {rb:.1f}u, orthogonality {oq:.1f}u {oz:.1f}u, structure {fs} {ft}; "
+        f"{ninf} of {len(inf_pos)} infinities back; rounds {stats['rounds']} "
+        f"({stats['inf_rounds']} with the infinite push); launches {launches}")
+    check(int(info) == 0 and max(ra, rb, oq, oz) < GEP_INF_GATE_U and fs == 0.0
+          and ft == 0.0, f"GEP n={n} infinite-rich gates")
+    check(ninf >= int(0.9 * len(inf_pos)), f"GEP n={n}: {ninf} infinities back")
+    check(stats["inf_rounds"] > 0, f"GEP n={n}: no infinite push ran")
+    return dict(info=int(info), qz_ms=qz_ms, residual_a_u=ra, residual_b_u=rb,
+                orth_q_u=oq, orth_z_u=oz, infinities=ninf, planted=len(inf_pos),
+                rounds=stats["rounds"], inf_rounds=stats["inf_rounds"], launches=launches)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all results as JSON here")
@@ -1096,23 +1625,42 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
 
+    t_start = time.perf_counter()
     log("== 1. device")
     smi = phase_device()
     log("== 2. build")
     build_s = phase_build()
     log("== 3. kernels against their plain versions")
-    results = {"hess_gemv": phase_gemv(dev), "francis": phase_francis(dev),
-               "train_hops": phase_train_hops(dev),
-               "aed_deflate": phase_deflate(dev),
-               "recondense": phase_recondense(dev),
-               "reorder_bubble": phase_bubble(dev)}
-    log("== 4. n=1200 with B=70")
-    b70 = phase_schur_b70(dev)
-    log("== 5. main path")
-    main_res = phase_main(dev)
+    ht_plain = start_ht_plain(dev)
+    try:
+        results = {"hess_gemv": phase_gemv(dev), "francis": phase_francis(dev),
+                   "train_hops": phase_train_hops(dev),
+                   "aed_deflate": phase_deflate(dev),
+                   "recondense": phase_recondense(dev),
+                   "reorder_bubble": phase_bubble(dev),
+                   "ht_cascade": phase_ht_cascade(dev, ht_plain[2]),
+                   "qz_window": phase_qz_window(dev),
+                   "qz_sweep": phase_qz_sweep(dev),
+                   "aed_deflate_gep": phase_aed_deflate_gep(dev)}
+        log("== 4. n=1200 with B=70")
+        b70 = phase_schur_b70(dev)
+        log("== 5. main path")
+        main_res = phase_main(dev)
+        log(f"== 6. GEP path, n={GEP_N}")
+        gep_res = phase_gep(dev)
+        log("== 7. GEP n=512 infinite-rich")
+        gep_inf = phase_gep_inf(dev)
+        log(f"== 8. G1 at n={GEP_N} against its plain twin")
+        finish_ht_plain(ht_plain, results["ht_cascade"],
+                        SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
+    finally:
+        if ht_plain[0].is_alive():
+            ht_plain[0].terminate()
+        ht_plain[0].join()
+    launches = {**main_res["launches"], **gep_res["launches"]}
 
     table = [dict(name=k, route="cuda", source=SOURCES[k],
-                  replaces=REPLACES[k], launches=main_res["launches"][k],
+                  replaces=REPLACES[k], launches=launches[k],
                   max_abs_err=r["max_abs_err"], ms=r["ms"],
                   plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                   bound_by=r["bound_by"], library_ms=r.get("library_ms"))
@@ -1121,8 +1669,10 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70, main=main_res,
-                 torch=torch.__version__, cuda=torch.version.cuda),
+                 gep=gep_res, gep_inf=gep_inf, torch=torch.__version__,
+                 cuda=torch.version.cuda),
             indent=1, default=str))
+    log(f"smoke wall seconds: {time.perf_counter() - t_start:.1f}")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """Public API umbrella of the PyTorch port.
 
   api.sep     — standard eigenvalue problem, single process
+  api.gep     — generalized eigenvalue problem, single process (the
+                reduction path: Hessenberg-triangular, Schur, eigenvalues,
+                select)
 """
 
-from starneig_tpu_torch.api import sep
+from starneig_tpu_torch.api import gep, sep

@@ -1,5 +1,8 @@
-"""Seeded inputs for checking the reordering kernel against its plain twin
-(numpy only)."""
+"""Seeded inputs (numpy only): windows for checking the reordering kernel
+against its plain twin, and the GEP test inputs, copies of
+``starneig_tpu/testing/generators.py`` (``random_dense``,
+``random_orthogonal``, ``known_spectrum_pencil``) so that a card without
+JAX builds the same pencils from the same seeds."""
 
 from __future__ import annotations
 
@@ -37,3 +40,107 @@ def planted_windows(G: int, W: int, seed: int):
         Ts.append(T)
         sels.append(sel)
     return np.stack(Ts), np.stack(sels)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def random_dense(n: int, seed: int = 0, dtype=np.float64) -> np.ndarray:
+    return _rng(seed).standard_normal((n, n)).astype(dtype)
+
+
+def random_orthogonal(n: int, seed: int = 0, dtype=np.float64) -> np.ndarray:
+    q, r = np.linalg.qr(_rng(seed).standard_normal((n, n)))
+    return (q * np.sign(np.diag(r))).astype(dtype)
+
+
+def known_spectrum_pencil(n: int, complex_ratio: float = 0.5,
+                          zero_ratio: float = 0.0, inf_ratio: float = 0.0,
+                          seed: int = 0, dtype=np.float64):
+    """Pencil (A, B) with a planted generalized spectrum.
+
+    Builds a generalized Schur pair (S, T): S quasi-triangular, T upper
+    triangular with zero diagonal entries planting infinite eigenvalues;
+    scrambles it with random orthogonal Q0, Z0: A = Q0 S Z0^T,
+    B = Q0 T Z0^T.  Returns (A, B, alpha, beta): the eigenvalues are
+    alpha/beta, beta == 0 for an infinite one.
+    """
+    rng = _rng(seed)
+    S = np.zeros((n, n), dtype)
+    T = np.zeros((n, n), dtype)
+    alpha = np.zeros(n, complex)
+    beta = np.ones(n)
+    i = 0
+    while i < n:
+        make_pair = i + 1 < n and rng.random() < complex_ratio
+        if make_pair:
+            p = rng.standard_normal()
+            b = np.abs(rng.standard_normal()) + 0.1
+            c = -(np.abs(rng.standard_normal()) + 0.1)
+            S[i, i] = p
+            S[i + 1, i + 1] = p
+            S[i, i + 1] = b
+            S[i + 1, i] = c
+            T[i, i] = 1.0
+            T[i + 1, i + 1] = 1.0
+            w = np.sqrt(-b * c)
+            alpha[i] = p + 1j * w
+            alpha[i + 1] = p - 1j * w
+            i += 2
+        else:
+            r = rng.random()
+            if r < inf_ratio:
+                S[i, i] = np.abs(rng.standard_normal()) + 0.5
+                T[i, i] = 0.0
+                alpha[i] = S[i, i]
+                beta[i] = 0.0
+            elif r < inf_ratio + zero_ratio:
+                S[i, i] = 0.0
+                T[i, i] = np.abs(rng.standard_normal()) + 0.5
+                alpha[i] = 0.0
+            else:
+                S[i, i] = rng.standard_normal()
+                T[i, i] = np.abs(rng.standard_normal()) + 0.5
+                alpha[i] = S[i, i]
+                beta[i] = T[i, i]
+            i += 1
+    scale = 1.0 / np.sqrt(max(n, 2))
+    S = S + (np.triu(rng.standard_normal((n, n)), 2) * scale).astype(dtype)
+    Tnoise = np.triu(rng.standard_normal((n, n)), 1) * scale
+    # T stays diagonal inside the 2x2 S-blocks: a nonzero T[i, i+1] there
+    # would change the planted pair
+    for i in range(n - 1):
+        if S[i + 1, i] != 0:
+            Tnoise[i, i + 1] = 0.0
+    T = T + Tnoise.astype(dtype)
+    Q0 = random_orthogonal(n, seed + 1, dtype)
+    Z0 = random_orthogonal(n, seed + 2, dtype)
+    A = Q0 @ S @ Z0.T
+    B = Q0 @ T @ Z0.T
+    return A.astype(dtype), B.astype(dtype), alpha, beta
+
+
+def planted_schur_pair(W: int, kact: int, seed: int):
+    """A (W, W) generalized Schur pair (S, T) and near-identity orthogonal
+    window transforms (Q, Z), as an AED window holds them: S upper
+    triangular with standardized 2x2 complex blocks planted every 7 rows in
+    its leading kact block (T diagonal inside them), T upper triangular
+    with diagonal >= 2 - |noise|, zero outside the leading kact block."""
+    rng = np.random.default_rng(seed)
+    S = np.zeros((W, W))
+    T = np.zeros((W, W))
+    S[:kact, :kact] = np.triu(rng.standard_normal((kact, kact)))
+    T[:kact, :kact] = np.triu(rng.standard_normal((kact, kact))) + 2 * np.eye(kact)
+    for p in range(3, kact - 2, 7):
+        S[p + 1, p] = -abs(rng.standard_normal()) - 0.1
+        S[p, p + 1] = abs(rng.standard_normal()) + 0.1
+        S[p + 1, p + 1] = S[p, p]
+        T[p, p + 1] = 0.0
+        T[p + 1, p + 1] = T[p, p]
+    Q = np.eye(W)
+    Z = np.eye(W)
+    for M in (Q, Z):
+        M[:kact, :kact] = np.linalg.qr(
+            np.eye(kact) + 0.05 * rng.standard_normal((kact, kact)))[0]
+    return S, T, Q, Z

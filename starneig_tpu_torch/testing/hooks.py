@@ -1,7 +1,7 @@
 """Validation hooks: residual, orthogonality, structure and eigenvalue
 checks, in units of the unit roundoff u.
 
-Port of the SEP part of ``starneig_tpu/testing/hooks.py`` (reference
+Port of the SEP and GEP checks of ``starneig_tpu/testing/hooks.py`` (reference
 ``test/common/hooks.c:405`` residual, ``:759`` Schur structure, ``:1036``
 eigenvalues; norms ``test/common/checks.c:180,196``; the thresholds of
 the reference's test program, as ``starneig_tpu/testing/hooks.py`` cites
@@ -46,6 +46,14 @@ def residual_sep(A, S, Q) -> float:
     return float(r / _u(A.dtype))
 
 
+def residual_gep(A, B, S, T, Q, Z):
+    """(||Q S Z^T - A|| / ||A||, ||Q T Z^T - B|| / ||B||) in units of u."""
+    A, B, S, T, Q, Z = map(_np, (A, B, S, T, Q, Z))
+    ra = np.linalg.norm(Q @ S @ Z.T - A) / max(np.linalg.norm(A), 1e-300)
+    rb = np.linalg.norm(Q @ T @ Z.T - B) / max(np.linalg.norm(B), 1e-300)
+    return float(ra / _u(A.dtype)), float(rb / _u(B.dtype))
+
+
 def orthogonality(Q) -> float:
     """||Q Q^T - I||_F / sqrt(n) in units of u (checks.c:196-204)."""
     Q = _np(Q)
@@ -69,6 +77,18 @@ def schur_structure_error(S) -> float:
     if overlap.size:
         err = max(err, float(np.max(overlap)))
     return float(err)
+
+
+def hessenberg_structure_error(H) -> float:
+    """Largest |entry| below the first subdiagonal (must be exactly 0)."""
+    H = _np(H)
+    return float(np.max(np.abs(np.tril(H, -2))) if H.shape[0] > 2 else 0.0)
+
+
+def triangular_structure_error(T) -> float:
+    """Largest |entry| below the diagonal (upper triangular check)."""
+    T = _np(T)
+    return float(np.max(np.abs(np.tril(T, -1))))
 
 
 def eigenvalue_error(computed, known, scale=None) -> float:
@@ -98,6 +118,30 @@ def reordering_check(eig_real, eig_imag, select_in, num_selected_out) -> bool:
     # count; detailed value matching is done via eigenvalue_error on the
     # leading block.
     return bool(num_selected_out >= 0)
+
+
+def chordal_eigenvalue_error(ar, ai, bt, alpha_known, beta_known) -> float:
+    """Max matched chordal distance between computed and known generalized
+    spectra, in units of u (the GEP known-eigenvalues hook,
+    test/common/hooks.c:1344; the chordal metric handles infinities:
+    d((a1,b1),(a2,b2)) = |a1 b2 - a2 b1| / (||(a1,b1)|| ||(a2,b2)||))."""
+    a1 = _np(ar).astype(float) + 1j * _np(ai).astype(float)
+    b1 = _np(bt).astype(float)
+    a2 = np.asarray(alpha_known, complex)
+    b2 = np.asarray(beta_known, float)
+    n1 = np.sqrt(np.abs(a1) ** 2 + b1 ** 2)
+    n2 = np.sqrt(np.abs(a2) ** 2 + b2 ** 2)
+    # greedy: each known value takes its closest unused computed value
+    used = np.zeros(len(a1), bool)
+    worst = 0.0
+    for j in range(len(a2)):
+        d = np.abs(a1 * b2[j] - a2[j] * b1) / np.maximum(n1, 1e-300) / \
+            max(n2[j], 1e-300)
+        d[used] = np.inf
+        i = int(np.argmin(d))
+        used[i] = True
+        worst = max(worst, float(d[i]))
+    return worst / _u(np.float64)
 
 
 def selection_bitmap(eig_real, eig_imag, sub, ratio, distr="uniform",

@@ -28,8 +28,9 @@ def test_import_pulls_no_jax_and_builds_nothing():
     proc = _run(
         "import sys\n"
         "import starneig_tpu_torch\n"
-        "from starneig_tpu_torch.api import sep\n"
+        "from starneig_tpu_torch.api import gep, sep\n"
         "from starneig_tpu_torch.ops import gpu_hess, gpu_schur, schur\n"
+        "from starneig_tpu_torch.ops import gpu_gep, hess_triangular, qz, qz_driver\n"
         "from starneig_tpu_torch.ops import gpu_reorder, reorder, eigenvectors\n"
         "from starneig_tpu_torch.testing import hooks\n"
         "from starneig_tpu_torch import kernels, convert\n"
@@ -58,18 +59,50 @@ def test_cpu_path_launches_no_kernel():
     assert kernels._lib is None
 
 
-@pytest.mark.parametrize("wrapper", ["aed_recondense", "window_bubble"])
+@pytest.mark.parametrize("wrapper", ["aed_recondense", "window_bubble", "ht_cascade",
+                                     "ht_recondense", "qz_window", "qz_sweep",
+                                     "aed_deflate_gep"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A wrapper launches its kernel or raises: a CPU tensor never reaches
     the kernel library."""
     from starneig_tpu_torch import kernels
-    from starneig_tpu_torch.ops import gpu_reorder, gpu_schur
+    from starneig_tpu_torch.ops import gpu_gep, gpu_reorder, gpu_schur
     T = torch.eye(8, dtype=torch.float64)
+    W = torch.eye(16, dtype=torch.float64)         # a train window, B = 2
+    calls = {
+        "aed_recondense": lambda: gpu_schur.aed_recondense(T, T, 0.5, 4),
+        "window_bubble": lambda: gpu_reorder.window_bubble(
+            T[None], np.ones((1, 8), bool), [0], [8], [8]),
+        "ht_cascade": lambda: gpu_gep.ht_cascade(T, T, T, T),
+        "ht_recondense": lambda: gpu_gep.ht_recondense(T, T, T, T, 0.5, 4),
+        "qz_window": lambda: gpu_gep.qz_window(T, T, T, T, 8),
+        "qz_sweep": lambda: gpu_gep.qz_sweep(W, W, torch.zeros(2, 4, dtype=torch.float64),
+                                             4, 12, 0, 2, 6),
+        "aed_deflate_gep": lambda: gpu_gep.aed_deflate_gep(T, T, T, T, 0.5, 8, 0.0),
+    }
     with pytest.raises(ValueError, match="CUDA"):
-        if wrapper == "aed_recondense":
-            gpu_schur.aed_recondense(T, T, 0.5, 4)
-        else:
-            gpu_reorder.window_bubble(T[None], np.ones((1, 8), bool), [0], [8], [8])
+        calls[wrapper]()
+    assert kernels._lib is None
+
+
+def test_gep_cpu_path_launches_no_kernel():
+    """The GEP chain on the CPU (the small path and the QZ driver) runs the
+    plain twins only."""
+    from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.config import SchurConf
+    before = dict(kernels.LAUNCHES)
+    rng = np.random.default_rng(0)
+    for n, conf in ((24, None), (32, SchurConf(small_limit=16, aed_window_size=10,
+                                                aed_shift_count=8))):
+        A, B = rng.standard_normal((n, n)), rng.standard_normal((n, n)) + 3 * np.eye(n)
+        H, T, Q, Z = gep.hessenberg_triangular(A, B, device="cpu")
+        stats = {}
+        S, Tt, *_, info = gep.schur(H, T, Q, Z, conf=conf, stats=stats, device="cpu")
+        assert int(info) == 0 and stats["path"] == ("small" if conf is None else "aed")
+        sel = gep.select(S, Tt, lambda a, b: b != 0 and (a / b).real > 0)
+        assert sel.dtype == bool and sel.shape == (n,)
+    assert kernels.LAUNCHES == before
     assert kernels._lib is None
 
 
