@@ -9,11 +9,14 @@ Phases (any failure raises; the exit code is then nonzero):
      and power limit (nvidia-smi);
   2. build: compiles the hand-written kernels from
      starneig_tpu_torch/kernels/csrc with nvcc;
-  3. kernels: each kernel against its plain PyTorch twin on the card, at
-     small shapes and at the shapes the n=4000 main path gives it, with
-     the tolerances stated below; CUDA-event times of both (the plain
-     twins' one timed run at the main path's shape comes after their runs
-     at the smaller shapes, which serve as the warm-up); each kernel's
+  3. kernels: each kernel against its plain PyTorch twin, at small shapes
+     and at the shapes the n=4000 main path gives it, with the tolerances
+     stated below; CUDA-event times of the kernels, host times of the
+     plain twins, which run on CPU copies of the inputs (host loops of
+     small torch calls run several times faster there; B1, B3 and B5's
+     twins run on the card, their one timed run at the main path's shape
+     after their runs at the smaller shapes, which serve as the warm-up);
+     each kernel's
      bound (bytes over HBM_BPS or fp64 operations over F64_FLOPS, counted
      from this run's inputs), and under each kernel's detail its serial
      chain from cycle counts of earlier runs (chip_ab.py clock); B1's
@@ -29,11 +32,15 @@ Phases (any failure raises; the exit code is then nonzero):
      G1 at n=192 and in window mode at WA=84 and 162 (kbot 10 elementwise,
      kbot=WA-4 by contract), G2 at w=84 (with and without 8 infinite
      eigenvalues) and 162 by contract, G3 for a whole train at n=512 and one
-     hop, G4 at WA=84 and 162 (kbot, fail and steps equal); G1 also at
+     hop, G4 at WA=84 and 162 (kbot, fail and steps equal), G5 (the
+     infinite push's window chase) at Wb=96 and 84, G6 (the pencil window
+     bubble) on planted windows at W=16 and 128 (2x2 blocks, exact
+     T-diagonal zeros, frozen rows, an insertion limit, a rejected swap;
+     every integer equal); G1 also at
      the GEP path's n=2000 on a regular pencil (A and B Gaussian, B made
      triangular, seed 2000): the kernel here, its plain twin in a child
      process started at the top of this phase, which runs on the host
-     while the later phases use the card (compared in phase 8);
+     while the later phases use the card (compared in phase 9);
   4. n=1200 with B=70: api.sep.hessenberg and api.sep.schur with a
      geometry of 70 bulges a train, gated on info, residual,
      orthogonality, the Schur form, the eigenvalues against numpy and B3's
@@ -57,9 +64,21 @@ Phases (any failure raises; the exit code is then nonzero):
      launch counts (zeroed before the path, read after it; every GEP kernel
      at least once); the HT phase runs under torch.profiler (each kernel's
      device total, G1's time), the QZ phase again under it afterwards;
+     then api.gep.select (finite, Re(alpha/beta) > 0), api.gep.reorder_schur
+     and api.gep.eigenvectors of the leading selected block, gated on info,
+     exact structure, 500 u, the leading rows holding exactly the selected
+     eigenvalues, the spectrum kept (1e-10 chordal) and the eigenvector
+     residuals, the launch counts zeroed before and read after (G6 at
+     least once);
   7. GEP n=512 infinite-rich: api.gep.schur on tests/test_qz_driver.py's
-     HT pencil with 51 exact T-diagonal zeros, under that test's gates;
-  8. G1 at the GEP path's shape: phase 3's n=2000 result against the
+     HT pencil with 51 exact T-diagonal zeros, under that test's gates (G5
+     launched); then its infinite eigenvalues (|beta| <= 1e-12 max|beta|)
+     reordered to the top (all of them leading, as the JAX package leaves
+     them) and their eigenvectors, gated on ||B x|| / (||B||_F ||x||);
+  8. the CLI: python -m starneig_tpu_torch.cli --experiment full-chain
+     --generalized --init known --complex-ratio 0.3 --inf-ratio 0.1
+     --n 512 in a child process, exit code 0 and no hook line failed;
+  9. G1 at the GEP path's shape: phase 3's n=2000 result against the
      plain cascade of the child process, within 1e-11 max|M|; G1's row in
      the kernel table is this n=2000 run.  (The GEP path's own pencil has
      a singular B, where the cascade is ill-conditioned elementwise: one
@@ -127,6 +146,10 @@ REPLACES = {
     "qz_window": "starneig_tpu/ops/qz.py:215",
     "qz_sweep": "starneig_tpu/ops/qz_driver.py:444",
     "aed_deflate_gep": "starneig_tpu/ops/qz_driver.py:121",
+    # the infinite push's window chase (a fori_loop) and the pencil window
+    # bubble (a while_loop), both on the GEP chain past the reduction
+    "inf_chase": "starneig_tpu/ops/qz_driver.py:329",
+    "reorder_bubble_gep": "starneig_tpu/ops/reorder.py:405",
 }
 SOURCES = {k: f"starneig_tpu_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 # the card's peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): HBM
@@ -135,10 +158,12 @@ HBM_BPS = 3.35e12
 F64_FLOPS = 34e12
 # the kernels of Hessenberg -> Schur; the reordering runs reorder_bubble
 SCHUR_KERNELS = ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense")
-# the kernels of the GEP path hessenberg_triangular -> schur
-GEP_KERNELS = ("ht_cascade", "qz_window", "qz_sweep", "aed_deflate_gep")
+# the kernels of the GEP path hessenberg_triangular -> schur, and of the
+# chain past it (select -> reorder_schur -> eigenvectors)
+GEP_KERNELS = ("ht_cascade", "qz_window", "qz_sweep", "aed_deflate_gep", "inf_chase")
+GEP_CHAIN_KERNELS = ("reorder_bubble_gep",)
 GEP_N = 2000                       # the GEP chain's size
-SMOKE_DEADLINE_S = 1100.0          # phase 8 waits for the plain cascade until then
+SMOKE_DEADLINE_S = 1100.0          # phase 9 waits for the plain cascade until then
 GEP_INF_GATE_U = 5000.0            # tests/test_qz_driver.py's gates (n=512 infinite-rich)
 
 
@@ -351,7 +376,7 @@ def phase_francis(dev):
         Sk, Zk, ik = francis(H, Z, m, th)
         # the plain twin's chase steps: a sweep over [l, i] runs i - l
         with tally(small_schur, "_sweep", lambda Hp, Zp, l, i, *a: i - l) as steps:
-            (Sp, Zp, ip), plain_ms = timed(lambda: _small_schur_plain(H, Z, m, th))
+            (Sp, Zp, ip), plain_ms = host_ms(lambda: _small_schur_plain(*_cpu(H, Z), m, th))
         steps = steps[0]
         check(int(ik) == 0 and int(ip) == 0, f"B2 w={w}: info {int(ik)} {int(ip)}")
         form_k, form_p = schur_form_error(Sk), schur_form_error(Sp)
@@ -360,7 +385,7 @@ def phase_francis(dev):
         res = np.linalg.norm(Zkn @ Skn @ Zkn.T - Hn) / nh / U
         orth = np.linalg.norm(Zkn @ Zkn.T - np.eye(w)) / np.sqrt(w) / U
         d = float(np.abs(block_eigs(Sk, m) - block_eigs(Sp, m)).max())
-        elem = float((Sk - Sp).abs().max()) / nh
+        elem = float((Sk.cpu() - Sp).abs().max()) / nh
         log(f"  B2 w={w} m={m}: Schur form error kernel {form_k} plain {form_p}; "
             f"block eigenvalues max abs err {d:.2e} ({d / nh:.2e} |H|); "
             f"kernel residual {res:.1f}u orth {orth:.1f}u; S diff {elem:.2e} |H| "
@@ -614,6 +639,7 @@ def deflate_check(label, T, V, out, ref):
     the same integers, T and V within 1e-10 relative, a similarity residual
     < 500 u.  Returns (max abs err, residual in u)."""
     Tk, Vk, kk, fk = out
+    Tk, Vk = Tk.cpu(), Vk.cpu()
     Tp, Vp, kp, fp = ref
     check(int(kk) == int(kp) and int(fk) == int(fp),
           f"B4 {label}: kbot/fail {int(kk)},{int(fk)} vs {int(kp)},{int(fp)}")
@@ -645,7 +671,7 @@ def phase_deflate(dev):
                    lambda T4, p, q: (2 * (p + q) - 1) * (p + q) * (2 * WA + p + q)) \
                 as flops, tally(schur, "swap_adjacent", lambda *a: 1) as swaps, \
                 tally(schur, "swap_adjacent", lambda T4, p, q: SWAP_CYCLES[p, q]) as cyc:
-            ref, plain_ms[label] = timed(lambda: _aed_deflate(T, V, s, w, th))
+            ref, plain_ms[label] = host_ms(lambda: _aed_deflate(*_cpu(T, V), s, w, th))
         nswaps[label], chain_ms[label] = swaps[0], cyc[0] / SM_HZ * 1e3
         d, res = deflate_check(label, T, V, out, ref)
         log(f"  B4 WA={WA} {label}: {swaps[0]} swaps; kbot {int(out[2])} fail "
@@ -822,6 +848,7 @@ def bubble_check(label, Tw, out, ref):
     1e-10 relative.  Returns the max abs err."""
     import numpy as np
     Tk, Qk, selk, dstk, nfk, nsk = out
+    Tk, Qk = Tk.cpu(), Qk.cpu()
     Tp, Qp, selp, dstp, nfp, nsp = ref
     check((int(dstk), int(nfk), int(nsk)) == (dstp, nfp, nsp)
           and np.array_equal(selk, selp),
@@ -851,8 +878,8 @@ def phase_bubble(dev):
         for g in range(G):
             with tally(reorder, "swap_adjacent",
                        lambda T4, p, q: SWAP_CYCLES[p, q]) as cyc:
-                ref, t = timed(lambda: _window_bubble(Td[g], sels[g], lims[0][g],
-                                                      lims[1][g], lims[2][g]))
+                ref, t = host_ms(lambda: _window_bubble(Td[g].cpu(), sels[g], lims[0][g],
+                                                        lims[1][g], lims[2][g]))
             plain_ms += t
             chain = max(chain, cyc[0])       # the windows run side by side
             err = max(err, bubble_check(f"W={W} window {g}", Td[g],
@@ -1193,12 +1220,12 @@ def start_ht_plain(dev):
                        args=(send, *(x.cpu().numpy() for x in inp)))
     proc.start()
     send.close()
-    log(f"  G1 n={GEP_N}: the plain cascade runs in process {proc.pid} until phase 8")
+    log(f"  G1 n={GEP_N}: the plain cascade runs in process {proc.pid} until phase 9")
     return proc, recv, inp
 
 
 def finish_ht_plain(handle, g1, deadline_s):
-    """Phase 8: wait for the child's plain cascade (at most deadline_s) and
+    """Phase 9: wait for the child's plain cascade (at most deadline_s) and
     hold phase 3's n=GEP_N kernel result to it within 1e-11 max|M| (the
     same rotations in the same order, other rounding).  G1's kernel-table
     row becomes this run; the n=192 numbers stay under its detail."""
@@ -1281,10 +1308,10 @@ def phase_ht_cascade(dev, inp2000):
     steps = (n - 2) * (n - 1) // 2
     bms, by = bound(8 * 8 * n * n, ht_cascade_flops(n))
     log(f"  G1 n={n}: kernel {ms:.1f} ms ({ms / steps * 1e3:.3f} us a step of {steps}); "
-        f"its plain twin is compared in phase 8")
+        f"its plain twin is compared in phase 9")
     detail[f"full n={n}"] = dict(ms=ms, bound_ms=bms, bound_by=by, steps=steps,
                                  us_a_step=ms / steps * 1e3)
-    # the n=192 numbers stand until phase 8 replaces them with n=2000's
+    # the n=192 numbers stand until phase 9 replaces them with n=2000's
     d192 = detail["full n=192"]
     return dict(max_abs_err=err, ms=d192["ms"], plain_ms=plain_ms, bound_ms=d192["bound_ms"],
                 bound_by=d192["bound_by"], detail=detail, out_n2000=out)
@@ -1461,6 +1488,132 @@ def phase_aed_deflate_gep(dev):
                 detail=dict(swaps=swaps[0], us_a_swap=ms / swaps[0] * 1e3))
 
 
+# G5's windows (Wb, jrel, mrel, lrel): the n=2000 push's INFW=96 window as
+# the push's later windows take it (the zero at row 1, no segment top); the
+# n=512 geometry's 84 with the zero at the segment top (the reflection
+# skipped there); a window cut short (mrel < Wb) with the top inside
+INF_CASES = ((96, 1, 96, -1), (84, 0, 84, 0), (96, 7, 60, 7))
+
+
+def phase_inf_chase(dev):
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.qz_driver import _inf_chase_kernel
+    from starneig_tpu_torch.testing import hooks
+    from starneig_tpu_torch.testing.generators import inf_push_window
+    err = 0.0
+    for Wb, jrel, mrel, lrel in INF_CASES:
+        H, T = (torch.as_tensor(x, device=dev)
+                for x in inf_push_window(Wb, Wb + jrel, jrel, lrel))
+        gk = gpu_gep.inf_chase(H, T, jrel, mrel, lrel)
+        gp, pms = host_ms(lambda: _inf_chase_kernel(*_cpu(H, T), jrel, mrel, lrel))
+        e = max(_rel(w, g) for g, w in zip(gk, gp))
+        Tk = gk[1].cpu()
+        exact = (float(Tk[mrel - 1, mrel - 1]) == 0.0
+                 and hooks.triangular_structure_error(Tk) == 0.0
+                 and hooks.hessenberg_structure_error(gk[0]) == 0.0)
+        log(f"  G5 Wb={Wb} jrel={jrel} mrel={mrel} lrel={lrel}: max err {e:.2e} max|M|; "
+            f"zero at mrel-1 and exact structure {exact}")
+        # the same rotations, other rounding (FMA contraction)
+        check(e <= 1e-12 and exact, f"G5 Wb={Wb} jrel={jrel}: {e}, {exact}")
+        err = max(err, e)
+        if (Wb, jrel, lrel) == (96, 1, -1):
+            timed_case = (H, T, jrel, mrel, lrel, pms)
+    H, T, jrel, mrel, lrel, pms = timed_case
+    Wb = H.shape[0]
+    ms = cuda_ms(lambda: gpu_gep.inf_chase(H, T, jrel, mrel, lrel), 20)
+    steps = mrel - 1 - jrel
+    # a step: a left rotation on 2 Wb-wide row pairs (H, T) and Wb Qw
+    # column pairs, a right reflection on as many column pairs, 6 flops a
+    # pair; H, T read, H, T, Qw, Zw written
+    bms, by = bound(8 * 6 * Wb * Wb, steps * 36 * Wb)
+    log(f"  G5 Wb={Wb}: kernel {ms:.4f} ms ({ms / steps * 1e3:.2f} us a step of {steps}), "
+        f"plain (CPU) {pms:.1f} ms, bound {bms:.5f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                detail=dict(steps=steps, us_a_step=ms / steps * 1e3))
+
+
+# G6's inputs (G, W, seed, (dst0s, dst_limits, wlims)): W=16 windows with a
+# frozen top row, a frozen bottom row and an insertion limit; W=128 (the
+# n=2000 reordering's window) with frozen rows and a limit that stops a
+# window early.  Window 0 of each rejects a swap
+# (testing/generators.py:planted_pencil_windows).
+BUBBLE_GEP_CASES = ((3, 16, 19, ([0, 1, 0], [16, 16, 5], [16, 15, 16])),
+                    (2, 128, 131, ([0, 1], [128, 40], [128, 127])))
+
+
+def bubble_gep_contract(S, T, out):
+    """(similarity residual in u, structure errors of S and T) of a pencil
+    window bubble's result out = (S', T', Q, Z, ...)."""
+    import numpy as np
+    from starneig_tpu_torch.testing import hooks
+    S2, T2, Q, Z = (x.cpu().numpy() for x in out[:4])
+    res = max(np.linalg.norm(Q.T @ S @ Z - S2) / np.linalg.norm(S),
+              np.linalg.norm(Q.T @ T @ Z - T2) / np.linalg.norm(T)) / U
+    return res, hooks.schur_structure_error(S2), hooks.triangular_structure_error(T2)
+
+
+def phase_bubble_gep(dev):
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops import gpu_reorder, reorder
+    from starneig_tpu_torch.ops.reorder import _window_bubble_gep
+    from starneig_tpu_torch.testing.generators import planted_pencil_windows
+    err, timed_case = 0.0, {}
+    for G, W, seed, lims in BUBBLE_GEP_CASES:
+        Ss, Ts, sels = planted_pencil_windows(G, W, seed)
+        Sd, Td = (torch.as_tensor(x, device=dev) for x in (Ss, Ts))
+        hk = {}
+        gk = gpu_reorder.window_bubble_gep(Sd, Td, sels, *lims, host=hk)
+        plain_ms, nsw = 0.0, []
+        for g in range(G):
+            hp = {}
+            with tally(reorder, "swap_adjacent_gep", lambda *a: 1) as sw:
+                gp, t = host_ms(lambda: _window_bubble_gep(
+                    torch.as_tensor(Ss[g]), torch.as_tensor(Ts[g]), sels[g], lims[0][g],
+                    lims[1][g], lims[2][g], host=hp))
+            plain_ms += t
+            nsw.append(sw[0])
+            ik = (int(gk[5][g]), int(gk[6][g]), int(hk["steps"][g]), int(gk[7][g]))
+            ip = (gp[5], gp[6], hp["steps"], gp[7])
+            same = ik == ip and np.array_equal(gk[4][g], gp[4])
+            e = max(_rel(w, x[g]) for x, w in zip(gk[:4], gp[:4]))
+            label = f"G6 W={W} window {g}"
+            if same:
+                # the same swaps, other rounding
+                check(e <= 1e-11, f"{label}: {e} max|M|")
+                err = max(err, e)
+            else:
+                # a decision near its threshold parted: both held to the
+                # contract (similarity < 500 u, exact structure)
+                ck = bubble_gep_contract(Ss[g], Ts[g], [x[g] for x in gk[:4]])
+                cp = bubble_gep_contract(Ss[g], Ts[g], gp)
+                log(f"  {label}: decisions part (kernel {ik}, plain {ip}); contract "
+                    f"kernel {ck}, plain {cp}")
+                check(max(ck[0], cp[0]) < GATE_U and ck[1:] == cp[1:] == (0.0, 0.0),
+                      f"{label} breaks the contract")
+            log(f"  {label}: (dst, nfail, steps, swaps) kernel {ik} plain {ip}, selection "
+                f"equal {np.array_equal(gk[4][g], gp[4])}; max err {e:.2e} max|M|")
+        check(int(gk[6][0]) >= 1, f"G6 W={W}: the planted swap was not rejected")
+        if W == 128:
+            timed_case = dict(Sd=Sd, Td=Td, sels=sels, lims=lims, plain_ms=plain_ms,
+                              nsw=sum(nsw), nmax=max(nsw))
+    c = timed_case
+    G, W = c["Sd"].shape[0], c["Sd"].shape[1]
+    ms = cuda_ms(lambda: gpu_reorder.window_bubble_gep(c["Sd"], c["Td"], c["sels"],
+                                                       *c["lims"]), 3)
+    wp = W + 4
+    # a swap: the 4x4 transforms on 2 wp-wide row strips and on the column
+    # strips of S, T (wp rows) and Q, Z (W rows), 32 flops a 4-vector; S, T
+    # read, S, T, Q, Z written
+    bms, by = bound(8 * 6 * G * W * W, c["nsw"] * 32 * (4 * wp + 2 * W))
+    log(f"  G6 G={G} W={W} ({c['nsw']} swaps, at most {c['nmax']} a window): kernel "
+        f"{ms:.2f} ms ({ms / c['nmax'] * 1e3:.2f} us a swap of the longest window), plain "
+        f"(CPU) {c['plain_ms']:.1f} ms, bound {bms:.5f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=c["plain_ms"], bound_ms=bms, bound_by=by,
+                detail=dict(swaps=c["nsw"], us_a_swap=ms / c["nmax"] * 1e3))
+
+
 def gep_gates(A, B, S, T, Q, Z, bt):
     """(residuals of A and B, orthogonality of Q and Z, structure errors of
     S and T, count of |beta| <= 1e-12 max|beta|)."""
@@ -1515,7 +1668,7 @@ def phase_gep(dev):
     ht_kernel_ms = sum(v[0] for k, v in prof_ht.items()
                        if "ht_full_kernel" in k or "ht_apply_kernel" in k)
     stats = {}
-    with tally(qz_driver, "_inf_chase_kernel", lambda *a: 1) as inf_calls:
+    with tally(qz_driver, "inf_chase", lambda *a: 1) as inf_calls:
         out, qz_ms = timed(lambda: gep.schur(H, T, Q, Z, stats=stats))
     launches = {k: kernels.LAUNCHES[k] for k in GEP_KERNELS}
     S, Tt, Qo, Zo, ar, ai, bt, info = out
@@ -1531,8 +1684,8 @@ def phase_gep(dev):
         f"B {rb:.1f}u, orthogonality Q {oq:.1f}u Z {oz:.1f}u, structure S {fs} T {ft}; "
         f"{ninf} betas <= 1e-12 max|beta| of {int((beta == 0).sum())} planted infinities, "
         f"chordal error {chordal:.3e}u; geometry {geo}, rounds {stats['rounds']} "
-        f"({stats['inf_rounds']} with the infinite push, {inf_calls[0]} _inf_chase_kernel "
-        f"calls), recondense calls (G1 window mode) {stats['recondense_calls']}; "
+        f"({stats['inf_rounds']} with the infinite push, {inf_calls[0]} G5 window "
+        f"chases), recondense calls (G1 window mode) {stats['recondense_calls']}; "
         f"launches {launches}")
     check(int(info) == 0, f"GEP n={n}: info {int(info)}")
     check(max(ra, rb, oq, oz) < GATE_U, f"GEP n={n} gates: {ra} {rb} {oq} {oz}")
@@ -1543,25 +1696,26 @@ def phase_gep(dev):
     check(stats["recondense_calls"] > 0, "G1's window mode did not run")
     check(ht_kernel_ms > 0, f"GEP n={n}: the profiler saw no G1 device time")
     # the QZ phase again under the profiler: each kernel's device total, and
-    # the plain infinite push's time (CUDA events around each call)
+    # the infinite push's window chases (CUDA events around each call)
     inf_ms = [0.0]
-    orig = qz_driver._inf_chase_kernel
+    orig = qz_driver.inf_chase
 
     def timed_chase(*a):
         out_, t = timed(lambda: orig(*a))
         inf_ms[0] += t
         return out_
-    qz_driver._inf_chase_kernel = timed_chase
+    qz_driver.inf_chase = timed_chase
     try:
         _, prof, _ms = profiled_kernels(lambda: gep.schur(H, T, Q, Z))
     finally:
-        qz_driver._inf_chase_kernel = orig
+        qz_driver.inf_chase = orig
     top = {k: (round(v[0], 3), v[1]) for k, v in list(prof.items())[:12]}
     log(f"  GEP n={n} QZ device time by kernel (ms, calls; under the profiler): {top}")
     log(f"  GEP n={n} HT device time by kernel: "
         f"{ {k: (round(v[0], 3), v[1]) for k, v in list(prof_ht.items())[:6]} }")
-    log(f"  GEP n={n} plain infinite push: {inf_calls[0]} _inf_chase_kernel calls, "
+    log(f"  GEP n={n} infinite push: {inf_calls[0]} G5 window chases, "
         f"{inf_ms[0]:.1f} ms (CUDA events around each call, under the profiler)")
+    chain = gep_chain(A_np, B_np, A, B, S, Tt, Qo, Zo, ar, ai, bt)
     return dict(info=int(info), ht_ms=ht_ms, qz_ms=qz_ms, ht_kernel_ms=ht_kernel_ms,
                 ht_us_a_step=ht_kernel_ms / steps * 1e3,
                 ht_bound_ms=ht_bound, ht_bound_by=ht_by,
@@ -1569,18 +1723,84 @@ def phase_gep(dev):
                 structure=(fs, ft), zero_betas=ninf, chordal_u=chordal,
                 rounds=stats["rounds"], inf_rounds=stats["inf_rounds"],
                 inf_chase_calls=inf_calls[0], inf_chase_ms=inf_ms[0],
-                recondense_calls=stats["recondense_calls"], launches=launches,
-                qz_log=stats["qz_log"], profile_qz=prof, profile_ht=prof_ht)
+                recondense_calls=stats["recondense_calls"],
+                launches={**launches, **chain["launches"]},
+                qz_log=stats["qz_log"], profile_qz=prof, profile_ht=prof_ht, chain=chain)
+
+
+def finite_right_half(alpha, beta):
+    """The phase-6 selection (tests/test_torch_gep_api.py's predicate)."""
+    return beta != 0 and (alpha / beta).real > 0
+
+
+def gep_chain(A_np, B_np, A, B, S, T, Q, Z, ar, ai, bt):
+    """Phase 6 past QZ: select -> reorder_schur -> eigenvectors of the
+    leading selected block, with the launch counts of this path alone."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch import kernels
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.errors import Error
+    from starneig_tpu_torch.testing import hooks
+    n = S.shape[0]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    sel, select_ms = host_ms(lambda: gep.select(S, T, finite_right_half))
+    rstats = {}
+    (S2, T2, Q2, Z2, m, rinfo), reorder_ms = timed(
+        lambda: gep.reorder_schur(S, T, Q, Z, sel, stats=rstats))
+    lead = np.arange(n) < m
+    (X, xinfo), eigenvectors_ms = timed(lambda: gep.eigenvectors(S2, T2, Q2, Z2, lead))
+    launches = {k: kernels.LAUNCHES[k] for k in GEP_CHAIN_KERNELS}
+    ra, rb, oq, oz, fs, ft, _ = gep_gates(A_np, B_np, S2, T2, Q2, Z2, bt)
+    ar2, ai2, bt2 = (x.cpu().numpy() for x in gep.eigenvalues(S2, T2))
+    before = (ar.cpu().numpy() + 1j * ai.cpu().numpy(), bt.cpu().numpy())
+    kept = hooks.chordal_eigenvalue_error(ar2, ai2, bt2, *before) * U
+    lead_ok = all(finite_right_half(complex(a, b), c)
+                  for a, b, c in zip(ar2[:m], ai2[:m], bt2[:m]))
+    rest = sum(finite_right_half(complex(a, b), c)
+               for a, b, c in zip(ar2[m:], ai2[m:], bt2[m:]))
+    evec = hooks.eigenvector_residual_gep(A_np, B_np, S2, T2, X, lead)
+    log(f"  GEP n={n} reorder: info {int(rinfo)}, selected {int(sel.sum())} rows, leading "
+        f"block {m} rows ({rest} selected rows left below), reorder_ms {reorder_ms:.1f} "
+        f"(select_ms {select_ms:.1f}), windows {rstats.get('windows')} swaps "
+        f"{rstats.get('swaps')} failed {rstats.get('failed_swaps')}; residual A {ra:.1f}u "
+        f"B {rb:.1f}u, orthogonality Q {oq:.1f}u Z {oz:.1f}u, structure S {fs} T {ft}; "
+        f"spectrum moved {kept:.2e} (chordal)")
+    log(f"  GEP n={n} eigenvectors: info {int(xinfo)}, {tuple(X.shape)}, eigenvectors_ms "
+        f"{eigenvectors_ms:.1f}, worst residual {evec:.2e}; launches {launches}")
+    check(rinfo in (Error.SUCCESS, Error.PARTIAL_REORDERING), f"GEP reorder info {rinfo}")
+    if rinfo == Error.SUCCESS:
+        check(m == int(sel.sum()), f"GEP leading block {m} != {int(sel.sum())}")
+    check(lead_ok and (rest == 0 or rinfo == Error.PARTIAL_REORDERING),
+          f"GEP reorder: leading block not the selection ({lead_ok}, {rest} left)")
+    check(max(ra, rb, oq, oz) < GATE_U, f"GEP reorder gates: {ra} {rb} {oq} {oz}")
+    check(fs == 0.0 and ft == 0.0, f"GEP reorder: structure {fs} {ft}")
+    check(kept < 1e-10, f"GEP reorder moved the spectrum by {kept} (chordal)")
+    check(xinfo in (Error.SUCCESS, Error.CLOSE_EIGENVALUES), f"GEP eigenvectors info {xinfo}")
+    check(tuple(X.shape) == (n, m) and bool(torch.isfinite(X).all()),
+          "GEP eigenvectors: wrong shape or not finite")
+    check(evec < EVEC_BOUND, f"GEP eigenvector residual {evec}")
+    for k in GEP_CHAIN_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the GEP reordering")
+    return dict(info=int(rinfo), selected=int(sel.sum()), lead=m, reorder_ms=reorder_ms,
+                select_ms=select_ms, stats=rstats, residual_a_u=ra, residual_b_u=rb,
+                orth_q_u=oq, orth_z_u=oz, spectrum_moved_chordal=kept,
+                eigenvectors=dict(info=int(xinfo), eigenvectors_ms=eigenvectors_ms,
+                                  worst_residual=evec),
+                launches=launches)
 
 
 def phase_gep_inf(dev):
     """api.gep.schur on tests/test_qz_driver.py:103-132's pencil (n=512 in HT
     form, 51 exact T-diagonal zeros, seed 21) under that test's gates, with
-    >= 90% of the infinities back with |beta| <= 1e-12 max|beta|."""
+    >= 90% of the infinities back with |beta| <= 1e-12 max|beta|; then the
+    infinite eigenvalues to the top and their eigenvectors."""
     import numpy as np
     import torch
     from starneig_tpu_torch import kernels
     from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.errors import Error
     n = 512
     rng = np.random.default_rng(21)
     H0 = np.triu(rng.standard_normal((n, n)), -1)
@@ -1603,9 +1823,67 @@ def phase_gep_inf(dev):
           and ft == 0.0, f"GEP n={n} infinite-rich gates")
     check(ninf >= int(0.9 * len(inf_pos)), f"GEP n={n}: {ninf} infinities back")
     check(stats["inf_rounds"] > 0, f"GEP n={n}: no infinite push ran")
+    check(launches["inf_chase"] > 0, f"GEP n={n}: G5 was not launched")
+    # the infinite eigenvalues to the top: the JAX package leaves every
+    # selected one leading, |beta| <= 1e-12 max|beta|, info 0
+    # (tests/test_torch_gep_reorder.py::test_reorder_schur_gep_infinite)
+    bmax = float(bt.abs().max())
+    sel = gep.select(S, Tt, lambda a, b: abs(b) <= 1e-12 * bmax)
+    kernels.reset_launches()
+    rstats = {}
+    (S2, T2, Q2, Z2, m, rinfo), reorder_ms = timed(
+        lambda: gep.reorder_schur(S, Tt, Qo, Zo, sel, stats=rstats))
+    (X, xinfo), evec_ms = timed(lambda: gep.eigenvectors(S2, T2, Q2, Z2, np.arange(n) < m))
+    bubble = kernels.LAUNCHES["reorder_bubble_gep"]
+    d = torch.diagonal(T2).abs().cpu().numpy()
+    lead_inf = int((d[:m] <= 1e-12 * d.max()).sum())
+    Bd = torch.as_tensor(T0, device=dev)
+    bx = float(((Bd @ X).norm(dim=0) / (torch.linalg.norm(Bd) * X.norm(dim=0))).max())
+    ra2, rb2, oq2, oz2, fs2, ft2, _ = gep_gates(H0, T0, S2, T2, Q2, Z2, bt)
+    log(f"  GEP n={n} infinities to the top: info {int(rinfo)}, selected {int(sel.sum())}, "
+        f"leading block {m} rows, {lead_inf} of them with |beta| <= 1e-12 max|beta|; "
+        f"reorder_ms {reorder_ms:.1f} ({rstats}), G6 launches {bubble}; residual "
+        f"{ra2:.1f}u {rb2:.1f}u, orthogonality {oq2:.1f}u {oz2:.1f}u, structure {fs2} {ft2}; "
+        f"eigenvectors info {int(xinfo)} {tuple(X.shape)} in {evec_ms:.1f} ms, worst "
+        f"||B x|| / (||B||_F ||x||) {bx:.2e}")
+    check(rinfo == Error.SUCCESS and m == int(sel.sum()) == lead_inf == ninf,
+          f"GEP n={n}: infinities leading {lead_inf} of {m}, selected {int(sel.sum())}")
+    check(max(ra2, rb2, oq2, oz2) < GEP_INF_GATE_U and fs2 == 0.0 and ft2 == 0.0,
+          f"GEP n={n} reorder gates")
+    check(bubble > 0, f"GEP n={n}: G6 was not launched")
+    check(tuple(X.shape) == (n, m) and bx < EVEC_BOUND, f"GEP n={n}: ||B x|| {bx}")
     return dict(info=int(info), qz_ms=qz_ms, residual_a_u=ra, residual_b_u=rb,
                 orth_q_u=oq, orth_z_u=oz, infinities=ninf, planted=len(inf_pos),
-                rounds=stats["rounds"], inf_rounds=stats["inf_rounds"], launches=launches)
+                rounds=stats["rounds"], inf_rounds=stats["inf_rounds"], launches=launches,
+                reorder=dict(info=int(rinfo), lead=m, lead_inf=lead_inf,
+                             reorder_ms=reorder_ms, stats=rstats,
+                             eigenvectors_ms=evec_ms, worst_bx=bx))
+
+
+CLI_ARGS = ["--experiment", "full-chain", "--generalized", "--init", "known",
+            "--complex-ratio", "0.3", "--inf-ratio", "0.1", "--n", "512"]
+
+
+def phase_cli():
+    """The port's CLI through the generalized full chain in a child process
+    (the kernels load from phase 2's build): exit code 0 and no hook line
+    failed (without --keep-going a failed hook exits 1)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "starneig_tpu_torch.cli", *CLI_ARGS],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines:
+        log(f"  cli: {ln}")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+    log(f"  cli: exit {proc.returncode} in {secs:.1f} s")
+    check(proc.returncode == 0 and not any("FAIL" in ln for ln in lines)
+          and any(ln.startswith("RESIDUAL") for ln in lines),
+          f"the CLI's generalized full chain failed (exit {proc.returncode})")
+    return dict(exit=proc.returncode, seconds=secs, lines=lines)
 
 
 def main() -> int:
@@ -1641,7 +1919,9 @@ def main() -> int:
                    "ht_cascade": phase_ht_cascade(dev, ht_plain[2]),
                    "qz_window": phase_qz_window(dev),
                    "qz_sweep": phase_qz_sweep(dev),
-                   "aed_deflate_gep": phase_aed_deflate_gep(dev)}
+                   "aed_deflate_gep": phase_aed_deflate_gep(dev),
+                   "inf_chase": phase_inf_chase(dev),
+                   "reorder_bubble_gep": phase_bubble_gep(dev)}
         log("== 4. n=1200 with B=70")
         b70 = phase_schur_b70(dev)
         log("== 5. main path")
@@ -1650,7 +1930,9 @@ def main() -> int:
         gep_res = phase_gep(dev)
         log("== 7. GEP n=512 infinite-rich")
         gep_inf = phase_gep_inf(dev)
-        log(f"== 8. G1 at n={GEP_N} against its plain twin")
+        log("== 8. the CLI's generalized full chain")
+        cli = phase_cli()
+        log(f"== 9. G1 at n={GEP_N} against its plain twin")
         finish_ht_plain(ht_plain, results["ht_cascade"],
                         SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
     finally:
@@ -1669,7 +1951,7 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70, main=main_res,
-                 gep=gep_res, gep_inf=gep_inf, torch=torch.__version__,
+                 gep=gep_res, gep_inf=gep_inf, cli=cli, torch=torch.__version__,
                  cuda=torch.version.cuda),
             indent=1, default=str))
     log(f"smoke wall seconds: {time.perf_counter() - t_start:.1f}")

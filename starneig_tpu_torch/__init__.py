@@ -1,9 +1,9 @@
 """starneig_tpu_torch — the PyTorch/CUDA port of starneig_tpu.
 
 A second package beside the JAX reference ``starneig_tpu``, for one
-NVIDIA H100 in native fp64.  Ported so far: the SEP main path,
-Hessenberg reduction then multishift QR with AED to real Schur form
-(``api.sep.hessenberg``, ``api.sep.schur``, ``api.sep.eigenvalues``).
+NVIDIA H100 in native fp64.  Ported so far: the single-process SEP and
+GEP interfaces (``api.sep``, ``api.gep``: reduction, Schur form,
+reordering, eigenvectors) and the command-line program (``cli``).
 
 Every function takes torch tensors and runs on their device.  The
 hand-written CUDA kernels (``kernels/csrc``) build with nvcc on the first

@@ -1,9 +1,7 @@
 """Public API umbrella of the PyTorch port.
 
   api.sep     — standard eigenvalue problem, single process
-  api.gep     — generalized eigenvalue problem, single process (the
-                reduction path: Hessenberg-triangular, Schur, eigenvalues,
-                select)
+  api.gep     — generalized eigenvalue problem, single process
 """
 
 from starneig_tpu_torch.api import gep, sep

@@ -1,4 +1,4 @@
-"""Wrappers of the GEP kernels G1-G4.
+"""Wrappers of the GEP kernels G1-G5.
 
 The JAX package runs its GEP path (``ops/hess_triangular.py``,
 ``ops/qz.py``, ``ops/qz_driver.py``) as XLA ``fori_loop``/``while_loop``
@@ -20,6 +20,11 @@ that owns the plain PyTorch twin dispatches on the device:
                                         _qz_train_hop
   aed_deflate_gep  aed_deflate_gep.cu   ops/qz_driver.py: aed_deflate_gep,
                                         _aed_deflate_gep
+  inf_chase        inf_chase.cu         ops/qz_driver.py: inf_chase,
+                                        _inf_chase_kernel
+
+The pencil reordering's window bubble (G6) has its wrapper beside the SEP
+bubble's, in ``ops/gpu_reorder.py``.
 """
 
 from __future__ import annotations
@@ -153,3 +158,21 @@ def aed_deflate_gep(Sw, Tw, Qw, Zw, s: float, w: int, thresh: float):
     return (Sp[:WA, :WA].contiguous(), Tp[:WA, :WA].contiguous(),
             Qp[:, :WA].contiguous(), Zp[:, :WA].contiguous(),
             stat[0], stat[1], stat[2])
+
+
+def inf_chase(Hw, Tw, jrel: int, mrel: int, lrel: int):
+    """Kernel G5: the window chase of the infinite push on a (Wb, Wb) CUDA
+    window pair (see :func:`starneig_tpu_torch.ops.qz_driver._inf_chase_kernel`).
+    Returns (Hw, Tw, Qw, Zw)."""
+    Wb = _check_square("inf_chase", Hw, Tw)
+    if not (0 <= jrel < Wb and mrel <= Wb):
+        raise ValueError(f"inf_chase: jrel {jrel}, mrel {mrel} outside the window {Wb}")
+    H, T = Hw.contiguous().clone(), Tw.contiguous().clone()
+    Qw, Zw = torch.empty_like(H), torch.empty_like(H)
+    kernels.require_cuda_f64("inf_chase", H, T, Qw, Zw)
+    lib = kernels.lib()
+    kernels.LAUNCHES["inf_chase"] += 1
+    kernels.check(lib.inf_chase(H.data_ptr(), T.data_ptr(), Qw.data_ptr(),
+                                Zw.data_ptr(), Wb, int(jrel), int(mrel), int(lrel),
+                                kernels.stream_ptr(Hw)), "inf_chase")
+    return H, T, Qw, Zw

@@ -20,8 +20,10 @@ and ``ops/qz.py:small_qz`` run the plain twins for CPU tensors).  The
 trains run in windows of 6B+4 rows, as the SEP sweep does
 (``ops/schur.py:_sweep_wave``): the kernel chases inside the window and
 the off-window strips update by GEMMs.  The windowed infinite-eigenvalue
-push (``_inf_chase_kernel``, ``_deflate_inf_bottom``) stays plain PyTorch
-on every device.
+push runs its window chase as kernel G5 on CUDA (the dispatcher
+:func:`inf_chase`; plain twin ``_inf_chase_kernel``); the deflating
+rotation at the segment bottom (``_deflate_inf_bottom``) is one rotation
+and stays plain PyTorch.
 """
 
 from __future__ import annotations
@@ -201,11 +203,12 @@ def _masked_window_pair(Spad, Tpad, gp: int, m: int, W: int):
 
 
 # ---------------------------------------------------------------------------
-# windowed infinite-eigenvalue push (plain PyTorch on every device)
+# windowed infinite-eigenvalue push
 # ---------------------------------------------------------------------------
 
 def _inf_chase_kernel(Hw, Tw, jrel: int, mrel: int, lrel: int):
-    """Move the T-diagonal zero at window-relative jrel down to mrel-1.
+    """Move the T-diagonal zero at window-relative jrel down to mrel-1: the
+    plain twin of kernel G5.
 
     Per step i: a left rotation from T's pair (T[i, i+1], T[i+1, i+1])
     zeroes T[i+1, i+1], and a right reflection from the H fill pair
@@ -238,6 +241,14 @@ def _inf_chase_kernel(Hw, Tw, jrel: int, mrel: int, lrel: int):
         H[i1, i] = rr
         H[i1, im1] = 0.0
     return H, T, Qw, Zw
+
+
+def inf_chase(Hw, Tw, jrel: int, mrel: int, lrel: int):
+    """The window chase of the infinite push: kernel G5 for a CUDA tensor,
+    :func:`_inf_chase_kernel` for a CPU tensor.  Returns (Hw, Tw, Qw, Zw)."""
+    if Hw.is_cuda:
+        return gpu_gep.inf_chase(Hw, Tw, jrel, mrel, lrel)
+    return _inf_chase_kernel(Hw, Tw, jrel, mrel, lrel)
 
 
 def _deflate_inf_bottom(Spad, Tpad, Zpad, i: int):
@@ -469,7 +480,7 @@ def _qz_round(Spad, Tpad, Qpad, Zpad, n: int, ihi: int, thresh: float,
             m = min(g.INFW, ihi - a0)
             Hw, Tw = _masked_window_pair(Spad, Tpad, P + a0, m, g.INFW)
             lrel = p - a0 if p == l else -1
-            Hw, Tw, Qw, Zw = _inf_chase_kernel(Hw, Tw, p - a0, m, lrel)
+            Hw, Tw, Qw, Zw = inf_chase(Hw, Tw, p - a0, m, lrel)
             _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Hw, Tw, m,
                               P + a0, False, None)
             stats["inf_chase_calls"] += 1

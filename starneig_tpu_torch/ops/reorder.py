@@ -23,6 +23,16 @@ each batch of windows reads the device once (its selections and counters).
 (``kernels/csrc/reorder_bubble.cu``, through
 :func:`starneig_tpu_torch.ops.gpu_reorder.window_bubble`) for CUDA tensors
 and loops :func:`_window_bubble` over the windows for CPU tensors.
+
+The generalized (pencil) variant, :func:`reorder_schur_gep`, runs the same
+sequential chain on a generalized Schur form (S, T) with left and right
+window transforms and dtgex2 swaps (``ops/swaps_gep.py``);
+:func:`window_bubble_gep_batch` runs kernel G6
+(``kernels/csrc/reorder_bubble_gep.cu``, through
+:func:`starneig_tpu_torch.ops.gpu_reorder.window_bubble_gep`) for CUDA
+tensors and :func:`_window_bubble_gep` for CPU tensors.  Each of its
+windows reads the device once: the selection, the counters and the
+window's subdiagonal in one transfer.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from starneig_tpu_torch.config import ReorderConf
 from starneig_tpu_torch.errors import Error
 from starneig_tpu_torch.ops import gpu_reorder
 from starneig_tpu_torch.ops.swaps import swap_adjacent
+from starneig_tpu_torch.ops.swaps_gep import swap_adjacent_gep
 
 
 # ---------------------------------------------------------------------------
@@ -350,3 +361,189 @@ def reorder_schur_parallel(S, Q, select, conf: Optional[ReorderConf] = None,
     m = _prefix_len(_subdiag(S), sel)
     info = Error.PARTIAL_REORDERING if total_fail else Error.SUCCESS
     return S, Q, m, info
+
+
+# ===========================================================================
+# generalized (pencil) variant: the SEP chain with left and right window
+# transforms and dtgex2 swaps (JAX starneig_tpu/ops/reorder.py:329-505;
+# reference GEP reorder, reorder/lapack.c:114)
+# ===========================================================================
+
+def _window_bubble_gep(Sw, Tw, sel, dst0: int, dst_limit: int, wlim: int,
+                       host: Optional[dict] = None):
+    """Bubble selected blocks of a pencil window to its top: the plain twin
+    of kernel G6 (JAX ``_gep_bubble_scan``/``_gep_bubble_swap``).
+
+    Args:
+      Sw, Tw: (W, W) window of a generalized Schur form (Sw
+        quasi-triangular, Tw upper triangular).
+      sel, dst0, dst_limit, wlim: as :func:`_window_bubble`.
+      host: optional dict; receives ``steps`` (scans plus swaps) and
+        ``subdiag`` (the result's subdiagonal, a numpy array).
+
+    Returns:
+      (Sw', Tw', Qw, Zw, sel', dst, nfail, nswaps): Sw' = Qw^T Sw Zw,
+      Tw' = Qw^T Tw Zw, the selection, the next insertion row, the rejected
+      swaps and the swaps run.  A rejected swap deselects the block that
+      was moving.
+    """
+    W = Sw.shape[0]
+    WP = W + 4
+    Sp = Sw.new_zeros((WP, WP))
+    Sp[:W, :W] = Sw
+    Tp = Sw.new_zeros((WP, WP))
+    Tp[:W, :W] = Tw
+    Qp = Sw.new_zeros((W, WP))
+    Qp[:, :W] = torch.eye(W, dtype=Sw.dtype, device=Sw.device)
+    Zp = Qp.clone()
+    sp = np.concatenate([np.asarray(sel, bool), np.zeros(4, bool)])
+    sub = torch.diagonal(Sp, -1).cpu().numpy().copy()    # host copy, (WP-1,)
+
+    def block_start(i):
+        return i == 0 or sub[i - 1] == 0.0
+
+    def bsize(i):
+        return 2 if i + 1 < W and sub[i] != 0.0 else 1
+
+    dst, src, nfail, steps, nswaps, done = dst0, -1, 0, 0, 0, False
+    while not done and steps < 4 * W * W:
+        if src < 0:
+            cand = [i for i in range(max(dst, 0), min(wlim, W))
+                    if sp[i] and block_start(i)]
+            s = cand[0] if cand else W
+            done = s >= W or dst >= dst_limit
+            at_dst = s == dst and not done
+            if at_dst:
+                dst += bsize(min(s, W - 1))
+            src = -1 if (done or at_dst) else s
+        else:
+            a = src - 2 if (src >= 2 and not block_start(src - 1)) else src - 1
+            p, q = src - a, bsize(src)
+            c = max(a, 0)       # a < 0 only when dst0 splits a 2x2 block
+            Qs, Zs, Ah, Bh, accept = swap_adjacent_gep(
+                Sp[c:c + 4, c:c + 4].clone(), Tp[c:c + 4, c:c + 4].clone(), p, q)
+            old = sp[c:c + 4].copy()
+            i4 = np.arange(4)
+            if accept:
+                for M in (Sp, Tp):
+                    M[c:c + 4] = Qs.T @ M[c:c + 4]
+                    M[:, c:c + 4] = M[:, c:c + 4] @ Zs
+                Sp[c:c + 4, c:c + 4] = Ah
+                Tp[c:c + 4, c:c + 4] = Bh
+                Qp[:, c:c + 4] = Qp[:, c:c + 4] @ Qs
+                Zp[:, c:c + 4] = Zp[:, c:c + 4] @ Zs
+                sp[c:c + 4] = np.where(i4 < q, True, np.where(i4 < p + q, False, old))
+                # the swap changes no subdiagonal entry outside its block
+                sub[c:c + 3] = torch.diagonal(Ah, -1).cpu().numpy()
+                src = a
+                if src == dst:
+                    dst, src = dst + q, -1
+            else:
+                sp[c:c + 4] = np.where((i4 >= p) & (i4 < p + q), False, old)
+                src, nfail = -1, nfail + 1
+            nswaps += 1
+        steps += 1
+    if host is not None:
+        host.update(steps=steps, subdiag=sub[:W - 1].copy())
+    return (Sp[:W, :W], Tp[:W, :W], Qp[:, :W], Zp[:, :W], sp[:W], dst, nfail,
+            nswaps)
+
+
+def window_bubble_gep_batch(Sws, Tws, sels, dst0s, dst_limits, wlims,
+                            host: Optional[dict] = None):
+    """Bubble G pencil windows: kernel G6 for a CUDA tensor,
+    :func:`_window_bubble_gep` per window for a CPU tensor.
+
+    ``Sws``, ``Tws`` (G, W, W); ``sels`` (G, W) bool numpy; the rest host
+    int sequences of length G.  ``host``, if a dict, receives ``steps`` (G,)
+    and ``subdiag`` (G, W - 1) numpy arrays.  Returns (Sws', Tws', Qws,
+    Zws, sels', dsts, nfails, nswaps): tensors for the first four, numpy
+    arrays for the rest.
+    """
+    if Sws.is_cuda:
+        return gpu_reorder.window_bubble_gep(Sws, Tws, sels, dst0s, dst_limits,
+                                             wlims, host=host)
+    outs, hosts = [], []
+    for g in range(Sws.shape[0]):
+        hosts.append({})
+        outs.append(_window_bubble_gep(Sws[g], Tws[g], sels[g], int(dst0s[g]),
+                                       int(dst_limits[g]), int(wlims[g]),
+                                       host=hosts[-1]))
+    if host is not None:
+        host.update(steps=np.asarray([h["steps"] for h in hosts]),
+                    subdiag=np.stack([h["subdiag"] for h in hosts]))
+    Sw, Tw, Qw, Zw, sel, dst, nfail, nsw = zip(*outs)
+    return (torch.stack(Sw), torch.stack(Tw), torch.stack(Qw), torch.stack(Zw),
+            np.stack(sel), np.asarray(dst), np.asarray(nfail), np.asarray(nsw))
+
+
+def _apply_window_gep(S, T, Q, Z, Sw, Tw, Qw, Zw, ws: int):
+    """S <- diag(I, Qw, I)^T S diag(I, Zw, I), likewise T, with the windows
+    planted; Q <- Q diag(I, Qw, I), Z <- Z diag(I, Zw, I); in place."""
+    W = Sw.shape[0]
+    for M in (S, T):
+        M[ws:ws + W] = Qw.T @ M[ws:ws + W]
+        M[:, ws:ws + W] = M[:, ws:ws + W] @ Zw
+    S[ws:ws + W, ws:ws + W] = Sw
+    T[ws:ws + W, ws:ws + W] = Tw
+    Q[:, ws:ws + W] = Q[:, ws:ws + W] @ Qw
+    Z[:, ws:ws + W] = Z[:, ws:ws + W] @ Zw
+
+
+def reorder_schur_gep(S, T, Q, Z, select, conf: Optional[ReorderConf] = None,
+                      stats: Optional[dict] = None):
+    """Reorder a generalized real Schur form so selected eigenvalues lead:
+    the sequential window chain (``starneig_GEP_SM_ReorderSchur``,
+    reference gep_sm.h:162-235).
+
+    Args:
+      S, T: (n, n) generalized Schur form (S quasi-triangular, T upper
+        triangular); Q, Z: (n, n) orthogonal (none is modified).
+      select: (n,) bool array or tensor; 2x2 blocks are selected atomically.
+      conf: optional ReorderConf; -1 fields auto-resolve.
+      stats: optional dict; receives the counts ``windows``, ``swaps`` and
+        ``failed_swaps`` (added to what it holds).
+
+    Returns:
+      (S, T, Q, Z, num_selected, info): the reordered pencil and
+      transforms, the rows of the leading selected block, and
+      Error.SUCCESS or PARTIAL_REORDERING.
+    """
+    S, T, Q, Z = (M.clone() for M in (S, T, Q, Z))
+    n = S.shape[0]
+    subdiag = _subdiag(S)
+    sel = _align_select(subdiag, _as_host_bool(select))
+    rconf, W = _resolve_window(n, sel, conf)
+    cap = W if W >= n else max(2, min(rconf.values_per_chain, W // 2))
+    total_fail = 0
+
+    while True:
+        m = _prefix_len(subdiag, sel)
+        below = np.nonzero(sel[m:n])[0]
+        if below.size == 0:
+            break
+        lowest = m + int(below[-1])
+        bsz = 2 if subdiag[lowest] != 0 else 1
+        if lowest > 0 and subdiag[lowest - 1] != 0:
+            lowest, bsz = lowest - 1, 2
+        ws = min(max(m, lowest + bsz - W), n - W)
+        while True:
+            wlo = 1 if (ws > 0 and subdiag[ws - 1] != 0) else 0
+            wlim = W - 1 if (ws + W < n and subdiag[ws + W - 1] != 0) else W
+            host = {}
+            Sw2, Tw2, Qw, Zw, sel_w2, dst, nfail, nsw = window_bubble_gep_batch(
+                S[ws:ws + W, ws:ws + W][None], T[ws:ws + W, ws:ws + W][None],
+                sel[None, ws:ws + W], [wlo], [min(wlo + cap, W)], [wlim], host=host)
+            total_fail += int(nfail[0])
+            _count(stats, windows=1, swaps=nsw[0], failed_swaps=nfail[0])
+            _apply_window_gep(S, T, Q, Z, Sw2[0], Tw2[0], Qw[0], Zw[0], ws)
+            sel[ws:ws + W] = sel_w2[0]
+            subdiag[ws:ws + W - 1] = host["subdiag"][0]
+            if ws <= m:
+                break
+            carried = int(dst[0]) - wlo
+            ws = max(m, ws + wlo + carried - W)
+
+    m = _prefix_len(_subdiag(S), sel)
+    info = Error.PARTIAL_REORDERING if total_fail else Error.SUCCESS
+    return S, T, Q, Z, m, info

@@ -144,6 +144,65 @@ def chordal_eigenvalue_error(ar, ai, bt, alpha_known, beta_known) -> float:
     return worst / _u(np.float64)
 
 
+def spectrum_analysis(er, ei, bt=None, tol=1e-12):
+    """Count zero / infinite / indefinite eigenvalues (the analysis hook,
+    test/common/hooks.c:1511).  For SEP pass bt=None (no infinities)."""
+    er = _np(er).astype(float)
+    ei = _np(ei).astype(float)
+    mag = np.abs(er + 1j * ei)
+    if bt is None:
+        zeros = int((mag <= tol * max(mag.max(), 1e-300)).sum())
+        return {"zero": zeros, "infinite": 0,
+                "indefinite": 0, "total": len(er)}
+    bt = _np(bt).astype(float)
+    bscale = max(np.abs(bt).max(), 1e-300)
+    inf_mask = np.abs(bt) <= tol * bscale
+    ascale = max(mag.max(), 1e-300)
+    zero_mask = (mag <= tol * ascale) & ~inf_mask
+    indef = int((inf_mask & (mag <= tol * ascale)).sum())
+    return {"zero": int(zero_mask.sum()), "infinite": int(inf_mask.sum()),
+            "indefinite": indef, "total": len(er)}
+
+
+def eigenvector_residual_gep(A, B, S, T, X, select) -> float:
+    """Worst ||beta A x - alpha B x|| / ((|beta| ||A||_F + |alpha| ||B||_F)
+    ||x||) over the columns of X, the eigenvectors of the selected blocks of
+    the generalized Schur form (S, T) of (A, B) in LAPACK-style real storage
+    (a (Re, Im) column pair per complex pair, for the eigenvalue with
+    positive imaginary part).  (alpha, beta) come from the diagonal blocks
+    in homogeneous form, so an infinite eigenvalue (beta = 0) is held to
+    ||B x|| / (||B||_F ||x||)."""
+    import scipy.linalg
+    A, B, S, T, X = map(_np, (A, B, S, T, X))
+    select = _np(select).astype(bool)
+    n = S.shape[0]
+    na, nb = np.linalg.norm(A), np.linalg.norm(B)
+    AX, BX = A @ X, B @ X
+    sub = np.concatenate([np.diagonal(S, -1), [0.0]])
+    worst = 0.0
+    c = i = 0
+    while i < n:
+        pair = sub[i] != 0
+        if select[i] or (pair and select[i + 1]):
+            if pair:
+                ab = scipy.linalg.eigvals(S[i:i + 2, i:i + 2], T[i:i + 2, i:i + 2],
+                                          homogeneous_eigvals=True)
+                k = int(np.argmax((ab[0] * np.conj(ab[1])).imag))
+                alpha, beta = ab[0][k], ab[1][k]
+                x = X[:, c] + 1j * X[:, c + 1]
+                ax, bx = AX[:, c] + 1j * AX[:, c + 1], BX[:, c] + 1j * BX[:, c + 1]
+                c += 2
+            else:
+                alpha, beta = S[i, i], T[i, i]
+                x, ax, bx = X[:, c], AX[:, c], BX[:, c]
+                c += 1
+            r = np.linalg.norm(beta * ax - alpha * bx) / max(
+                (abs(beta) * na + abs(alpha) * nb) * np.linalg.norm(x), 1e-300)
+            worst = max(worst, float(r))
+        i += 2 if pair else 1
+    return worst
+
+
 def selection_bitmap(eig_real, eig_imag, sub, ratio, distr="uniform",
                      seed=0):
     """Build a selection bitmap over Schur blocks (reference

@@ -1,4 +1,4 @@
-"""The GEP kernels G1-G4 against their plain PyTorch twins, on the card.
+"""The GEP kernels G1-G6 against their plain PyTorch twins, on the card.
 
 Every test needs a CUDA device and nvcc and skips without one (the CPU
 suite holds the plain twins to the JAX package).  On the card,
@@ -16,13 +16,17 @@ import torch
 
 from starneig_tpu_torch import kernels
 from starneig_tpu_torch.api import gep
-from starneig_tpu_torch.ops import gpu_gep
+from starneig_tpu_torch.ops import gpu_gep, gpu_reorder
 from starneig_tpu_torch.ops.eigvals import extract_eigenvalues_gen
 from starneig_tpu_torch.ops.hess_triangular import _ht_reduce
 from starneig_tpu_torch.ops.qz import _small_qz_plain
 from starneig_tpu_torch.ops.qz_driver import (_aed_deflate_gep,
-                                              _aed_recondense_gep, _qz_sweep)
+                                              _aed_recondense_gep, _inf_chase_kernel,
+                                              _qz_sweep)
+from starneig_tpu_torch.ops.reorder import _window_bubble_gep
 from starneig_tpu_torch.testing import hooks
+from starneig_tpu_torch.testing.generators import (inf_push_window, known_spectrum_pencil,
+                                                   planted_pencil_windows)
 from starneig_tpu_torch.testing.generators import planted_schur_pair as schur_pair
 
 U = np.finfo(np.float64).eps
@@ -202,5 +206,80 @@ def test_gep_schur_inf_rich(cuda):
     bt = bt.cpu().numpy()
     assert int((np.abs(bt) <= 1e-12 * np.abs(bt).max()).sum()) >= int(0.9 * len(inf_pos))
     assert stats["inf_rounds"] > 0 and stats["recondense_calls"] > 0
-    for k in ("qz_window", "qz_sweep", "aed_deflate_gep", "ht_cascade"):
+    for k in ("qz_window", "qz_sweep", "aed_deflate_gep", "ht_cascade", "inf_chase"):
         assert kernels.LAUNCHES[k] > 0, k
+
+
+@pytest.mark.parametrize("Wb,jrel,mrel,lrel", [(96, 1, 96, -1), (84, 0, 84, 0),
+                                               (96, 7, 60, 7)])
+def test_inf_chase(cuda, Wb, jrel, mrel, lrel):
+    """G5 against _inf_chase_kernel: the same rotations, 1e-12 max|M|; the
+    zero moved to mrel - 1 exactly, H Hessenberg and T triangular exactly."""
+    H, T = (torch.as_tensor(x) for x in inf_push_window(Wb, Wb + jrel, jrel, lrel))
+    n0 = kernels.LAUNCHES["inf_chase"]
+    got = gpu_gep.inf_chase(H.to(cuda), T.to(cuda), jrel, mrel, lrel)
+    assert kernels.LAUNCHES["inf_chase"] == n0 + 1
+    want = _inf_chase_kernel(H, T, jrel, mrel, lrel)
+    for g, w in zip(got, want):
+        assert _maxrel(g, w, w) <= 1e-12
+    Tg = got[1].cpu()
+    assert float(Tg[mrel - 1, mrel - 1]) == 0.0
+    assert hooks.triangular_structure_error(Tg) == 0.0
+    assert hooks.hessenberg_structure_error(got[0]) == 0.0
+
+
+@pytest.mark.parametrize("W,lims", [(16, ([0, 1, 0], [16, 16, 5], [16, 15, 16])),
+                                    (128, ([0, 1], [128, 40], [128, 127]))])
+def test_window_bubble_gep(cuda, W, lims):
+    """G6 against _window_bubble_gep on planted pencil windows (2x2 blocks,
+    exact T-diagonal zeros, a rejected swap in window 0, frozen rows and an
+    insertion limit): selection, dst, rejected swaps, steps and swaps
+    equal; the matrices within 1e-11 max|M| (the same swaps, other
+    rounding)."""
+    G = len(lims[0])
+    Ss, Ts, sels = planted_pencil_windows(G, W, W + 3)
+    Sd, Td = (torch.as_tensor(x).to(cuda) for x in (Ss, Ts))
+    n0 = kernels.LAUNCHES["reorder_bubble_gep"]
+    hk = {}
+    got = gpu_reorder.window_bubble_gep(Sd, Td, sels, *lims, host=hk)
+    assert kernels.LAUNCHES["reorder_bubble_gep"] == n0 + 1
+    assert got[6][0] >= 1                     # the planted swap is rejected
+    for g in range(G):
+        hp = {}
+        want = _window_bubble_gep(torch.as_tensor(Ss[g]), torch.as_tensor(Ts[g]), sels[g],
+                                  lims[0][g], lims[1][g], lims[2][g], host=hp)
+        assert (got[5][g], got[6][g], got[7][g], hk["steps"][g]) == \
+            (want[5], want[6], want[7], hp["steps"])
+        np.testing.assert_array_equal(got[4][g], want[4])
+        np.testing.assert_array_equal(hk["subdiag"][g] != 0, hp["subdiag"] != 0)
+        assert np.abs(hk["subdiag"][g] - hp["subdiag"]).max() <= 1e-11 * np.abs(Ss[g]).max()
+        for k in range(4):
+            assert _maxrel(got[k][g], want[k], want[k]) <= 1e-11
+
+
+def test_gep_reorder_eigenvectors(cuda):
+    """The GEP chain past QZ on the card at n=300 (a pencil with 10%
+    planted infinite eigenvalues): select (finite, Re > 0) -> reorder_schur
+    -> eigenvectors, under the smoke's gates: the leading rows hold the
+    selected eigenvalues, 500 u, exact structure, eigenvector residuals
+    < 1e-10; G6 launched."""
+    n = 300
+    A, B, _al, _be = known_spectrum_pencil(n, complex_ratio=0.3, inf_ratio=0.1, seed=3)
+    H, T, Q, Z = gep.hessenberg_triangular(A, B)
+    S, Tt, Q, Z, *_ar, info = gep.schur(H, T, Q, Z)
+    assert int(info) == 0
+    sel = gep.select(S, Tt, lambda a, b: b != 0 and (a / b).real > 0)
+    kernels.reset_launches()
+    S2, T2, Q2, Z2, m, rinfo = gep.reorder_schur(S, Tt, Q, Z, sel)
+    assert kernels.LAUNCHES["reorder_bubble_gep"] > 0
+    assert int(rinfo) == 0 and m == int(sel.sum())
+    ra, rb = hooks.residual_gep(A, B, S2, T2, Q2, Z2)
+    assert max(ra, rb, hooks.orthogonality(Q2), hooks.orthogonality(Z2)) < 500
+    assert hooks.schur_structure_error(S2) == 0.0
+    assert hooks.triangular_structure_error(T2) == 0.0
+    ar, ai, bt = (x.cpu().numpy() for x in extract_eigenvalues_gen(S2, T2))
+    assert (bt[:m] != 0).all() and (ar[:m] / bt[:m] > 0).all()
+    lead = np.arange(n) < m
+    X, xinfo = gep.eigenvectors(S2, T2, Q2, Z2, lead)
+    assert X.shape == (n, m) and bool(torch.isfinite(X).all())
+    assert hooks.eigenvector_residual_gep(A, B, S2, T2, X, lead) < 1e-10

@@ -32,7 +32,8 @@ def test_import_pulls_no_jax_and_builds_nothing():
         "from starneig_tpu_torch.ops import gpu_hess, gpu_schur, schur\n"
         "from starneig_tpu_torch.ops import gpu_gep, hess_triangular, qz, qz_driver\n"
         "from starneig_tpu_torch.ops import gpu_reorder, reorder, eigenvectors\n"
-        "from starneig_tpu_torch.testing import hooks\n"
+        "from starneig_tpu_torch.testing import hooks, generators\n"
+        "from starneig_tpu_torch import cli, testing\n"
         "from starneig_tpu_torch import kernels, convert\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'starneig_tpu' or m.startswith('starneig_tpu.')]\n"
@@ -61,7 +62,8 @@ def test_cpu_path_launches_no_kernel():
 
 @pytest.mark.parametrize("wrapper", ["aed_recondense", "window_bubble", "ht_cascade",
                                      "ht_recondense", "qz_window", "qz_sweep",
-                                     "aed_deflate_gep"])
+                                     "aed_deflate_gep", "inf_chase",
+                                     "window_bubble_gep"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A wrapper launches its kernel or raises: a CPU tensor never reaches
     the kernel library."""
@@ -79,6 +81,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "qz_sweep": lambda: gpu_gep.qz_sweep(W, W, torch.zeros(2, 4, dtype=torch.float64),
                                              4, 12, 0, 2, 6),
         "aed_deflate_gep": lambda: gpu_gep.aed_deflate_gep(T, T, T, T, 0.5, 8, 0.0),
+        "inf_chase": lambda: gpu_gep.inf_chase(T, T, 1, 8, -1),
+        "window_bubble_gep": lambda: gpu_reorder.window_bubble_gep(
+            T[None], T[None], np.ones((1, 8), bool), [0], [8], [8]),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[wrapper]()
@@ -86,8 +91,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
 
 
 def test_gep_cpu_path_launches_no_kernel():
-    """The GEP chain on the CPU (the small path and the QZ driver) runs the
-    plain twins only."""
+    """The GEP chain on the CPU (the small path and the QZ iteration, then the
+    reordering and the eigenvectors) runs the plain twins only."""
     from starneig_tpu_torch import kernels
     from starneig_tpu_torch.api import gep
     from starneig_tpu_torch.config import SchurConf
@@ -98,10 +103,14 @@ def test_gep_cpu_path_launches_no_kernel():
         A, B = rng.standard_normal((n, n)), rng.standard_normal((n, n)) + 3 * np.eye(n)
         H, T, Q, Z = gep.hessenberg_triangular(A, B, device="cpu")
         stats = {}
-        S, Tt, *_, info = gep.schur(H, T, Q, Z, conf=conf, stats=stats, device="cpu")
+        S, Tt, Qs, Zs, *_, info = gep.schur(H, T, Q, Z, conf=conf, stats=stats,
+                                            device="cpu")
         assert int(info) == 0 and stats["path"] == ("small" if conf is None else "aed")
         sel = gep.select(S, Tt, lambda a, b: b != 0 and (a / b).real > 0)
         assert sel.dtype == bool and sel.shape == (n,)
+        S2, T2, Q2, Z2, m, rinfo = gep.reorder_schur(S, Tt, Qs, Zs, sel, device="cpu")
+        X, xinfo = gep.eigenvectors(S2, T2, Q2, Z2, np.arange(n) < m, device="cpu")
+        assert int(rinfo) == 0 and m == int(sel.sum()) and X.shape == (n, m)
     assert kernels.LAUNCHES == before
     assert kernels._lib is None
 
