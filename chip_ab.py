@@ -10,6 +10,7 @@
     python3 chip_ab.py mainpath [--n N] ROOT [ROOT ...]
     python3 chip_ab.py clock [deflate|hops|recondense] [--skip-cur] [NAME=PATH ...]
     python3 chip_ab.py qzinf
+    python3 chip_ab.py bitwise [--n N] [--device cpu|cuda] ROOT [ROOT ...]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -81,8 +82,14 @@ with the same record; prints each version's exact-zero and tiny
 (<= 1e-12 max|beta|) beta counts and the first stop test where each
 kernel's record departs from the plain twin's.
 
+bitwise: each ROOT's ``api.sep.schur`` of the Hessenberg form of a size-N
+(default 200; A from default_rng(0)) matrix on the given device (default
+the card) in a process of its own; prints the SHA-256 of the bytes of S,
+Q and the eigenvalues of each, and fails unless every ROOT gives the same
+bits.  With ``--device cpu`` it needs no card.
+
 Prints the card's name and power limit first; exits nonzero if a check
-fails.  Needs a CUDA card and nvcc.
+fails.  Needs a CUDA card and nvcc (bitwise on the CPU needs neither).
 """
 
 from __future__ import annotations
@@ -97,7 +104,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
-if sys.argv[1:2] == ["_mainpath_one"]:   # that checkout's package, not this one's
+if sys.argv[1:2] in (["_mainpath_one"], ["_bitwise_one"]):   # that checkout's package
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
 
 from chip_smoke import (BUBBLE_CASES, DEFLATE_CASES, DEFLATE_S, DEFLATE_TH,  # noqa: E402
@@ -547,6 +554,51 @@ def ab_mainpath(args) -> bool:
             continue
         print(lines[-1], flush=True)
     return ok
+
+
+def bitwise_one(root: str, n: int, device: str) -> None:
+    """In a fresh process: the SHA-256 of sep.schur's outputs (S, Q, the
+    eigenvalues) for the size-n input, with the package under root."""
+    import hashlib
+    import json
+    from starneig_tpu_torch.api import sep
+    assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
+    A = np.random.default_rng(0).standard_normal((n, n))
+    H, Q = sep.hessenberg(A, device=device)
+    stats = {}
+    outs = sep.schur(H, Q, stats=stats, device=device)
+    h = hashlib.sha256()
+    for t in outs[:4]:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    print("BITWISE " + json.dumps(dict(root=root, n=n, device=device, info=int(outs[4]),
+                                       rounds=stats.get("rounds"), sha256=h.hexdigest())),
+          flush=True)
+
+
+def ab_bitwise(args) -> bool:
+    """[--n N] [--device cpu|cuda] ROOT ...: every ROOT's sep.schur gives
+    the same bits."""
+    n, device = 200, "cuda"
+    while args[:1] in (["--n"], ["--device"]):
+        if args[0] == "--n":
+            n = int(args[1])
+        else:
+            device = args[1]
+        args = args[2:]
+    digests = []
+    for root in args:
+        r = subprocess.run([sys.executable, __file__, "_bitwise_one", root, str(n), device],
+                           capture_output=True, text=True)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("BITWISE ")]
+        if r.returncode != 0 or not lines:
+            print(f"{root}: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}",
+                  flush=True)
+            return False
+        print(lines[-1], flush=True)
+        digests.append(lines[-1].split('"sha256": ')[1])
+    same = len(set(digests)) == 1
+    print(f"bitwise {device} n={n}: {'identical' if same else 'DIFFERENT'}", flush=True)
+    return same
 
 
 # clock: where a kernel version spends its cycles.  The counters go into
@@ -1250,16 +1302,22 @@ def ab_qzinf(_args) -> bool:
 
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
-         "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf}
+         "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
+         "bitwise": ab_bitwise}
 
 
 def main() -> int:
     if len(sys.argv) >= 4 and sys.argv[1] == "_mainpath_one":
         mainpath_one(sys.argv[2], int(sys.argv[3]))
         return 0
+    if len(sys.argv) >= 5 and sys.argv[1] == "_bitwise_one":
+        bitwise_one(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+        return 0
     if len(sys.argv) < 2 or sys.argv[1] not in MODES:
         print(__doc__, file=sys.stderr)
         return 2
+    if sys.argv[1] == "bitwise" and "cpu" in sys.argv[2:]:
+        return 0 if ab_bitwise(sys.argv[2:]) else 1
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 2

@@ -85,6 +85,23 @@ Phases (any failure raises; the exit code is then nonzero):
      ulp of input moves its result by more than 1e-10 already at n=192,
      tests/test_torch_gep_ht.py::test_ht_one_ulp; the path is held to its
      gates instead.)
+ 10. DM: the distributed interface in gloo ranks that share the card
+     (starneig_tpu_torch.testing.dm.run_ranks; rank 0 owns the window math
+     and the single-process stages).  10a: phase 5's n=4000 input on 2
+     ranks through api.sep_dm.hessenberg, schur (column shards), select
+     (Re(lambda) > 0), reorder_schur (column shards) and eigenvectors of
+     the leading block, each stage timed to a barrier, gated on info,
+     residual and orthogonality < 500 u and the standardized Schur form
+     before and after reordering, the leading block, the spectrum kept,
+     the eigenvector residuals, the spectrum against phase 5's (1e-10
+     max|lambda| after matching), each rank's Schur shard (NP, NP/2) and
+     the launches (zeroed in each rank before the job, read after it:
+     rank 0 launched B1-B5 and the bubble, rank 1 none); prints each
+     stage's time, the rounds against phase 5's and each rank's
+     collectives (calls, bytes, seconds) by stage.  10b: on 4 ranks,
+     api.sep_dm.reduce at n=1200 and api.gep_dm.reduce of
+     known_spectrum_pencil(512, 0.3, 0.1, seed 0) (finite, Re(alpha/beta)
+     > 0) under the gates of phases 5 and 6, with the same launch rule.
 
 The smoke prints its total wall seconds.  The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  ``--out`` also writes all results as JSON.
@@ -1141,7 +1158,7 @@ def phase_main(dev):
                 launches=launches, n200=dict(eig_vs_numpy=d_np,
                                              eig_vs_cpu=d_cpu, residual_u=res_s,
                                              orthogonality_u=orth_s),
-                n200_reduce=n200_reduce)
+                n200_reduce=n200_reduce, spectrum=before)
 
 
 
@@ -1886,6 +1903,192 @@ def phase_cli():
     return dict(exit=proc.returncode, seconds=secs, lines=lines)
 
 
+# ---------------------------------------------------------------------------
+# DM: the distributed-memory layer in gloo ranks that share the card
+# ---------------------------------------------------------------------------
+# ranks of phase 10a (n = MAIN_N) and of 10b (DM_N4, the GEP pencil DM_GEP_N)
+DM_RANKS_A, DM_RANKS_B = 2, 4
+DM_N4, DM_GEP_N = 1200, 512
+DM_TIMEOUT_S = 600.0
+# what each rank of a DM run may launch: the owner (rank 0) all of them
+DM_SEP_KERNELS = SCHUR_KERNELS + ("reorder_bubble",)
+DM_GEP_KERNELS = ("ht_cascade", "qz_window", "qz_sweep", "aed_deflate_gep",
+                  "reorder_bubble_gep")
+
+
+def dm_comm(stats):
+    """(calls, bytes, seconds) of one rank's collectives in a stats dict."""
+    return (stats.get("all_reduce", 0) + stats.get("broadcast", 0),
+            stats.get("collective_bytes", 0), stats.get("collective_s", 0.0))
+
+
+def dm_launches(cnt):
+    """Each rank's nonzero launch counts."""
+    return [{k: v for k, v in c["launches"].items() if v} for c in cnt]
+
+
+def dm_launch_check(label, cnt, kernels_):
+    """The owner (rank 0) launched each kernel of the path; the other
+    ranks launched none."""
+    for k in kernels_:
+        check(cnt[0]["launches"][k] > 0, f"{label}: the owner did not launch {k}")
+    for rank, c in enumerate(cnt[1:], 1):
+        check(not any(c["launches"].values()),
+              f"{label}: rank {rank} launched kernels {c['launches']}")
+
+
+def dm_sep_gates(label, A, S, Q, info):
+    """Phase 5's gates on a gathered SEP result (numpy S, Q; A a tensor on
+    the device): info, residual and orthogonality < 500 u, standardized
+    Schur form."""
+    from starneig_tpu_torch.convert import from_numpy
+    from starneig_tpu_torch.testing.hooks import schur_form_error
+    Sg = from_numpy(S, A.device)
+    res, orth = gates(A, Sg, from_numpy(Q, A.device))
+    form = schur_form_error(Sg)
+    log(f"  {label}: info {info}, residual_u {res:.1f} orthogonality_u {orth:.1f} "
+        f"schur_form_error {form}")
+    check(info == 0, f"{label}: info {info}")
+    check(res < GATE_U and orth < GATE_U, f"{label} gates: {res}, {orth}")
+    check(form == 0.0, f"{label}: S not in standardized Schur form ({form})")
+    return res, orth
+
+
+def phase_dm_sep(dev, main_res):
+    """10a: api.sep_dm at n=MAIN_N on DM_RANKS_A gloo ranks sharing the
+    card, on phase 5's input: hessenberg (rank 0), schur (column shards),
+    select (Re > 0), reorder_schur (column shards), eigenvectors of the
+    leading block (rank 0), each stage timed to a barrier; gated as phase
+    5, and its spectrum against phase 5's."""
+    import numpy as np
+    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.convert import from_numpy
+    from starneig_tpu_torch.testing import hooks
+    from starneig_tpu_torch.testing.dm import run_ranks
+    n = MAIN_N
+    A_np = np.random.default_rng(0).standard_normal((n, n))
+    t0 = time.perf_counter()
+    r, cnt = run_ranks("starneig_tpu_torch.testing.dm:sep_chain", DM_RANKS_A,
+                       (A_np, "positive_real"), device=str(dev), timeout_s=DM_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    A = from_numpy(A_np, dev)
+    st = cnt[0]["stats"]["schur"]
+    NP = st["NP"]
+    res, orth = dm_sep_gates(f"10a n={n} Schur", A, r["S"], r["Q"], r["info"])
+    res2, orth2 = dm_sep_gates(f"10a n={n} reordered", A, r["S2"], r["Q2"], r["rinfo"])
+    m = r["m"]
+    spec = r["er"] + 1j * r["ei"]
+    er2, ei2 = (x.cpu().numpy() for x in sep.eigenvalues(r["S2"], device=dev))
+    after = er2 + 1j * ei2
+    moved = hooks.eigenvalue_error(after, spec) * U
+    vs_sm = hooks.eigenvalue_error(spec, main_res["spectrum"]) * U
+    evec = eigenvector_residual(A, from_numpy(r["S2"], dev), from_numpy(r["X"], dev), m)
+    ms = {k: cnt[0][k] for k in ("hessenberg_ms", "schur_ms", "select_ms",
+                                 "reorder_ms", "eigenvectors_ms")}
+    comm = {c["rank"]: {stage: dm_comm(stats) for stage, stats in c["stats"].items()}
+            for c in cnt}
+    shards = [c["stats"]["schur"]["shard_shape"] for c in cnt]
+    log(f"  10a n={n} on {DM_RANKS_A} ranks ({cnt[0]['backend']}, devices "
+        f"{[c['device'] for c in cnt]}): {ms}; rounds {st['rounds']} (phase 5: "
+        f"{main_res['stats'].get('rounds')}), Schur shards {shards} of NP={NP}; selected "
+        f"{r['selected']}, leading block {m}, spectrum moved {moved:.2e}; spectrum vs "
+        f"phase 5 {vs_sm:.2e} max|lambda|; eigenvectors: info {r['xinfo']}, "
+        f"{r['X'].shape}, worst residual {evec:.2e}; wall {wall:.1f} s (start-up "
+        f"{[round(c['startup_s'], 1) for c in cnt]} s, job {cnt[0]['wall_s']:.1f} s, "
+        f"teardown {cnt[0]['teardown_s']:.1f} s)")
+    for c in cnt:
+        log(f"  10a rank {c['rank']}: launches {dm_launches([c])[0]}; collectives by stage "
+            f"(calls, bytes, s): {comm[c['rank']]}")
+    check(m == r["selected"] == main_res["reorder"]["selected"],
+          f"10a: leading block {m}, selected {r['selected']}, phase 5 "
+          f"{main_res['reorder']['selected']}")
+    check(r["selected"] == int((r["er"] > 0).sum()), "10a: selection != Re > 0 count")
+    check(bool((after[:m].real > 0).all()), "10a: a leading eigenvalue fails the predicate")
+    check(moved < EIG_MOVE, f"10a: the reordering moved eigenvalues by {moved}")
+    check(vs_sm < 1e-10, f"10a: spectrum differs from phase 5's by {vs_sm} max|lambda|")
+    check(r["xinfo"] == 0 and r["X"].shape == (n, m), f"10a eigenvectors: {r['xinfo']}")
+    check(evec < EVEC_BOUND, f"10a eigenvector residual {evec}")
+    check(all(sh == (NP, NP // DM_RANKS_A) for sh in shards), f"10a: Schur shards {shards}")
+    check(all(c["stats"]["schur"]["all_reduce"] > 0 for c in cnt),
+          "10a: no collective in schur_dm")
+    dm_launch_check("10a", cnt, DM_SEP_KERNELS)
+    return dict(ms=ms, wall_s=wall, startup_s=[c["startup_s"] for c in cnt],
+                job_s=cnt[0]["wall_s"], teardown_s=cnt[0]["teardown_s"],
+                rounds=st["rounds"], NP=NP, shards=shards,
+                residual_u=res, orthogonality_u=orth, reorder_residual_u=res2,
+                reorder_orthogonality_u=orth2, lead=m, spectrum_vs_phase5=vs_sm,
+                eig_moved=moved, worst_eigvec_residual=evec, comm=comm,
+                launches=[c["launches"] for c in cnt])
+
+
+def phase_dm_four(dev):
+    """10b: api.sep_dm.reduce at n=DM_N4 (Re > 0) and api.gep_dm.reduce of
+    known_spectrum_pencil(DM_GEP_N, 0.3, 0.1, seed 0) (finite, Re(a/b) >
+    0) on DM_RANKS_B gloo ranks sharing the card, under phases 5's and
+    6's gates."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.convert import from_numpy
+    from starneig_tpu_torch.testing.dm import finite_right_half as frh
+    from starneig_tpu_torch.testing.dm import run_ranks
+    from starneig_tpu_torch.testing.generators import known_spectrum_pencil
+    n, ng = DM_N4, DM_GEP_N
+    A_np = np.random.default_rng(1).standard_normal((n, n))
+    GA, GB, _alpha, _beta = known_spectrum_pencil(ng, complex_ratio=0.3, inf_ratio=0.1,
+                                                  seed=0)
+    t0 = time.perf_counter()
+    (r, g), cnt_all = run_ranks(
+        "starneig_tpu_torch.testing.dm:sequence", DM_RANKS_B,
+        ([("sep_reduce", (A_np, "positive_real")),
+          ("gep_reduce", (GA, GB, "finite_right_half"))],),
+        device=str(dev), timeout_s=DM_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    cnt, cntg = ([c["steps"][i] for c in cnt_all] for i in range(2))
+    log(f"  10b on {DM_RANKS_B} ranks: wall {wall:.1f} s, of it start-up "
+        f"{[round(c['startup_s'], 1) for c in cnt_all]} s, the two jobs "
+        f"{[round(c['wall_s'], 1) for c in cnt_all]} s, teardown "
+        f"{cnt_all[0]['teardown_s']:.1f} s")
+    res, orth = dm_sep_gates(f"10b sep_dm.reduce n={n}", from_numpy(A_np, dev),
+                             r["S"], r["Q"], r["info"])
+    ev = np.sort_complex(r["er"] + 1j * r["ei"])
+    d_np = float(np.abs(ev - np.sort_complex(np.linalg.eigvals(A_np))).max()
+                 / np.linalg.norm(A_np))
+    m, want = r["nsel"], int((r["er"] > 0).sum())
+    log(f"  10b sep_dm.reduce n={n} on {DM_RANKS_B} ranks: leading block {m} (Re > 0: "
+        f"{want}), eig diff vs numpy {d_np:.2e} |A|, S shards {[c['shards']['S'] for c in cnt]}, "
+        f"Schur shards {[c['stats'].get('shard_shape') for c in cnt]}, "
+        f"{cnt[0]['wall_s']:.1f} s; "
+        f"collectives (calls, bytes, s) {[dm_comm(c['stats']) for c in cnt]}; "
+        f"launches {dm_launches(cnt)}")
+    check(m == want and bool((r["er"][:m] > 0).all()), f"10b: leading block {m}, {want}")
+    check(d_np < 1e-10, f"10b: eigenvalues differ from numpy by {d_np} |A|")
+    check(all(c["shards"]["S"] == (n, n // DM_RANKS_B) for c in cnt), "10b: S shards")
+    dm_launch_check("10b sep", cnt, DM_SEP_KERNELS)
+
+    ra, rb, oq, oz, fs, ft, _ninf = gep_gates(GA, GB, g["S"], g["T"], g["Q"], g["Z"],
+                                              torch.as_tensor(g["bt"]))
+    sel = [frh(complex(a, b), c) for a, b, c in zip(g["ar"], g["ai"], g["bt"])]
+    mg = g["nsel"]
+    log(f"  10b gep_dm.reduce n={ng} on {DM_RANKS_B} ranks: info {g['info']}, residual "
+        f"A {ra:.1f}u B {rb:.1f}u, orthogonality Q {oq:.1f}u Z {oz:.1f}u, structure S "
+        f"{fs} T {ft}, leading block {mg} rows ({sum(sel)} selected), "
+        f"{cntg[0]['wall_s']:.1f} s; "
+        f"collectives {[dm_comm(c['stats']) for c in cntg]}; launches "
+        f"{dm_launches(cntg)}")
+    check(g["info"] == 0, f"10b GEP info {g['info']}")
+    check(max(ra, rb, oq, oz) < GATE_U, f"10b GEP gates: {ra} {rb} {oq} {oz}")
+    check(fs == 0.0 and ft == 0.0, f"10b GEP structure {fs} {ft}")
+    check(mg == sum(sel) and all(sel[:mg]), f"10b GEP leading block {mg}, {sum(sel)} selected")
+    check(all(c["shards"]["S"] == (ng, ng // DM_RANKS_B) for c in cntg), "10b GEP: S shards")
+    dm_launch_check("10b gep", cntg, DM_GEP_KERNELS)
+    return dict(wall_s=wall, startup_s=[c["startup_s"] for c in cnt_all],
+                teardown_s=cnt_all[0]["teardown_s"],
+                sep=dict(job_s=cnt[0]["wall_s"], residual_u=res, orthogonality_u=orth,
+                         lead=m, eig_vs_numpy=d_np, comm=[dm_comm(c["stats"]) for c in cnt]),
+                gep=dict(job_s=cntg[0]["wall_s"], residual_a_u=ra, residual_b_u=rb, orth_q_u=oq,
+                         orth_z_u=oz, lead=mg, comm=[dm_comm(c["stats"]) for c in cntg]))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write all results as JSON here")
@@ -1935,6 +2138,11 @@ def main() -> int:
         log(f"== 9. G1 at n={GEP_N} against its plain twin")
         finish_ht_plain(ht_plain, results["ht_cascade"],
                         SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
+        log("== 10. DM: gloo ranks sharing the card")
+        t_dm = time.perf_counter()
+        dm = dict(a=phase_dm_sep(dev, main_res), b=phase_dm_four(dev))
+        dm["wall_s"] = time.perf_counter() - t_dm
+        log(f"  phase 10: {dm['wall_s']:.1f} s")
     finally:
         if ht_plain[0].is_alive():
             ht_plain[0].terminate()
@@ -1950,8 +2158,9 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70, main=main_res,
-                 gep=gep_res, gep_inf=gep_inf, cli=cli, torch=torch.__version__,
+            dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70,
+                 main={k: v for k, v in main_res.items() if k != "spectrum"},
+                 gep=gep_res, gep_inf=gep_inf, cli=cli, dm=dm, torch=torch.__version__,
                  cuda=torch.version.cuda),
             indent=1, default=str))
     log(f"smoke wall seconds: {time.perf_counter() - t_start:.1f}")

@@ -3,7 +3,11 @@
 A second package beside the JAX reference ``starneig_tpu``, for one
 NVIDIA H100 in native fp64.  Ported so far: the single-process SEP and
 GEP interfaces (``api.sep``, ``api.gep``: reduction, Schur form,
-reordering, eigenvectors) and the command-line program (``cli``).
+reordering, eigenvectors), the command-line program (``cli``) and the
+distributed-memory interface (``node``, ``parallel``, ``api.sep_dm``,
+``api.gep_dm``): one process a rank over ``torch.distributed``, the
+Schur form and the reordering on column shards, the window math and the
+other stages on rank 0 (``testing.dm.run_ranks`` starts such ranks).
 
 Every function takes torch tensors and runs on their device.  The
 hand-written CUDA kernels (``kernels/csrc``) build with nvcc on the first

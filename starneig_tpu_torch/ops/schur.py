@@ -66,6 +66,16 @@ class DenseExtent:
         S[:, j0:j0 + w] = S[:, j0:j0 + w] @ Qw
 
     @staticmethod
+    def get_block(S, i0: int, j0: int, h: int, w: int):
+        """A copy of S[i0:i0+h, j0:j0+w]."""
+        return S[i0:i0 + h, j0:j0 + w].clone()
+
+    @staticmethod
+    def set_block(S, M, i0: int, j0: int):
+        """S[i0:i0+h, j0:j0+w] = M for M of shape (h, w)."""
+        S[i0:i0 + M.shape[0], j0:j0 + M.shape[1]] = M
+
+    @staticmethod
     def get_diag_blocks(S, ws, w: int):
         """Window starts -> (G, w, w) copies of the diagonal blocks."""
         return torch.stack([S[s:s + w, s:s + w] for s in ws])
@@ -94,15 +104,27 @@ class DenseExtent:
         Returns the (n,) updated subdiagonal (last entry 0).
         """
         S = Spad[P:P + n, P:P + n]
-        ulp = torch.finfo(S.dtype).eps
-        d = torch.diagonal(S)
         sub = torch.diagonal(S, -1)
-        tst = d[:-1].abs() + d[1:].abs()
-        idx = torch.arange(n - 1, device=S.device)
-        neg = (sub.abs() <= torch.clamp_min(ulp * tst, thresh)) & (idx + 1 < ihi)
-        newsub = torch.where(neg, 0.0, sub)
+        newsub = negligible_zeroed(torch.diagonal(S), sub, ihi, thresh)
         sub.copy_(newsub)
         return torch.cat([newsub, newsub.new_zeros(1)])
+
+    @staticmethod
+    def window(fn, *inputs):
+        """The window math of a round or a hop: ``fn(*inputs)``.  A
+        distributed extent runs it on one rank and hands its outputs to the
+        others (``parallel/dm_core.py``)."""
+        return fn(*inputs)
+
+
+def negligible_zeroed(d, sub, ihi: int, thresh: float):
+    """The subdiagonal ``sub`` of a matrix with diagonal ``d`` with its
+    negligible entries above row ihi set to zero (a new tensor)."""
+    ulp = torch.finfo(sub.dtype).eps
+    tst = d[:-1].abs() + d[1:].abs()
+    idx = torch.arange(sub.shape[0], device=sub.device)
+    neg = (sub.abs() <= torch.clamp_min(ulp * tst, thresh)) & (idx + 1 < ihi)
+    return torch.where(neg, 0.0, sub)
 
 
 def standardize_blocks(S, Q):
@@ -366,15 +388,16 @@ _WAVE_STAG = 3
 
 
 def _sweep_wave(Spad, Qpad, l: int, ihi: int, shifts, ntr: int, G: int,
-                B: int):
+                B: int, ext=DenseExtent):
     """Chase up to G staggered B-bulge trains across [l, ihi) in one pass.
 
     Train g runs ``_WAVE_STAG`` hops behind train g-1, so the active chase
-    windows are disjoint: one B3 launch advances all of them, and the
-    off-window row and column strips update by GEMMs (rows first, then
-    columns; disjoint windows make the transforms commute).  Trains outside
-    their hop range are left out of the launch (the JAX version parks them
-    as exact no-ops).  Updates Spad and Qpad in place.
+    windows are disjoint: one B3 launch (``ext.window``) advances all of
+    them, and the off-window row and column strips update by GEMMs (rows
+    first, then columns; disjoint windows make the transforms commute).
+    Trains outside their hop range are left out of the launch (the JAX
+    version parks them as exact no-ops).  Every access to Spad and Qpad
+    goes through ``ext``; both update in place.
     """
     WC = 6 * B + 4
     HOP = 3 * B
@@ -387,14 +410,15 @@ def _sweep_wave(Spad, Qpad, l: int, ihi: int, shifts, ntr: int, G: int,
             continue
         s0 = [(h - _WAVE_STAG * g) * HOP for g in trains]
         ws = [l + s - 3 * (B - 1) - 1 for s in s0]
-        Wnds = DenseExtent.get_diag_blocks(Spad, ws, WC)
-        Wnd2, Qw = train_hops(
-            Wnds, shifts, trains, [l - x for x in ws], [ihi - x for x in ws],
-            s0, B=B, HOP=HOP)
-        DenseExtent.mul_rows_batch(Spad, ws, WC, Qw)
-        DenseExtent.mul_cols_batch(Spad, ws, WC, Qw)
-        DenseExtent.set_diag_blocks(Spad, Wnd2, ws)
-        DenseExtent.mul_cols_batch(Qpad, ws, WC, Qw)
+        Wnds = ext.get_diag_blocks(Spad, ws, WC)
+        Wnd2, Qw = ext.window(
+            lambda W: train_hops(W, shifts, trains, [l - x for x in ws],
+                                 [ihi - x for x in ws], s0, B=B, HOP=HOP),
+            Wnds)
+        ext.mul_rows_batch(Spad, ws, WC, Qw)
+        ext.mul_cols_batch(Spad, ws, WC, Qw)
+        ext.set_diag_blocks(Spad, Wnd2, ws)
+        ext.mul_cols_batch(Qpad, ws, WC, Qw)
 
 
 # ---------------------------------------------------------------------------
@@ -446,21 +470,22 @@ def _pack_shifts(er, ei, tsub, kbot: int, NS: int, B: int, TMAX: int):
 # ---------------------------------------------------------------------------
 
 def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
-               NS: int, B: int, TMAX: int, nibble: int):
+               NS: int, B: int, TMAX: int, nibble: int, n: int,
+               ext=DenseExtent):
     """One AED round, in place on Spad and Qpad.
 
     Negligible-subdiagonal zeroing, converged-block peel, segment scan, AED
     window Schur solve (B2), spike deflation with block moves (B4), shift
-    extraction, recondense, and the window-transform GEMMs.  Returns
+    extraction, recondense (B5), and the window-transform GEMMs.  Every
+    access to Spad and Qpad goes through ``ext``, and the window math
+    (B2, B4, the status read, B5) runs inside ``ext.window``.  Returns
     (shifts (TMAX, B, 4) tensor, status) with status the host ints
     (new_ihi, l, ntr, sfail, nd, npairs, w), w the window's active size.
     """
-    NP = Spad.shape[0]
-    n = NP - 2 * P
     dev, dtype = Spad.device, Spad.dtype
 
     # -- negligible-subdiagonal zeroing + converged-block peel (read 1) --
-    sub = DenseExtent.zero_negligible(Spad, P, n, ihi, thresh).cpu().numpy()
+    sub = ext.zero_negligible(Spad, P, n, ihi, thresh).cpu().numpy()
     while ihi > 0:
         if ihi == 1 or sub[max(ihi - 2, 0)] == 0.0:
             ihi -= 1
@@ -477,19 +502,24 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
     w = min(WA, seg)
     kwtop = ihi - w
     gk = P + kwtop
-    win = Spad[gk:gk + WA, gk:gk + WA].clone()
+    win = ext.get_block(Spad, gk, gk, WA, WA)
     win[w:] = 0.0
     win[:, w:] = 0.0
     # spike = the subdiagonal entering the window; 0 when kwtop == l
     s_spike = float(sub[kwtop - 1]) if kwtop >= 1 else 0.0
 
-    Tw, Vw, sinfo = small_schur(win, eyeW, w, thresh)
-    Tw, Vw, kbot_t, _dfail = aed_deflate(Tw, Vw, s_spike, w, thresh)
-    er_w, ei_w = extract_eigenvalues(Tw)
+    def window_math(win):
+        Tw, Vw, sinfo = small_schur(win, eyeW, w, thresh)
+        Tw, Vw, kbot_t, _dfail = aed_deflate(Tw, Vw, s_spike, w, thresh)
+        er_w, ei_w = extract_eigenvalues(Tw)
+        # -- the round's status read (read 2) --
+        head = torch.stack([sinfo, kbot_t]).to(dtype)
+        status = torch.cat([head, er_w, ei_w,
+                            torch.diagonal(Tw, -1)]).cpu().numpy()
+        Tw, Vw, beta = aed_recondense(Tw, Vw, s_spike, int(status[1]))
+        return Tw, Vw, beta, status
 
-    # -- the round's status read (read 2) --
-    head = torch.stack([sinfo, kbot_t]).to(dtype)
-    status = torch.cat([head, er_w, ei_w, torch.diagonal(Tw, -1)]).cpu().numpy()
+    Tw, Vw, beta, status = ext.window(window_math, win)
     sfail = status[0] != 0
     kbot = int(status[1])
     er_h, ei_h, tsub = np.split(status[2:], [WA, 2 * WA])
@@ -497,24 +527,24 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
     shifts_h, npairs = _pack_shifts(er_h, ei_h, tsub, kbot, NS, B, TMAX)
     shifts = torch.from_numpy(shifts_h).to(dev)
 
-    Tw, Vw, beta = aed_recondense(Tw, Vw, s_spike, kbot)
-
     # window transform at full extents (Vw is the identity outside the
-    # active block): rows, then columns, then the exact window plant
-    DenseExtent.mul_rows(Spad, gk, WA, Vw)
-    DenseExtent.mul_cols(Spad, gk, WA, Vw)
-    Spad[gk:gk + w, gk:gk + w] = Tw[:w, :w]
-    Spad[gk:gk + WA, gk - 1] = 0.0
-    Spad[gk, gk - 1] = beta
-    DenseExtent.mul_cols(Qpad, gk, WA, Vw)
+    # active block): rows, then columns, then the exact window plant and
+    # the spike column (beta on top, zeros below)
+    ext.mul_rows(Spad, gk, WA, Vw)
+    ext.mul_cols(Spad, gk, WA, Vw)
+    ext.set_block(Spad, Tw[:w, :w], gk, gk)
+    spike = Spad.new_zeros((WA, 1))
+    spike[0, 0] = beta
+    ext.set_block(Spad, spike, gk, gk - 1)
+    ext.mul_cols(Qpad, gk, WA, Vw)
 
     new_ihi = ihi - nd
     if npairs == 0:
         # exceptional-shift fallback when the window gave no usable pair
-        r0 = P + new_ihi - 1
-        c0 = P + max(new_ihi - 2, 0)
-        hq = Spad[r0, c0]
-        d0 = Spad[r0, c0 + 1] if new_ihi >= 2 else hq
+        tail = ext.get_block(Spad, P + new_ihi - 1, P + max(new_ihi - 2, 0),
+                             1, 2)
+        hq = tail[0, 0]
+        d0 = tail[0, 1] if new_ihi >= 2 else hq
         esh = d0 + 0.75 * hq.abs()
         shifts = torch.stack([esh, 0 * esh, esh, 0 * esh]).expand(TMAX, B, 4)
         npairs = 1
@@ -532,11 +562,14 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
 
 def _schur_iter(Spad, Qpad, thresh: float, eyeW, P: int, WA: int, NS: int,
                 B: int, TMAX: int, nibble: int, itmax: int, n: int,
-                log: Optional[list] = None):
+                log: Optional[list] = None, ext=DenseExtent):
     """The multishift-QR iteration: a host loop over AED rounds, each
     followed by a wavefront sweep when the round asks for one.  ``log``,
     if a list, receives (w, kbot, ntr) for each round: the window's active
     size, the rows it left undeflated, and the trains of its sweep.
+    ``ext`` carries every access to the padded buffers: ``DenseExtent``
+    for whole buffers, a sharded extent (``parallel/dm_core.py``) for
+    column shards of them.
 
     Returns (ihi, fail, rounds): converged when ihi == 0, failed when
     fail != 0.
@@ -545,7 +578,7 @@ def _schur_iter(Spad, Qpad, thresh: float, eyeW, P: int, WA: int, NS: int,
     while ihi > 0 and fail == 0 and rounds < 2 * n + 10:
         shifts, (new_ihi, l, ntr, _sfail, nd, _np, w) = _aed_round(
             Spad, Qpad, ihi, thresh, eyeW, P=P, WA=WA, NS=NS, B=B,
-            TMAX=TMAX, nibble=nibble)
+            TMAX=TMAX, nibble=nibble, n=n, ext=ext)
         if log is not None:
             log.append((w, w - nd, ntr))
         it_seg = (0 if new_ihi != last_ihi else it_seg) + 1
@@ -554,12 +587,25 @@ def _schur_iter(Spad, Qpad, thresh: float, eyeW, P: int, WA: int, NS: int,
         fail = int(it_seg > itmax)
         if ntr > 0 and fail == 0:
             _sweep_wave(Spad, Qpad, P + l, P + new_ihi, shifts, ntr,
-                        G=TMAX, B=B)
+                        G=TMAX, B=B, ext=ext)
         if fail == 0:
             ihi = new_ihi
         last_ihi = new_ihi
         rounds += 1
     return ihi, fail, rounds
+
+
+def aed_geometry(n: int, conf):
+    """(WA, NS, B, WC, TMAX, P) from a resolved SchurConf: the AED window,
+    the shift count, the bulges a train, the train chase window, the trains
+    of a sweep, and the padding on each side of the (n, n) matrix."""
+    WA = min(max(32, conf.aed_window_size + 2), n)
+    NS = max(2, min(conf.aed_shift_count // 2 * 2, 2 * (WA // 2)))
+    B = max(2, min(conf.shifts_per_window // 2, NS // 2, max(2, n // 12)))
+    WC = 6 * B + 4                        # train chase window
+    TMAX = max(1, (NS // 2 + B - 1) // B)
+    P = max(3 * B + 4, WC + 2, WA) + 2 + WC
+    return WA, NS, B, WC, TMAX, P
 
 
 def _resolve_threshold(H, conf) -> float:
@@ -605,13 +651,7 @@ def schur(H, Q=None, conf: Optional[SchurConf] = None,
             stats.update(path="small", rounds=0)
         return S0, QZ, er, ei, info
 
-    # geometry from the resolved expert config
-    WA = min(max(32, conf.aed_window_size + 2), n)
-    NS = max(2, min(conf.aed_shift_count // 2 * 2, 2 * (WA // 2)))
-    B = max(2, min(conf.shifts_per_window // 2, NS // 2, max(2, n // 12)))
-    WC = 6 * B + 4                        # train chase window
-    TMAX = max(1, (NS // 2 + B - 1) // B)
-    P = max(3 * B + 4, WC + 2, WA) + 2 + WC
+    WA, NS, B, WC, TMAX, P = aed_geometry(n, conf)
     NP = n + 2 * P
 
     Spad = H.new_zeros((NP, NP))

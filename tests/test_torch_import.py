@@ -35,6 +35,10 @@ def test_import_pulls_no_jax_and_builds_nothing():
         "from starneig_tpu_torch.testing import hooks, generators\n"
         "from starneig_tpu_torch import cli, testing\n"
         "from starneig_tpu_torch import kernels, convert\n"
+        "from starneig_tpu_torch import node, parallel\n"
+        "from starneig_tpu_torch.parallel import distr, dm_core, block_cyclic\n"
+        "from starneig_tpu_torch.api import sep_dm, gep_dm\n"
+        "from starneig_tpu_torch.testing import dm\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'starneig_tpu' or m.startswith('starneig_tpu.')]\n"
         "assert not bad, bad\n"
