@@ -22,6 +22,7 @@ Phases (any failure raises; the exit code is then nonzero):
      chain from cycle counts of earlier runs (chip_ab.py clock); B1's
      transposed mode beside M.T @ x, in turns, by CUDA events and by
      profiler device time, and checked bit-for-bit across two launches;
+     B1 on a DM rank's column shard (4000 x 2000) beside torch.mv;
      B2's chase steps; B3 at B = 3, 25, 65 and 132 (the n=4000, 10,000 and
      20,000 geometries) with the zero plant a sweep gives at each
      introduction, and at B = 25 without it (the full-range path); B4's and
@@ -87,21 +88,28 @@ Phases (any failure raises; the exit code is then nonzero):
      gates instead.)
  10. DM: the distributed interface in gloo ranks that share the card
      (starneig_tpu_torch.testing.dm.run_ranks; rank 0 owns the window math
-     and the single-process stages).  10a: phase 5's n=4000 input on 2
-     ranks through api.sep_dm.hessenberg, schur (column shards), select
-     (Re(lambda) > 0), reorder_schur (column shards) and eigenvectors of
-     the leading block, each stage timed to a barrier, gated on info,
-     residual and orthogonality < 500 u and the standardized Schur form
-     before and after reordering, the leading block, the spectrum kept,
-     the eigenvector residuals, the spectrum against phase 5's (1e-10
-     max|lambda| after matching), each rank's Schur shard (NP, NP/2) and
+     and the eigenvectors).  10a: phase 5's n=4000 input on 2 ranks
+     through api.sep_dm.hessenberg (column shards, B1 on every rank),
+     schur (column shards), select (Re(lambda) > 0), reorder_schur
+     (column shards) and eigenvectors of the leading block, each stage
+     timed to a barrier, gated on info, residual and orthogonality < 500
+     u and the standardized Schur form before and after reordering, the
+     leading block, the spectrum kept, the eigenvector residuals, H and Q
+     against phase 5's (DM_HESS_TOL), the ranks' V/T hashes equal, the
+     spectrum against phase 5's (1e-10 max|lambda| after matching), the
+     rounds within 2 of phase 5's, each rank's Schur shard (NP, NP/2) and
      the launches (zeroed in each rank before the job, read after it:
-     rank 0 launched B1-B5 and the bubble, rank 1 none); prints each
-     stage's time, the rounds against phase 5's and each rank's
-     collectives (calls, bytes, seconds) by stage.  10b: on 4 ranks,
+     rank 0 launched B1-B5 and the bubble, rank 1 B1 alone); prints each
+     stage's time, each rank's B1 launches and each rank's collectives
+     (calls, bytes, seconds) by stage.  10b: on 4 ranks,
      api.sep_dm.reduce at n=1200 and api.gep_dm.reduce of
      known_spectrum_pencil(512, 0.3, 0.1, seed 0) (finite, Re(alpha/beta)
      > 0) under the gates of phases 5 and 6, with the same launch rule.
+ 11. tools and examples: phase 5's stages at n=512 with the sanity checks
+     on and each stage in a trace span, the trace dumped and parsed; then
+     the three examples (python -m starneig_tpu_torch.examples.<name>)
+     and python -m starneig_tpu_torch.tools.dryrun 2 (n=512) in child
+     processes, all at once.
 
 The smoke prints its total wall seconds.  The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  ``--out`` also writes all results as JSON.
@@ -346,6 +354,23 @@ def phase_gemv(dev):
     bms, by = bound(8 * (n * n + 2 * n), 2 * n * n)
     log(f"  B1 n=4000 A x: kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.mv "
         f"{lms:.4f} ms, bound {bms:.4f} ms ({by})")
+    # a rank's column shard of the DM Hessenberg reduction (phase 10a: 2
+    # ranks): a row-major n x n/2 tensor, the panel matvec's first-panel view
+    w = n // DM_RANKS_A
+    Ash = A[:, :w].contiguous()
+    xw = xs[n][:w].contiguous()
+    uk, up = gemv(Ash, xw), gemv_plain(Ash, xw)
+    scale = float(gemv_plain(Ash.abs(), xw.abs()).max())
+    dsh = float((uk - up).abs().max())
+    check(dsh < 1e-12 * scale, f"B1 shard {n}x{w}: disagrees by {dsh}")
+    err = max(err, dsh)
+    sh = [cuda_ms(f, 50) for f in (lambda: gemv(Ash, xw), lambda: torch.mv(Ash, xw),
+                                    lambda: torch.mv(Ash, xw), lambda: gemv(Ash, xw))]
+    sh_plain = cuda_ms(lambda: gemv_plain(Ash, xw), 50)
+    sbms, sby = bound(8 * (n * w + w + n), 2 * n * w)
+    log(f"  B1 shard {n}x{w} A x: max abs err {dsh:.2e}; kernel {sh[0]:.4f}/{sh[3]:.4f} ms, "
+        f"torch.mv {sh[1]:.4f}/{sh[2]:.4f} ms, plain {sh_plain:.4f} ms, bound "
+        f"{sbms:.4f} ms ({sby})")
     # transposed mode against M.T @ x (cuBLAS), in turns kernel, library,
     # library, kernel: CUDA events over 200 calls back to back (the host's
     # launch rate bounds these small calls), then the device time of 200
@@ -370,7 +395,10 @@ def phase_gemv(dev):
             f"{fmt(d[0])}/{fmt(d[3])} ms, M.T @ x {fmt(d[1])}/{fmt(d[2])} ms; "
             f"bound {tb:.5f} ms ({tby})")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
-                bound_ms=bms, bound_by=by, detail=dict(trans=trans))
+                bound_ms=bms, bound_by=by,
+                detail=dict(trans=trans, shard=dict(
+                    shape=(n, w), kernel_ms=[sh[0], sh[3]], library_ms=[sh[1], sh[2]],
+                    plain_ms=sh_plain, bound_ms=sbms, bound_by=sby, max_abs_err=dsh)))
 
 
 def phase_francis(dev):
@@ -939,7 +967,7 @@ def solve(A):
     S, Q2, er, ei, info = sep.schur(H, Q, stats=stats, device=A.device)
     sync()
     t2 = time.perf_counter()
-    return S, Q2, er, ei, int(info), (t1 - t0) * 1e3, (t2 - t1) * 1e3, stats
+    return S, Q2, er, ei, int(info), (t1 - t0) * 1e3, (t2 - t1) * 1e3, stats, H, Q
 
 
 def gates(A, S, Q):
@@ -1077,8 +1105,10 @@ def phase_main(dev):
     A = from_numpy(np.random.default_rng(0).standard_normal((n, n)), dev)
     torch.cuda.synchronize()
     kernels.reset_launches()
-    S, Q2, er, ei, info, hess_ms, schur_ms, stats = solve(A)
+    S, Q2, er, ei, info, hess_ms, schur_ms, stats, H, QH = solve(A)
     schur_launches = dict(kernels.LAUNCHES)
+    hess = (to_numpy(H), to_numpy(QH))        # phase 10a's reference
+    del H, QH
     res, orth = gates(A, S, Q2)
     finite = bool(torch.isfinite(S).all() and torch.isfinite(Q2).all())
     form = schur_form_error(S)
@@ -1158,7 +1188,7 @@ def phase_main(dev):
                 launches=launches, n200=dict(eig_vs_numpy=d_np,
                                              eig_vs_cpu=d_cpu, residual_u=res_s,
                                              orthogonality_u=orth_s),
-                n200_reduce=n200_reduce, spectrum=before)
+                n200_reduce=n200_reduce, spectrum=before, hess=hess)
 
 
 
@@ -1910,10 +1940,19 @@ def phase_cli():
 DM_RANKS_A, DM_RANKS_B = 2, 4
 DM_N4, DM_GEP_N = 1200, 512
 DM_TIMEOUT_S = 600.0
-# what each rank of a DM run may launch: the owner (rank 0) all of them
+# what each rank of a DM run may launch: the owner (rank 0) all of them,
+# every rank B1 in the sharded Hessenberg reduction
 DM_SEP_KERNELS = SCHUR_KERNELS + ("reorder_bubble",)
+DM_SHARED_KERNELS = ("hess_gemv",)
 DM_GEP_KERNELS = ("ht_cascade", "qz_window", "qz_sweep", "aed_deflate_gep",
                   "reorder_bubble_gep")
+# 10a's H and Q against phase 5's: the DM reduction sums the panel matvec,
+# Ytop and Q V in another order (partial products over the shards, then
+# an all_reduce), so it agrees to rounding, not bit for bit.  Measured on
+# the H100: H 7.2e-15 ||A||_F, Q 4.1e-13 (PERF.md section 5); the bound,
+# in units of ||A||_F for H and absolute for Q, is the single-process
+# Hessenberg tests' (tests/test_torch_hessenberg.py)
+DM_HESS_TOL = 1e-11
 
 
 def dm_comm(stats):
@@ -1927,13 +1966,15 @@ def dm_launches(cnt):
     return [{k: v for k, v in c["launches"].items() if v} for c in cnt]
 
 
-def dm_launch_check(label, cnt, kernels_):
-    """The owner (rank 0) launched each kernel of the path; the other
-    ranks launched none."""
+def dm_launch_check(label, cnt, kernels_, shared=()):
+    """The owner (rank 0) launched each kernel of the path; every other
+    rank launched each kernel of ``shared`` and no other."""
     for k in kernels_:
         check(cnt[0]["launches"][k] > 0, f"{label}: the owner did not launch {k}")
     for rank, c in enumerate(cnt[1:], 1):
-        check(not any(c["launches"].values()),
+        check(all(c["launches"][k] > 0 for k in shared),
+              f"{label}: rank {rank} did not launch {shared}: {c['launches']}")
+        check(not any(v for k, v in c["launches"].items() if k not in shared),
               f"{label}: rank {rank} launched kernels {c['launches']}")
 
 
@@ -1956,10 +1997,11 @@ def dm_sep_gates(label, A, S, Q, info):
 
 def phase_dm_sep(dev, main_res):
     """10a: api.sep_dm at n=MAIN_N on DM_RANKS_A gloo ranks sharing the
-    card, on phase 5's input: hessenberg (rank 0), schur (column shards),
-    select (Re > 0), reorder_schur (column shards), eigenvectors of the
-    leading block (rank 0), each stage timed to a barrier; gated as phase
-    5, and its spectrum against phase 5's."""
+    card, on phase 5's input: hessenberg (column shards, B1 on every
+    rank), schur (column shards), select (Re > 0), reorder_schur (column
+    shards), eigenvectors of the leading block (rank 0), each stage timed
+    to a barrier; gated as phase 5, its H and Q and its spectrum against
+    phase 5's, the ranks' V/T hashes equal."""
     import numpy as np
     from starneig_tpu_torch.api import sep
     from starneig_tpu_torch.convert import from_numpy
@@ -1988,6 +2030,20 @@ def phase_dm_sep(dev, main_res):
     comm = {c["rank"]: {stage: dm_comm(stats) for stage, stats in c["stats"].items()}
             for c in cnt}
     shards = [c["stats"]["schur"]["shard_shape"] for c in cnt]
+    Hs, Qs = main_res["hess"]
+    na = float(np.linalg.norm(A_np))
+    dH = float(np.abs(r["H"] - Hs).max()) / na
+    dQ = float(np.abs(r["QH"] - Qs).max())
+    below = float(np.abs(np.tril(r["H"], -2)).max())
+    hashes = [c["stats"]["hessenberg"].get("vt_sha256") for c in cnt]
+    hess_b1 = [c["launches"]["hess_gemv"] for c in cnt]
+    hess_peak = [c["stats"]["hessenberg"].get("peak_bytes") for c in cnt]
+    log(f"  10a n={n} Hessenberg on column shards {[c['shards']['H'] for c in cnt]}: "
+        f"B1 launches by rank {hess_b1}; H vs phase 5 {dH:.2e} ||A||_F, Q vs phase 5 "
+        f"{dQ:.2e}, below the subdiagonal {below}; V/T SHA-256 by rank "
+        f"{[h[:16] for h in hashes]}; collectives by rank (calls, bytes, s) "
+        f"{[dm_comm(c['stats']['hessenberg']) for c in cnt]}; peak device memory "
+        f"beyond the input shard by rank {hess_peak} bytes")
     log(f"  10a n={n} on {DM_RANKS_A} ranks ({cnt[0]['backend']}, devices "
         f"{[c['device'] for c in cnt]}): {ms}; rounds {st['rounds']} (phase 5: "
         f"{main_res['stats'].get('rounds')}), Schur shards {shards} of NP={NP}; selected "
@@ -2011,8 +2067,22 @@ def phase_dm_sep(dev, main_res):
     check(all(sh == (NP, NP // DM_RANKS_A) for sh in shards), f"10a: Schur shards {shards}")
     check(all(c["stats"]["schur"]["all_reduce"] > 0 for c in cnt),
           "10a: no collective in schur_dm")
-    dm_launch_check("10a", cnt, DM_SEP_KERNELS)
+    check(len(set(hashes)) == 1 and hashes[0] is not None,
+          f"10a: the ranks' Hessenberg panels differ ({hashes})")
+    check(dH < DM_HESS_TOL and dQ < DM_HESS_TOL and below == 0.0,
+          f"10a: H, Q differ from phase 5's by {dH} ||A||_F, {dQ} (below {below})")
+    check(all(c["shards"]["H"] == (n, n // DM_RANKS_A) for c in cnt),
+          "10a: H not in column shards")
+    check(all("broadcast" not in c["stats"]["hessenberg"] for c in cnt),
+          "10a: the Hessenberg stage broadcast (an owner's hand-out)")
+    rounds5 = main_res["stats"].get("rounds")
+    check(abs(st["rounds"] - rounds5) <= 2, f"10a: {st['rounds']} rounds, phase 5 {rounds5}")
+    dm_launch_check("10a", cnt, DM_SEP_KERNELS, DM_SHARED_KERNELS)
     return dict(ms=ms, wall_s=wall, startup_s=[c["startup_s"] for c in cnt],
+                hess=dict(h_vs_phase5=dH, q_vs_phase5=dQ, b1_launches=hess_b1,
+                          peak_bytes=hess_peak,
+                          comm=[dm_comm(c["stats"]["hessenberg"]) for c in cnt],
+                          vt_sha256_equal=len(set(hashes)) == 1),
                 job_s=cnt[0]["wall_s"], teardown_s=cnt[0]["teardown_s"],
                 rounds=st["rounds"], NP=NP, shards=shards,
                 residual_u=res, orthogonality_u=orth, reorder_residual_u=res2,
@@ -2063,7 +2133,7 @@ def phase_dm_four(dev):
     check(m == want and bool((r["er"][:m] > 0).all()), f"10b: leading block {m}, {want}")
     check(d_np < 1e-10, f"10b: eigenvalues differ from numpy by {d_np} |A|")
     check(all(c["shards"]["S"] == (n, n // DM_RANKS_B) for c in cnt), "10b: S shards")
-    dm_launch_check("10b sep", cnt, DM_SEP_KERNELS)
+    dm_launch_check("10b sep", cnt, DM_SEP_KERNELS, DM_SHARED_KERNELS)
 
     ra, rb, oq, oz, fs, ft, _ninf = gep_gates(GA, GB, g["S"], g["T"], g["Q"], g["Z"],
                                               torch.as_tensor(g["bt"]))
@@ -2087,6 +2157,117 @@ def phase_dm_four(dev):
                          lead=m, eig_vs_numpy=d_np, comm=[dm_comm(c["stats"]) for c in cnt]),
                 gep=dict(job_s=cntg[0]["wall_s"], residual_a_u=ra, residual_b_u=rb, orth_q_u=oq,
                          orth_z_u=oz, lead=mg, comm=[dm_comm(c["stats"]) for c in cntg]))
+
+
+# ---------------------------------------------------------------------------
+# tools and examples
+# ---------------------------------------------------------------------------
+TOOLS_N = 512                      # the traced chain's size
+# the children of phase 11: (module, arguments); the dry run's size is
+# STARNEIG_DRYRUN_N (its default, 512)
+TOOL_CHILDREN = {
+    "sep_full_chain": ("starneig_tpu_torch.examples.sep_full_chain", ["500"]),
+    "gep_full_chain": ("starneig_tpu_torch.examples.gep_full_chain", ["200"]),
+    "distributed": ("starneig_tpu_torch.examples.distributed", ["256"]),
+    "dryrun": ("starneig_tpu_torch.tools.dryrun", ["2"]),
+}
+TOOL_CHILD_TIMEOUT_S = 300
+
+
+def phase_tools(dev):
+    """11: phase 5's stages at n=TOOLS_N on the card with the sanity checks
+    on (each stage's outputs checked, and a check that must fail shown to
+    fail) and each stage in a trace span ended by a synchronize; the trace
+    dumped and parsed under native/trace_render.cpp's schema.  Then the
+    three examples and tools.dryrun in child processes, all started at
+    once (they share the card): exit 0, and the residual lines under
+    500 u."""
+    import json as _json
+    import os
+    import re
+    import tempfile
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.convert import from_numpy
+    from starneig_tpu_torch.tools import sanity, trace
+    t0 = time.perf_counter()
+    n = TOOLS_N
+    A = from_numpy(np.random.default_rng(5).standard_normal((n, n)), dev)
+    sanity.enable_sanity_checks(True)
+    trace.enable_tracing()
+    try:
+        def stage(label, fn):
+            with trace.trace_span(label, (0, 0, n, n), n=n):
+                out = fn()
+                torch.cuda.synchronize()
+            return out
+        sanity.check_finite(A, "A")
+        H, Q = stage("hessenberg", lambda: sep.hessenberg(A))
+        sanity.check_hessenberg(H)
+        sanity.check_orthogonality(Q)
+        sanity.check_residual_bracket(A, H, Q, "hessenberg")
+        try:
+            sanity.check_schur_form(H, "H as a Schur form")
+            live = False
+        except sanity.SanityError:
+            live = True
+        check(live, "11: check_schur_form passed a Hessenberg matrix")
+        S, Q, er, ei, info = stage("schur", lambda: sep.schur(H, Q))
+        check(int(info) == 0, f"11: schur info {int(info)}")
+        sanity.check_schur_form(S)
+        sanity.check_orthogonality(Q)
+        sanity.check_residual_bracket(A, S, Q, "schur")
+        sel = stage("select", lambda: sep.select(S, positive_real))
+        S2, Q2, m, rinfo = stage("reorder", lambda: sep.reorder_schur(S, Q, sel))
+        sanity.check_schur_form(S2)
+        sanity.check_residual_bracket(A, S2, Q2, "reorder")
+        X, xinfo = stage("eigenvectors",
+                         lambda: sep.eigenvectors(S2, Q2, np.arange(n) < m))
+        sanity.check_finite(X, "X")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = trace.dump_trace(os.path.join(tmp, "trace.json"), n=n)
+            doc = _json.loads(Path(path).read_text())
+    finally:
+        sanity.enable_sanity_checks(False)
+        trace.disable_tracing()
+    labels = [e["label"] for e in doc["events"]]
+    spans = {e["label"]: (e["end"] - e["begin"]) * 1e3 for e in doc["events"]}
+    check(set(doc) == {"n", "events"} and doc["n"] == n, f"11: trace keys {set(doc)}")
+    check(labels == ["hessenberg", "schur", "select", "reorder", "eigenvectors"],
+          f"11: trace labels {labels}")
+    check(all(e["rect"] == [0, 0, n, n] and 0 <= e["begin"] <= e["end"]
+              for e in doc["events"]), "11: trace events malformed")
+    log(f"  11 n={n}: sanity checks passed on every stage (and failed on H as a "
+        f"Schur form); trace of {len(labels)} spans, ms {spans}; leading block {m}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = {name: subprocess.Popen([sys.executable, "-m", mod, *argv], cwd=ROOT, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, (mod, argv) in TOOL_CHILDREN.items()}
+    try:
+        kids = {}
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=TOOL_CHILD_TIMEOUT_S)
+            kids[name] = dict(exit=p.returncode, lines=out.strip().splitlines())
+            for ln in kids[name]["lines"]:
+                log(f"  11 {name}: {ln}")
+            if p.returncode != 0:
+                log(err[-4000:])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    for name, k in kids.items():
+        check(k["exit"] == 0 and k["lines"], f"11: {name} exited {k['exit']}")
+        for mt in re.finditer(r"(residual[^=]*|orthogonality) =\s*([0-9.]+) u",
+                              "\n".join(k["lines"])):
+            check(float(mt.group(2)) < GATE_U, f"11: {name}: {mt.group(0)}")
+    check(kids["dryrun"]["lines"][-1].startswith("dryrun_multichip(2): full chain ok"),
+          "11: the dry run's line")
+    log(f"  11: {secs:.1f} s")
+    return dict(seconds=secs, spans_ms=spans, children=kids)
 
 
 def main() -> int:
@@ -2143,6 +2324,8 @@ def main() -> int:
         dm = dict(a=phase_dm_sep(dev, main_res), b=phase_dm_four(dev))
         dm["wall_s"] = time.perf_counter() - t_dm
         log(f"  phase 10: {dm['wall_s']:.1f} s")
+        log("== 11. tools and examples")
+        tools = phase_tools(dev)
     finally:
         if ht_plain[0].is_alive():
             ht_plain[0].terminate()
@@ -2159,8 +2342,9 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70,
-                 main={k: v for k, v in main_res.items() if k != "spectrum"},
-                 gep=gep_res, gep_inf=gep_inf, cli=cli, dm=dm, torch=torch.__version__,
+                 main={k: v for k, v in main_res.items() if k not in ("spectrum", "hess")},
+                 gep=gep_res, gep_inf=gep_inf, cli=cli, dm=dm, tools=tools,
+                 torch=torch.__version__,
                  cuda=torch.version.cuda),
             indent=1, default=str))
     log(f"smoke wall seconds: {time.perf_counter() - t_start:.1f}")

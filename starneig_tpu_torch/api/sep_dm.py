@@ -6,16 +6,17 @@ Counterpart of ``starneig_tpu/api/sep_dm.py``.  One process is one rank
 it with its own shards (:class:`~starneig_tpu_torch.parallel.DistrMatrix`)
 or with the same whole matrix, which each rank then shards by columns.
 
-  * ``schur`` runs the Schur driver on column shards
-    (:func:`starneig_tpu_torch.parallel.dm_core.schur_dm`) and
-    ``reorder_schur`` the window grid on column shards
+  * ``hessenberg`` runs the panel loop on column shards
+    (:func:`starneig_tpu_torch.parallel.dm_hess.hessenberg_dm`: every rank
+    launches B1 on its own columns, A is never gathered), ``schur`` the
+    Schur driver (:func:`starneig_tpu_torch.parallel.dm_core.schur_dm`)
+    and ``reorder_schur`` the window grid
     (:func:`~starneig_tpu_torch.parallel.dm_core.reorder_dm`).
-  * ``hessenberg`` and ``eigenvectors`` run on the shards in the JAX
-    package only because XLA's SPMD partitioner splits the single-process
-    program; eager PyTorch has no such partitioner.  Here the matrix is
-    gathered, rank 0 runs ``api.sep.hessenberg`` or ``api.sep.eigenvectors``
-    on its device (the kernels launch there), and every rank takes its
-    shard of the outputs.
+  * ``eigenvectors`` runs on the shards in the JAX package only because
+    XLA's SPMD partitioner splits the single-process program.  Here the
+    matrices are gathered, rank 0 runs ``api.sep.eigenvectors`` on its
+    device (the kernels launch there), and every rank takes its shard of
+    the output.
   * ``eigenvectors`` is declared but unimplemented in the reference
     (sep_dm.h:232-238); it is implemented here.
 
@@ -76,15 +77,34 @@ def _wrap_flex(out, mesh):
     return _wrap(out, mesh, spec)
 
 
+def _cols(M, mesh):
+    """This rank's column shard of M, with no collective: a column-sharded
+    DistrMatrix's own data, or its columns of a replicated or whole
+    matrix."""
+    if M is None:
+        return None
+    if isinstance(M, DistrMatrix):
+        if M.spec == "rows":
+            raise ValueError("sep_dm.hessenberg takes column shards or a "
+                             "replicated matrix, not row shards")
+        return M.data if M.spec == "cols" else shard_of(M.data, mesh, "cols")
+    return shard_of(_whole(M, mesh, None), mesh, "cols")
+
+
 def hessenberg(A, Q=None, mesh=None, conf=None, device=None,
                stats: Optional[dict] = None):
-    """Distributed Hessenberg reduction (sep_dm.h:86-130): (H, Q)."""
-    mesh, spec = _mesh_spec(A, mesh, device)
-    Af, Qf = _whole(A, mesh, stats), _whole(Q, mesh, stats)
-    H, Qo = owner_call(
-        mesh, lambda: _sep.hessenberg(Af, Q=Qf, conf=conf, device=mesh.device),
-        stats=stats)
-    return _wrap(H, mesh, spec), _wrap(Qo, mesh, spec)
+    """Distributed Hessenberg reduction (sep_dm.h:86-130) on column shards
+    (:func:`~starneig_tpu_torch.parallel.dm_hess.hessenberg_dm`).
+
+    Returns (H, Q) as column-sharded DistrMatrix."""
+    from starneig_tpu_torch.parallel.dm_hess import hessenberg_dm
+
+    mesh, _spec = _mesh_spec(A, mesh, device)
+    A_loc = _cols(A, mesh)
+    n = A_loc.shape[0]
+    H, Qo = hessenberg_dm(A_loc, _cols(Q, mesh), mesh, conf=conf, stats=stats)
+    return (DistrMatrix(H, mesh, "cols", (n, n)),
+            DistrMatrix(Qo, mesh, "cols", (n, n)))
 
 
 def schur(H, Q=None, mesh=None, conf=None, device=None,
@@ -143,8 +163,8 @@ def select(S, predicate: Callable[[complex], bool],
 def reduce(A, predicate: Optional[Callable[[complex], bool]] = None,
            mesh=None, hessenberg_conf=None, schur_conf=None,
            reorder_conf=None, device=None, stats: Optional[dict] = None):
-    """Distributed full chain (reference: mpi/combined.c): Hessenberg on
-    rank 0, Schur and reordering on column shards.
+    """Distributed full chain (reference: mpi/combined.c): Hessenberg,
+    Schur and reordering on column shards.
 
     Returns (S, Q, eig_real, eig_imag, num_selected, info)."""
     mesh, _spec = _mesh_spec(A, mesh, device)

@@ -34,38 +34,47 @@ def _panel(A, k: int, nb: int, t0: int = 0, end: Optional[int] = None):
     subdiagonal.  Every reflector is supported on rows > t0 <= k, so the
     panel matvec contracts only over the trailing block A[t0:, t0:].
     """
-    n = A.shape[0]
-    lim = n if end is None else end
-    V = A.new_zeros((n, nb))
-    T = A.new_zeros((nb, nb))
-    U = A.new_zeros((n, nb))
-    Y = A.new_zeros((n, nb))
-    P = A.new_zeros((n, nb))
     At = A[t0:, t0:]
-    zero = A.new_zeros(())
+    return panel_factor(A[:, k:k + nb], lambda x: gemv(At, x), k, t0, end)
+
+
+def panel_factor(cols, matvec, k: int, t0: int = 0, end: Optional[int] = None):
+    """:func:`_panel` on the panel's columns ``cols`` = A[:, k:k+nb]; the
+    rest of A enters only through ``matvec(x)`` = A[t0:, t0:] @ x (x of
+    length n - t0).  The distributed reduction
+    (``parallel/dm_hess.py``) passes a gathered panel and a matvec over
+    column shards."""
+    n, nb = cols.shape
+    lim = n if end is None else end
+    V = cols.new_zeros((n, nb))
+    T = cols.new_zeros((nb, nb))
+    U = cols.new_zeros((n, nb))
+    Y = cols.new_zeros((n, nb))
+    P = cols.new_zeros((n, nb))
+    zero = cols.new_zeros(())
     for j in range(nb):
         c = k + j
         # the column corrected by the panel's previous reflectors
         # (columns >= j of Y, V and T are still zero)
-        a = A[:, c].contiguous()
+        a = cols[:, j].contiguous()
         a = a - gemv(Y[:, :j], V[c, :j].contiguous())
         w1 = gemv(V[:, :j], a, trans=True)
         a = a - gemv(V[:, :j], gemv(T[:j, :j], w1, trans=True))
         shift = c + 1
         active = c < lim - 1 and c < n - 1
-        v = A.new_zeros(n)
+        v = cols.new_zeros(n)
         if active:
             vt, tau, beta = prim.householder(a[shift:])
             v[shift:] = vt
-            pcol = A.new_zeros(n)
+            pcol = cols.new_zeros(n)
             pcol[:shift] = a[:shift]
             pcol[shift] = beta
         else:
             # columns outside [begin, end) keep their corrected values
             tau = zero
             pcol = a
-        u = A.new_zeros(n)
-        u[t0:] = gemv(At, v[t0:])
+        u = cols.new_zeros(n)
+        u[t0:] = matvec(v[t0:])
         tcol = -tau * gemv(T[:j, :j], gemv(V[:, :j], v, trans=True))
         V[:, j] = v
         T[:j, j] = tcol

@@ -20,6 +20,7 @@ stopped every rank: nothing hangs.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import os
 import queue
@@ -158,8 +159,11 @@ def sep_chain(A, predicate: str = "positive_real"):
     """api.sep_dm: hessenberg -> schur -> select -> reorder_schur ->
     eigenvectors of the leading selected block, each stage ended by a
     barrier and timed (``<stage>_ms``), each with its own collective
-    counts (``stats``).  Result: S and Q after Schur and after reordering,
+    counts (``stats``; on a card the Hessenberg stage's peak device
+    memory beyond its input, ``peak_bytes``).  Result: H and Q after the
+    reduction (``H``, ``QH``), S and Q after Schur and after reordering,
     X, the eigenvalues and the info codes."""
+    import torch
     from starneig_tpu_torch.api import sep_dm
     from starneig_tpu_torch.node import default_mesh
     from starneig_tpu_torch.parallel import distr_matrix_from_array
@@ -169,10 +173,18 @@ def sep_chain(A, predicate: str = "positive_real"):
     stats = {k: {} for k in ("hessenberg", "schur", "select", "reorder",
                              "eigenvectors")}
     Ad = distr_matrix_from_array(A, mesh)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        base = torch.cuda.memory_allocated(mesh.device)
     t0 = _stage(mesh)
-    Hd, Qd = sep_dm.hessenberg(Ad, stats=stats["hessenberg"])
+    Hd, QHd = sep_dm.hessenberg(Ad, stats=stats["hessenberg"])
     t1 = _stage(mesh)
-    Sd, Qd, er, ei, info = sep_dm.schur(Hd, Qd, stats=stats["schur"])
+    if cuda:
+        # device memory the stage held at its peak beyond its input shard
+        stats["hessenberg"]["peak_bytes"] = \
+            torch.cuda.max_memory_allocated(mesh.device) - base
+    Sd, Qd, er, ei, info = sep_dm.schur(Hd, QHd, stats=stats["schur"])
     t2 = _stage(mesh)
     sel = sep_dm.select(Sd, PREDICATES[predicate], stats=stats["select"])
     t3 = _stage(mesh)
@@ -184,13 +196,14 @@ def sep_chain(A, predicate: str = "positive_real"):
     ms = dict(hessenberg_ms=(t1 - t0) * 1e3, schur_ms=(t2 - t1) * 1e3,
               select_ms=(t3 - t2) * 1e3, reorder_ms=(t4 - t3) * 1e3,
               eigenvectors_ms=(t5 - t4) * 1e3)
-    result = dict(S=Sd.to_array(), Q=Qd.to_array(), er=er.cpu().numpy(),
-                  ei=ei.cpu().numpy(), info=int(info), selected=int(sel.sum()),
-                  S2=S2d.to_array(), Q2=Q2d.to_array(), m=int(m),
-                  rinfo=int(rinfo), X=X.to_array(), xinfo=int(xinfo))
+    result = dict(H=Hd.to_array(), QH=QHd.to_array(), S=Sd.to_array(),
+                  Q=Qd.to_array(), er=er.cpu().numpy(), ei=ei.cpu().numpy(),
+                  info=int(info), selected=int(sel.sum()), S2=S2d.to_array(),
+                  Q2=Q2d.to_array(), m=int(m), rinfo=int(rinfo),
+                  X=X.to_array(), xinfo=int(xinfo))
     return result, dict(ms, stats=stats,
-                        shards=dict(S=tuple(Sd.data.shape), X=tuple(X.data.shape),
-                                    X_spec=X.spec))
+                        shards=dict(H=tuple(Hd.data.shape), S=tuple(Sd.data.shape),
+                                    X=tuple(X.data.shape), X_spec=X.spec))
 
 
 def sep_reduce(A, predicate: str = "positive_real"):
@@ -248,6 +261,23 @@ def apply_extent_op(ext, S, Q, op: str, kw: dict):
     return getattr(ext, name)(M, **kw)
 
 
+@contextlib.contextmanager
+def counting_full():
+    """Count the calls of ``DistrMatrix.full`` (a gather) in the block:
+    yields a one-element list."""
+    from starneig_tpu_torch.parallel.distr import DistrMatrix
+    orig, box = DistrMatrix.full, [0]
+
+    def full(self, *a, **kw):
+        box[0] += 1
+        return orig(self, *a, **kw)
+    DistrMatrix.full = full
+    try:
+        yield box
+    finally:
+        DistrMatrix.full = orig
+
+
 def suite(arrays: dict):
     """The CPU tests' job: one spawn serves them all.
 
@@ -259,6 +289,10 @@ def suite(arrays: dict):
     * ``window``: what ``ShardedExtent.window`` returns on each rank, and
       whether that rank ran the function;
     * ``node``: one all_reduce of (rank + 1) through the node's group;
+    * ``hess``: sep_dm.hessenberg of ``HA`` with panel width ``hess_nb``,
+      as a DistrMatrix with no Q (``eye``) and as whole matrices with Q =
+      ``HQ0`` (``q0``), with the gathered H and Q, and each rank's stats,
+      V/T hash and calls of ``DistrMatrix.full`` during the stage;
     * ``schur``, ``reorder``: sep_dm.schur of (H, Q) and
       sep_dm.reorder_schur of (S, Qs, sel);
     * ``reduce``: sep_dm.reduce of ``A96`` (Re > 0), then sep_dm.eigenvectors
@@ -267,6 +301,7 @@ def suite(arrays: dict):
     """
     import torch
     from starneig_tpu_torch.api import gep_dm, sep_dm
+    from starneig_tpu_torch.config import HessenbergConf
     from starneig_tpu_torch.errors import Error
     from starneig_tpu_torch.node import default_mesh, get_node
     from starneig_tpu_torch.parallel import distr
@@ -313,6 +348,18 @@ def suite(arrays: dict):
     distr.all_reduce(t, mesh)
     cnt["node"] = dict(rank=nd.rank, world_size=nd.world_size,
                        backend=nd.backend, sum=float(t[0]))
+
+    res["hess"], cnt["hess"] = {}, {}
+    hconf = HessenbergConf(panel_width=arrays["hess_nb"])
+    for case, A_in, Q_in in (
+            ("eye", distr.distr_matrix_from_array(arrays["HA"], mesh), None),
+            ("q0", arrays["HA"], arrays["HQ0"])):
+        st = {}
+        with counting_full() as calls:
+            Hd, QHd = sep_dm.hessenberg(A_in, Q_in, conf=hconf, stats=st)
+        res["hess"][case] = dict(H=Hd.to_array(), Q=QHd.to_array())
+        cnt["hess"][case] = dict(stats=st, full_calls=calls[0],
+                                 shards=(tuple(Hd.data.shape), tuple(QHd.data.shape)))
 
     st = {}
     Sd, Qd, er, ei, info = sep_dm.schur(arrays["H"], arrays["Q"], stats=st)

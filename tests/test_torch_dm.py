@@ -15,7 +15,13 @@ numpy arrays made from seeds.  Tolerances:
     eigenvalues leading, the spectrum kept within 1e-8 max|lambda|;
   * eigenvectors: residual ||A x - lambda x|| / (||A||_F ||x||) < 1e-10;
   * pencils: both residuals and orthogonalities < 500 u, exact structure,
-    the spectrum within 1e-10 max|lambda| of JAX's.
+    the spectrum within 1e-10 max|lambda| of JAX's;
+  * the sharded Hessenberg reduction (n=96, panel width 20, so that
+    panels straddle the shard edges at 48 and at 24, 48, 72): H within
+    1e-11 ||A||_F and Q within 1e-11 of JAX's ``sep_dm.hessenberg`` and
+    ``sep.hessenberg`` (the single-process tolerances of
+    ``tests/test_torch_hessenberg.py``), H exactly zero below the
+    subdiagonal.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -26,6 +32,7 @@ import torch
 
 from starneig_tpu.api import gep_dm as jgep_dm
 from starneig_tpu.api import sep as jsep
+from starneig_tpu.config import HessenbergConf as JHessConf
 from starneig_tpu.api import sep_dm as jsep_dm
 from starneig_tpu.parallel import block_cyclic as jbc
 from starneig_tpu.parallel import make_mesh as jmake_mesh
@@ -57,6 +64,10 @@ SPAWN_TIMEOUT_S = 300.0
 NP, P_EXT, N_EXT, W_EXT = 48, 6, 36, 8
 J0S = (0, 2, 8, 20, NP - W_EXT)
 DIAG_WS = (0, 8, 20, NP - W_EXT)
+# the sharded Hessenberg: panels at 0, 20, 40, 60, 76 (the last one kept
+# inside the matrix), t0 buckets of 20
+HESS_NB = 20
+HESS_CASES = ("eye", "q0")
 
 
 def _orth(rng, w):
@@ -106,9 +117,11 @@ def ref():
     GA = random_dense(32, seed=3)
     GB = random_dense(32, seed=4) + 3 * np.eye(32)
     Spad, Qpad, cases = _extent_inputs()
+    HA = random_dense(N, seed=10)
+    HQ0 = _orth(np.random.default_rng(12), N)
     arrays = dict(A=random_dense(64, seed=1), Spad=Spad, Qpad=Qpad,
                   ext_cases=cases, H=H, Q=Q, S=Sj, Qs=Qj, sel=sel, A96=A,
-                  GA=GA, GB=GB)
+                  GA=GA, GB=GB, HA=HA, HQ0=HQ0, hess_nb=HESS_NB)
     with ThreadPoolExecutor(2) as pool:
         spawns = {nd: pool.submit(run_ranks, "starneig_tpu_torch.testing.dm:suite",
                                   nd, (arrays,), "cpu", SPAWN_TIMEOUT_S)
@@ -118,10 +131,17 @@ def ref():
         gred = jgep_dm.reduce(GA, GB, predicate=finite_right_half,
                               mesh=jmake_mesh(4))
         St, Qt, ert, eit, infot = sep.schur(H, Q, device="cpu")
+        hconf = JHessConf(panel_width=HESS_NB)
+        hess = {}
+        for case, Q0 in zip(HESS_CASES, (None, HQ0)):
+            Hdm, Qdm = jsep_dm.hessenberg(HA, Q0, mesh=mesh8, conf=hconf)
+            hess[case] = dict(dm=(Hdm.to_array(), Qdm.to_array()),
+                              sm=tuple(np.asarray(M) for M in
+                                       jsep.hessenberg(HA, Q0, conf=hconf)))
         ranks = {nd: f.result() for nd, f in spawns.items()}
     return dict(
         A=A, H=H, Q=Q, sel=sel, GA=GA, GB=GB, Spad=Spad, Qpad=Qpad, cases=cases,
-        ranks=ranks,
+        HA=HA, hess=hess, ranks=ranks,
         schur=dict(S=Sj, Q=Qj, er=erj, ei=eij, info=int(infoj)),
         schur_sm=dict(S=St.numpy(), Q=Qt.numpy(), er=ert.numpy(), ei=eit.numpy(),
                       info=int(infot)),
@@ -200,6 +220,50 @@ def test_node_all_reduce(ranks):
         assert c["node"] == dict(rank=r, world_size=nd, backend="gloo",
                                  sum=nd * (nd + 1) / 2)
         assert c["backend"] == "gloo" and c["device"] == "cpu"
+
+
+@pytest.mark.parametrize("case", HESS_CASES)
+def test_hessenberg_dm(ranks, ref, case):
+    """sep_dm.hessenberg on column shards against JAX's sep_dm.hessenberg
+    (8-device mesh) and sep.hessenberg: with no Q from a DistrMatrix
+    (``eye``), onto a random orthogonal Q from whole matrices (``q0``)."""
+    nd, res, cnt = ranks
+    r = res["hess"][case]
+    na = np.linalg.norm(ref["HA"])
+    for which in ("dm", "sm"):
+        Hj, Qj = ref["hess"][case][which]
+        np.testing.assert_allclose(r["H"], Hj, rtol=0, atol=1e-11 * na, err_msg=which)
+        np.testing.assert_allclose(r["Q"], Qj, rtol=0, atol=1e-11, err_msg=which)
+    assert np.abs(np.tril(r["H"], -2)).max() == 0.0
+    for c in cnt:
+        assert c["hess"][case]["shards"] == ((N, N // nd),) * 2
+
+
+@pytest.mark.parametrize("case", HESS_CASES)
+def test_hessenberg_dm_ranks_agree(ranks, case):
+    """Every rank holds each panel's V and T bit for bit (one SHA-256 over
+    all panels)."""
+    nd, _res, cnt = ranks
+    hashes = {c["hess"][case]["stats"]["vt_sha256"] for c in cnt}
+    assert len(hashes) == 1, hashes
+
+
+@pytest.mark.parametrize("case", HESS_CASES)
+def test_hessenberg_dm_gathers_no_a(ranks, case):
+    """The stage gathers no A: no DistrMatrix.full call and no broadcast
+    (the owner's hand-out).  Its collectives are exactly the design's: a
+    panel (n x nb), Ytop (t0 x nb, none while t0 = 0, the first panel) and
+    Q V (n x nb) a panel, and a vector of n - t0 a column, so 3 n nb
+    float64 a panel in all, with no message of A's size."""
+    nd, _res, cnt = ranks
+    panels = len(range(0, N - 2, HESS_NB))
+    for c in cnt:
+        h = c["hess"][case]
+        st = h["stats"]
+        assert h["full_calls"] == 0
+        assert "broadcast" not in st
+        assert st["all_reduce"] == panels * (HESS_NB + 3) - 1, st
+        assert st["collective_bytes"] == 8 * panels * 3 * N * HESS_NB, st
 
 
 def test_schur_dm(ranks, ref):

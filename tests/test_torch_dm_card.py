@@ -6,14 +6,15 @@ PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_dm_card.py
 
-``sep_dm`` at n=1,200 on 2 ranks: hessenberg (rank 0), schur and
-reorder_schur on column shards, eigenvectors (rank 0), held to the
+``sep_dm`` at n=1,200 on 2 ranks: hessenberg, schur and reorder_schur on
+column shards, eigenvectors (rank 0), held to the
 reference's gates (info 0, residual and orthogonality < 500 u, exact
 standardized Schur form before and after the reordering, the leading
 block exactly the eigenvalues with Re > 0, eigenvector residuals < 1e-10),
 to the single-process ``sep.schur`` on the card (spectrum within 1e-10
 max|lambda|), and to the owner rule: rank 0 launched every kernel of the
-path, rank 1 none.
+path, rank 1 only B1 (on its own columns in the sharded Hessenberg
+reduction), and both ranks held the same V and T in every panel.
 """
 
 import numpy as np
@@ -72,4 +73,7 @@ def test_sep_dm_chain_two_ranks(cuda):
     for k in ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense",
               "reorder_bubble"):
         assert cnt[0]["launches"][k] > 0, k
-    assert not any(cnt[1]["launches"].values()), cnt[1]["launches"]
+    assert cnt[1]["launches"]["hess_gemv"] > 0, cnt[1]["launches"]
+    assert not any(v for k, v in cnt[1]["launches"].items() if k != "hess_gemv"), \
+        cnt[1]["launches"]
+    assert len({c["stats"]["hessenberg"]["vt_sha256"] for c in cnt}) == 1

@@ -39,6 +39,11 @@ def test_import_pulls_no_jax_and_builds_nothing():
         "from starneig_tpu_torch.parallel import distr, dm_core, block_cyclic\n"
         "from starneig_tpu_torch.api import sep_dm, gep_dm\n"
         "from starneig_tpu_torch.testing import dm\n"
+        "from starneig_tpu_torch.parallel import dm_hess\n"
+        "from starneig_tpu_torch import tools\n"
+        "from starneig_tpu_torch.tools import trace, sanity, dryrun\n"
+        "from starneig_tpu_torch import examples\n"
+        "from starneig_tpu_torch.examples import sep_full_chain, gep_full_chain, distributed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'starneig_tpu' or m.startswith('starneig_tpu.')]\n"
         "assert not bad, bad\n"
