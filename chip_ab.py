@@ -11,6 +11,7 @@
     python3 chip_ab.py clock [deflate|hops|recondense] [--skip-cur] [NAME=PATH ...]
     python3 chip_ab.py qzinf
     python3 chip_ab.py bitwise [--n N] [--device cpu|cuda] ROOT [ROOT ...]
+    python3 chip_ab.py ht [--n N] ROOT [ROOT ...]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -88,6 +89,12 @@ the card) in a process of its own; prints the SHA-256 of the bytes of S,
 Q and the eigenvalues of each, and fails unless every ROOT gives the same
 bits.  With ``--device cpu`` it needs no card.
 
+ht: each ROOT's G1 (the blocked HT reduction) at size N (default 2000) on
+a regular pencil in a process of its own: three runs and the generation
+alone by CUDA events, the first four blocks' kernels under
+``torch.profiler``, and the SHA-256 of the output (equal digests: the
+same bits).
+
 Prints the card's name and power limit first; exits nonzero if a check
 fails.  Needs a CUDA card and nvcc (bitwise on the CPU needs neither).
 """
@@ -104,12 +111,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
-if sys.argv[1:2] in (["_mainpath_one"], ["_bitwise_one"]):   # that checkout's package
+if sys.argv[1:2] in (["_mainpath_one"], ["_bitwise_one"], ["_ht_one"]):   # that checkout's
     sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
 
 from chip_smoke import (BUBBLE_CASES, DEFLATE_CASES, DEFLATE_S, DEFLATE_TH,  # noqa: E402
                         U, block_eigs, bubble_check, cuda_ms, deflate_check,
-                        device_ms, hessenberg_np, tally)
+                        device_ms, hessenberg_np, tally, timed)
 from starneig_tpu_torch import kernels  # noqa: E402
 
 CASES = [(40, 40, 0), (40, 31, 1), (96, 96, 3), (130, 130, 4), (322, 322, 2)]
@@ -599,6 +606,74 @@ def ab_bitwise(args) -> bool:
     same = len(set(digests)) == 1
     print(f"bitwise {device} n={n}: {'identical' if same else 'DIFFERENT'}", flush=True)
     return same
+
+
+def ht_one(root: str, n: int) -> None:
+    """In a fresh process: G1 (``gpu_gep.ht_cascade``) of the package under
+    root on a regular n-pencil (A Gaussian, B the upper triangle of one,
+    seed n, Q = Z = I), three times by CUDA events, then the generation of
+    every block alone, then the first four blocks' generation under
+    torch.profiler (each kernel's device total and launches), and the
+    SHA-256 of the reduction's output.  Prints one JSON line."""
+    import hashlib
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.hess_triangular import NB, _rot_offset, blocks
+    assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(rng.standard_normal((n, n)), device="cuda")
+    B = torch.triu(torch.as_tensor(rng.standard_normal((n, n)), device="cuda"))
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    kernels.lib()
+    ms = []
+    for _ in range(3):
+        out, t = timed(lambda: gpu_gep.ht_cascade(A, B, eye, eye))
+        ms.append(t)
+
+    def generate(nblk):
+        Ag, Bg = A.clone(), B.clone()
+        rot = A.new_zeros((_rot_offset(n, n - 2), 4))
+        for J0, J1 in blocks(n, NB)[:nblk]:
+            gpu_gep.ht_generate(Ag, Bg, rot, J0, J1)
+    _, gen_ms = timed(lambda: generate(None))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        generate(4)
+        torch.cuda.synchronize()
+    kern = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:60]
+            kern[name] = [e.self_device_time_total / 1e3, e.count]
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    steps = (n - 2) * (n - 1) // 2
+    print("HT " + json.dumps(dict(root=root, n=n, ms=ms, us_a_step=min(ms) / steps * 1e3,
+                                  generation_ms=gen_ms, first4_blocks=kern,
+                                  sha256=h.hexdigest())), flush=True)
+
+
+def ab_ht(args) -> bool:
+    """[--n N] ROOT ...: each ROOT's G1 in its own process, in the order
+    given (parent, change, change, parent); the outputs' digests printed
+    beside the times."""
+    n = 2000
+    if args[:1] == ["--n"]:
+        n, args = int(args[1]), args[2:]
+    ok = True
+    for root in args:
+        r = subprocess.run([sys.executable, __file__, "_ht_one", root, str(n)],
+                           capture_output=True, text=True)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("HT ")]
+        if r.returncode != 0 or not lines:
+            print(f"{root}: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}",
+                  flush=True)
+            ok = False
+            continue
+        print(lines[-1], flush=True)
+    return ok
 
 
 # clock: where a kernel version spends its cycles.  The counters go into
@@ -1303,12 +1378,15 @@ def ab_qzinf(_args) -> bool:
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
-         "bitwise": ab_bitwise}
+         "bitwise": ab_bitwise, "ht": ab_ht}
 
 
 def main() -> int:
     if len(sys.argv) >= 4 and sys.argv[1] == "_mainpath_one":
         mainpath_one(sys.argv[2], int(sys.argv[3]))
+        return 0
+    if len(sys.argv) >= 4 and sys.argv[1] == "_ht_one":
+        ht_one(sys.argv[2], int(sys.argv[3]))
         return 0
     if len(sys.argv) >= 5 and sys.argv[1] == "_bitwise_one":
         bitwise_one(sys.argv[2], int(sys.argv[3]), sys.argv[4])

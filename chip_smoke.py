@@ -30,8 +30,10 @@ Phases (any failure raises; the exit code is then nonzero):
      SWAP_CYCLES), on inputs that include rejected swaps mid-segment, frozen
      rows and an insertion limit; B5 at WA=40, 322 and 802; the GEP
      kernels against their plain twins (run on CPU copies of the inputs):
-     G1 at n=192 and in window mode at WA=84 and 162 (kbot 10 elementwise,
-     kbot=WA-4 by contract), G2 at w=84 (with and without 8 infinite
+     G1 (blocked) at n=192 against the unblocked plain cascade, its
+     generation kernel and its sliver kernel against their plain twins on
+     the first block of n=2000, and G1 in window mode at WA=84 and 162
+     (kbot 10 elementwise, kbot=WA-4 by contract), G2 at w=84 (with and without 8 infinite
      eigenvalues) and 162 by contract, G3 for a whole train at n=512 and one
      hop, G4 at WA=84 and 162 (kbot, fail and steps equal), G5 (the
      infinite push's window chase) at Wb=96 and 84, G6 (the pencil window
@@ -63,8 +65,9 @@ Phases (any failure raises; the exit code is then nonzero):
      printing the zero betas and the chordal error against the planted
      spectrum, the rounds, the infinite-push rounds and calls, and the
      launch counts (zeroed before the path, read after it; every GEP kernel
-     at least once); the HT phase runs under torch.profiler (each kernel's
-     device total, G1's time), the QZ phase again under it afterwards;
+     at least once); the HT phase runs first under torch.profiler (each
+     kernel's device total and launches, G1's time, the cold call's time),
+     then warm outside it (ht_ms), the QZ phase again under it afterwards;
      then api.gep.select (finite, Re(alpha/beta) > 0), api.gep.reorder_schur
      and api.gep.eigenvectors of the leading selected block, gated on info,
      exact structure, 500 u, the leading rows holding exactly the selected
@@ -1301,10 +1304,13 @@ def phase_ht_cascade(dev, inp2000):
     import numpy as np
     import torch
     from starneig_tpu_torch.ops import gpu_gep
-    from starneig_tpu_torch.ops.hess_triangular import _ht_reduce
+    from starneig_tpu_torch.ops.hess_triangular import (NB, _ht_generate, _ht_reduce,
+                                                        _ht_slivers, _rot_offset, blocks,
+                                                        sliver_len)
     from starneig_tpu_torch.ops.qz_driver import _aed_recondense_gep
     from starneig_tpu_torch.testing.generators import planted_schur_pair
-    # full mode at n=192 (tests/test_torch_gep_kernels.py's shape)
+    # full mode (blocked) at n=192 (tests/test_torch_gep_kernels.py's shape)
+    # against the unblocked plain cascade
     n = 192
     A, B, eye, _ = ht_regular_input(n, dev)
     got = gpu_gep.ht_cascade(A, B, eye, eye)
@@ -1349,15 +1355,43 @@ def phase_ht_cascade(dev, inp2000):
                                          bound_by=wby, steps=st)
     detail["full n=192"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                 bound_by=by, us_a_step=ms / steps * 1e3)
-    # full mode at the GEP path's n; its plain twin runs in the child process
+    # the blocked form's two kernels against their plain twins at the GEP
+    # path's n: the generation of its first block (A's and B's rows and the
+    # rotation log, within 1e-11 max|M|: the kernel's band takes its last
+    # column by dot products where the twin sweeps) and that block's sliver
+    # factors from the same log (1e-13: the same rotations in the same order)
     n = GEP_N
+    rot0 = inp2000[0].new_zeros((_rot_offset(n, n - 2), 4))
+    J0, J1 = blocks(n, NB)[0]
+    Ag, Bg, rg = inp2000[0].clone(), inp2000[1].clone(), rot0.clone()
+    gpu_gep.ht_generate(Ag, Bg, rg, J0, J1)
+    Ac, Bc, rc = _cpu(inp2000[0].clone(), inp2000[1].clone(), rot0)
+    _, gen_plain_ms = host_ms(lambda: _ht_generate(Ac, Bc, rc, J0, J1))
+    gen_err = max(_rel(Ac, Ag), _rel(Bc, Bg), _rel(rc, rg))
+    L = sliver_len(NB)
+    Ug = gpu_gep.ht_slivers(rg, n, J0, J1, L)
+    Up, sl_plain_ms = host_ms(lambda: _ht_slivers(rg.cpu(), n, J0, J1, L))
+    sl_err = float((Ug.cpu() - Up).abs().max())
+    log(f"  G1 n={n} block [{J0}, {J1}): generation max err {gen_err:.2e} max|M| (plain "
+        f"{gen_plain_ms:.1f} ms), slivers ({Ug.shape[0]} of order {Ug.shape[-1]}) max err "
+        f"{sl_err:.2e} (plain {sl_plain_ms:.1f} ms)")
+    check(gen_err <= 1e-11 and sl_err <= 1e-13, f"G1 n={n}: generation {gen_err}, "
+          f"slivers {sl_err}")
+    # full mode at the GEP path's n; its plain twin runs in the child process
     out, ms = timed(lambda: gpu_gep.ht_cascade(*inp2000))
+    Ag, Bg, rg = inp2000[0].clone(), inp2000[1].clone(), rot0.clone()
+    _, gen_ms = timed(lambda: [gpu_gep.ht_generate(Ag, Bg, rg, J0, J1)
+                               for J0, J1 in blocks(n, NB)])
     steps = (n - 2) * (n - 1) // 2
     bms, by = bound(8 * 8 * n * n, ht_cascade_flops(n))
-    log(f"  G1 n={n}: kernel {ms:.1f} ms ({ms / steps * 1e3:.3f} us a step of {steps}); "
-        f"its plain twin is compared in phase 9")
+    log(f"  G1 n={n}: kernel {ms:.1f} ms ({ms / steps * 1e3:.3f} us a step of {steps}): "
+        f"generation {gen_ms:.1f} ms ({len(blocks(n, NB))} blocks of {NB}), slivers and "
+        f"the deferred products {ms - gen_ms:.1f} ms; its plain twin is compared in phase 9")
     detail[f"full n={n}"] = dict(ms=ms, bound_ms=bms, bound_by=by, steps=steps,
-                                 us_a_step=ms / steps * 1e3)
+                                 us_a_step=ms / steps * 1e3, generation_ms=gen_ms,
+                                 far_ms=ms - gen_ms, generation_err=gen_err,
+                                 generation_plain_ms=gen_plain_ms, sliver_err=sl_err,
+                                 sliver_plain_ms=sl_plain_ms)
     # the n=192 numbers stand until phase 9 replaces them with n=2000's
     d192 = detail["full n=192"]
     return dict(max_abs_err=err, ms=d192["ms"], plain_ms=plain_ms, bound_ms=d192["bound_ms"],
@@ -1708,12 +1742,19 @@ def phase_gep(dev):
     A_np, B_np, alpha, beta = known_spectrum_pencil(n, complex_ratio=0.3, inf_ratio=0.1, seed=0)
     A, B = (torch.as_tensor(x, device=dev) for x in (A_np, B_np))
     torch.cuda.synchronize()
+    # the HT phase once under the profiler for each kernel's device total
+    # and launches (G1's kernels and the deferred products) and the first,
+    # cold call's time (cuSOLVER's and cuBLAS's start-up included), before
+    # the launch counts are zeroed; then the path's run, warm and outside
+    # the profiler (ht_ms), timed by CUDA events
+    _, prof_ht, ht_first_ms = profiled_kernels(lambda: gep.hessenberg_triangular(A, B))
+    g1_prof = [v for k, v in prof_ht.items()
+               if k.replace("(anonymous namespace)::", "").startswith("ht_")]
+    ht_kernel_ms = sum(v[0] for v in g1_prof)
+    ht_kernel_launches = sum(v[1] for v in g1_prof)
     kernels.reset_launches()
-    # the HT phase once, under the profiler (a few launches: its overhead is
-    # negligible), for its time and each kernel's device total
-    (H, T, Q, Z), prof_ht, ht_ms = profiled_kernels(lambda: gep.hessenberg_triangular(A, B))
-    ht_kernel_ms = sum(v[0] for k, v in prof_ht.items()
-                       if "ht_full_kernel" in k or "ht_apply_kernel" in k)
+    (H, T, Q, Z), ht_ms = timed(lambda: gep.hessenberg_triangular(A, B))
+    ht_calls = kernels.LAUNCHES["ht_cascade"]
     stats = {}
     with tally(qz_driver, "inf_chase", lambda *a: 1) as inf_calls:
         out, qz_ms = timed(lambda: gep.schur(H, T, Q, Z, stats=stats))
@@ -1724,8 +1765,11 @@ def phase_gep(dev):
     steps = (n - 2) * (n - 1) // 2
     ht_bound, ht_by = bound(8 * 8 * n * n, ht_cascade_flops(n))
     geo = {k: stats[k] for k in ("WA", "NS", "B", "WC", "TMAX")}
-    log(f"  GEP n={n}: info {int(info)} ht_ms {ht_ms:.1f} (G1 {ht_kernel_ms:.1f} ms device "
-        f"time, {ht_kernel_ms / steps * 1e3:.2f} us a cascade step, the Q/Z update included; "
+    log(f"  GEP n={n}: info {int(info)} ht_ms {ht_ms:.1f} (warm, outside the profiler; the "
+        f"first, cold call {ht_first_ms:.1f} ms under it; G1's kernels {ht_kernel_ms:.1f} ms "
+        f"device time under the profiler, {ht_kernel_ms / steps * 1e3:.3f} us a cascade step, "
+        f"the deferred products not included; {ht_calls} wrapper calls, "
+        f"{ht_kernel_launches} kernel launches; "
         f"G1's bound {ht_bound:.2f} ms, {ht_by}) "
         f"qz_ms {qz_ms:.1f}; residual A {ra:.1f}u "
         f"B {rb:.1f}u, orthogonality Q {oq:.1f}u Z {oz:.1f}u, structure S {fs} T {ft}; "
@@ -1759,11 +1803,13 @@ def phase_gep(dev):
     top = {k: (round(v[0], 3), v[1]) for k, v in list(prof.items())[:12]}
     log(f"  GEP n={n} QZ device time by kernel (ms, calls; under the profiler): {top}")
     log(f"  GEP n={n} HT device time by kernel: "
-        f"{ {k: (round(v[0], 3), v[1]) for k, v in list(prof_ht.items())[:6]} }")
+        f"{ {k: (round(v[0], 3), v[1]) for k, v in list(prof_ht.items())[:10]} }")
     log(f"  GEP n={n} infinite push: {inf_calls[0]} G5 window chases, "
         f"{inf_ms[0]:.1f} ms (CUDA events around each call, under the profiler)")
     chain = gep_chain(A_np, B_np, A, B, S, Tt, Qo, Zo, ar, ai, bt)
-    return dict(info=int(info), ht_ms=ht_ms, qz_ms=qz_ms, ht_kernel_ms=ht_kernel_ms,
+    return dict(info=int(info), ht_ms=ht_ms, ht_first_ms=ht_first_ms, qz_ms=qz_ms,
+                ht_kernel_ms=ht_kernel_ms, ht_calls=ht_calls,
+                ht_kernel_launches=ht_kernel_launches,
                 ht_us_a_step=ht_kernel_ms / steps * 1e3,
                 ht_bound_ms=ht_bound, ht_bound_by=ht_by,
                 residual_a_u=ra, residual_b_u=rb, orth_q_u=oq, orth_z_u=oz,

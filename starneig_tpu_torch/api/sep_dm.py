@@ -8,7 +8,9 @@ or with the same whole matrix, which each rank then shards by columns.
 
   * ``hessenberg`` runs the panel loop on column shards
     (:func:`starneig_tpu_torch.parallel.dm_hess.hessenberg_dm`: every rank
-    launches B1 on its own columns, A is never gathered), ``schur`` the
+    launches B1 on its own columns; a column-sharded A is never gathered,
+    a row-sharded one is moved to column shards and the result back to
+    rows), ``schur`` the
     Schur driver (:func:`starneig_tpu_torch.parallel.dm_core.schur_dm`)
     and ``reorder_schur`` the window grid
     (:func:`~starneig_tpu_torch.parallel.dm_core.reorder_dm`).
@@ -77,18 +79,27 @@ def _wrap_flex(out, mesh):
     return _wrap(out, mesh, spec)
 
 
-def _cols(M, mesh):
-    """This rank's column shard of M, with no collective: a column-sharded
-    DistrMatrix's own data, or its columns of a replicated or whole
-    matrix."""
+def _cols(M, mesh, stats):
+    """This rank's column shard of M: a column-sharded DistrMatrix's own
+    data, or its columns of a replicated or whole matrix, with no
+    collective; a row-sharded DistrMatrix is gathered first
+    (``DistrMatrix.full``: one all_reduce, counted in ``stats``)."""
     if M is None:
         return None
     if isinstance(M, DistrMatrix):
-        if M.spec == "rows":
-            raise ValueError("sep_dm.hessenberg takes column shards or a "
-                             "replicated matrix, not row shards")
-        return M.data if M.spec == "cols" else shard_of(M.data, mesh, "cols")
+        if M.spec == "cols":
+            return M.data
+        whole = M.data if M.spec == "replicated" else M.full(stats)
+        return shard_of(whole, mesh, "cols")
     return shard_of(_whole(M, mesh, None), mesh, "cols")
+
+
+def _from_cols(M_loc, mesh, spec, shape, stats):
+    """The column shard M_loc as a DistrMatrix under spec: as it is for
+    ``"cols"``, else gathered (one all_reduce, counted in ``stats``) and
+    cut to spec."""
+    M = DistrMatrix(M_loc, mesh, "cols", shape)
+    return M if spec == "cols" else _wrap(M.full(stats), mesh, spec)
 
 
 def hessenberg(A, Q=None, mesh=None, conf=None, device=None,
@@ -96,15 +107,19 @@ def hessenberg(A, Q=None, mesh=None, conf=None, device=None,
     """Distributed Hessenberg reduction (sep_dm.h:86-130) on column shards
     (:func:`~starneig_tpu_torch.parallel.dm_hess.hessenberg_dm`).
 
-    Returns (H, Q) as column-sharded DistrMatrix."""
+    A and Q may be DistrMatrix under any spec or whole matrices; a
+    row-sharded one is moved to column shards first.  Returns (H, Q) as
+    DistrMatrix under A's spec (column shards for a whole A), as the JAX
+    package's ``_wrap(H, Ad.mesh, Ad.spec)``."""
     from starneig_tpu_torch.parallel.dm_hess import hessenberg_dm
 
-    mesh, _spec = _mesh_spec(A, mesh, device)
-    A_loc = _cols(A, mesh)
+    mesh, spec = _mesh_spec(A, mesh, device)
+    A_loc = _cols(A, mesh, stats)
     n = A_loc.shape[0]
-    H, Qo = hessenberg_dm(A_loc, _cols(Q, mesh), mesh, conf=conf, stats=stats)
-    return (DistrMatrix(H, mesh, "cols", (n, n)),
-            DistrMatrix(Qo, mesh, "cols", (n, n)))
+    H, Qo = hessenberg_dm(A_loc, _cols(Q, mesh, stats), mesh, conf=conf,
+                          stats=stats)
+    return (_from_cols(H, mesh, spec, (n, n), stats),
+            _from_cols(Qo, mesh, spec, (n, n), stats))
 
 
 def schur(H, Q=None, mesh=None, conf=None, device=None,
@@ -166,7 +181,8 @@ def reduce(A, predicate: Optional[Callable[[complex], bool]] = None,
     """Distributed full chain (reference: mpi/combined.c): Hessenberg,
     Schur and reordering on column shards.
 
-    Returns (S, Q, eig_real, eig_imag, num_selected, info)."""
+    Returns (S, Q, eig_real, eig_imag, num_selected, info), S and Q under
+    A's spec (column shards for a whole A)."""
     mesh, _spec = _mesh_spec(A, mesh, device)
     Hd, Qd = hessenberg(A, mesh=mesh, conf=hessenberg_conf, stats=stats)
     Sd, Qd, er, ei, info = schur(Hd, Qd, conf=schur_conf, stats=stats)

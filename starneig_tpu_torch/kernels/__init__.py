@@ -47,8 +47,10 @@ _SIGNATURES = {
     "recondense": [_P, _P, _I, _I, _D, _P, _P],
     # Tp, Qp, sel, state, G, W, stream
     "reorder_bubble": [_P, _P, _P, _P, _I, _I, _P],
-    # A, B, Q, Z, rot, n, stream
-    "ht_cascade": [_P, _P, _P, _P, _P, _I, _P],
+    # A, B, rot, work, n, J0, J1, stream
+    "ht_generate": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # rot, U, n, J0, J1, L, S, stream
+    "ht_slivers": [_P, _P, _I, _I, _I, _I, _I, _P],
     # S, T, Q, Z, WA, kbot, s, beta, stream
     "ht_recondense": [_P, _P, _P, _P, _I, _I, _D, _P, _P],
     # Hp, Tp, Qp, Zp, w, m, thresh_h, thresh_t, info, stream

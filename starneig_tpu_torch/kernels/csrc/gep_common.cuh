@@ -176,8 +176,11 @@ DEVI void solve8(double* M, double* x) {
     pv = pv == 0.0 ? DBL_MIN : pv;
     double f[8];
     for (int r = 0; r < 8; ++r) f[r] = r == k ? 0.0 : M[r * 9 + k] / pv;
+    // product and difference rounded apart, as the plain twin's (no fused
+    // multiply-add: a swap's acceptance near its threshold follows them)
     for (int r = 0; r < 8; ++r)
-      for (int c = 0; c < 9; ++c) M[r * 9 + c] = M[r * 9 + c] - f[r] * M[k * 9 + c];
+      for (int c = 0; c < 9; ++c)
+        M[r * 9 + c] = __dsub_rn(M[r * 9 + c], __dmul_rn(f[r], M[k * 9 + c]));
   }
   for (int r = 0; r < 8; ++r) {
     double dg = M[r * 9 + r];

@@ -4,15 +4,17 @@ The JAX package runs its GEP path (``ops/hess_triangular.py``,
 ``ops/qz.py``, ``ops/qz_driver.py``) as XLA ``fori_loop``/``while_loop``
 programs with no Pallas kernel; their step counts are serial (about n^2/2
 rotation steps for the HT cascade, thousands of chase steps a window).  The
-port runs those loops as hand-written CUDA kernels, one launch each (G1:
-two kernels back to back, the cascade and the Q/Z update).  Each wrapper
+port runs those loops as hand-written CUDA kernels, one launch each (G1,
+blocked: a generation call a block of cascades and a sliver call a block,
+the deferred updates as products).  Each wrapper
 here launches its kernel on CUDA tensors and raises on any other; the op
 that owns the plain PyTorch twin dispatches on the device:
 
   wrapper          kernel               dispatcher and plain twin
   ---------------  -------------------  --------------------------------------
   ht_cascade       ht_cascade.cu        ops/hess_triangular.py: ht_reduce,
-                                        _ht_reduce
+  (ht_generate,                         ht_blocked with _ht_generate and
+   ht_slivers)                          _ht_slivers (oracle: _ht_reduce)
   ht_recondense    ht_cascade.cu        ops/qz_driver.py: aed_recondense_gep,
                    (window mode)        _aed_recondense_gep
   qz_window        qz_window.cu         ops/qz.py: small_qz, _small_qz_plain
@@ -44,21 +46,49 @@ def _check_square(name, *Ms):
 
 
 def ht_cascade(A, B, Q, Z):
-    """Kernel G1: the interleaved Givens HT cascade on CUDA tensors (see
-    :func:`starneig_tpu_torch.ops.hess_triangular._ht_reduce`; B upper
-    triangular).  Returns new (A, B, Q, Z)."""
-    n = _check_square("ht_cascade", A, B, Q, Z)
-    A, B, Q, Z = (M.contiguous().clone() for M in (A, B, Q, Z))
-    kernels.require_cuda_f64("ht_cascade", A, B, Q, Z)
-    if n <= 2:
-        return A, B, Q, Z                 # no rotation: nothing to launch
-    rot = A.new_empty(4 * (n - 2) * (n - 1) // 2)
+    """Kernel G1: the blocked HT reduction of CUDA tensors (B upper
+    triangular): :func:`ht_generate` a block of ``hess_triangular.NB``
+    cascades, then :func:`ht_slivers` and the deferred updates as products
+    (:func:`starneig_tpu_torch.ops.hess_triangular.ht_blocked`; plain twins
+    ``_ht_generate``, ``_ht_slivers``).  Returns new (A, B, Q, Z)."""
+    from starneig_tpu_torch.ops.hess_triangular import ht_blocked
+    _check_square("ht_cascade", A, B, Q, Z)
+    kernels.require_cuda_f64("ht_cascade", *(M.contiguous() for M in (A, B, Q, Z)))
+    return ht_blocked(A, B, Q, Z, ht_generate, ht_slivers)
+
+
+def ht_generate(A, B, rot, J0: int, J1: int):
+    """Kernel G1's generation of cascades J0 .. J1-1 on CUDA tensors, in
+    place: A's and B's rows J0+1 .. take the cascades' rotations, logged
+    into rot (see :func:`starneig_tpu_torch.ops.hess_triangular._ht_generate`)."""
+    n = _check_square("ht_generate", A, B)
+    kernels.require_cuda_f64("ht_generate", A, B, rot)
+    work = A.new_empty(max(n, 1))
     lib = kernels.lib()
     kernels.LAUNCHES["ht_cascade"] += 1
-    kernels.check(lib.ht_cascade(A.data_ptr(), B.data_ptr(), Q.data_ptr(),
-                                 Z.data_ptr(), rot.data_ptr(), n,
-                                 kernels.stream_ptr(A)), "ht_cascade")
-    return A, B, Q, Z
+    kernels.check(lib.ht_generate(A.data_ptr(), B.data_ptr(), rot.data_ptr(),
+                                  work.data_ptr(), n, int(J0), int(J1),
+                                  kernels.stream_ptr(A)),
+                  "ht_generate")
+
+
+def ht_slivers(rot, n: int, J0: int, J1: int, L: int):
+    """Kernel G1's sliver factors of block [J0, J1) from the log, CUDA
+    tensors only (see
+    :func:`starneig_tpu_torch.ops.hess_triangular._ht_slivers`).  Returns
+    (S, 2, w, w)."""
+    from starneig_tpu_torch.ops.hess_triangular import sliver_windows
+    kernels.require_cuda_f64("ht_slivers", rot)
+    S, w = len(sliver_windows(n, J0, J1, L)), L + J1 - J0
+    if w > 160:
+        raise ValueError(f"ht_slivers: a factor of order {w} (L + block) exceeds "
+                         "a block's shared memory; at most 160 (nb <= 40)")
+    U = rot.new_empty((S, 2, w, w))
+    lib = kernels.lib()
+    kernels.LAUNCHES["ht_cascade"] += 1
+    kernels.check(lib.ht_slivers(rot.data_ptr(), U.data_ptr(), n, int(J0), int(J1),
+                                 int(L), S, kernels.stream_ptr(rot)), "ht_slivers")
+    return U
 
 
 def ht_recondense(Sw, Tw, Qw, Zw, s: float, kbot: int):

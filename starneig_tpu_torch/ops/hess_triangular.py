@@ -7,11 +7,15 @@ Port of ``starneig_tpu/ops/hess_triangular.py``:
      rotations G(i-1, i) zero A[i, j]; each fills B[i, i-1], which a right
      rotation on columns (i-1, i) zeroes at once (dgghrd's mathematics).
 
-:func:`_ht_reduce` is the plain PyTorch cascade, a host loop over the
-~n^2/2 rotation steps; :func:`ht_reduce` is the dispatcher: kernel G1
-(:func:`starneig_tpu_torch.ops.gpu_gep.ht_cascade`) for a CUDA tensor, the
-plain cascade for a CPU tensor.  The rotation helpers here also serve the
-QZ driver's window re-reduction (``ops/qz_driver.py``), G1's window mode.
+:func:`_ht_reduce` is the plain PyTorch cascade in the JAX order, a host
+loop over the ~n^2/2 rotation steps, kept as the oracle of the blocked
+form; :func:`ht_reduce` runs the same rotations blocked
+(:func:`ht_blocked`: a generation step a block of nb cascades, then the
+deferred updates as products of sliver factors), through kernel G1
+(:func:`starneig_tpu_torch.ops.gpu_gep.ht_cascade`) for a CUDA tensor and
+the plain twins of its two steps for a CPU tensor.  The rotation helpers
+here also serve the QZ driver's window re-reduction
+(``ops/qz_driver.py``), G1's window mode.
 """
 
 from __future__ import annotations
@@ -114,12 +118,169 @@ def _ht_reduce(A, B, Q, Z):
             R[:, 2].T.contiguous())
 
 
+# -- the blocked reduction ----------------------------------------------------
+#
+# The cascades run in blocks of nb columns (dgghd3's blocking, Kagstrom,
+# Kressner, Quintana-Orti and Quintana-Orti, BIT 48 (2008)).  Generation
+# reads A's column j and B's diagonal, whose current values depend on
+# every earlier rotation's effect on the whole trailing pencil (a right
+# rotation at the bottom of cascade j moves column j + 1 through the chain
+# of its neighbours), so the rows of A and B below the block's first row
+# take each cascade's rotations at once: cascade j's left rotations in
+# column passes, its right rotations in row passes.  What no later
+# rotation reads is deferred: the rows of A and B at or above the block's
+# first row take the block's right rotations, Q its left and Z its right
+# rotations, as dense factors of parallelogram slivers (L positions of
+# each of the block's cascades, the window sliding one row a cascade) in
+# matrix products once every block is generated.
+#
+# The rotation log: rot[pos] = (c, s, cr, sr), pos = _rot_offset(n, j) +
+# n - 1 - k for the rotation pair of cascade j at rows (k-1, k).
+
+NB = 32                 # cascades a block
+
+
+def sliver_len(nb: int) -> int:
+    """Positions a sliver takes of each cascade: its factors are of order
+    sliver_len + nb (128 at nb = 32)."""
+    return 3 * nb
+
+
+def _rot_offset(n: int, j: int) -> int:
+    return j * (n - 2) - j * (j - 1) // 2
+
+
+def blocks(n: int, nb: int):
+    """The blocks [J0, J1) of the cascades 0 .. n-3."""
+    return [(J0, min(J0 + nb, n - 2)) for J0 in range(0, max(n - 2, 0), nb)]
+
+
+def sliver_windows(n: int, J0: int, J1: int, L: int):
+    """[(lo_nom, lo, hi)] a sliver s = 1, 2, ...: its factor covers the
+    indices lo_nom .. lo_nom + L + J1 - J0 - 1, of which [lo, hi) lie in
+    the pencil (the rest of the factor is the identity)."""
+    w = L + J1 - J0
+    S = -(-(n - J0 - 2) // L)
+    out = []
+    for s in range(1, S + 1):
+        lo_nom = n - s * L - 1
+        out.append((lo_nom, max(J0 + 1, lo_nom), min(n, lo_nom + w)))
+    return out
+
+
+def sliver_range(n: int, J0: int, L: int, s: int, j: int):
+    """(kmax, kmin): the positions k of cascade j in sliver s, from kmax
+    down to kmin (empty when kmax < kmin)."""
+    return (min(n - 1, n - (s - 1) * L + (j - J0) - 1),
+            max(j + 2, n - s * L + (j - J0)))
+
+
+def _ht_generate(A, B, rot, J0: int, J1: int):
+    """Plain twin of the generation kernel (``gpu_gep.ht_generate``):
+    cascades J0 .. J1-1 on CPU tensors, in place, logged into rot.
+
+    Cascade j: its left rotations from A's column j (rows j+1 ..), applied
+    to A's rows (columns >= j, the zeros planted) and to B's rows (columns
+    >= k-1, B turning upper Hessenberg); then bottom-up each right rotation
+    from B's row k, applied to B's rows J0+1 .. k (the fill planted 0);
+    then the right rotations to A's rows J0+1 ...  Each rotation reads the
+    values the JAX order gives it (a left rotation of cascade j touches no
+    entry its earlier right rotations read)."""
+    n = A.shape[0]
+    R = rot.numpy()
+    G = torch.empty((2, 2), dtype=A.dtype)
+    g = G.numpy().reshape(-1)
+    for j in range(J0, J1):
+        off = _rot_offset(n, j)
+        ks = range(n - 1, j + 1, -1)
+        x = A[j + 1:, j].tolist()
+        y = x[-1]
+        for t, k in enumerate(ks):
+            a = x[k - j - 2]
+            c, s = _givens(a, y)
+            R[off + t, :2] = (c, s)
+            y = c * a + s * y
+        for t, k in enumerate(ks):
+            c, s = R[off + t, :2]
+            g[:] = (c, s, -s, c)
+            for M, c0 in ((A, j), (B, k - 1)):
+                rows = M[k - 1:k + 1, c0:]
+                rows.copy_(G @ rows)
+            A[k, j] = 0.0
+        for t, k in enumerate(ks):
+            cr, sr = _givens(float(B[k, k]), float(B[k, k - 1]))
+            R[off + t, 2:] = (cr, sr)
+            g[:] = (cr, sr, -sr, cr)
+            cols = B[J0 + 1:k + 1, k - 1:k + 1]
+            cols.copy_(cols @ G)
+            B[k, k - 1] = 0.0
+        for t, k in enumerate(ks):
+            cr, sr = R[off + t, 2:]
+            g[:] = (cr, sr, -sr, cr)
+            cols = A[J0 + 1:, k - 1:k + 1]
+            cols.copy_(cols @ G)
+
+
+def _ht_slivers(rot, n: int, J0: int, J1: int, L: int):
+    """Plain twin of the sliver kernel (``gpu_gep.ht_slivers``): the dense
+    factors of block [J0, J1)'s slivers from the log, (S, 2, w, w) with w
+    = L + J1 - J0: [s, 0] accumulates the left rotations as Q takes them
+    (Q <- Q U), [s, 1] the right ones as Z and the rows above take them."""
+    wins = sliver_windows(n, J0, J1, L)
+    w = L + J1 - J0
+    U = torch.eye(w, dtype=rot.dtype).repeat(len(wins), 2, 1, 1)
+    R = rot.numpy()
+    G = torch.empty((2, 2), dtype=rot.dtype)
+    g = G.numpy().reshape(-1)
+    for s, (lo_nom, _lo, _hi) in enumerate(wins, 1):
+        for j in range(J0, J1):
+            off = _rot_offset(n, j)
+            kmax, kmin = sliver_range(n, J0, L, s, j)
+            for k in range(kmax, kmin - 1, -1):
+                c, sn, cr, sr = R[off + n - 1 - k]
+                a = k - 1 - lo_nom
+                for f, vals in ((0, (c, -sn, sn, c)), (1, (cr, sr, -sr, cr))):
+                    g[:] = vals
+                    cols = U[s - 1, f, :, a:a + 2]
+                    cols.copy_(cols @ G)
+    return U
+
+
+def ht_blocked(A, B, Q, Z, generate, slivers, nb: int = NB):
+    """The blocked reduction of (A, B), B upper triangular, with the given
+    generation and sliver steps (the kernels' wrappers or their plain
+    twins) over blocks of nb cascades (NB; the tests vary it); the far
+    updates are matrix products.  Returns new (A, B, Q, Z) (the zeros
+    planted)."""
+    n = A.shape[0]
+    A, B, Q, Z = (M.contiguous().clone() for M in (A, B, Q, Z))
+    if n <= 2:
+        return A, B, Q, Z
+    L = sliver_len(nb)
+    rot = A.new_zeros((_rot_offset(n, n - 2), 4))
+    blks = blocks(n, nb)
+    for J0, J1 in blks:
+        generate(A, B, rot, J0, J1)
+    for J0, J1 in blks:
+        U = slivers(rot, n, J0, J1, L)
+        for s, (lo_nom, lo, hi) in enumerate(sliver_windows(n, J0, J1, L)):
+            a, b = lo - lo_nom, hi - lo_nom
+            UQ, UZ = U[s, 0, a:b, a:b], U[s, 1, a:b, a:b]
+            Q[:, lo:hi] = Q[:, lo:hi] @ UQ
+            Z[:, lo:hi] = Z[:, lo:hi] @ UZ
+            A[:J0 + 1, lo:hi] = A[:J0 + 1, lo:hi] @ UZ
+            B[:J0 + 1, lo:hi] = B[:J0 + 1, lo:hi] @ UZ
+    return A, B, Q, Z
+
+
 def ht_reduce(A, B, Q, Z):
-    """The Givens cascade: kernel G1 for a CUDA tensor, :func:`_ht_reduce`
-    for a CPU tensor.  Returns new (A, B, Q, Z)."""
+    """The blocked HT reduction: kernel G1 (generation and slivers,
+    :func:`starneig_tpu_torch.ops.gpu_gep.ht_cascade`) for a CUDA tensor,
+    the plain twins of both steps for a CPU tensor, with the same host
+    orchestration and products.  Returns new (A, B, Q, Z)."""
     if A.is_cuda:
         return gpu_gep.ht_cascade(A, B, Q, Z)
-    return _ht_reduce(A, B, Q, Z)
+    return ht_blocked(A, B, Q, Z, _ht_generate, _ht_slivers)
 
 
 def triangularize_b(A, B, Q=None, Z=None):

@@ -293,10 +293,13 @@ def suite(arrays: dict):
       as a DistrMatrix with no Q (``eye``) and as whole matrices with Q =
       ``HQ0`` (``q0``), with the gathered H and Q, and each rank's stats,
       V/T hash and calls of ``DistrMatrix.full`` during the stage;
+    * ``hess_spec``: sep_dm.hessenberg of ``HA`` as a DistrMatrix under
+      each spec, with the gathered H and Q, their specs and shard shapes;
     * ``schur``, ``reorder``: sep_dm.schur of (H, Q) and
       sep_dm.reorder_schur of (S, Qs, sel);
     * ``reduce``: sep_dm.reduce of ``A96`` (Re > 0), then sep_dm.eigenvectors
-      of the leading block;
+      of the leading block; ``reduce_rows``: sep_dm.reduce of ``A96``
+      sharded by rows, with the specs and shard shapes of S and Q;
     * ``gep``: gep_dm.reduce of (``GA``, ``GB``) (finite, Re > 0).
     """
     import torch
@@ -361,6 +364,14 @@ def suite(arrays: dict):
         cnt["hess"][case] = dict(stats=st, full_calls=calls[0],
                                  shards=(tuple(Hd.data.shape), tuple(QHd.data.shape)))
 
+    res["hess_spec"], cnt["hess_spec"] = {}, {}
+    for spec in distr.SPECS:
+        Hd, QHd = sep_dm.hessenberg(
+            distr.distr_matrix_from_array(arrays["HA"], mesh, spec), conf=hconf)
+        res["hess_spec"][spec] = dict(H=Hd.to_array(), Q=QHd.to_array(),
+                                      specs=(Hd.spec, QHd.spec))
+        cnt["hess_spec"][spec] = (tuple(Hd.data.shape), tuple(QHd.data.shape))
+
     st = {}
     Sd, Qd, er, ei, info = sep_dm.schur(arrays["H"], arrays["Q"], stats=st)
     res["schur"] = dict(S=Sd.to_array(), Q=Qd.to_array(), er=er.numpy(),
@@ -381,6 +392,13 @@ def suite(arrays: dict):
                          X=X.to_array(), xinfo=int(xinfo))
     cnt["reduce_shards"] = dict(S=tuple(Sd.data.shape), X=tuple(X.data.shape),
                                 X_spec=X.spec)
+
+    Sd, Qd, er, ei, nsel, info = sep_dm.reduce(
+        distr.distr_matrix_from_array(arrays["A96"], mesh, "rows"), positive_real)
+    res["reduce_rows"] = dict(S=Sd.to_array(), Q=Qd.to_array(), er=er.numpy(),
+                              ei=ei.numpy(), nsel=int(nsel), info=int(info),
+                              specs=(Sd.spec, Qd.spec))
+    cnt["reduce_rows_shards"] = (tuple(Sd.data.shape), tuple(Qd.data.shape))
 
     *mats, ar, ai, bt, nsel, info = gep_dm.reduce(
         arrays["GA"], arrays["GB"], predicate=finite_right_half)

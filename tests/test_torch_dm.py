@@ -21,7 +21,9 @@ numpy arrays made from seeds.  Tolerances:
     1e-11 ||A||_F and Q within 1e-11 of JAX's ``sep_dm.hessenberg`` and
     ``sep.hessenberg`` (the single-process tolerances of
     ``tests/test_torch_hessenberg.py``), H exactly zero below the
-    subdiagonal.
+    subdiagonal; under each spec of A (cols, rows, replicated) the same
+    tolerances against JAX's ``sep_dm.hessenberg`` of that spec, and the
+    result under A's spec.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -35,6 +37,9 @@ from starneig_tpu.api import sep as jsep
 from starneig_tpu.config import HessenbergConf as JHessConf
 from starneig_tpu.api import sep_dm as jsep_dm
 from starneig_tpu.parallel import block_cyclic as jbc
+from jax.sharding import PartitionSpec as JP
+
+from starneig_tpu.parallel import distr_matrix_from_array as jdistr_from_array
 from starneig_tpu.parallel import make_mesh as jmake_mesh
 from starneig_tpu.parallel.dm_core import reorder_dm as jreorder_dm
 from starneig_tpu.parallel.dm_core import schur_dm as jschur_dm
@@ -68,6 +73,9 @@ DIAG_WS = (0, 8, 20, NP - W_EXT)
 # inside the matrix), t0 buckets of 20
 HESS_NB = 20
 HESS_CASES = ("eye", "q0")
+# sep_dm.hessenberg under each spec of A, and the JAX package's specs
+SPECS = ("cols", "rows", "replicated")
+JSPECS = {"cols": JP(None, "d"), "rows": JP("d", None), "replicated": JP()}
 
 
 def _orth(rng, w):
@@ -138,10 +146,16 @@ def ref():
             hess[case] = dict(dm=(Hdm.to_array(), Qdm.to_array()),
                               sm=tuple(np.asarray(M) for M in
                                        jsep.hessenberg(HA, Q0, conf=hconf)))
+        hess_spec = {}
+        for spec in SPECS:
+            Hdm, Qdm = jsep_dm.hessenberg(jdistr_from_array(HA, mesh8, JSPECS[spec]),
+                                          conf=hconf)
+            hess_spec[spec] = dict(H=Hdm.to_array(), Q=Qdm.to_array(),
+                                   specs=(Hdm.spec, Qdm.spec))
         ranks = {nd: f.result() for nd, f in spawns.items()}
     return dict(
         A=A, H=H, Q=Q, sel=sel, GA=GA, GB=GB, Spad=Spad, Qpad=Qpad, cases=cases,
-        HA=HA, hess=hess, ranks=ranks,
+        HA=HA, hess=hess, hess_spec=hess_spec, ranks=ranks,
         schur=dict(S=Sj, Q=Qj, er=erj, ei=eij, info=int(infoj)),
         schur_sm=dict(S=St.numpy(), Q=Qt.numpy(), er=ert.numpy(), ei=eit.numpy(),
                       info=int(infot)),
@@ -266,6 +280,24 @@ def test_hessenberg_dm_gathers_no_a(ranks, case):
         assert st["collective_bytes"] == 8 * panels * 3 * N * HESS_NB, st
 
 
+@pytest.mark.parametrize("spec", SPECS)
+def test_hessenberg_dm_spec(ranks, ref, spec):
+    """sep_dm.hessenberg of a DistrMatrix under each spec against JAX's
+    sep_dm.hessenberg of the same spec (8-device mesh): H and Q come back
+    under A's spec, as JAX's do, within the sharded tolerances."""
+    nd, res, cnt = ranks
+    r, j = res["hess_spec"][spec], ref["hess_spec"][spec]
+    assert r["specs"] == (spec, spec)
+    assert j["specs"] == (JSPECS[spec],) * 2
+    na = np.linalg.norm(ref["HA"])
+    np.testing.assert_allclose(r["H"], j["H"], rtol=0, atol=1e-11 * na)
+    np.testing.assert_allclose(r["Q"], j["Q"], rtol=0, atol=1e-11)
+    assert np.abs(np.tril(r["H"], -2)).max() == 0.0
+    shard = {"cols": (N, N // nd), "rows": (N // nd, N), "replicated": (N, N)}[spec]
+    for c in cnt:
+        assert c["hess_spec"][spec] == (shard, shard)
+
+
 def test_schur_dm(ranks, ref):
     """sep_dm.schur at n=96 (seed 7) against JAX schur_dm and the port's
     single-process schur."""
@@ -332,6 +364,24 @@ def test_sep_dm_reduce(ranks, ref):
     assert hooks.schur_form_error(torch.as_tensor(r["S"])) == 0.0
     for c in cnt:
         assert c["reduce_shards"]["S"] == (N, N // nd)
+
+
+def test_sep_dm_reduce_rows(ranks, ref):
+    """sep_dm.reduce of a row-sharded A: S and Q come back row-sharded, as
+    JAX's sep_dm.reduce keeps A's spec, and pass the Schur-form gates of
+    the column-sharded run."""
+    nd, res, cnt = ranks
+    r, j = res["reduce_rows"], ref["reduce"]
+    A = ref["A"]
+    assert r["specs"] == ("rows", "rows")
+    assert r["info"] == j["info"] == 0 and r["nsel"] == j["nsel"]
+    assert (r["er"][:r["nsel"]] > 0).all()
+    assert np.abs(_sorted(r["er"], r["ei"]) - _sorted(j["er"], j["ei"])).max() <= 1e-10
+    assert hooks.residual_sep(A, r["S"], r["Q"]) < GATE
+    assert hooks.orthogonality(r["Q"]) < GATE
+    assert hooks.schur_form_error(torch.as_tensor(r["S"])) == 0.0
+    for c in cnt:
+        assert c["reduce_rows_shards"] == ((N // nd, N),) * 2
 
 
 def test_sep_dm_eigenvectors(ranks, ref):

@@ -1,12 +1,14 @@
 """The port's Hessenberg-triangular reduction and the GEP recondense against
 the JAX package's XLA path, on the same seeded inputs (CPU).
 
-Both run the same Givens rotations in the same order, so they agree
-elementwise to 1e-12 max|M| (summation order and fused multiply-adds
-only), with the structures exact.  One input is held to the contract
-instead: the recondense of a random window at a large kbot, where the
-re-reduction is ill-conditioned (a one-ulp change of the input moves the
-JAX result itself by O(1) from kbot ~ 25 on).
+Both run the same Givens rotations (the port's reduction blocked, each
+rotation generated from the values the JAX order gives it), so they
+agree elementwise to 1e-12 max|M| (summation order, fused multiply-adds
+and the deferred products' rounding only), with the structures exact.
+One input is held to the contract instead: the recondense of a random
+window at a large kbot, where the re-reduction is ill-conditioned (a
+one-ulp change of the input moves the JAX result itself by O(1) from
+kbot ~ 25 on).
 """
 
 import jax.numpy as jnp
@@ -59,6 +61,49 @@ def test_hessenberg_triangular_accumulates():
     got = tht.hessenberg_triangular(*(from_numpy(x) for x in (A, B, Q0, Z0)))
     for w, g in zip(want, got):
         assert _rel(w, to_numpy(g)) <= 1e-12
+
+
+def _orth(rng, n):
+    return np.linalg.qr(rng.standard_normal((n, n)))[0]
+
+
+@pytest.mark.parametrize("n,nb", [(5, 32), (37, 8), (96, 32), (96, 7), (192, 32)])
+def test_ht_blocked(n, nb):
+    """The blocked reduction's CPU path (the plain generation and sliver
+    twins, the far updates as products) against JAX's unblocked
+    _ht_reduce, onto given Q and Z: n below nb (one block), nb dividing
+    n - 2 cascades (96, 32 and 192, 32 leave a short last block; 37, 8
+    and 96, 7 too), within 1e-12 max|M| (the same rotations; the deferred
+    parts round in another order); H below the subdiagonal and T below
+    the diagonal exactly 0, as planted."""
+    rng = np.random.default_rng(300 + n)
+    A = rng.standard_normal((n, n))
+    B = np.triu(rng.standard_normal((n, n)))
+    inp = (A, B, _orth(rng, n), _orth(rng, n))
+    want = jht._ht_reduce(*(jnp.asarray(x) for x in inp))
+    got = tht.ht_blocked(*(from_numpy(x) for x in inp), tht._ht_generate,
+                         tht._ht_slivers, nb)
+    for w, g in zip(want, got):
+        assert _rel(w, to_numpy(g)) <= 1e-12
+    H, T = to_numpy(got[0]), to_numpy(got[1])
+    assert np.abs(np.tril(H, -2)).max(initial=0.0) == 0.0
+    assert np.abs(np.tril(T, -1)).max(initial=0.0) == 0.0
+
+
+def test_ht_blocked_oracle():
+    """The blocked CPU path against the port's unblocked _ht_reduce (the
+    oracle the card is held to) on the GEP path's own input at n=96, the
+    QR of B of a 10%-infinite pencil: the structures exact and the
+    residuals and orthogonality < 500 u (B singular: no elementwise
+    comparison holds, test_ht_one_ulp)."""
+    n = 96
+    A, B, _alpha, _beta = known_spectrum_pencil(n, complex_ratio=0.3, inf_ratio=0.1, seed=1)
+    H, T, Q, Z = tht.hessenberg_triangular(from_numpy(A), from_numpy(B))
+    assert hooks.hessenberg_structure_error(H) == 0.0
+    assert hooks.triangular_structure_error(T) == 0.0
+    ra, rb = hooks.residual_gep(A, B, H, T, Q, Z)
+    assert ra < 500 and rb < 500
+    assert hooks.orthogonality(Q) < 500 and hooks.orthogonality(Z) < 500
 
 
 def _recondense_contract(S, T, Q, Z, s, kbot, out):

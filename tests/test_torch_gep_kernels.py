@@ -18,7 +18,9 @@ from starneig_tpu_torch import kernels
 from starneig_tpu_torch.api import gep
 from starneig_tpu_torch.ops import gpu_gep, gpu_reorder
 from starneig_tpu_torch.ops.eigvals import extract_eigenvalues_gen
-from starneig_tpu_torch.ops.hess_triangular import _ht_reduce
+from starneig_tpu_torch.ops.hess_triangular import (_ht_generate, _ht_reduce,
+                                                    _ht_slivers, _rot_offset,
+                                                    blocks, sliver_len)
 from starneig_tpu_torch.ops.qz import _small_qz_plain
 from starneig_tpu_torch.ops.qz_driver import (_aed_deflate_gep,
                                               _aed_recondense_gep, _inf_chase_kernel,
@@ -46,8 +48,9 @@ def _maxrel(a, b, ref):
 
 
 def test_ht_cascade_full(cuda):
-    """G1 at n=192 against _ht_reduce: the same rotations in the same order,
-    1e-11 max|M| (rounding of ~18,000 dependent steps)."""
+    """G1 (blocked) at n=192 against the unblocked _ht_reduce: the same
+    rotations, 1e-11 max|M| (rounding of ~18,000 dependent steps); a
+    generation and a sliver launch a block of 32 cascades."""
     n = 192
     rng = np.random.default_rng(192)
     A = torch.as_tensor(rng.standard_normal((n, n)))
@@ -55,11 +58,65 @@ def test_ht_cascade_full(cuda):
     eye = torch.eye(n, dtype=torch.float64)
     n0 = kernels.LAUNCHES["ht_cascade"]
     got = gpu_gep.ht_cascade(*(M.to(cuda) for M in (A, B, eye, eye)))
-    assert kernels.LAUNCHES["ht_cascade"] == n0 + 1
+    assert kernels.LAUNCHES["ht_cascade"] == n0 + 2 * len(blocks(n, 32))
     want = _ht_reduce(A, B, eye, eye)
     for g, w in zip(got, want):
         assert _maxrel(g, w, w) <= 1e-11
-    assert hooks.hessenberg_structure_error(torch.triu(got[0], -1)) == 0.0
+    assert hooks.hessenberg_structure_error(got[0]) == 0.0
+    assert hooks.triangular_structure_error(got[1]) == 0.0
+
+
+@pytest.mark.parametrize("n", [192, 517])
+def test_ht_generate(cuda, n):
+    """G1's generation kernel against _ht_generate on the same pencil, the
+    first block and (from the plain state after it) the second: A, B and
+    the rotation log within 1e-11 max|M| (the kernel's band takes its
+    last column by dot products where the twin sweeps)."""
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(rng.standard_normal((n, n)))
+    B = torch.triu(torch.as_tensor(rng.standard_normal((n, n))))
+    rot = A.new_zeros((_rot_offset(n, n - 2), 4))
+    for J0, J1 in blocks(n, 32)[:2]:
+        Ag, Bg, rg = A.to(cuda), B.to(cuda), rot.to(cuda)
+        gpu_gep.ht_generate(Ag, Bg, rg, J0, J1)
+        _ht_generate(A, B, rot, J0, J1)
+        assert _maxrel(Ag, A, A) <= 1e-11 and _maxrel(Bg, B, B) <= 1e-11
+        assert _maxrel(rg, rot, rot) <= 1e-11
+
+
+@pytest.mark.parametrize("n,J1", [(7300, 2), (13500, 1)])
+def test_ht_generate_wide(cuda, n, J1):
+    """G1's generation kernel at widths where column-sized shared-memory
+    buffers would not fit a block's 227 KB (4 n doubles from n = 7,265,
+    2 n + 2,112 from n = 13,473; the kernels' shared memory is fixed): the
+    first cascades against _ht_generate on the same pencil, A, B and their
+    log within 1e-11 max|M|."""
+    rng = np.random.default_rng(n)
+    A = torch.as_tensor(rng.standard_normal((n, n)))
+    B = torch.triu(torch.as_tensor(rng.standard_normal((n, n))))
+    rot = A.new_zeros((_rot_offset(n, J1), 4))
+    Ag, Bg, rg = A.to(cuda), B.to(cuda), rot.to(cuda)
+    gpu_gep.ht_generate(Ag, Bg, rg, 0, J1)
+    _ht_generate(A, B, rot, 0, J1)
+    assert _maxrel(rg, rot, rot) <= 1e-11
+    assert _maxrel(Ag, A, A) <= 1e-11 and _maxrel(Bg, B, B) <= 1e-11
+
+
+def test_ht_slivers(cuda):
+    """G1's sliver kernel against _ht_slivers on the same log (n=517, the
+    first block, a middle one and the last, short one): the factors
+    within 1e-13."""
+    n = 517
+    rng = np.random.default_rng(5)
+    ang = rng.uniform(0, 2 * np.pi, (_rot_offset(n, n - 2), 2))
+    rot = torch.as_tensor(np.stack([np.cos(ang[:, 0]), np.sin(ang[:, 0]),
+                                    np.cos(ang[:, 1]), np.sin(ang[:, 1])], 1))
+    L = sliver_len(32)
+    for J0, J1 in [blocks(n, 32)[i] for i in (0, 7, -1)]:
+        got = gpu_gep.ht_slivers(rot.to(cuda), n, J0, J1, L)
+        want = _ht_slivers(rot, n, J0, J1, L)
+        assert got.shape == want.shape
+        assert float((got.cpu() - want).abs().max()) <= 1e-13
 
 
 @pytest.mark.parametrize("WA", [84, 162])
@@ -255,6 +312,57 @@ def test_window_bubble_gep(cuda, W, lims):
         assert np.abs(hk["subdiag"][g] - hp["subdiag"]).max() <= 1e-11 * np.abs(Ss[g]).max()
         for k in range(4):
             assert _maxrel(got[k][g], want[k], want[k]) <= 1e-11
+
+
+def _bubble_edge_windows(W):
+    """Three planted pencil windows (planted_pencil_windows) with the
+    selections the engine's edges need: window 0 its singular pair (the
+    swap of rows 8:10 past 6:8 is rejected) and its deepest 2x2 block,
+    whose move takes more swaps than a segment holds (28) from W = 64 on,
+    so it crosses segment boundaries as a 2x2 block; window 1 only its
+    infinite eigenvalues (T's exact diagonal zeros) and one 2x2 block
+    below them; window 2 the generator's random selection."""
+    Ss, Ts, sels = planted_pencil_windows(3, W, W + 11)
+    pairs = list(range(1, W - 2, 5))
+    infs = [j for j in range(3, W, 7) if j not in {r for p in pairs for r in (p, p + 1)}]
+    sels[0][:] = False
+    sels[0][8:10] = True
+    sels[0][pairs[-1]:pairs[-1] + 2] = True
+    sels[1][:] = False
+    sels[1][infs] = True
+    sels[1][pairs[-1]:pairs[-1] + 2] = True
+    return Ss, Ts, sels, len(infs)
+
+
+@pytest.mark.parametrize("W", [24, 64, 128])
+def test_window_bubble_gep_edges(cuda, W):
+    """G6's engine at its edges (_bubble_edge_windows: a rejected swap, a
+    2x2 block moving across segment boundaries, infinite eigenvalues moving
+    up, frozen rows and an insertion offset in window 2) against
+    _window_bubble_gep: every integer output (dst, rejected swaps, steps,
+    swaps, the selection, which subdiagonal entries are nonzero) equal, the
+    matrices within 1e-11 max|M| (the same swaps in the same order, other
+    fused multiply-adds); window 1's infinite eigenvalues lead with T's
+    diagonal at rounding level."""
+    Ss, Ts, sels, ninf = _bubble_edge_windows(W)
+    lims = ([0, 0, 1], [W, W, W], [W, W, W - 1])
+    Sd, Td = (torch.as_tensor(x).to(cuda) for x in (Ss, Ts))
+    hk = {}
+    got = gpu_reorder.window_bubble_gep(Sd, Td, sels, *lims, host=hk)
+    assert got[6][0] >= 1
+    for g in range(3):
+        hp = {}
+        want = _window_bubble_gep(torch.as_tensor(Ss[g]), torch.as_tensor(Ts[g]), sels[g],
+                                  lims[0][g], lims[1][g], lims[2][g], host=hp)
+        assert (got[5][g], got[6][g], got[7][g], hk["steps"][g]) == \
+            (want[5], want[6], want[7], hp["steps"])
+        np.testing.assert_array_equal(got[4][g], want[4])
+        np.testing.assert_array_equal(hk["subdiag"][g] != 0, hp["subdiag"] != 0)
+        for k in range(4):
+            assert _maxrel(got[k][g], want[k], want[k]) <= 1e-11
+    T1 = got[1][1].cpu().numpy()
+    tiny = np.abs(np.diag(T1)) <= 1e-14 * np.abs(T1).max()
+    assert tiny[:ninf].all() and tiny.sum() >= ninf
 
 
 def test_gep_reorder_eigenvectors(cuda):
