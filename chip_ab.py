@@ -8,10 +8,11 @@
     python3 chip_ab.py hops NAME=path/to/train_hops_NAME.cu [...]
     python3 chip_ab.py recondense NAME=path/to/recondense_NAME.cu [...]
     python3 chip_ab.py mainpath [--n N] ROOT [ROOT ...]
-    python3 chip_ab.py clock [deflate|hops|recondense] [--skip-cur] [NAME=PATH ...]
+    python3 chip_ab.py clock [deflate|hops|recondense|qz] [--skip-cur] [NAME=PATH ...]
     python3 chip_ab.py qzinf
     python3 chip_ab.py bitwise [--n N] [--device cpu|cuda] ROOT [ROOT ...]
     python3 chip_ab.py ht [--n N] ROOT [ROOT ...]
+    python3 chip_ab.py qz ROOT [ROOT ...]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -68,10 +69,14 @@ a root with the phase times, residual, orthogonality, the AED rounds'
 (w, kbot, trains) and each kernel's device total and launches.
 
 clock: where a version spends its cycles (B4 a swap, B3 a chase step,
-B5 a reduction step), from clock64 counters that literal edits put into a
-copy of the source under ``kernels/_build/clock`` (an edit list for each
-design: the kernels as they ship, and the one-block B3/B5 and one-thread
-B4 before them); the shipped kernels carry no counters.
+B5 a reduction step, G2 a chase step and a block of steps), from clock64
+counters that literal edits put into a copy of the source under
+``kernels/_build/clock`` (an edit list for each design: the kernels as
+they ship, and the one-block B3/B5 and one-thread B4 before them); the
+shipped kernels carry no counters.  ``clock qz`` runs G2's chase warp on
+``chip_smoke.py``'s w=162 and w=322 windows and prints its serial chain
+(the cycles of a step's reflectors, updates and rotation) beside the
+block-level waits.
 
 qzinf: why G2 (``qz_window.cu``) and its plain twin may end an
 infinite-eigenvalue chase at different steps.  On ``chip_smoke.py``'s w=84
@@ -88,6 +93,12 @@ bitwise: each ROOT's ``api.sep.schur`` of the Hessenberg form of a size-N
 the card) in a process of its own; prints the SHA-256 of the bytes of S,
 Q and the eigenvalues of each, and fails unless every ROOT gives the same
 bits.  With ``--device cpu`` it needs no card.
+
+qz: each ROOT's G2 on ``chip_smoke.py``'s w=162 window and G4 on its
+WA=162 window (the n=2000 path's shapes) in a process of its own, in the
+order given (parent, change, change, parent): three runs of each by CUDA
+events, G2's contract (info, residual and orthogonality in u), G4's
+(kbot, fail, steps), and the SHA-256 of each output.
 
 ht: each ROOT's G1 (the blocked HT reduction) at size N (default 2000) on
 a regular pencil in a process of its own: three runs and the generation
@@ -111,8 +122,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
-if sys.argv[1:2] in (["_mainpath_one"], ["_bitwise_one"], ["_ht_one"]):   # that checkout's
-    sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
+if sys.argv[1:2] == ["_one"]:   # a per-ROOT worker: that checkout's package
+    sys.path.insert(0, str(Path(sys.argv[3]).resolve()))
 
 from chip_smoke import (BUBBLE_CASES, DEFLATE_CASES, DEFLATE_S, DEFLATE_TH,  # noqa: E402
                         U, block_eigs, bubble_check, cuda_ms, deflate_check,
@@ -483,6 +494,27 @@ def ab_recondense(specs) -> bool:
     return ok
 
 
+def run_per_root(mode: str, roots, *args) -> list:
+    """Each ROOT's worker for mode (``PER_ROOT[mode]``) in a process of its
+    own, in the order given, with that checkout's package first on the
+    path; prints and returns the line the worker tags with mode.upper(),
+    or None for a worker that failed (its rc and output tails printed)."""
+    tag = mode.upper() + " "
+    out = []
+    for root in roots:
+        r = subprocess.run([sys.executable, __file__, "_one", mode, root, *map(str, args)],
+                           capture_output=True, text=True)
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith(tag)]
+        if r.returncode != 0 or not lines:
+            print(f"{root}: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}",
+                  flush=True)
+            out.append(None)
+            continue
+        print(lines[-1], flush=True)
+        out.append(lines[-1])
+    return out
+
+
 def mainpath_one(root: str, n: int) -> None:
     """In a fresh process: the size-n path of the package under root
     (hessenberg, schur, select, reorder_schur) timed, then schur and
@@ -549,18 +581,7 @@ def ab_mainpath(args) -> bool:
     n = 4000
     if args[:1] == ["--n"]:
         n, args = int(args[1]), args[2:]
-    ok = True
-    for root in args:
-        r = subprocess.run([sys.executable, __file__, "_mainpath_one", root, str(n)],
-                           capture_output=True, text=True)
-        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("MAINPATH ")]
-        if r.returncode != 0 or not lines:
-            print(f"{root}: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}",
-                  flush=True)
-            ok = False
-            continue
-        print(lines[-1], flush=True)
-    return ok
+    return None not in run_per_root("mainpath", args, n)
 
 
 def bitwise_one(root: str, n: int, device: str) -> None:
@@ -592,17 +613,10 @@ def ab_bitwise(args) -> bool:
         else:
             device = args[1]
         args = args[2:]
-    digests = []
-    for root in args:
-        r = subprocess.run([sys.executable, __file__, "_bitwise_one", root, str(n), device],
-                           capture_output=True, text=True)
-        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("BITWISE ")]
-        if r.returncode != 0 or not lines:
-            print(f"{root}: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}",
-                  flush=True)
-            return False
-        print(lines[-1], flush=True)
-        digests.append(lines[-1].split('"sha256": ')[1])
+    lines = run_per_root("bitwise", args, n, device)
+    if None in lines:
+        return False
+    digests = [ln.split('"sha256": ')[1] for ln in lines]
     same = len(set(digests)) == 1
     print(f"bitwise {device} n={n}: {'identical' if same else 'DIFFERENT'}", flush=True)
     return same
@@ -662,18 +676,54 @@ def ab_ht(args) -> bool:
     n = 2000
     if args[:1] == ["--n"]:
         n, args = int(args[1]), args[2:]
-    ok = True
-    for root in args:
-        r = subprocess.run([sys.executable, __file__, "_ht_one", root, str(n)],
-                           capture_output=True, text=True)
-        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("HT ")]
-        if r.returncode != 0 or not lines:
-            print(f"{root}: rc {r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}",
-                  flush=True)
-            ok = False
-            continue
-        print(lines[-1], flush=True)
-    return ok
+    return None not in run_per_root("ht", args, n)
+
+
+def qz_one(root: str) -> None:
+    """In a fresh process: G2 (``gpu_gep.qz_window``) of the package under
+    root on chip_smoke's w=162 window and G4 (``gpu_gep.aed_deflate_gep``)
+    on its WA=162 window, each three times by CUDA events after a warm-up
+    run, with the contract or the counts and the SHA-256 of the output.
+    Prints one JSON line."""
+    import hashlib
+    import json
+    from chip_smoke import ht_window_np
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.testing import hooks
+    from starneig_tpu_torch.testing.generators import planted_schur_pair
+    assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
+    dev = torch.device("cuda:0")
+
+    def digest(out):
+        h = hashlib.sha256()
+        for x in out:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+    w = 162
+    Hn, Tn = ht_window_np(w, w)
+    H, T = (torch.as_tensor(x, device=dev) for x in (Hn, Tn))
+    eye = torch.eye(w, dtype=torch.float64, device=dev)
+    th, tt = U / 2 * np.linalg.norm(Hn), U / 2 * np.linalg.norm(Tn)
+    g2 = gpu_gep.qz_window(H, T, eye, eye, w, th, tt)
+    g2_ms = [timed(lambda: gpu_gep.qz_window(H, T, eye, eye, w, th, tt))[1] for _ in range(3)]
+    ra, rb = hooks.residual_gep(Hn, Tn, *g2[:4])
+    worst = max(ra, rb, hooks.orthogonality(g2[2]), hooks.orthogonality(g2[3]))
+    WA = 162
+    x = [torch.as_tensor(a, device=dev) for a in planted_schur_pair(WA, WA - 2, WA + 1)]
+    thresh = U / 2 * float(torch.linalg.norm(x[0]))
+    g4 = gpu_gep.aed_deflate_gep(*x, 1.5e-13, WA - 2, thresh)
+    g4_ms = [timed(lambda: gpu_gep.aed_deflate_gep(*x, 1.5e-13, WA - 2, thresh))[1]
+             for _ in range(3)]
+    print("QZ " + json.dumps(dict(
+        root=root, g2_ms=g2_ms, g2_info=int(g2[4]), g2_worst_u=worst,
+        g2_sha256=digest(g2[:4]), g4_ms=g4_ms, g4_kbot_fail_steps=[int(v) for v in g4[4:]],
+        g4_sha256=digest(g4[:4]))), flush=True)
+
+
+def ab_qz(args) -> bool:
+    """ROOT ...: each ROOT's G2 and G4 in its own process, in the order
+    given (parent, change, change, parent)."""
+    return None not in run_per_root("qz", args)
 
 
 # clock: where a kernel version spends its cycles.  The counters go into
@@ -1163,12 +1213,111 @@ def clock_recondense(specs) -> bool:
     return True
 
 
+# G2 as it ships (the chase warp and the update warps): lane 0 of the chase
+# warp, summed over the sweeps: between blocks, the window load and the
+# ring-slot wait, then a step's left reflector, left update, shuffles with
+# the right reflector and the rotation, and stores with the next column's
+# shuffle, then a block's write-back, its wait for the near columns and its
+# near slide; the step count
+QZ_CLK_MACROS = """
+#define QZ_CLK_DECL long long qc_[16] = {}; long long qt_ = clock64();
+#define QZ_CLK(i) { const long long n_ = clock64(); qc_[i] += n_ - qt_; qt_ = n_; }
+#define QZ_CLK_OUT if ((threadIdx.x & 31) == 0) for (int i_ = 0; i_ < 16; ++i_) \\
+  atomicAdd(reinterpret_cast<unsigned long long*>(ctr) + i_, (unsigned long long)qc_[i_]);
+"""
+QZ_EDITS = [
+    ('#include "gep_common.cuh"\n', '#include "gep_common.cuh"\n' + QZ_CLK_MACROS),
+    ("double (*ring)[kBlockSteps][kRec]) {\n  const int lane = threadIdx.x & 31;\n  const int wp = W.wp;\n"
+     "  double(*sH)",
+     "double (*ring)[kBlockSteps][kRec], long long* ctr) {\n  const int lane = threadIdx.x & 31;\n"
+     "  const int wp = W.wp;\n  QZ_CLK_DECL\n  double(*sH)"),
+    ("    double(*rec)[kRec] = ring[b & 1];\n", "    double(*rec)[kRec] = ring[b & 1];\n    QZ_CLK(0)\n"),
+    ("    if (b >= 2) bar_sync(kBarFree + (b & 1));\n    __syncwarp();\n",
+     "    if (b >= 2) bar_sync(kBarFree + (b & 1));\n    __syncwarp();\n    QZ_CLK(1)\n"),
+    ("      chase_reflector(x0, x1, use3 ? x2 : 0.0, v1, v2, tau, beta);\n",
+     "      chase_reflector(x0, x1, use3 ? x2 : 0.0, v1, v2, tau, beta);\n"
+     "      if (v1 + tau == 1234.5) qc_[14] += 1;\n      QZ_CLK(2)\n"),
+    ("      // rows k+1, k+2 of columns k..k+2 from the lanes that updated them\n",
+     "      QZ_CLK(3)\n      // rows k+1, k+2 of columns k..k+2 from the lanes that updated them\n"),
+    ("      const double sn = -sr;\n",
+     "      const double sn = -sr;\n      if (sn + cr == 1234.5) qc_[14] += 1;\n      QZ_CLK(4)\n"),
+    ("      x2 = __shfl_sync(0xffffffffu, e0, 2);\n      __syncwarp();\n",
+     "      x2 = __shfl_sync(0xffffffffu, e0, 2);\n      __syncwarp();\n      QZ_CLK(5)\n"
+     "      qc_[15] += 1;\n"),
+    ("    bar_arrive(kBarReady + (b & 1));  // the update warps take block b\n",
+     "    bar_arrive(kBarReady + (b & 1));  // the update warps take block b\n    QZ_CLK(6)\n"),
+    ("    if (b >= 1) bar_sync(kBarNear + ((b - 1) & 1));\n",
+     "    if (b >= 1) bar_sync(kBarNear + ((b - 1) & 1));\n    QZ_CLK(7)\n"),
+    ("      slide_col(W.T + (size_t)k0 * wp + c, wp, k0, k1, rec);\n    }\n    __syncwarp();\n",
+     "      slide_col(W.T + (size_t)k0 * wp + c, wp, k0, k1, rec);\n    }\n    __syncwarp();\n"
+     "    QZ_CLK(8)\n"),
+    ("  }\n}\n\n// ---------------------------------------------------------------------------\n"
+     "// one sweep over [l, i]: the update warps",
+     "  }\n  QZ_CLK_OUT\n}\n\n// ---------------------------------------------------------------------------\n"
+     "// one sweep over [l, i]: the update warps"),
+    ("int* __restrict__ info) {", "int* __restrict__ info, long long* ctr) {"),
+    ("chase_warp(W, l, i, sh + 12, s_win, s_ring);", "chase_warp(W, l, i, sh + 12, s_win, s_ring, ctr);"),
+    ('extern "C" int qz_window(', 'extern "C" int qz_window_clk('),
+    ("void* info,\n                         void* stream)", "void* info, void* ctr, void* stream)"),
+    ("static_cast<int*>(info));", "static_cast<int*>(info), static_cast<long long*>(ctr));"),
+]
+QZ_NAMES = ["between blocks", "window load, ring wait", "left reflector", "left update",
+            "right reflector, rotation", "stores, next column", "write-back",
+            "near-column wait", "near slide"]
+
+
+def clock_qz(specs) -> bool:
+    """clock qz [NAME=PATH ...]: where each G2 version's chase warp spends
+    its cycles, on chip_smoke's w=162 and w=322 windows: cycles a chase
+    step in each of its parts (the serial chain) and a block's."""
+    from chip_smoke import ht_window_np
+    dev = torch.device("cuda:0")
+    fns = {name: clock_build_src(name, "qz_window", Path(p), QZ_EDITS, QZ_EDITS,
+                                 "\0no one-block design")
+           for name, p in _clock_versions("qz_window", specs)}
+    for w in (162, 322):
+        Hn, Tn = ht_window_np(w, w)
+        th, tt = U / 2 * np.linalg.norm(Hn), U / 2 * np.linalg.norm(Tn)
+        WP = w + 3
+        for name, (fn, _one_block) in fns.items():
+            ctr = torch.zeros(16, dtype=torch.int64, device=dev)
+
+            def run(fn=fn, ctr=ctr):
+                Hp = torch.zeros(WP, WP, dtype=torch.float64, device=dev)
+                Tp = torch.zeros_like(Hp)
+                Hp[:w, :w], Tp[:w, :w] = torch.as_tensor(Hn), torch.as_tensor(Tn)
+                Qp = torch.zeros(w, WP, dtype=torch.float64, device=dev)
+                Qp[:, :w] = torch.eye(w, dtype=torch.float64)
+                Zp = Qp.clone()
+                info = torch.zeros(2, dtype=torch.int32, device=dev)
+                ctr.zero_()
+                kernels.check(fn(Hp.data_ptr(), Tp.data_ptr(), Qp.data_ptr(), Zp.data_ptr(),
+                                 w, w, th, tt, info.data_ptr(), ctr.data_ptr(),
+                                 kernels.stream_ptr(Hp)), "qz_window_clk")
+                return info
+            info = run()
+            ms = cuda_ms(run, 3)
+            c = ctr.cpu().tolist()
+            steps = max(c[15], 1)
+            total = sum(c[:9])
+            chain = sum(c[2:6])
+            print(f"qz w={w} {name}: info {info.cpu().tolist()}, {ms:.3f} ms (with the "
+                  f"counters), {steps} chase steps, chase warp {total / (ms * 1e6):.3f} "
+                  f"GHz-equivalent; a step's chain {chain / steps:.0f} cycles ("
+                  + ", ".join(f"{k} {c[i] / steps:.0f}" for i, k in enumerate(QZ_NAMES)
+                              if 2 <= i <= 5)
+                  + "); a step's share of the block parts: "
+                  + ", ".join(f"{k} {c[i] / steps:.0f}" for i, k in enumerate(QZ_NAMES)
+                              if i < 2 or i > 5), flush=True)
+    return True
+
+
 def ab_clock(args) -> bool:
-    """clock [deflate|hops|recondense] [--skip-cur] [NAME=PATH ...]"""
+    """clock [deflate|hops|recondense|qz] [--skip-cur] [NAME=PATH ...]"""
     kind = args[0] if args and "=" not in args[0] else "deflate"
     rest = args[1:] if args and "=" not in args[0] else args
     return {"deflate": clock_deflate, "hops": clock_hops,
-            "recondense": clock_recondense}[kind](rest)
+            "recondense": clock_recondense, "qz": clock_qz}[kind](rest)
 
 
 # G2's infinite-eigenvalue decisions, printed in a copy: T-diagonal
@@ -1238,7 +1387,7 @@ def qzinf_run(fn, H, T, w, th, tt):
     Qp = torch.zeros(w, WP, dtype=torch.float64, device=dev)
     Qp[:, :w] = torch.eye(w, dtype=torch.float64)
     Zp = Qp.clone()
-    info = torch.zeros(1, dtype=torch.int32, device=dev)
+    info = torch.zeros(2, dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     sys.stdout.flush()
     saved = os.dup(1)
@@ -1256,7 +1405,7 @@ def qzinf_run(fn, H, T, w, th, tt):
         f.seek(0)
         recs = sorted((tuple(ln.split()) for ln in f if ln.startswith("QZ")), key=qzinf_order)
     return (Hp[:w, :w].cpu(), Tp[:w, :w].cpu(), Qp[:, :w].cpu(), Zp[:, :w].cpu(),
-            int(info), recs)
+            int(info[0]), recs)
 
 
 QZINF_KINDS = ("QZFIND", "QZCALL", "QZINF")
@@ -1378,18 +1527,16 @@ def ab_qzinf(_args) -> bool:
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
-         "bitwise": ab_bitwise, "ht": ab_ht}
+         "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz}
+# the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
+PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),
+            "bitwise": lambda root, n, device: bitwise_one(root, int(n), device),
+            "ht": lambda root, n: ht_one(root, int(n)), "qz": qz_one}
 
 
 def main() -> int:
-    if len(sys.argv) >= 4 and sys.argv[1] == "_mainpath_one":
-        mainpath_one(sys.argv[2], int(sys.argv[3]))
-        return 0
-    if len(sys.argv) >= 4 and sys.argv[1] == "_ht_one":
-        ht_one(sys.argv[2], int(sys.argv[3]))
-        return 0
-    if len(sys.argv) >= 5 and sys.argv[1] == "_bitwise_one":
-        bitwise_one(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    if len(sys.argv) >= 4 and sys.argv[1] == "_one":
+        PER_ROOT[sys.argv[2]](sys.argv[3], *sys.argv[4:])
         return 0
     if len(sys.argv) < 2 or sys.argv[1] not in MODES:
         print(__doc__, file=sys.stderr)

@@ -34,8 +34,12 @@ Phases (any failure raises; the exit code is then nonzero):
      generation kernel and its sliver kernel against their plain twins on
      the first block of n=2000, and G1 in window mode at WA=84 and 162
      (kbot 10 elementwise, kbot=WA-4 by contract), G2 at w=84 (with and without 8 infinite
-     eigenvalues) and 162 by contract, G3 for a whole train at n=512 and one
-     hop, G4 at WA=84 and 162 (kbot, fail and steps equal), G5 (the
+     eigenvalues) and 162 by contract against its twin, and at w=322 (the
+     n=4000 path's window) by contract alone, microseconds a chase step
+     (the kernel's own count), G3 for a whole train at n=512 and one
+     hop, G4 at WA=84, 162 and 322 and on two windows whose first move is
+     rejected after 20 and 40 swaps (kbot, fail and steps equal),
+     microseconds a swap, G5 (the
      infinite push's window chase) at Wb=96 and 84, G6 (the pencil window
      bubble) on planted windows at W=16 and 128 (2x2 blocks, exact
      T-diagonal zeros, frozen rows, an insertion limit, a rejected swap;
@@ -67,7 +71,8 @@ Phases (any failure raises; the exit code is then nonzero):
      launch counts (zeroed before the path, read after it; every GEP kernel
      at least once); the HT phase runs first under torch.profiler (each
      kernel's device total and launches, G1's time, the cold call's time),
-     then warm outside it (ht_ms), the QZ phase again under it afterwards;
+     then warm outside it (ht_ms), the QZ phase again under it afterwards
+     (each kernel's device total, G2's and G4's with their launches);
      then api.gep.select (finite, Re(alpha/beta) > 0), api.gep.reorder_schur
      and api.gep.eigenvectors of the leading selected block, gated on info,
      exact structure, 500 u, the leading rows holding exactly the selected
@@ -150,6 +155,11 @@ CHAIN_US = 0.6
 # their floor
 SWAP_CYCLES = {(1, 1): 1442, (1, 2): 9750, (2, 1): 10660, (2, 2): 11424}
 SM_HZ = 1.98e9
+# G2's chain a chase step by window size, in cycles: the chase warp's two
+# reflectors, left update, rotation and the next column's shuffle
+# (clock64 counters, chip_ab.py clock qz, PERF.md section 6); steps x
+# these over SM_HZ is its serial floor
+QZ_STEP_CYCLES = {162: 2939, 322: 3072}
 # B3's chain a step and B5's a reduction step, in cycles (clock64 counters
 # in instrumented copies of the kernels as shipped, chip_ab.py clock hops /
 # recondense, PERF.md section 6): the reflectors' phase of a hop step at B=25 (the shortest over
@@ -1433,26 +1443,59 @@ def spectra_chordal(out_a, out_b):
                                           (ar + 1j * ai).numpy(), bt.numpy()) * U
 
 
+def qz_sweep_flops(w, l, i):
+    """The flops a QZ sweep over [l, i] of a w-window needs (``_sweep``):
+    each step k's transforms on the entries that are not exactly zero, 14
+    flops a triple for a 3-reflector and 6 a pair for a 2-reflector or a
+    rotation.  Left reflector: H's rows k..k+2 from column k-1 (k from
+    l+1; from k at k = l), T's from column k, and Q's w rows; right
+    3-reflector (not at the last step k = i-1): rows 0..k+3 of H (up to
+    i), 0..k+2 of T and Z's w rows; rotation of columns k, k+1: rows
+    0..k+3 of H (up to i), 0..k+1 of T and Z's w rows."""
+    f = 0
+    for k in range(l, i):
+        left = (w - k + (k > l)) + (w - k) + w
+        if k <= i - 2:
+            h = min(k + 4, i + 1)
+            f += 14 * left + 14 * (h + k + 3 + w) + 6 * (h + k + 2 + w)
+        else:
+            f += 6 * left + 6 * (2 * (k + 2) + w)
+    return f
+
+
 def phase_qz_window(dev):
     import numpy as np
     import torch
     from starneig_tpu_torch.ops import gpu_gep, qz
     from starneig_tpu_torch.ops.qz import _small_qz_plain
     res = {}
-    for w, ninf in ((84, 0), (84, 8), (162, 0)):
+    for w, ninf in ((84, 0), (84, 8), (162, 0), (322, 0)):
         Hn, Tn = ht_window_np(w, w + ninf, ninf)
         H, T = (torch.as_tensor(x, device=dev) for x in (Hn, Tn))
         eye = torch.eye(w, dtype=torch.float64, device=dev)
         th, tt = U / 2 * np.linalg.norm(Hn), U / 2 * np.linalg.norm(Tn)
-        got = gpu_gep.qz_window(H, T, eye, eye, w, th, tt)
-        with tally(qz, "_sweep", lambda Hp, Tp, Qp, Zp, w_, l, i, its: i - l) as steps:
+        st = {}
+        got = gpu_gep.qz_window(H, T, eye, eye, w, th, tt, stats=st)
+        ck = qz_contract(Hn, Tn, got)
+        if w == 322:
+            # the GEP n=4000 path's AED window: by contract alone (its plain
+            # twin would take about a minute of the host)
+            log(f"  G2 w={w}: kernel (info, worst residual/orth u, S, T structure) "
+                f"{ck[0]}, {ck[1]:.1f}, {ck[2]}, {ck[3]}; {st['chase_steps']} chase steps")
+            check(ck[0] == 0 and ck[1] < GATE_U and ck[2:4] == (0.0, 0.0),
+                  f"G2 w={w} fails its contract")
+            res[(w, ninf)] = (H, T, eye, th, tt, None, st["chase_steps"], None, ck[1], 0.0)
+            continue
+        with tally(qz, "_sweep", lambda Hp, Tp, Qp, Zp, w_, l, i, its: i - l) as steps, \
+                tally(qz, "_sweep", lambda Hp, Tp, Qp, Zp, w_, l, i, its:
+                      qz_sweep_flops(w_, l, i)) as flops:
             want, pms = host_ms(lambda: _small_qz_plain(*_cpu(H, T, eye, eye), w, th, tt))
-        ck, cp = qz_contract(Hn, Tn, got), qz_contract(Hn, Tn, want)
+        cp = qz_contract(Hn, Tn, want)
         chordal = spectra_chordal(got, want)
         log(f"  G2 w={w} ({ninf} T-diagonal zeros): kernel (info, worst residual/orth u, "
             f"S, T structure, betas <= 1e-12 max) {ck[0]}, {ck[1]:.1f}, {ck[2]}, {ck[3]}, "
-            f"{ck[4]}; plain {cp[0]}, {cp[1]:.1f}, {cp[2]}, {cp[3]}, {cp[4]}; spectra "
-            f"within chordal {chordal:.2e}")
+            f"{ck[4]}, {st['chase_steps']} chase steps; plain {cp[0]}, {cp[1]:.1f}, {cp[2]}, "
+            f"{cp[3]}, {cp[4]}, {steps[0]} chase steps; spectra within chordal {chordal:.2e}")
         # by contract: the deflation order, and whether an infinite
         # eigenvalue is detected (T-diagonal entries at rounding level
         # against u max|T|; chip_ab.py qzinf), may differ by rounding; the
@@ -1462,21 +1505,27 @@ def phase_qz_window(dev):
               and ck[2:4] == (0.0, 0.0) and cp[2:4] == (0.0, 0.0)
               and min(ck[4], cp[4]) >= ninf and chordal < 1e-10,
               f"G2 w={w} ninf={ninf} fails its contract")
-        res[(w, ninf)] = (H, T, eye, th, tt, pms, steps[0], max(ck[1], cp[1]), chordal)
-    H, T, eye, th, tt, pms, steps, worst, chordal = res[(162, 0)]
-    w = 162
-    ms = cuda_ms(lambda: gpu_gep.qz_window(H, T, eye, eye, w, th, tt), 3)
-    wp = w + 3
-    # a chase step: a left 3-reflector on 2 (w+3)-wide rows triples and w Q
-    # triples, a right one on as many column triples (14 flops a triple),
-    # a rotation on as many column pairs (6 a pair)
-    bms, by = bound(8 * 8 * w * w, steps * 34 * (2 * wp + w))
-    log(f"  G2 w={w}: kernel {ms:.2f} ms ({ms / steps * 1e3:.3f} us a step of the plain "
-        f"twin's {steps} chase steps), plain (CPU) {pms:.1f} ms, bound {bms:.4f} ms ({by})")
-    return dict(max_abs_err=max(r[8] for r in res.values()), ms=ms, plain_ms=pms,
+        res[(w, ninf)] = (H, T, eye, th, tt, pms, steps[0], flops[0], max(ck[1], cp[1]),
+                          chordal)
+    detail = {}
+    for w in (322, 162):     # 162 last: the kernel table's row
+        H, T, eye, th, tt, pms, steps, nflops, worst, chordal = res[(w, 0)]
+        ms = cuda_ms(lambda: gpu_gep.qz_window(H, T, eye, eye, w, th, tt), 3)
+        # H, T, Q, Z read and written once, and the sweeps' flops; at
+        # w=322 the steps' positions are not known (no twin run there)
+        bms, by = bound(8 * 8 * w * w, nflops) if nflops else (None, None)
+        chain = steps * QZ_STEP_CYCLES[w] / SM_HZ * 1e3
+        log(f"  G2 w={w}: kernel {ms:.2f} ms ({ms / steps * 1e3:.3f} us a step of "
+            f"{steps} chase steps ({'the plain twin' if pms else 'the kernel'}'s count)), "
+            + (f"bound {bms:.4f} ms ({by}, {nflops} flops)" if bms else
+               "bound not computed (no twin run for the steps' positions)")
+            + f", serial chain {chain:.1f} ms (steps x "
+            f"{QZ_STEP_CYCLES[w]} cycles)" + (f", plain (CPU) {pms:.1f} ms" if pms else ""))
+        detail[f"w{w}"] = dict(ms=ms, steps=steps, us_a_step=ms / steps * 1e3, bound_ms=bms,
+                               serial_chain_ms=chain, worst_u=worst)
+    return dict(max_abs_err=max(r[9] for r in res.values()), ms=ms, plain_ms=pms,
                 bound_ms=bms, bound_by=by,
-                detail=dict(steps=steps, us_a_step=ms / steps * 1e3, worst_u=worst,
-                            w84_plain_ms=res[(84, 0)][5]))
+                detail=dict(**detail, w84_plain_ms=res[(84, 0)][5]))
 
 
 def padded_pencil(n, B, seed, dev):
@@ -1538,35 +1587,60 @@ def phase_qz_sweep(dev):
                 detail=dict(train_ms=train_ms, plain_train_ms=plain_train_ms))
 
 
+# G4's inputs (label, WA, make() -> (S, T, Q, Z), spike s, active w): the
+# n=2000 path's WA=162 and the n=4000 path's WA=322 windows with some bottom
+# blocks deflating and the others moving up (thresh is u/2 ||S||_F, which
+# grows with WA), and two windows whose first move is rejected after 20 and
+# 40 accepted swaps (the second in the engine's second segment of a move)
+def _g4_cases():
+    from starneig_tpu_torch.testing.generators import planted_schur_pair, planted_spike_reject
+    return (("WA=84", 84, lambda: planted_schur_pair(84, 82, 85), 1e-13, 82),
+            ("WA=162", 162, lambda: planted_schur_pair(162, 160, 163), 1.5e-13, 160),
+            ("WA=322", 322, lambda: planted_schur_pair(322, 320, 323), 2.7e-13, 320),
+            ("WA=84, rejected after 20 swaps", 84, lambda: planted_spike_reject(84, 20, 104),
+             1.0, 84),
+            ("WA=162, rejected after 40 swaps", 162,
+             lambda: planted_spike_reject(162, 40, 202), 1.0, 162))
+
+
 def phase_aed_deflate_gep(dev):
-    import numpy as np
     import torch
     from starneig_tpu_torch.ops import gpu_gep, qz_driver
     from starneig_tpu_torch.ops.qz_driver import _aed_deflate_gep
-    from starneig_tpu_torch.testing.generators import planted_schur_pair
-    err = 0.0
-    for WA, s_ in ((84, 1e-13), (162, 1.5e-13)):
-        x = [torch.as_tensor(a, device=dev) for a in planted_schur_pair(WA, WA - 2, WA + 1)]
+    err, runs = 0.0, {}
+    for label, WA, make, s_, w in _g4_cases():
+        x = [torch.as_tensor(a, device=dev) for a in make()]
         thresh = U / 2 * float(torch.linalg.norm(x[0]))
-        gk = gpu_gep.aed_deflate_gep(*x, s_, WA - 2, thresh)
-        with tally(qz_driver, "swap_adjacent_gep", lambda *a: 1) as swaps:
-            gp, pms = host_ms(lambda: _aed_deflate_gep(*_cpu(*x), s_, WA - 2, thresh))
+        gk = gpu_gep.aed_deflate_gep(*x, s_, w, thresh)
+        # a swap of a p- and a q-block (d = p + q) applies d x d transforms
+        # to d-vectors, (2d - 1) d flops each: S's and T's rows a..a+d-1
+        # from column a (WA - a vectors) and their columns a..a+d-1 down to
+        # row a+d-1 (a + d), Q's and Z's WA rows
+        with tally(qz_driver, "swap_adjacent_gep", lambda *a: 1) as swaps, \
+                tally(qz_driver, "swap_adjacent_gep", lambda A4, B4, p, q: (
+                    2 * (p + q) - 1) * (p + q) * (4 * WA + 2 * (p + q))) as flops:
+            gp, pms = host_ms(lambda: _aed_deflate_gep(*_cpu(*x), s_, w, thresh))
         ints_k, ints_p = [int(v) for v in gk[4:]], [int(v) for v in gp[4:]]
-        e = max(_rel(w, g) for g, w in zip(gk[:4], gp[:4]))
-        log(f"  G4 WA={WA}: (kbot, fail, steps) kernel {ints_k} plain {ints_p}, "
+        e = max(_rel(w_, g) for g, w_ in zip(gk[:4], gp[:4]))
+        log(f"  G4 {label}: (kbot, fail, steps) kernel {ints_k} plain {ints_p}, "
             f"{swaps[0]} swaps, max err {e:.2e} relative")
         # the same swaps, other rounding
-        check(ints_k == ints_p and e <= 1e-11, f"G4 WA={WA} disagrees")
+        check(ints_k == ints_p and e <= 1e-11, f"G4 {label} disagrees")
+        check(("rejected" in label) == (ints_p[1] == 1), f"G4 {label}: fail {ints_p[1]}")
         err = max(err, e)
-    ms = cuda_ms(lambda: gpu_gep.aed_deflate_gep(*x, s_, WA - 2, thresh), 3)
-    wp = WA + 4
-    # a swap: the 4x4 transforms on 2 wp-wide row strips and on the column
-    # strips of S, T (wp rows) and Q, Z (WA rows), 32 flops a 4-vector
-    bms, by = bound(8 * 8 * WA * WA, swaps[0] * 32 * (4 * wp + 2 * WA))
-    log(f"  G4 WA={WA}: kernel {ms:.2f} ms ({ms / swaps[0] * 1e3:.2f} us a swap), plain "
-        f"(CPU) {pms:.1f} ms, bound {bms:.5f} ms ({by})")
+        runs[label] = (x, s_, w, thresh, swaps[0], flops[0], pms)
+    detail = {}
+    for label in ("WA=322", "WA=162"):     # 162 last: the kernel table's row
+        x, s_, w, thresh, nsw, nflops, pms = runs[label]
+        WA = x[0].shape[0]
+        ms = cuda_ms(lambda: gpu_gep.aed_deflate_gep(*x, s_, w, thresh), 3)
+        bms, by = bound(8 * 8 * WA * WA, nflops)
+        log(f"  G4 {label}: kernel {ms:.2f} ms ({ms / nsw * 1e3:.2f} us a swap of {nsw}), "
+            f"plain (CPU) {pms:.1f} ms, bound {bms:.5f} ms ({by}, {nflops} flops)")
+        detail[label] = dict(ms=ms, swaps=nsw, us_a_swap=ms / nsw * 1e3, bound_ms=bms,
+                             plain_ms=pms)
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                detail=dict(swaps=swaps[0], us_a_swap=ms / swaps[0] * 1e3))
+                detail=detail)
 
 
 # G5's windows (Wb, jrel, mrel, lrel): the n=2000 push's INFW=96 window as
@@ -1802,6 +1876,13 @@ def phase_gep(dev):
         qz_driver.inf_chase = orig
     top = {k: (round(v[0], 3), v[1]) for k, v in list(prof.items())[:12]}
     log(f"  GEP n={n} QZ device time by kernel (ms, calls; under the profiler): {top}")
+    g2_g4 = {}
+    for label, key in (("G2", "qz_window_kernel"), ("G4", "aed_deflate_gep_kernel")):
+        hits = [v for k, v in prof.items() if key in k]
+        g2_g4[label] = (sum(v[0] for v in hits), sum(v[1] for v in hits))
+    log(f"  GEP n={n} QZ phase: G2 {g2_g4['G2'][0]:.1f} ms device time in {g2_g4['G2'][1]} "
+        f"launches, G4 {g2_g4['G4'][0]:.1f} ms in {g2_g4['G4'][1]} (under the profiler)")
+    check(min(v[1] for v in g2_g4.values()) > 0, f"GEP n={n}: the profiler saw no G2/G4 launch")
     log(f"  GEP n={n} HT device time by kernel: "
         f"{ {k: (round(v[0], 3), v[1]) for k, v in list(prof_ht.items())[:10]} }")
     log(f"  GEP n={n} infinite push: {inf_calls[0]} G5 window chases, "
@@ -1817,7 +1898,7 @@ def phase_gep(dev):
                 rounds=stats["rounds"], inf_rounds=stats["inf_rounds"],
                 inf_chase_calls=inf_calls[0], inf_chase_ms=inf_ms[0],
                 recondense_calls=stats["recondense_calls"],
-                launches={**launches, **chain["launches"]},
+                launches={**launches, **chain["launches"]}, g2_g4_device=g2_g4,
                 qz_log=stats["qz_log"], profile_qz=prof, profile_ht=prof_ht, chain=chain)
 
 

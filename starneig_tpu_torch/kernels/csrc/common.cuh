@@ -56,6 +56,43 @@ DEVI void householder(const double* xin, unsigned mask, int m, double* v,
   beta = (degen ? alpha : b) * msafe;
 }
 
+// dlarfg on (a, x1, x2) for the chase step, on the chain: the guards of
+// householder() keep their results (tau = 0 and v = e1 when the tail is
+// zero; sgn(0) = +1), but the entries are pre-scaled by max|x| only where
+// a square could leave the normal range (as LAPACK's dlarfg rescales only
+// near underflow), and one reciprocal of (a - beta) replaces the divides.
+// Returns v1, v2 (v0 = 1), tau and beta.
+DEVI void chase_reflector(double a, double x1, double x2, double& v1, double& v2,
+                          double& tau, double& beta) {
+  constexpr double kTiny = 0x1p-500, kHuge = 0x1p+500;
+  const double m1 = fabs(x1), m2 = fabs(x2);
+  const double mx = dmax(fabs(a), dmax(m1, m2));
+  double sc = 1.0;
+  if (mx > kHuge || (m1 != 0.0 && m1 < kTiny) || (m2 != 0.0 && m2 < kTiny)) {
+    const double r = 1.0 / mx;
+    a *= r;
+    x1 *= r;
+    x2 *= r;
+    sc = mx;
+  }
+  const double ss = x1 * x1 + x2 * x2;
+  if (ss == 0.0) {
+    v1 = 0.0;
+    v2 = 0.0;
+    tau = 0.0;
+    beta = a * sc;
+    return;
+  }
+  const double nrm = sqrt(a * a + ss);
+  const double b = a >= 0.0 ? -nrm : nrm;
+  const double d = a - b;  // |d| >= nrm > 0
+  const double rd = 1.0 / d;
+  tau = -d / b;
+  v1 = x1 * rd;
+  v2 = x2 * rd;
+  beta = b * sc;
+}
+
 // ---------------------------------------------------------------------------
 // block-wide reductions and reflector (every thread of the block calls them;
 // red is __shared__ scratch of at least blockDim.x / 32 doubles)

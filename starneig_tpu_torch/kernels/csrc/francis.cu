@@ -138,44 +138,6 @@ __device__ __forceinline__ void row_tile(double* M, int ld, int r0, int rend,
   __syncwarp();  // the tile is free
 }
 
-// dlarfg on (a, x1, x2) for the chase step, on the chain: the guards of
-// householder() keep their results (tau = 0 and v = e1 when the tail is
-// zero; sgn(0) = +1), but the entries are pre-scaled by max|x| only where
-// a square could leave the normal range (as LAPACK's dlarfg rescales only
-// near underflow), and one reciprocal of (a - beta) replaces the divides.
-// Returns v1, v2 (v0 = 1), tau and beta.
-__device__ __forceinline__ void chase_reflector(double a, double x1, double x2,
-                                                double& v1, double& v2,
-                                                double& tau, double& beta) {
-  constexpr double kTiny = 0x1p-500, kHuge = 0x1p+500;
-  const double m1 = fabs(x1), m2 = fabs(x2);
-  const double mx = dmax(fabs(a), dmax(m1, m2));
-  double sc = 1.0;
-  if (mx > kHuge || (m1 != 0.0 && m1 < kTiny) || (m2 != 0.0 && m2 < kTiny)) {
-    const double r = 1.0 / mx;
-    a *= r;
-    x1 *= r;
-    x2 *= r;
-    sc = mx;
-  }
-  const double ss = x1 * x1 + x2 * x2;
-  if (ss == 0.0) {
-    v1 = 0.0;
-    v2 = 0.0;
-    tau = 0.0;
-    beta = a * sc;
-    return;
-  }
-  const double nrm = sqrt(a * a + ss);
-  const double b = a >= 0.0 ? -nrm : nrm;
-  const double d = a - b;  // |d| >= nrm > 0
-  const double rd = 1.0 / d;
-  tau = -d / b;
-  v1 = x1 * rd;
-  v2 = x2 * rd;
-  beta = b * sc;
-}
-
 __global__ void __launch_bounds__(kThreads)
 francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
                int ilo, int maxiter, double thresh, int* __restrict__ info) {

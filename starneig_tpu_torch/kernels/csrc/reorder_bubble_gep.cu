@@ -61,7 +61,7 @@ reorder_bubble_gep_kernel(double* __restrict__ S_all, double* __restrict__ T_all
   __syncthreads();
 
   if (tid >= 32) {
-    update_warps(S, T, WP, Q, Z, 0, W, sm, meta);
+    update_warps(S, T, WP, Q, 0, Z, 0, W, sm, meta);
   } else {
     const int lane = tid;
     Chain ch{S, T, WP, W, sm, &meta};
@@ -72,7 +72,7 @@ reorder_bubble_gep_kernel(double* __restrict__ S_all, double* __restrict__ T_all
     bool done = false;
     // the flags of the swapped rows: a moved block takes its selection
     // along, a stuck one is deselected
-    auto on_swap = [&](int c, int p, int q, bool accept) {
+    auto on_swap = [&](int c, int p, int q, bool accept, const double*) {
       if (lane < 4) {
         const int old = flags[c + lane];
         const int moved = lane < q ? 1 : (lane < p + q ? 0 : old);

@@ -3,9 +3,9 @@
 // quasi-triangular, T upper triangular, both WP x WP) toward the top by
 // adjacent dtgex2 swaps, and applies every swap's left transform Qs to
 // S's and T's rows and to the columns of Q, its right transform Zs to S's
-// and T's columns and to the columns of Z (ld WP).  Its user is the pencil
-// reordering's window bubble (reorder_bubble_gep.cu); G4's spike deflation
-// (aed_deflate_gep.cu) has the same shape and can move onto it.
+// and T's columns and to the columns of Z (ld WP).  Its users are the
+// pencil reordering's window bubble (reorder_bubble_gep.cu) and G4's spike
+// deflation (aed_deflate_gep.cu).
 //
 // What bounds it on the H100: the serial chain of swaps.  Each swap's
 // 4x4 pencil decision (the pivoted 8x8 Sylvester solve, two 4x2 column QRs,
@@ -39,7 +39,7 @@
 //     warp go on while they replay the rest.
 //   * State.  S's subdiagonal (the block sizes) lives in shared memory,
 //     kept current by the chain warp swap by swap, with what the caller adds
-//     (the bubble's selection).
+//     (the bubble's selection, G4's spike) through on_swap.
 // The barriers and ring discipline are swap_chain.cuh's.
 #pragma once
 
@@ -65,15 +65,16 @@ using swap_chain::kTl;
 using swap_chain::kUpdWarps;
 
 // ---------------------------------------------------------------------------
-// dtgex2 on a warp: the twin of gep_common.cuh:swap_adjacent_gep
+// dtgex2 on a warp: the twin of ops/swaps_gep.py:swap_adjacent_gep
 // ---------------------------------------------------------------------------
 // Every lane calls it with the same 4x4 pair and gets the same transforms
 // and decision.  p and q are template arguments, so every array stays in
 // registers; the 8x8 Gauss-Jordan elimination runs a row a lane on the
 // lanes r (mod 8), each step's pivot chosen from the eight candidates
-// gathered by shuffles (the first largest, as solve8); the 4x4 products
-// run an entry a lane (common.cuh:matmul4_warp).  The formulas and their
-// order are solve8's, qr_cols', mm4's and std_at's.
+// gathered by shuffles (the first largest, as the twin's _solve8); the
+// 4x4 products run an entry a lane (common.cuh:matmul4_warp).  The
+// formulas and their order are the twin's _solve8's, _qr_cols', its 4x4
+// products' and _std_at's.
 
 DEVI double pick9(const double (&m)[9], int i) {
   double v = m[0];
@@ -159,7 +160,7 @@ DEVI void solve8_warp(const double* A4, const double* B4, double (&x)[8]) {
   for (int i = 0; i < 8; ++i) x[i] = __shfl_sync(0xffffffffu, xr, i);
 }
 
-// qr_cols with d and q compile-time constants
+// the twin's _qr_cols with d and q compile-time constants
 template <int D, int Qn>
 DEVI void qr_cols_t(const double (&M4)[8], double* Q) {
   constexpr unsigned rmask = (1u << D) - 1u;
@@ -204,8 +205,8 @@ DEVI void qr_cols_t(const double (&M4)[8], double* Q) {
     for (int c = 0; c < 4; ++c) Q[r * 4 + c] = Qa[c * 4 + r];
 }
 
-// std_at on the warp: the 2x2 pencil block at OFF re-triangularized and
-// standardized
+// the twin's _std_at on the warp: the 2x2 pencil block at OFF
+// re-triangularized and standardized
 template <int OFF>
 DEVI void std_at_warp(double* Ah, double* Bh, double* Qs, double* Zs) {
   const double A2[4] = {Ah[OFF * 4 + OFF], Ah[OFF * 4 + OFF + 1],
@@ -439,8 +440,8 @@ DEVI void cols_replay(double* A, int lda, int a0, int n, int c0, int nc,
 }
 
 // The update warps' loop: take segments from the ring until the stop flag.
-// Q and Z have rows m0 .. m1 - 1 (ld WP).
-DEVI void update_warps(double* S, double* T, int WP, double* Q, double* Z, int m0,
+// The rows replayed: Q's q0 .. m1 - 1 and Z's z0 .. m1 - 1 (ld WP).
+DEVI void update_warps(double* S, double* T, int WP, double* Q, int q0, double* Z, int z0,
                        int m1, const Smem& sm, const Meta& meta) {
   const int ut = threadIdx.x - 32, uw = ut >> 5;
   double* tile = sm.tiles + uw * 32 * kTl;
@@ -468,22 +469,23 @@ DEVI void update_warps(double* S, double* T, int WP, double* Q, double* Z, int m
     if (flags & 1) bar_arrive(kBarNear + slot);
     // the rest, 32 rows or columns a task: S's and T's rows above those,
     // Z's and Q's rows, S's and T's rows of the segment right of it
-    const int n2 = (nr0 + 31) / 32, n3 = (m1 - m0 + 31) / 32;
+    const int n2 = (nr0 + 31) / 32;
+    const int nz = (m1 - z0 + 31) / 32, nq = (m1 - q0 + 31) / 32;
     const int n1 = (WP - hi + 31) / 32;
-    const int ntask = 2 * n2 + 2 * n3 + 2 * n1;
+    const int ntask = 2 * n2 + nz + nq + 2 * n1;
     for (int t = uw; t < ntask; t += kUpdWarps) {
       if (t < 2 * n2) {
         const int tt = t % n2;
         const int r1 = nr0 - 32 * tt, r0 = r1 - 32 > 0 ? r1 - 32 : 0;
         rows_replay(t < n2 ? S : T, WP, r0, r1 - r0, amin, n, swl, nsw, 1, tile);
-      } else if (t < 2 * n2 + 2 * n3) {
+      } else if (t < 2 * n2 + nz + nq) {
         const int tt = t - 2 * n2;
-        const bool isz = tt < n3;
-        const int r0 = m0 + 32 * (tt % n3);
+        const bool isz = tt < nz;
+        const int r0 = isz ? z0 + 32 * tt : q0 + 32 * (tt - nz);
         rows_replay(isz ? Z : Q, WP, r0, min(32, m1 - r0), amin, n, swl, nsw,
                     isz ? 1 : 0, tile);
       } else {
-        const int tt = t - 2 * n2 - 2 * n3;
+        const int tt = t - 2 * n2 - nz - nq;
         const int c0 = hi + 32 * (tt % n1);
         cols_replay(tt < n1 ? S : T, WP, amin, n, c0, min(32, WP - c0), swl, nsw, tile);
       }
@@ -589,8 +591,9 @@ struct Chain {
 
   // Move the block starting at src up by adjacent swaps until it reaches
   // top (then top += its size), a swap is rejected, or steps reaches cap.
-  // on_swap(c, p, q, accept) runs on every lane after each swap (the
-  // caller's extra state).  Returns kArrived, kRejected or kCapped.
+  // on_swap(c, p, q, accept, Qs) runs on every lane after each swap (the
+  // caller's extra state; Qs the swap's left transform, every lane's
+  // copy).  Returns kArrived, kRejected or kCapped.
   template <class OnSwap>
   __device__ int move(int src, int& top, OnSwap on_swap) {
     const int lane = threadIdx.x & 31;
@@ -668,7 +671,7 @@ struct Chain {
           for (int i = 0; i < 3; ++i)
             if (lane == i && i + 1 < d) sm.sub[c + i] = Ah[(i + 1) * 4 + i];
         }
-        on_swap(c, p, q, accept);
+        on_swap(c, p, q, accept, static_cast<const double*>(Qs));
         ++steps;
         ++nsw;
         __syncwarp();

@@ -112,10 +112,12 @@ def ht_recondense(Sw, Tw, Qw, Zw, s: float, kbot: int):
     return S, T, Q, Z, beta[0]
 
 
-def qz_window(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0):
+def qz_window(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0,
+              stats=None):
     """Kernel G2: the window QZ machine on the active m x m block of CUDA
     tensors (contract of :func:`starneig_tpu_torch.ops.qz.small_qz`).
-    Returns (S, Tt, Q, Z, info)."""
+    Returns (S, Tt, Q, Z, info); with a ``stats`` dict, also sets
+    ``stats["chase_steps"]``, the sweeps' chase steps (a device read)."""
     w = _check_square("qz_window", H, T, Q, Z)
     WP = w + 3
     Hp = H.new_zeros((WP, WP))
@@ -126,7 +128,7 @@ def qz_window(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0):
     Qp[:, :w] = Q
     Zp = H.new_zeros((w, WP))
     Zp[:, :w] = Z
-    info = torch.zeros(1, dtype=torch.int32, device=H.device)
+    info = torch.zeros(2, dtype=torch.int32, device=H.device)
     kernels.require_cuda_f64("qz_window", Hp, Tp, Qp, Zp)
     lib = kernels.lib()
     kernels.LAUNCHES["qz_window"] += 1
@@ -134,6 +136,8 @@ def qz_window(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0):
                                 Zp.data_ptr(), w, int(m), float(thresh_h),
                                 float(thresh_t), info.data_ptr(),
                                 kernels.stream_ptr(H)), "qz_window")
+    if stats is not None:
+        stats["chase_steps"] = int(info[1])
     return (Hp[:w, :w].contiguous(), Tp[:w, :w].contiguous(),
             Qp[:, :w].contiguous(), Zp[:, :w].contiguous(), info[0])
 

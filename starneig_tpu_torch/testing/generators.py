@@ -265,3 +265,42 @@ def planted_schur_pair(W: int, kact: int, seed: int):
         M[:kact, :kact] = np.linalg.qr(
             np.eye(kact) + 0.05 * rng.standard_normal((kact, kact)))[0]
     return S, T, Q, Z
+
+
+def planted_spike_reject(W: int, gap: int, seed: int):
+    """A (W, W) generalized Schur pair (S, T) and window transforms (Q, Z)
+    whose GEP spike deflation (spike Q[0, :]) ends on a rejected swap after
+    `gap` accepted ones: the bottom 2x2 pencil block and its exact twin
+    `gap` rows above it (as planted_pencil_windows plants a rejected swap),
+    the 1x1 blocks between uncoupled from the bottom block's columns in S
+    and T, so the block reaches its twin unchanged and their generalized
+    Sylvester equation is singular.  Above the twin, standardized 2x2
+    blocks every eighth row; T's diagonal >= 1.  Q is the reflection that
+    maps e1 to a unit spike with entries at the bottom block's rows and
+    above the twin; Z a near-identity orthogonal matrix."""
+    rng = np.random.default_rng(seed)
+    b, t = W - 2, W - 4 - gap
+    S = np.triu(rng.standard_normal((W, W)))
+    T = np.triu(rng.standard_normal((W, W)))
+    T[np.diag_indices(W)] = 1.0 + np.abs(rng.standard_normal(W))
+    for p in range(6, t - 2, 8):
+        S[p + 1, p] = -abs(rng.standard_normal()) - 0.1
+        S[p, p + 1] = abs(rng.standard_normal()) + 0.1
+        S[p + 1, p + 1] = S[p, p]
+        T[p, p + 1] = 0.0
+        T[p + 1, p + 1] = T[p, p]
+    for r in (b, t):
+        S[r:r + 2, r:r + 2] = [[1.0, 2.0], [-0.5, 1.0]]
+        T[r:r + 2, r:r + 2] = np.eye(2)
+    S[t + 2:b, b:b + 2] = 0.0
+    T[t + 2:b, b:b + 2] = 0.0
+    S[t:t + 2, b:b + 2] = [[3.0, -1.0], [2.0, 5.0]]
+    T[t:t + 2, b:b + 2] = [[0.5, 1.0], [-1.0, 0.25]]
+    u = np.zeros(W)
+    u[:t] = rng.standard_normal(t)
+    u[b:] = rng.standard_normal(2)
+    u /= np.linalg.norm(u)
+    v = np.eye(W)[0] - u
+    Q = np.eye(W) - 2 * np.outer(v, v) / (v @ v)
+    Z = np.linalg.qr(np.eye(W) + 0.05 * rng.standard_normal((W, W)))[0]
+    return S, T, Q, Z

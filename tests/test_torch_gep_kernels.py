@@ -28,7 +28,8 @@ from starneig_tpu_torch.ops.qz_driver import (_aed_deflate_gep,
 from starneig_tpu_torch.ops.reorder import _window_bubble_gep
 from starneig_tpu_torch.testing import hooks
 from starneig_tpu_torch.testing.generators import (inf_push_window, known_spectrum_pencil,
-                                                   planted_pencil_windows)
+                                                   planted_pencil_windows,
+                                                   planted_spike_reject)
 from starneig_tpu_torch.testing.generators import planted_schur_pair as schur_pair
 
 U = np.finfo(np.float64).eps
@@ -170,7 +171,7 @@ def _zero_betas(Tt):
     return int((d <= 1e-12 * d.max()).sum())
 
 
-@pytest.mark.parametrize("w,ninf", [(84, 0), (162, 0), (84, 8)])
+@pytest.mark.parametrize("w,ninf", [(84, 0), (162, 0), (84, 8), (322, 0)])
 def test_qz_window(cuda, w, ninf):
     """G2 against _small_qz_plain by contract: equal info, residuals and
     orthogonality < 500 u on both, exact structure, every planted infinity
@@ -178,7 +179,7 @@ def test_qz_window(cuda, w, ninf):
     1e-10 (chordal).  Rounding may change the deflation order and whether
     an infinite eigenvalue is detected (T-diagonal entries at rounding
     level against u max|T|; chip_ab.py qzinf), so exact zeros are not
-    compared."""
+    compared.  w=322 is the GEP n=4000 path's AED window."""
     H, T = _ht_window(w, w + ninf, ninf)
     th = U / 2 * np.linalg.norm(H)
     tt = U / 2 * np.linalg.norm(T)
@@ -223,8 +224,8 @@ def test_qz_sweep_train(cuda):
 
 
 # the spike: some bottom blocks deflate, the others move up (thresh is
-# u/2 ||S||_F, which grows with WA)
-@pytest.mark.parametrize("WA,s", [(84, 1e-13), (162, 1.5e-13)])
+# u/2 ||S||_F, which grows with WA); WA=322 is the GEP n=4000 path's window
+@pytest.mark.parametrize("WA,s", [(84, 1e-13), (162, 1.5e-13), (322, 2.7e-13)])
 def test_aed_deflate_gep(cuda, WA, s):
     """G4 against _aed_deflate_gep: kbot, fail and the step count equal; the
     matrices within 1e-11 relative (the same swaps, other rounding)."""
@@ -235,6 +236,23 @@ def test_aed_deflate_gep(cuda, WA, s):
     want = _aed_deflate_gep(*args, s, WA - 2, thresh)
     assert [int(x) for x in got[4:]] == [int(x) for x in want[4:]]
     assert 0 < int(want[4]) < WA - 2 and int(want[6]) > WA
+    for g, w in zip(got[:4], want[:4]):
+        assert _maxrel(g, w, w) <= 1e-11
+
+
+@pytest.mark.parametrize("WA,gap", [(84, 20), (162, 40)])
+def test_aed_deflate_gep_reject(cuda, WA, gap):
+    """G4 on a window whose first move is rejected after `gap` accepted
+    swaps (planted_spike_reject; at gap 40 in the move's second segment of
+    the engine's 28 swaps): fail = 1 and (kbot, fail, steps) equal to
+    _aed_deflate_gep's, the matrices within 1e-11 relative."""
+    S, T, Q, Z = planted_spike_reject(WA, gap, WA + gap)
+    thresh = U / 2 * np.linalg.norm(S)
+    args = [torch.as_tensor(x) for x in (S, T, Q, Z)]
+    got = gpu_gep.aed_deflate_gep(*(x.to(cuda) for x in args), 1.0, WA, thresh)
+    want = _aed_deflate_gep(*args, 1.0, WA, thresh)
+    assert [int(x) for x in got[4:]] == [int(x) for x in want[4:]]
+    assert int(want[5]) == 1 and int(want[6]) == gap + 2
     for g, w in zip(got[:4], want[:4]):
         assert _maxrel(g, w, w) <= 1e-11
 

@@ -171,3 +171,153 @@ def test_standardize_gep_2x2(case):
     got = tqz.standardize_gep_2x2(from_numpy(A2), from_numpy(B2))
     for w, g in zip(want, got):
         np.testing.assert_allclose(to_numpy(g), np.asarray(w), rtol=0, atol=1e-13)
+
+
+# ---------------------------------------------------------------------------
+# kernel G2's sweep schedule, modelled in plain torch
+# ---------------------------------------------------------------------------
+# qz_window.cu runs a sweep in blocks of steps: a chase warp runs the steps
+# of a block on the near-diagonal windows of H and T (rows k0..k1+3,
+# columns k0-1..k1+2), applying the left reflector to the windows' columns,
+# and the right reflector and the rotation to rows k+1..k+3 (H) and
+# k+1..k+2 (T) only; everything else is deferred: the far columns' left
+# updates (the chase warp slides the first of them itself before the next
+# block), the right updates and rotations of rows 0..k (from step
+# max(r, k0) on), Q's and Z's updates.  The update warps may apply block
+# b's deferred work as late as after block b+1's steps, so the model below
+# does exactly that: if any step read an entry whose update was deferred,
+# its sweep would part from ops/qz.py:_sweep.
+
+
+def _g2_schedule_sweep(kb):
+    """A drop-in for ops/qz.py:_sweep running kernel G2's schedule with
+    blocks of kb steps (the kernel's kBlockSteps and kNear are 32)."""
+    from starneig_tpu_torch.ops import primitives as prim
+    from starneig_tpu_torch.ops.hess_triangular import rot_cols
+
+    def left(rows, v, tau):
+        rows -= tau * torch.outer(v, v @ rows)
+
+    def right(cols, vr, tau_r):
+        cols -= tau_r * torch.outer(cols @ vr, vr)
+
+    def sweep(Hp, Tp, Qp, Zp, w, l, i, its):
+        sr1, si1, sr2, si2 = tqz._shifts_qz(Hp[:w, :w], Tp[:w, :w], i, its)
+        WP = Hp.shape[0]
+        m3 = torch.ones(3, dtype=torch.bool)
+        m2 = m3.clone()
+        m2[2] = False
+        blocks = [(k0, min(k0 + kb - 1, i - 1)) for k0 in range(l, i, kb)]
+        logs = []
+
+        def chase(b):
+            k0, k1 = blocks[b]
+            c_hi, R0, C0 = k1 + 3, k0, max(k0 - 1, 0)
+            Hw = Hp[R0:k1 + 4, C0:c_hi].clone()
+            Tw = Tp[R0:k1 + 4, C0:c_hi].clone()
+            log = []
+            for k in range(k0, k1 + 1):
+                use3 = k <= i - 2
+                r, c = k - R0, k - C0
+                if k == l:
+                    x = tqz._first_col_qz(Hw[r:, c:], Tw[r:, c:], 0, sr1, si1, sr2, si2)
+                else:
+                    x = Hw[r:r + 3, c - 1].clone()
+                v, tau, beta = prim.householder(x, m3 if use3 else m2)
+                left(Hw[r:r + 3, max(k - 1, C0) - C0:], v, tau)
+                left(Tw[r:r + 3, c:], v, tau)
+                if k > l:
+                    Hw[r, c - 1] = beta
+                    Hw[r + 1, c - 1] = 0.0
+                    if use3:
+                        Hw[r + 2, c - 1] = 0.0
+                vr = tau_r = None
+                if use3:
+                    vr, tau_r, _ = prim.householder(Tw[r + 2, c:c + 3].flip(0), m3)
+                    vr = vr.flip(0)
+                    right(Hw[r + 1:r + 4, c:c + 3], vr, tau_r)
+                    right(Tw[r + 1:r + 3, c:c + 3], vr, tau_r)
+                    Tw[r + 2, c] = 0.0
+                    Tw[r + 2, c + 1] = 0.0
+                c2, s2, _ = prim.givens(Tw[r + 1, c + 1], Tw[r + 1, c])
+                rot_cols(Hw[r + 1:r + 4], c + 1, c2, -s2)
+                rot_cols(Tw[r + 1:r + 2], c + 1, c2, -s2)
+                Tw[r + 1, c] = 0.0
+                log.append((k, v, tau, vr, tau_r, c2, s2))
+            Hp[R0:k1 + 4, C0:c_hi] = Hw
+            Tp[R0:k1 + 4, C0:c_hi] = Tw
+            logs.append(log)
+
+        def far(b, c_from, c_to):
+            for k, v, tau, *_ in logs[b]:
+                for M in (Hp, Tp):
+                    left(M[k:k + 3, c_from:c_to], v, tau)
+
+        def far_start(b):
+            return blocks[b][1] + 3 + (kb if b + 1 < len(blocks) else 0)
+
+        def rest(b):
+            k1 = blocks[b][1]
+            far(b, far_start(b) + kb, WP)
+            for k, v, tau, vr, tau_r, c2, s2 in logs[b]:
+                qc = Qp[:, k:k + 3]
+                qc -= tau * torch.outer(qc @ v, v)
+                for M, hi in ((Hp, min(k1, k) + 1), (Tp, min(k1, k) + 1), (Zp, w)):
+                    if vr is not None:
+                        right(M[:hi, k:k + 3], vr, tau_r)
+                    rot_cols(M[:hi], k + 1, c2, -s2)
+
+        for b in range(len(blocks)):
+            chase(b)
+            if b >= 1:
+                far(b - 1, far_start(b - 1), far_start(b - 1) + kb)
+            if b + 1 < len(blocks):
+                c_hi = blocks[b][1] + 3
+                far(b, c_hi, c_hi + kb)
+            if b >= 1:
+                rest(b - 1)
+        last = len(blocks) - 1
+        far(last, far_start(last), far_start(last) + kb)
+        rest(last)
+
+    return sweep
+
+
+def _qz_decisions(monkeypatch, sweep, H, T, w):
+    """_small_qz_plain on the window with ops/qz.py:_sweep replaced by
+    sweep; returns its output and every iteration's (l, i, jinf)."""
+    seen = []
+    find_inf = tqz._find_inf
+
+    def find_logged(Hp, Tp, w_, l, i, thresh_h, thresh_t):
+        j = find_inf(Hp, Tp, w_, l, i, thresh_h, thresh_t)
+        seen.append((l, i, j))
+        return j
+    with monkeypatch.context() as mp:
+        mp.setattr(tqz, "_find_inf", find_logged)
+        mp.setattr(tqz, "_sweep", sweep)
+        eye = torch.eye(w, dtype=torch.float64)
+        out = tqz._small_qz_plain(torch.as_tensor(H), torch.as_tensor(T), eye, eye, w,
+                                  U / 2 * np.linalg.norm(H), U / 2 * np.linalg.norm(T))
+    return out, seen
+
+
+@pytest.mark.parametrize("w,kb", [(24, 8), (24, 32), (84, 8), (84, 32)])
+def test_g2_schedule(monkeypatch, w, kb):
+    """Kernel G2's blocked sweep schedule (_g2_schedule_sweep: the near
+    windows first, the deferred far columns, rows above, Q and Z as late as
+    the kernel's update warps may apply them) against ops/qz.py:_sweep over
+    a whole window solve: the same deflation decisions (l, i and the
+    infinite-eigenvalue test of every iteration) and the outputs within
+    1e-13 max|M| (the same operations on each entry, in the same order,
+    on other slices)."""
+    rng = np.random.default_rng(w)
+    H = np.triu(rng.standard_normal((w, w)), -1)
+    T = np.triu(rng.standard_normal((w, w))) + 3 * np.eye(w)
+    want, want_seen = _qz_decisions(monkeypatch, tqz._sweep, H, T, w)
+    got, got_seen = _qz_decisions(monkeypatch, _g2_schedule_sweep(kb), H, T, w)
+    assert got_seen == want_seen
+    assert sum(i - l >= 2 and j < 0 for l, i, j in want_seen) > 3 * w // 8  # sweeps
+    assert int(got[4]) == int(want[4]) == 0
+    for g, x in zip(got[:4], want[:4]):
+        assert float((g - x).abs().max()) <= 1e-13 * float(x.abs().max())
