@@ -8,11 +8,12 @@
     python3 chip_ab.py hops NAME=path/to/train_hops_NAME.cu [...]
     python3 chip_ab.py recondense NAME=path/to/recondense_NAME.cu [...]
     python3 chip_ab.py mainpath [--n N] ROOT [ROOT ...]
-    python3 chip_ab.py clock [deflate|hops|recondense|qz] [--skip-cur] [NAME=PATH ...]
+    python3 chip_ab.py clock [deflate|hops|recondense|qz|qzsweep] [--skip-cur] [NAME=PATH ...]
     python3 chip_ab.py qzinf
     python3 chip_ab.py bitwise [--n N] [--device cpu|cuda] ROOT [ROOT ...]
     python3 chip_ab.py ht [--n N] ROOT [ROOT ...]
     python3 chip_ab.py qz ROOT [ROOT ...]
+    python3 chip_ab.py qzsweep ROOT [ROOT ...]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -31,11 +32,16 @@ CPU, residual and orthogonality < 500 u), then the w=322 window of
 ``chip_smoke.py`` timed by CUDA events in turns first, NAME, NAME, first
 against the first extra version.
 
-gemv: the transposed mode of every version against ``M.T @ x`` at the
-panel loop's shapes, V[:, :j] (4000 rows, ld 288) and T[:j, :j], checked
-against ``M.T @ x`` and bit-for-bit across two launches, then timed as a
-CUDA graph of 100 calls back to back (device time with the launch gaps of
-a graph) and under ``torch.profiler`` (kernel time alone).
+gemv: the A x mode of every version against ``torch.mv`` at the panel
+matvec's 4000 x 4000 and A[1152:, 1152:], a DM rank's 4000 x 2000 shard,
+the panel arrays' 4000 x j views (ld 288) and T[:j, :j], checked against
+``M @ x`` and bit-for-bit across two launches, then timed by CUDA events
+over 50 calls back to back in turns kernel, library, library, kernel and
+under ``torch.profiler`` (device time); then the transposed mode against
+``M.T @ x`` at V[:, :j] (4000 rows, ld 288) and T[:j, :j], checked the
+same way, then timed as a CUDA graph of 100 calls back to back (device
+time with the launch gaps of a graph) and under ``torch.profiler`` (kernel
+time alone).
 
 deflate: every version on ``chip_smoke.DEFLATE_CASES`` against the plain
 twin run on the CPU (kbot and fail equal, T and V within 1e-10 relative,
@@ -69,14 +75,19 @@ a root with the phase times, residual, orthogonality, the AED rounds'
 (w, kbot, trains) and each kernel's device total and launches.
 
 clock: where a version spends its cycles (B4 a swap, B3 a chase step,
-B5 a reduction step, G2 a chase step and a block of steps), from clock64
-counters that literal edits put into a copy of the source under
-``kernels/_build/clock`` (an edit list for each design: the kernels as
-they ship, and the one-block B3/B5 and one-thread B4 before them); the
-shipped kernels carry no counters.  ``clock qz`` runs G2's chase warp on
-``chip_smoke.py``'s w=162 and w=322 windows and prints its serial chain
-(the cycles of a step's reflectors, updates and rotation) beside the
-block-level waits.
+B5 a reduction step, G2 a chase step and a block of steps, G3 a chase
+step), from clock64 counters that literal edits put into a copy of the
+source under ``kernels/_build/clock`` (an edit list for each design: the
+kernels as they ship, and the one-block B3/B5/G3 and one-thread B4 before
+them); the shipped kernels carry no counters.  ``clock qz`` runs G2's
+chase warp on ``chip_smoke.py``'s w=162 and w=322 windows and prints its
+serial chain (the cycles of a step's reflectors, updates and rotation)
+beside the block-level waits.  ``clock qzsweep`` runs G3 on the hop of
+``qzsweep`` (the middle hop of a B=12 train at n=200): for the one-block
+design thread 0's cycles a step by phase, for the current one each
+chase warp's (a bulge's) reflectors, updates, record and barriers, the
+largest of each over the chase warps (their sum: the chain a step) and
+the update warps' waits, updates and barriers.
 
 qzinf: why G2 (``qz_window.cu``) and its plain twin may end an
 infinite-eigenvalue chase at different steps.  On ``chip_smoke.py``'s w=84
@@ -99,6 +110,15 @@ WA=162 window (the n=2000 path's shapes) in a process of its own, in the
 order given (parent, change, change, parent): three runs of each by CUDA
 events, G2's contract (info, residual and orthogonality in u), G4's
 (kbot, fail, steps), and the SHA-256 of each output.
+
+qzsweep: each ROOT's G3 in a process of its own, in the order given
+(parent, change, change, parent), on the middle hop of a B=12 train across
+a random n=200 pencil as the driver's sweep cuts it (made here, by the
+plain twin on the CPU, and handed to each worker): three runs of 20
+launches by CUDA events, the error against the plain twin and the
+SHA-256 of the output; then the GEP n=2000 chain's QZ phase timed, and
+under ``torch.profiler`` G3's device total and launches, the sweeps' time
+(CUDA events around each ``_qz_sweep``) and their device idle share.
 
 ht: each ROOT's G1 (the blocked HT reduction) at size N (default 2000) on
 a regular pencil in a process of its own: three runs and the generation
@@ -214,10 +234,10 @@ def ab_francis(specs) -> bool:
     return ok
 
 
-def call_gemv(fn, scratch, M, x):
-    u = M.new_empty(M.shape[1])
+def call_gemv(fn, scratch, M, x, trans=True):
+    u = M.new_empty(M.shape[1] if trans else M.shape[0])
     args = [M.data_ptr(), M.stride(0), M.shape[0], M.shape[1], x.data_ptr(),
-            u.data_ptr(), 1]
+            u.data_ptr(), int(trans)]
     if scratch:
         scr = M.new_empty(((M.shape[0] + 127) // 128) * M.shape[1])
         args.append(scr.data_ptr())
@@ -247,16 +267,57 @@ def graph_us(fn, n: int = 100, replays: int = 5) -> float:
     return a.elapsed_time(b) / (n * replays) * 1e3
 
 
+def gemv_ax_shapes(dev):
+    """B1's A x shapes of the panel loop and the DM shard, with their x:
+    A (4000 x 4000), a rank's shard A[:, :2000] (contiguous), the trailing
+    block A[1152:, 1152:], the tall-thin 4000 x j views of an (n, 288)
+    panel array (Y[:, :j], V[:, :j], U[:, :j]) and T[:j, :j] (ld 288)."""
+    g = torch.Generator().manual_seed(2)
+    A = torch.randn(4000, 4000, generator=g, dtype=torch.float64).to(dev)
+    V = torch.randn(4000, 288, generator=g, dtype=torch.float64).to(dev)
+    T = torch.randn(288, 288, generator=g, dtype=torch.float64).to(dev)
+    x = torch.randn(4000, generator=g, dtype=torch.float64).to(dev)
+    return ([("A 4000x4000", A, x), ("shard 4000x2000", A[:, :2000].contiguous(),
+                                     x[:2000].contiguous()),
+             ("A[1152:, 1152:]", A[1152:, 1152:], x[1152:])]
+            + [(f"V[:, :{j}]", V[:, :j], x[:j].contiguous()) for j in (1, 32, 144, 288)]
+            + [(f"T[:{j}, :{j}]", T[:j, :j], x[:j].contiguous()) for j in (32, 144, 288)])
+
+
 def ab_gemv(specs) -> bool:
     fns = build("hess_gemv", specs)
     dev = torch.device("cuda:0")
+    ok = True
+    # A x against M @ x (torch.mv, cuBLAS): checked and bit for bit across
+    # two launches, then CUDA events over 50 calls back to back in turns
+    # kernel, library, library, kernel, and profiler device time of 200
+    for sname, M, x in gemv_ax_shapes(dev):
+        want = M @ x
+        scale = float((M.abs() @ x.abs()).max())
+        lib = lambda M=M, x=x: torch.mv(M, x)       # noqa: E731
+        cells = []
+        for name, (fn, scr) in fns.items():
+            kern = lambda fn=fn, scr=scr, M=M, x=x: call_gemv(fn, scr, M, x, False)  # noqa: E731
+            u1, u2 = kern(), kern()
+            good = (torch.equal(u1, u2)
+                    and float((u1 - want).abs().max()) <= 1e-12 * scale)
+            ok &= good
+            t = [cuda_ms(f, 50) for f in (kern, lib, lib, kern)]
+            d = ["n/a" if v is None else f"{v * 1e3:.2f}"
+                 for v in (device_ms(f, 200) for f in (kern, lib))]
+            cells.append(f"{name} {t[0] * 1e3:.2f}/{t[3] * 1e3:.2f} (device "
+                         f"{d[0]}), torch.mv {t[1] * 1e3:.2f}/{t[2] * 1e3:.2f} "
+                         f"(device {d[1]}){'' if good else ' FAIL'}")
+        r, c = M.shape
+        bms = 8 * (r * c + r + c) / 3.35e12 * 1e6
+        print(f"{sname} A x (ld {M.stride(0)}), us a call, bound {bms:.2f} (bytes): "
+              + " | ".join(cells), flush=True)
     g = torch.Generator().manual_seed(1)
     V = torch.randn(4000, 288, generator=g, dtype=torch.float64).to(dev)
     T = torch.randn(288, 288, generator=g, dtype=torch.float64).to(dev)
     a = torch.randn(4000, generator=g, dtype=torch.float64).to(dev)
     shapes = ([(f"V[:, :{j}]", V[:, :j], a) for j in (1, 32, 144, 288)]
               + [(f"T[:{j}, :{j}]", T[:j, :j], a[:j].contiguous()) for j in (32, 144, 288)])
-    ok = True
     for sname, M, x in shapes:
         want = M.T @ x
         scale = float((M.abs().T @ x.abs()).max())
@@ -724,6 +785,87 @@ def ab_qz(args) -> bool:
     """ROOT ...: each ROOT's G2 and G4 in its own process, in the order
     given (parent, change, change, parent)."""
     return None not in run_per_root("qz", args)
+
+
+QZSWEEP_N, QZSWEEP_B = 200, 12
+
+
+def qzsweep_inputs(path: Path):
+    """chip_ab qzsweep's hop: the middle hop (every bulge active) of one
+    B=12 train across a random n=200 pencil, as the driver's sweep cuts it
+    (testing.generators.qz_train_hops, the plain twin on the CPU), saved to
+    path for the per-ROOT workers."""
+    from starneig_tpu_torch.testing.generators import qz_train_hops
+    hops, sh = qz_train_hops(QZSWEEP_N, QZSWEEP_B, 13)
+    Sw, Tw, l_rel, ihi_rel, s0 = hops[len(hops) // 2]
+    torch.save(dict(Sw=Sw, Tw=Tw, sh=sh, l_rel=l_rel, ihi_rel=ihi_rel, s0=s0), path)
+
+
+def qzsweep_one(root: str, path: str) -> None:
+    """In a fresh process: G3 (``gpu_gep.qz_sweep``) of the package under
+    root on the saved hop, three runs of 20 launches by CUDA events after a
+    warm-up, its error against the plain twin on the CPU and the SHA-256 of
+    its output; then the GEP n=2000 chain's QZ phase (known_spectrum_pencil(
+    2000, 0.3, 0.1, seed 0), api.gep.hessenberg_triangular then api.gep.schur)
+    timed, and again under torch.profiler: G3's device total and launches,
+    the sweeps' time by CUDA events around each _qz_sweep call, and the
+    device idle share of the sweeps (1 - G3's device time / their time).
+    Prints one JSON line."""
+    import hashlib
+    import json
+    from chip_smoke import profiled_kernels
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.ops import gpu_gep, qz_driver
+    from starneig_tpu_torch.testing.generators import known_spectrum_pencil
+    assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
+    dev = torch.device("cuda:0")
+    d = torch.load(path)
+    B, HOP = QZSWEEP_B, 3 * QZSWEEP_B
+    args = (d["Sw"].to(dev), d["Tw"].to(dev), d["sh"].to(dev), d["l_rel"], d["ihi_rel"],
+            d["s0"], B, HOP)
+    out = gpu_gep.qz_sweep(*args)
+    ms = [cuda_ms(lambda: gpu_gep.qz_sweep(*args), 20) for _ in range(3)]
+    want = qz_driver._qz_train_hop(d["Sw"], d["Tw"], d["sh"], d["l_rel"], d["ihi_rel"],
+                                   d["s0"], B, HOP)
+    err = max(float((g.cpu() - w).abs().max()) / float(w.abs().max())
+              for g, w in zip(out, want))
+    h = hashlib.sha256()
+    for x in out:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    A_np, B_np, _al, _be = known_spectrum_pencil(2000, complex_ratio=0.3, inf_ratio=0.1,
+                                                 seed=0)
+    A, Bm = (torch.as_tensor(x, device=dev) for x in (A_np, B_np))
+    H, T, Q, Z = gep.hessenberg_triangular(A, Bm)
+    stats = {}
+    res, qz_ms = timed(lambda: gep.schur(H, T, Q, Z, stats=stats))
+    sweep_ms = [0.0]
+    orig = qz_driver._qz_sweep
+
+    def timed_sweep(*a, **kw):
+        sweep_ms[0] += timed(lambda: orig(*a, **kw))[1]
+    qz_driver._qz_sweep = timed_sweep
+    try:
+        _, prof, prof_ms = profiled_kernels(lambda: gep.schur(H, T, Q, Z))
+    finally:
+        qz_driver._qz_sweep = orig
+    g3 = [v for k, v in prof.items() if "qz_sweep_kernel" in k]
+    g3_ms, g3_n = sum(v[0] for v in g3), sum(v[1] for v in g3)
+    print("QZSWEEP " + json.dumps(dict(
+        root=root, hop_ms=ms, us_a_step=min(ms) / HOP * 1e3, hop_rel_err=err,
+        sha256=h.hexdigest(), n2000=dict(
+            info=int(res[7]), rounds=stats["rounds"], qz_ms=qz_ms, qz_ms_profiled=prof_ms,
+            g3_device_ms=g3_ms, g3_launches=g3_n, sweeps_ms=sweep_ms[0],
+            sweep_idle_share=1.0 - g3_ms / sweep_ms[0] if sweep_ms[0] else None))),
+        flush=True)
+
+
+def ab_qzsweep(args) -> bool:
+    """ROOT ...: each ROOT's G3 hop and n=2000 QZ phase in its own process,
+    in the order given (parent, change, change, parent)."""
+    path = kernels.BUILD_DIR / "qzsweep_hop.pt"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    qzsweep_inputs(path)
+    return None not in run_per_root("qzsweep", args, path)
 
 
 # clock: where a kernel version spends its cycles.  The counters go into
@@ -1312,12 +1454,202 @@ def clock_qz(specs) -> bool:
     return True
 
 
+# G3 in its one-block design (the kernel before its redesign): thread 0's
+# cycles a step in the loop-top barriers and the bulge list, the left
+# reflectors, a barrier, the left update (S, T and Qw), a barrier, the
+# plants and right reflectors, a barrier, the right update (S, T and Zw), a
+# barrier, the plants and rotations, a barrier, the rotations' update and
+# the barrier after it; the window load, the write-back, the active steps
+QZSWEEP_ONE_BLOCK_EDITS = [
+    ('#include "gep_common.cuh"\n', '#include "gep_common.cuh"\n' + _TK),
+    ("int l_rel, int ihi_rel, int s0) {",
+     "int l_rel, int ihi_rel, int s0, long long* __restrict__ ctr) {\n"
+     "  long long clk_[32] = {}; long long tc_ = clock64(); const long long t0_ = tc_;"),
+    ("  __syncthreads();\n\n  for (int t = 0; t < HOP; ++t) {",
+     "  __syncthreads();\n  TK(13)\n  for (int t = 0; t < HOP; ++t) {"),
+    ("    if (na == 0) continue;\n", "    if (na == 0) continue;\n    TK(0)\n"),
+    ("    __syncthreads();\n    // rows k..k+2 of S and T at column e % WC",
+     "    TK(1)\n    __syncthreads();\n    TK(2)\n    // rows k..k+2 of S and T at column e % WC"),
+    ("    __syncthreads();\n    // ---- bulge-column plants",
+     "    TK(3)\n    __syncthreads();\n    TK(4)\n    // ---- bulge-column plants"),
+    ("    __syncthreads();\n    for (int e = tid; e < 3 * na * WC; e += nt) {\n"
+     "      const int part = e / (na * WC), f = e % (na * WC);\n"
+     "      const Bulge& g = bl[f / WC];\n      if (!g.use3) continue;",
+     "    TK(5)\n    __syncthreads();\n    TK(6)\n"
+     "    for (int e = tid; e < 3 * na * WC; e += nt) {\n"
+     "      const int part = e / (na * WC), f = e % (na * WC);\n"
+     "      const Bulge& g = bl[f / WC];\n      if (!g.use3) continue;"),
+    ("    __syncthreads();\n    // ---- plants of T's row k+2",
+     "    TK(7)\n    __syncthreads();\n    TK(8)\n    // ---- plants of T's row k+2"),
+    ("    __syncthreads();\n    for (int e = tid; e < 3 * na * WC; e += nt) {\n"
+     "      const int part = e / (na * WC), f = e % (na * WC);\n"
+     "      const Bulge& g = bl[f / WC];\n      double* M = part == 0 ? S : (part == 1 ? T : Zw);",
+     "    TK(9)\n    __syncthreads();\n    TK(10)\n"
+     "    for (int e = tid; e < 3 * na * WC; e += nt) {\n"
+     "      const int part = e / (na * WC), f = e % (na * WC);\n"
+     "      const Bulge& g = bl[f / WC];\n      double* M = part == 0 ? S : (part == 1 ? T : Zw);"),
+    ("    __syncthreads();\n  }\n  for (int e = tid; e < n2; e += nt) {",
+     "    TK(11)\n    __syncthreads();\n    TK(12)\n    clk_[30] += 1;\n  }\n"
+     "  for (int e = tid; e < n2; e += nt) {"),
+    ("    Zg[e] = Zw[e];\n  }\n}",
+     "    Zg[e] = Zw[e];\n  }\n  TK(14)\n  if (tid == 0) {\n    clk_[31] = clock64() - t0_;\n"
+     "    for (int i_ = 0; i_ < 32; ++i_) ctr[i_] = clk_[i_];\n  }\n}"),
+    ('extern "C" int qz_sweep(', 'extern "C" int qz_sweep_clk('),
+    ("int s0,\n                        void* stream) {",
+     "int s0,\n                        void* sn_ctr, void* stream) {"),
+    ("      l_rel, ihi_rel, s0);", "      l_rel, ihi_rel, s0, static_cast<long long*>(sn_ctr));"),
+]
+QZSWEEP_ONE_BLOCK_NAMES = {0: "loop top", 1: "left reflectors", 2: "barrier", 3: "left update",
+                           4: "barrier ", 5: "plants, right reflectors", 6: "barrier  ",
+                           7: "right update", 8: "barrier   ", 9: "plants, rotations",
+                           10: "barrier    ", 11: "rotation update", 12: "barrier     "}
+# the counters of QZSWEEP_EDITS: lane 0 of each warp adds to its row of a
+# shared array (a register array indexed at the end would live in local
+# memory, whose misses in the small L1 beside 200 KB of shared memory cost
+# more than the parts they time)
+QZS_CLK_MACROS = """
+#define SN_CLK_PARAM , void* sn_ctr
+#define SN_CLK_KPARAM , long long* __restrict__ sn_ctr
+#define SN_CLK_ARG , static_cast<long long*>(sn_ctr)
+#define SN_CLK_FWD , sn_ctr
+__shared__ long long sn_sh_[32 * 32];
+#define SN_CLK_DECL long long sn_tc_ = clock64(); const long long sn_t0_ = sn_tc_; \\
+  long long* sn_clk_ = sn_sh_ + (threadIdx.x >> 5) * 32;
+#define SN_CLK(i) { const long long n_ = clock64(); \\
+  if ((threadIdx.x & 31) == 0) sn_clk_[i] += n_ - sn_tc_; sn_tc_ = n_; }
+#define SN_CLK_ADD(i, v) if ((threadIdx.x & 31) == 0) sn_clk_[i] += (v);
+#define SN_CLK_OUT(base, lo, hi) { sn_clk_[31] = clock64() - sn_t0_; \\
+  for (int i_ = (lo); i_ < (hi); ++i_) sn_ctr[(base) + i_] = sn_clk_[i_]; }
+"""
+# G3 as it ships (a chase warp a bulge, the update group): lane 0 of each
+# warp, summed over the hop.  A chase warp: the wait for a free ring slot,
+# the left reflector (with its input), the left update, the right
+# reflector and the rotation, the record with its hand-over, the phase-L
+# barrier, the right update, the phase-R barrier; slot 30 its active
+# steps.  An update warp: the wait for a step's records, the Qw and Zw
+# updates, the group barrier.
+QZSWEEP_EDITS = [
+    ('#include "gep_common.cuh"\n', '#include "gep_common.cuh"\n' + QZS_CLK_MACROS),
+    ("  __syncthreads();\n  // the full ranges where",
+     "  for (int i_ = tid; i_ < 32 * 32; i_ += blockDim.x) sn_sh_[i_] = 0;\n"
+     "  __syncthreads();\n  // the full ranges where"),
+    ("const double* sh) {", "const double* sh SN_CLK_KPARAM) {"),
+    ("nall = nchase + kUpdWarps * 32;\n", "nall = nchase + kUpdWarps * 32;\n  SN_CLK_DECL\n"),
+    ("  // the update group read the slot\n", "  // the update group read the slot\n    SN_CLK(0)\n"),
+    ("      householder(x, use3 ? 7u : 3u, 3, v, tau, beta);\n",
+     "      householder(x, use3 ? 7u : 3u, 3, v, tau, beta);\n"
+     "      if (tau == 1234.5) sn_clk_[29] += 1;\n      SN_CLK(1)\n"),
+    ("      __syncwarp();\n      // the right reflector", "      SN_CLK(2)\n      __syncwarp();\n"
+     "      // the right reflector"),
+    ("      givens(r1[1], r1[0], c2, s2, rr);\n",
+     "      givens(r1[1], r1[0], c2, s2, rr);\n      if (c2 + s2 == 1234.5) sn_clk_[29] += 1;\n"
+     "      SN_CLK(3)\n"),
+    ("    bar_arrive(kBarReady + slot, nall);  // the update group takes the step\n"
+     "    bar_sync(kBarChase, nchase);\n",
+     "    bar_arrive(kBarReady + slot, nall);  // the update group takes the step\n"
+     "    SN_CLK(4)\n    bar_sync(kBarChase, nchase);\n    SN_CLK(5)\n"),
+    ("    bar_sync(kBarChase, nchase);\n  }\n}\n",
+     "    SN_CLK(6)\n    bar_sync(kBarChase, nchase);\n    SN_CLK(7)\n"
+     "    SN_CLK_ADD(30, active ? 1 : 0)\n  }\n"
+     "  if (lane == 0) { SN_CLK_OUT(b * 32, 0, 32) }\n}\n"),
+    ("const int* ring_k) {", "const int* ring_k SN_CLK_KPARAM) {"),
+    ("  int qlo = h.full", "  SN_CLK_DECL\n  int qlo = h.full"),
+    ("    bar_sync(kBarReady + slot, nall);  // the chase's records of step t\n",
+     "    bar_sync(kBarReady + slot, nall);  // the chase's records of step t\n    SN_CLK(10)\n"),
+    ("    bar_sync(kBarUpd, kUpdWarps * 32);  // the rows are done\n",
+     "    SN_CLK(11)\n    bar_sync(kBarUpd, kUpdWarps * 32);  // the rows are done\n    SN_CLK(12)\n"),
+    ("  // the slot is read\n  }\n}\n",
+     "  // the slot is read\n  }\n  if (lane == 0) { SN_CLK_OUT((h.B + uw) * 32, 0, 32) }\n}\n"),
+    ("int l_rel, int ihi_rel, int s0) {", "int l_rel, int ihi_rel, int s0 SN_CLK_KPARAM) {"),
+    ("chase(h, S, T, ring, ring_k, shifts);", "chase(h, S, T, ring, ring_k, shifts SN_CLK_FWD);"),
+    ("update(h, Qw, Zw, ring, ring_k);", "update(h, Qw, Zw, ring, ring_k SN_CLK_FWD);"),
+    ('extern "C" int qz_sweep(', 'extern "C" int qz_sweep_clk('),
+    ("int s0,\n                        void* stream) {",
+     "int s0 SN_CLK_PARAM,\n                        void* stream) {"),
+    ("      l_rel, ihi_rel, s0);", "      l_rel, ihi_rel, s0 SN_CLK_ARG);"),
+    # the counters' 8 KB leave room for B <= 12 only
+    ("(int)smem_bytes(kMaxB, 6 * kMaxB + 4)", "(int)smem_bytes(12, 76)"),
+]
+QZSWEEP_NAMES = {0: "slot wait", 1: "left reflector", 2: "left update",
+                 3: "right reflector, rotation", 4: "record", 5: "barrier L",
+                 6: "right update", 7: "barrier R"}
+QZSWEEP_UPD_NAMES = {10: "wait for records", 11: "Qw, Zw updates", 12: "barrier"}
+
+
+def clock_qzsweep_report(name, ms, c, B, upd_warps=4):
+    """Print the current G3 design's counters (QZSWEEP_EDITS): cycles a
+    step of the whole hop, of three chase warps by part, the largest of
+    each part over the chase warps (the sum of the busy ones: the chain a
+    step), and the update warps'."""
+    HOP = 3 * B
+    total = c[31]
+    print(f"qzsweep B={B} {name}: {ms:.4f} ms a hop, {total / HOP:.0f} cycles a step "
+          f"({total / (ms * 1e6):.3f} GHz)", flush=True)
+    for b in sorted({0, B // 2, B - 1}):
+        row = c[b * 32:b * 32 + 32]
+        print(f"  chase warp {b} ({row[30]} active steps), cycles a step: "
+              + ", ".join(f"{k} {row[i] / HOP:.0f}" for i, k in QZSWEEP_NAMES.items()),
+              flush=True)
+    top = {i: max(c[b * 32 + i] for b in range(B)) / HOP for i in QZSWEEP_NAMES}
+    busy = [i for i, k in QZSWEEP_NAMES.items() if "barrier" not in k and "wait" not in k]
+    print("  largest over the chase warps, cycles a step: "
+          + ", ".join(f"{k} {top[i]:.0f}" for i, k in QZSWEEP_NAMES.items())
+          + f"; chain (their busy parts) {sum(top[i] for i in busy):.0f}", flush=True)
+    for uw in range(upd_warps):
+        row = c[(B + uw) * 32:(B + uw) * 32 + 32]
+        print(f"  update warp {uw}, cycles a step: "
+              + ", ".join(f"{k} {row[i] / HOP:.0f}" for i, k in QZSWEEP_UPD_NAMES.items()),
+              flush=True)
+
+
+def clock_qzsweep(specs) -> bool:
+    """clock qzsweep [NAME=PATH ...]: where each G3 version spends a chase
+    step's cycles, on chip_ab qzsweep's hop (the middle hop of a B=12
+    train at n=200, every bulge active): cycles a step in each part, the
+    window load and write-back."""
+    dev = torch.device("cuda:0")
+    path = kernels.BUILD_DIR / "qzsweep_hop.pt"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    qzsweep_inputs(path)
+    d = torch.load(path)
+    B, HOP = QZSWEEP_B, 3 * QZSWEEP_B
+    fns = {name: clock_build_src(name, "qz_sweep", Path(p), QZSWEEP_EDITS,
+                                 QZSWEEP_ONE_BLOCK_EDITS, "__shared__ Bulge bl[kMaxB];")
+           for name, p in _clock_versions("qz_sweep", specs)}
+    Sw, Tw, sh = (d[k].to(dev) for k in ("Sw", "Tw", "sh"))
+    WC = Sw.shape[0]
+    for name, (fn, one_block) in fns.items():
+        ctr = torch.zeros(1024, dtype=torch.int64, device=dev)
+
+        def run(fn=fn, ctr=ctr):
+            S, T = Sw.clone(), Tw.clone()
+            Qw, Zw = torch.empty_like(S), torch.empty_like(S)
+            ctr.zero_()
+            kernels.check(fn(S.data_ptr(), T.data_ptr(), Qw.data_ptr(), Zw.data_ptr(),
+                             sh.data_ptr(), WC, B, HOP, d["l_rel"], d["ihi_rel"], d["s0"],
+                             ctr.data_ptr(), kernels.stream_ptr(S)), "qz_sweep_clk")
+        run()
+        ms = cuda_ms(run, 5)
+        c = ctr.cpu().tolist()
+        if one_block:
+            steps = max(c[30], 1)
+            print(f"qzsweep B={B} {name} (one block): {ms:.4f} ms a hop, {steps} active "
+                  f"steps, {c[31] / steps:.0f} cycles a step ({c[31] / (ms * 1e6):.3f} GHz); "
+                  "cycles a step: " + ", ".join(f"{k.strip()} {c[i] / steps:.0f}" for i, k in
+                                                 QZSWEEP_ONE_BLOCK_NAMES.items())
+                  + f"; window load {c[13]}, write-back {c[14]} cycles", flush=True)
+        else:
+            clock_qzsweep_report(name, ms, c, B)
+    return True
+
+
 def ab_clock(args) -> bool:
-    """clock [deflate|hops|recondense|qz] [--skip-cur] [NAME=PATH ...]"""
+    """clock [deflate|hops|recondense|qz|qzsweep] [--skip-cur] [NAME=PATH ...]"""
     kind = args[0] if args and "=" not in args[0] else "deflate"
     rest = args[1:] if args and "=" not in args[0] else args
     return {"deflate": clock_deflate, "hops": clock_hops,
-            "recondense": clock_recondense, "qz": clock_qz}[kind](rest)
+            "recondense": clock_recondense, "qz": clock_qz,
+            "qzsweep": clock_qzsweep}[kind](rest)
 
 
 # G2's infinite-eigenvalue decisions, printed in a copy: T-diagonal
@@ -1527,11 +1859,12 @@ def ab_qzinf(_args) -> bool:
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
-         "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz}
+         "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep}
 # the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
 PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),
             "bitwise": lambda root, n, device: bitwise_one(root, int(n), device),
-            "ht": lambda root, n: ht_one(root, int(n)), "qz": qz_one}
+            "ht": lambda root, n: ht_one(root, int(n)), "qz": qz_one,
+            "qzsweep": qzsweep_one}
 
 
 def main() -> int:

@@ -19,10 +19,13 @@ Phases (any failure raises; the exit code is then nonzero):
      each kernel's
      bound (bytes over HBM_BPS or fp64 operations over F64_FLOPS, counted
      from this run's inputs), and under each kernel's detail its serial
-     chain from cycle counts of earlier runs (chip_ab.py clock); B1's
-     transposed mode beside M.T @ x, in turns, by CUDA events and by
-     profiler device time, and checked bit-for-bit across two launches;
-     B1 on a DM rank's column shard (4000 x 2000) beside torch.mv;
+     chain from cycle counts of earlier runs (chip_ab.py clock); B1 in
+     both modes checked bit-for-bit across two launches, its A x mode on
+     the panel matvec (4000 x 4000) and a DM rank's column shard (4000 x
+     2000) beside torch.mv in turns by CUDA events, on the panel arrays'
+     4000 x j views and T[:j, :j] beside torch.mv, and its transposed
+     mode there beside M.T @ x, in turns, by CUDA events and by profiler
+     device time;
      B2's chase steps; B3 at B = 3, 25, 65 and 132 (the n=4000, 10,000 and
      20,000 geometries) with the zero plant a sweep gives at each
      introduction, and at B = 25 without it (the full-range path); B4's and
@@ -36,8 +39,10 @@ Phases (any failure raises; the exit code is then nonzero):
      (kbot 10 elementwise, kbot=WA-4 by contract), G2 at w=84 (with and without 8 infinite
      eigenvalues) and 162 by contract against its twin, and at w=322 (the
      n=4000 path's window) by contract alone, microseconds a chase step
-     (the kernel's own count), G3 for a whole train at n=512 and one
-     hop, G4 at WA=84, 162 and 322 and on two windows whose first move is
+     (the kernel's own count), G3 for a whole train at n=512 and on the
+     introduction, a middle and the last hop of a train at n=200 and on an
+     introduction hop with S[l_rel, l_rel - 1] != 0 (the full ranges),
+     microseconds a step and the serial chain of the middle hop, G4 at WA=84, 162 and 322 and on two windows whose first move is
      rejected after 20 and 40 swaps (kbot, fail and steps equal),
      microseconds a swap, G5 (the
      infinite push's window chase) at Wb=96 and 84, G6 (the pencil window
@@ -72,7 +77,8 @@ Phases (any failure raises; the exit code is then nonzero):
      at least once); the HT phase runs first under torch.profiler (each
      kernel's device total and launches, G1's time, the cold call's time),
      then warm outside it (ht_ms), the QZ phase again under it afterwards
-     (each kernel's device total, G2's and G4's with their launches);
+     (each kernel's device total, G2's, G3's and G4's with their
+     launches, the sweeps' time and G3's device idle share of it);
      then api.gep.select (finite, Re(alpha/beta) > 0), api.gep.reorder_schur
      and api.gep.eigenvectors of the leading selected block, gated on info,
      exact structure, 500 u, the leading rows holding exactly the selected
@@ -167,6 +173,11 @@ QZ_STEP_CYCLES = {162: 2939, 322: 3072}
 # products, the cluster barrier and the sum at WA=322, kbot=300
 HOP_STEP_CYCLES = 2725
 RECONDENSE_STEP_CYCLES = 6648
+# G3's chain a step at B=12, in cycles: a chase warp's three dependent
+# transforms (the left reflector, then the right reflector and the
+# rotation; the largest over the chase warps), clock64 counters
+# (chip_ab.py clock qzsweep, PERF.md section 6)
+QZSWEEP_STEP_CYCLES = 4142
 
 REPLACES = {
     "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
@@ -339,34 +350,43 @@ def phase_gemv(dev):
     T = torch.randn(nb, nb, generator=g, dtype=torch.float64).to(dev)
     xs = {k: torch.randn(k, generator=g, dtype=torch.float64).to(dev)
           for k in (n, n - row0, nb)}
+    # the panel loop's shapes: A x on the panel arrays' 4000 x j views (ld
+    # 288) and T[:j, :j], the transposed mode on V[:, :j] and T[:j, :j]
+    small_ax = ([(f"V[:, :{j}]", V[:, :j], xs[nb][:j].contiguous()) for j in (1, 32, 144, 288)]
+                + [(f"T[:{j}, :{j}]", T[:j, :j], xs[nb][:j].contiguous())
+                   for j in (32, 144, 288)])
+    small_t = ([(f"V[:, :{j}]", V[:, :j], xs[n]) for j in (1, 32, 144, 288)]
+               + [(f"T[:{j}, :{j}]", T[:j, :j], xs[nb][:j].contiguous())
+                  for j in (32, 144, 288)])
     cases = [("A x", A, xs[n], False),
              ("A[row0:, row0:] x", A[row0:, row0:], xs[n - row0], False),
              ("V^T a", V, xs[n], True),
              ("V[row0:]^T a", V[row0:], xs[n - row0], True),
              ("V y", V, xs[nb], False)]
-    # the transposed mode at the panel loop's shapes: V[:, :j] (ld 288) and
-    # T[:j, :j]
-    for j in (1, 32, 33, 144, 288):
-        cases.append((f"V[:, :{j}]^T a", V[:, :j], xs[n], True))
-    for j in (32, 144, 288):
-        cases.append((f"T[:{j}, :{j}]^T w", T[:j, :j], xs[nb][:j].contiguous(), True))
+    cases += [(f"{name} x", M, x, False) for name, M, x in small_ax]
+    cases += [(f"V[:, :{j}]^T a", V[:, :j], xs[n], True) for j in (1, 32, 33, 144, 288)]
+    cases += [(f"T[:{j}, :{j}]^T w", T[:j, :j], xs[nb][:j].contiguous(), True)
+              for j in (32, 144, 288)]
     err = 0.0
     for name, M, x, tr in cases:
         uk, up = gemv(M, x, tr), gemv_plain(M, x, tr)
         scale = float(gemv_plain(M.abs(), x.abs(), tr).max())
         d = float((uk - up).abs().max())
-        same = torch.equal(uk, gemv(M, x, tr)) if tr else True
+        same = torch.equal(uk, gemv(M, x, tr))
         log(f"  B1 {name}: max abs err {d:.2e}, relative {d / scale:.2e}"
-            + ("; two launches bit-for-bit equal" if tr and same else ""))
+            + ("; two launches bit-for-bit equal" if same else ""))
         check(d < 1e-12 * scale, f"B1 {name} disagrees: {d}")  # summation order
         check(same, f"B1 {name}: two launches differ")
         err = max(err, d)
-    ms = cuda_ms(lambda: gemv(A, xs[n]), 50)
+    # the panel matvec at n=4000 against torch.mv, in turns kernel, library,
+    # library, kernel: CUDA events over 50 calls back to back
+    t4 = [cuda_ms(f, 50) for f in (lambda: gemv(A, xs[n]), lambda: torch.mv(A, xs[n]),
+                                    lambda: torch.mv(A, xs[n]), lambda: gemv(A, xs[n]))]
+    ms, lms = (t4[0] + t4[3]) / 2, (t4[1] + t4[2]) / 2
     pms = cuda_ms(lambda: gemv_plain(A, xs[n]), 50)
-    lms = cuda_ms(lambda: torch.mv(A, xs[n]), 50)
     bms, by = bound(8 * (n * n + 2 * n), 2 * n * n)
-    log(f"  B1 n=4000 A x: kernel {ms:.4f} ms, plain {pms:.4f} ms, torch.mv "
-        f"{lms:.4f} ms, bound {bms:.4f} ms ({by})")
+    log(f"  B1 n=4000 A x: kernel {t4[0]:.4f}/{t4[3]:.4f} ms, torch.mv {t4[1]:.4f}/{t4[2]:.4f} "
+        f"ms, plain {pms:.4f} ms, bound {bms:.4f} ms ({by})")
     # a rank's column shard of the DM Hessenberg reduction (phase 10a: 2
     # ranks): a row-major n x n/2 tensor, the panel matvec's first-panel view
     w = n // DM_RANKS_A
@@ -376,6 +396,7 @@ def phase_gemv(dev):
     scale = float(gemv_plain(Ash.abs(), xw.abs()).max())
     dsh = float((uk - up).abs().max())
     check(dsh < 1e-12 * scale, f"B1 shard {n}x{w}: disagrees by {dsh}")
+    check(torch.equal(uk, gemv(Ash, xw)), f"B1 shard {n}x{w}: two launches differ")
     err = max(err, dsh)
     sh = [cuda_ms(f, 50) for f in (lambda: gemv(Ash, xw), lambda: torch.mv(Ash, xw),
                                     lambda: torch.mv(Ash, xw), lambda: gemv(Ash, xw))]
@@ -384,34 +405,38 @@ def phase_gemv(dev):
     log(f"  B1 shard {n}x{w} A x: max abs err {dsh:.2e}; kernel {sh[0]:.4f}/{sh[3]:.4f} ms, "
         f"torch.mv {sh[1]:.4f}/{sh[2]:.4f} ms, plain {sh_plain:.4f} ms, bound "
         f"{sbms:.4f} ms ({sby})")
-    # transposed mode against M.T @ x (cuBLAS), in turns kernel, library,
+    # the small shapes of both modes against their torch call (torch.mv, or
+    # M.T @ x for the transposed mode: cuBLAS), in turns kernel, library,
     # library, kernel: CUDA events over 200 calls back to back (the host's
     # launch rate bounds these small calls), then the device time of 200
     # calls under the profiler
-    trans = {}
-    for name, M, x in ([(f"V[:, :{j}]", V[:, :j], xs[n]) for j in (1, 32, 144, 288)]
-                       + [(f"T[:{j}, :{j}]", T[:j, :j], xs[nb][:j].contiguous())
-                          for j in (32, 144, 288)]):
-        kern = lambda: gemv(M, x, True)          # noqa: E731
-        libr = lambda: torch.mv(M.T, x)           # noqa: E731
-        t = [cuda_ms(f, 200) for f in (kern, libr, libr, kern)]
-        d = [device_ms(f, 200) for f in (kern, libr, libr, kern)]
-        r, c = M.shape
-        tb, tby = bound(8 * (r * c + r + c), 2 * r * c)
-        trans[name] = dict(kernel_ms=[t[0], t[3]], library_ms=[t[1], t[2]],
-                           kernel_device_ms=[d[0], d[3]],
-                           library_device_ms=[d[1], d[2]],
-                           bound_ms=tb, bound_by=tby)
-        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"     # noqa: E731
-        log(f"  B1 {name}^T x ({r}x{c}): kernel {t[0]:.4f}/{t[3]:.4f} ms, "
-            f"M.T @ x {t[1]:.4f}/{t[2]:.4f} ms; device time kernel "
-            f"{fmt(d[0])}/{fmt(d[3])} ms, M.T @ x {fmt(d[1])}/{fmt(d[2])} ms; "
-            f"bound {tb:.5f} ms ({tby})")
+    small = {}
+    for mode, shapes in (("A x", small_ax), ("trans", small_t)):
+        tr = mode == "trans"
+        for name, M, x in shapes:
+            kern = lambda M=M, x=x, tr=tr: gemv(M, x, tr)                         # noqa: E731
+            libr = (lambda M=M, x=x: torch.mv(M.T, x)) if tr else \
+                (lambda M=M, x=x: torch.mv(M, x))                                  # noqa: E731
+            t = [cuda_ms(f, 200) for f in (kern, libr, libr, kern)]
+            d = [device_ms(f, 200) for f in (kern, libr, libr, kern)]
+            r, c = M.shape
+            tb, tby = bound(8 * (r * c + r + c), 2 * r * c)
+            small[f"{name}^T x" if tr else f"{name} x"] = dict(
+                kernel_ms=[t[0], t[3]], library_ms=[t[1], t[2]],
+                kernel_device_ms=[d[0], d[3]], library_device_ms=[d[1], d[2]],
+                bound_ms=tb, bound_by=tby)
+            fmt = lambda v: "n/a" if v is None else f"{v:.4f}"     # noqa: E731
+            lname = "M.T @ x" if tr else "torch.mv"
+            log(f"  B1 {name}{'^T' if tr else ''} x ({r}x{c}): kernel {t[0]:.4f}/{t[3]:.4f} "
+                f"ms, {lname} {t[1]:.4f}/{t[2]:.4f} ms; device time kernel "
+                f"{fmt(d[0])}/{fmt(d[3])} ms, {lname} {fmt(d[1])}/{fmt(d[2])} ms; "
+                f"bound {tb:.5f} ms ({tby})")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
                 bound_ms=bms, bound_by=by,
-                detail=dict(trans=trans, shard=dict(
-                    shape=(n, w), kernel_ms=[sh[0], sh[3]], library_ms=[sh[1], sh[2]],
-                    plain_ms=sh_plain, bound_ms=sbms, bound_by=sby, max_abs_err=dsh)))
+                detail=dict(kernel_ms=[t4[0], t4[3]], library_ms=[t4[1], t4[2]], small=small,
+                            shard=dict(shape=(n, w), kernel_ms=[sh[0], sh[3]],
+                                       library_ms=[sh[1], sh[2]], plain_ms=sh_plain,
+                                       bound_ms=sbms, bound_by=sby, max_abs_err=dsh)))
 
 
 def phase_francis(dev):
@@ -1272,14 +1297,8 @@ def start_ht_plain(dev):
     """Start the plain cascade on a CPU copy of G1's n=GEP_N input in a
     child process; returns (the process, the receiving end of its pipe,
     the input on the card)."""
-    import multiprocessing as mp
     inp = ht_regular_input(GEP_N, dev)
-    ctx = mp.get_context("spawn")
-    recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=ht_plain_job, daemon=True,
-                       args=(send, *(x.cpu().numpy() for x in inp)))
-    proc.start()
-    send.close()
+    proc, recv = start_child(ht_plain_job, *(x.cpu().numpy() for x in inp))
     log(f"  G1 n={GEP_N}: the plain cascade runs in process {proc.pid} until phase 9")
     return proc, recv, inp
 
@@ -1478,12 +1497,14 @@ def phase_qz_window(dev):
         got = gpu_gep.qz_window(H, T, eye, eye, w, th, tt, stats=st)
         ck = qz_contract(Hn, Tn, got)
         if w == 322:
-            # the GEP n=4000 path's AED window: by contract alone (its plain
-            # twin would take about a minute of the host)
+            # the GEP n=4000 path's AED window: by contract alone; its plain
+            # twin (a minute or two of the host) runs in a child process
+            # until phase 9 for the bound, which needs its sweeps' positions
             log(f"  G2 w={w}: kernel (info, worst residual/orth u, S, T structure) "
                 f"{ck[0]}, {ck[1]:.1f}, {ck[2]}, {ck[3]}; {st['chase_steps']} chase steps")
             check(ck[0] == 0 and ck[1] < GATE_U and ck[2:4] == (0.0, 0.0),
                   f"G2 w={w} fails its contract")
+            plain322 = start_child(qz_plain_job, Hn, Tn, th, tt)
             res[(w, ninf)] = (H, T, eye, th, tt, None, st["chase_steps"], None, ck[1], 0.0)
             continue
         with tally(qz, "_sweep", lambda Hp, Tp, Qp, Zp, w_, l, i, its: i - l) as steps, \
@@ -1512,20 +1533,70 @@ def phase_qz_window(dev):
         H, T, eye, th, tt, pms, steps, nflops, worst, chordal = res[(w, 0)]
         ms = cuda_ms(lambda: gpu_gep.qz_window(H, T, eye, eye, w, th, tt), 3)
         # H, T, Q, Z read and written once, and the sweeps' flops; at
-        # w=322 the steps' positions are not known (no twin run there)
+        # w=322 the twin's count comes in phase 9 (finish_qz_plain)
         bms, by = bound(8 * 8 * w * w, nflops) if nflops else (None, None)
         chain = steps * QZ_STEP_CYCLES[w] / SM_HZ * 1e3
         log(f"  G2 w={w}: kernel {ms:.2f} ms ({ms / steps * 1e3:.3f} us a step of "
             f"{steps} chase steps ({'the plain twin' if pms else 'the kernel'}'s count)), "
             + (f"bound {bms:.4f} ms ({by}, {nflops} flops)" if bms else
-               "bound not computed (no twin run for the steps' positions)")
+               "bound in phase 9 (the twin's sweeps, in a child process)")
             + f", serial chain {chain:.1f} ms (steps x "
             f"{QZ_STEP_CYCLES[w]} cycles)" + (f", plain (CPU) {pms:.1f} ms" if pms else ""))
         detail[f"w{w}"] = dict(ms=ms, steps=steps, us_a_step=ms / steps * 1e3, bound_ms=bms,
                                serial_chain_ms=chain, worst_u=worst)
     return dict(max_abs_err=max(r[9] for r in res.values()), ms=ms, plain_ms=pms,
-                bound_ms=bms, bound_by=by,
+                bound_ms=bms, bound_by=by, plain_w322=plain322,
                 detail=dict(**detail, w84_plain_ms=res[(84, 0)][5]))
+
+
+def qz_plain_job(conn, Hn, Tn, th, tt):
+    """In a child process: G2's plain twin on a window, its chase steps and
+    the flops its sweeps need (qz_sweep_flops over each sweep's [l, i]);
+    sends (steps, flops, info, its wall time in ms)."""
+    import torch
+    from starneig_tpu_torch.ops import qz
+    torch.set_num_threads(1)
+    w = Hn.shape[0]
+    eye = torch.eye(w, dtype=torch.float64)
+    t0 = time.perf_counter()
+    with tally(qz, "_sweep", lambda Hp, Tp, Qp, Zp, w_, l, i, its: i - l) as steps, \
+            tally(qz, "_sweep", lambda Hp, Tp, Qp, Zp, w_, l, i, its:
+                  qz_sweep_flops(w_, l, i)) as flops:
+        out = qz._small_qz_plain(torch.from_numpy(Hn), torch.from_numpy(Tn), eye, eye, w,
+                                 th, tt)
+    conn.send((steps[0], flops[0], int(out[4]), (time.perf_counter() - t0) * 1e3))
+    conn.close()
+
+
+def start_child(job, *args):
+    """Run job(conn, *args) in a spawned child process; returns (the
+    process, the receiving end of its pipe)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=job, daemon=True, args=(send, *args))
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def finish_qz_plain(handle, g2, deadline_s):
+    """Phase 9: the w=322 twin's sweeps from the child process give G2's
+    bound there (bytes of H, T, Q, Z against the flops, as at w=162)."""
+    proc, recv = handle
+    check(recv.poll(max(deadline_s, 1.0)), "G2 w=322: the plain twin did not finish "
+          f"within {deadline_s:.0f} s")
+    steps, nflops, info, plain_ms = recv.recv()
+    recv.close()
+    proc.join()
+    w = 322
+    bms, by = bound(8 * 8 * w * w, nflops)
+    d = g2["detail"][f"w{w}"]
+    d.update(bound_ms=bms, bound_by=by, twin_steps=steps, plain_ms=plain_ms)
+    log(f"  G2 w={w}: bound {bms:.4f} ms ({by}, {nflops} flops over the plain twin's "
+        f"{steps} chase steps; the kernel's {d['steps']}), plain (CPU, child process) "
+        f"{plain_ms:.1f} ms, info {info}")
+    check(info == 0, f"G2 w={w}: the plain twin's info {info}")
 
 
 def padded_pencil(n, B, seed, dev):
@@ -1545,11 +1616,38 @@ def padded_pencil(n, B, seed, dev):
     return P, *(torch.as_tensor(x.copy(), device=dev) for x in (S, T, Q, Q))
 
 
+def qz_hop_flops(WC, B, HOP, l_rel, ihi_rel, s0, full=False):
+    """The flops one G3 hop needs: every active bulge step's transforms on
+    the entries that can change (the kernel's ranges, qz_sweep.cu), 14
+    flops a triple for a 3-reflector and 6 a pair for a 2-reflector or a
+    rotation: the left reflector on S's rows k..k+2 from column k-1, T's
+    from column k and Qw's rows [min k, max k + 2] of the steps so far; the
+    right 3-reflector (not at the last position) and the rotation on S's
+    rows 0..k+3, T's 0..k+2 and Zw's rows [min k, max k + 2]; full: every
+    range at window width."""
+    f = 0
+    qlo, qhi = (0, WC) if full else (WC, 0)
+    for t in range(HOP):
+        ks = [l_rel + s0 + t - 3 * b for b in range(B)
+              if l_rel <= l_rel + s0 + t - 3 * b <= ihi_rel - 2]
+        if not ks:
+            continue
+        if not full:
+            qlo, qhi = min(qlo, min(ks)), max(qhi, max(ks) + 3)
+        for k in ks:
+            use3 = k <= ihi_rel - 3
+            left = 3 * WC if full else (WC - max(k - 1, 0)) + (WC - k) + qhi - qlo
+            rows = 3 * WC if full else min(k + 4, WC) + k + 3 + qhi - qlo
+            f += (14 if use3 else 6) * left + (14 if use3 else 0) * rows + 6 * rows
+    return f
+
+
 def phase_qz_sweep(dev):
     import numpy as np
     import torch
     from starneig_tpu_torch.ops import gpu_gep
     from starneig_tpu_torch.ops.qz_driver import _qz_sweep, _qz_train_hop
+    from starneig_tpu_torch.testing.generators import qz_train_hops
     n, B = 512, 12
     WC, HOP = 6 * B + 4, 3 * B
     P, S, T, Q, Z = padded_pencil(n, B, 512, dev)
@@ -1557,10 +1655,6 @@ def phase_qz_sweep(dev):
     sh_np[:, 3] = -sh_np[:, 1]
     sh = torch.as_tensor(sh_np, device=dev)
     cpu = _cpu(S, T, Q, Z)
-    # one hop's window before the train reaches it: the second hop of the
-    # train as the sweep cuts it
-    ws = P + HOP - 3 * (B - 1) - 1
-    hop = (S[ws:ws + WC, ws:ws + WC].contiguous(), T[ws:ws + WC, ws:ws + WC].contiguous())
     torch.cuda.synchronize()
     _, train_ms = timed(lambda: _qz_sweep(S, T, Q, Z, P, P + n, sh, B))
     _, plain_train_ms = host_ms(lambda: _qz_sweep(*cpu, P, P + n, sh.cpu(), B))
@@ -1568,23 +1662,41 @@ def phase_qz_sweep(dev):
     log(f"  G3 one train n={n} B={B}: max err {err:.2e} relative; the sweep with the "
         f"kernel {train_ms:.1f} ms, plain (CPU) {plain_train_ms:.1f} ms")
     check(err <= 1e-11, f"G3 train n={n}: {err}")   # the same steps, other rounding
-    # one hop at the train's first full window (the bulges all active)
-    lr, ir = P - ws, P + n - ws
-    gk = gpu_gep.qz_sweep(*hop, sh, lr, ir, HOP, B, HOP)
-    gp, pms = host_ms(lambda: _qz_train_hop(*_cpu(*hop), sh.cpu(), lr, ir, HOP, B, HOP))
-    herr = max(_rel(w, g) for g, w in zip(gk, gp))
-    check(herr <= 1e-12, f"G3 hop: {herr}")
-    ms = cuda_ms(lambda: gpu_gep.qz_sweep(*hop, sh, lr, ir, HOP, B, HOP), 20)
-    active = sum(lr <= lr + HOP + t - 3 * b <= ir - 2 for t in range(HOP) for b in range(B))
-    # a bulge step: left 3-reflector on S, T rows and Qw columns, right
-    # 3-reflector on S, T, Zw columns (3 WC triples each, 14 flops a triple),
-    # rotation on 3 WC pairs (6 a pair)
-    bms, by = bound(8 * 6 * WC * WC, active * 102 * WC)
-    log(f"  G3 one hop B={B} WC={WC}: max err {herr:.2e}; kernel {ms:.4f} ms "
-        f"({ms / HOP * 1e3:.2f} us a step), plain (CPU) {pms:.1f} ms, {active} bulge steps, "
-        f"bound {bms:.5f} ms ({by})")
+    # hops of a train as the sweep cuts them (n=200, the plain twin on the
+    # CPU): the introduction hop, a middle hop (every bulge active), the last
+    # hop, and an introduction hop with S[l_rel, l_rel - 1] != 0 (the full
+    # ranges); each against the plain twin on CPU copies
+    hops, hsh = qz_train_hops(200, B, 13)
+    cases = {"intro": hops[0], "middle": hops[len(hops) // 2], "last": hops[-1]}
+    Sw, Tw, *rest = hops[0]
+    Sw = Sw.clone()
+    Sw[rest[0], rest[0] - 1] = 0.7
+    cases["subdiag"] = (Sw, Tw, *rest)
+    herr, pms = 0.0, None
+    for label, (Sw, Tw, lr, ir, s0) in cases.items():
+        gk = gpu_gep.qz_sweep(Sw.to(dev), Tw.to(dev), hsh.to(dev), lr, ir, s0, B, HOP)
+        gp, t_ = host_ms(lambda: _qz_train_hop(Sw, Tw, hsh, lr, ir, s0, B, HOP))
+        e = max(_rel(w, g) for g, w in zip(gk, gp))
+        log(f"  G3 {label} hop (l_rel {lr}, ihi_rel {ir}, s0 {s0}): max err {e:.2e}")
+        check(e <= 1e-12, f"G3 {label} hop: {e}")
+        herr = max(herr, e)
+        pms = t_ if label == "middle" else pms
+    Sw, Tw, lr, ir, s0 = (x.to(dev) if torch.is_tensor(x) else x for x in cases["middle"])
+    hshd = hsh.to(dev)
+    ms = cuda_ms(lambda: gpu_gep.qz_sweep(Sw, Tw, hshd, lr, ir, s0, B, HOP), 20)
+    active = sum(lr <= lr + s0 + t - 3 * b <= ir - 2 for t in range(HOP) for b in range(B))
+    # S, T read and S, T, Qw, Zw written once; the flops on the entries that
+    # can change
+    nflops = qz_hop_flops(WC, B, HOP, lr, ir, s0)
+    bms, by = bound(8 * 6 * WC * WC, nflops)
+    chain = HOP * QZSWEEP_STEP_CYCLES / SM_HZ * 1e3
+    log(f"  G3 middle hop B={B} WC={WC}: kernel {ms:.4f} ms ({ms / HOP * 1e3:.2f} us a step), "
+        f"plain (CPU) {pms:.1f} ms, {active} bulge steps, bound {bms:.5f} ms ({by}, "
+        f"{nflops} flops), serial chain {chain:.4f} ms ({HOP} steps x "
+        f"{QZSWEEP_STEP_CYCLES} cycles)")
     return dict(max_abs_err=max(err, herr), ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                detail=dict(train_ms=train_ms, plain_train_ms=plain_train_ms))
+                detail=dict(train_ms=train_ms, plain_train_ms=plain_train_ms,
+                            us_a_step=ms / HOP * 1e3, serial_chain_ms=chain))
 
 
 # G4's inputs (label, WA, make() -> (S, T, Q, Z), spike s, active w): the
@@ -1860,29 +1972,39 @@ def phase_gep(dev):
         check(launches[k] > 0, f"kernel {k} was not launched by the GEP path")
     check(stats["recondense_calls"] > 0, "G1's window mode did not run")
     check(ht_kernel_ms > 0, f"GEP n={n}: the profiler saw no G1 device time")
-    # the QZ phase again under the profiler: each kernel's device total, and
-    # the infinite push's window chases (CUDA events around each call)
-    inf_ms = [0.0]
-    orig = qz_driver.inf_chase
+    # the QZ phase again under the profiler: each kernel's device total, the
+    # infinite push's window chases and the sweeps (CUDA events around each
+    # call)
+    inf_ms, sweep_ms = [0.0], [0.0]
+    orig, orig_sweep = qz_driver.inf_chase, qz_driver._qz_sweep
 
     def timed_chase(*a):
         out_, t = timed(lambda: orig(*a))
         inf_ms[0] += t
         return out_
-    qz_driver.inf_chase = timed_chase
+
+    def timed_sweep(*a):
+        sweep_ms[0] += timed(lambda: orig_sweep(*a))[1]
+    qz_driver.inf_chase, qz_driver._qz_sweep = timed_chase, timed_sweep
     try:
         _, prof, _ms = profiled_kernels(lambda: gep.schur(H, T, Q, Z))
     finally:
-        qz_driver.inf_chase = orig
+        qz_driver.inf_chase, qz_driver._qz_sweep = orig, orig_sweep
     top = {k: (round(v[0], 3), v[1]) for k, v in list(prof.items())[:12]}
     log(f"  GEP n={n} QZ device time by kernel (ms, calls; under the profiler): {top}")
     g2_g4 = {}
-    for label, key in (("G2", "qz_window_kernel"), ("G4", "aed_deflate_gep_kernel")):
+    for label, key in (("G2", "qz_window_kernel"), ("G3", "qz_sweep_kernel"),
+                       ("G4", "aed_deflate_gep_kernel")):
         hits = [v for k, v in prof.items() if key in k]
         g2_g4[label] = (sum(v[0] for v in hits), sum(v[1] for v in hits))
+    # the sweeps' device idle share: G3's device time against their time
+    idle = 1.0 - g2_g4["G3"][0] / sweep_ms[0] if sweep_ms[0] else None
     log(f"  GEP n={n} QZ phase: G2 {g2_g4['G2'][0]:.1f} ms device time in {g2_g4['G2'][1]} "
-        f"launches, G4 {g2_g4['G4'][0]:.1f} ms in {g2_g4['G4'][1]} (under the profiler)")
-    check(min(v[1] for v in g2_g4.values()) > 0, f"GEP n={n}: the profiler saw no G2/G4 launch")
+        f"launches, G3 {g2_g4['G3'][0]:.1f} ms in {g2_g4['G3'][1]}, G4 {g2_g4['G4'][0]:.1f} ms "
+        f"in {g2_g4['G4'][1]}; the sweeps {sweep_ms[0]:.1f} ms, G3 idle {idle:.1%} of them "
+        f"(under the profiler)")
+    check(min(v[1] for v in g2_g4.values()) > 0,
+          f"GEP n={n}: the profiler saw no G2/G3/G4 launch")
     log(f"  GEP n={n} HT device time by kernel: "
         f"{ {k: (round(v[0], 3), v[1]) for k, v in list(prof_ht.items())[:10]} }")
     log(f"  GEP n={n} infinite push: {inf_calls[0]} G5 window chases, "
@@ -1897,6 +2019,7 @@ def phase_gep(dev):
                 structure=(fs, ft), zero_betas=ninf, chordal_u=chordal,
                 rounds=stats["rounds"], inf_rounds=stats["inf_rounds"],
                 inf_chase_calls=inf_calls[0], inf_chase_ms=inf_ms[0],
+                sweeps_ms=sweep_ms[0], sweep_idle_share=idle,
                 recondense_calls=stats["recondense_calls"],
                 launches={**launches, **chain["launches"]}, g2_g4_device=g2_g4,
                 qz_log=stats["qz_log"], profile_qz=prof, profile_ht=prof_ht, chain=chain)
@@ -2421,6 +2544,7 @@ def main() -> int:
     build_s = phase_build()
     log("== 3. kernels against their plain versions")
     ht_plain = start_ht_plain(dev)
+    qz322 = None
     try:
         results = {"hess_gemv": phase_gemv(dev), "francis": phase_francis(dev),
                    "train_hops": phase_train_hops(dev),
@@ -2433,6 +2557,7 @@ def main() -> int:
                    "aed_deflate_gep": phase_aed_deflate_gep(dev),
                    "inf_chase": phase_inf_chase(dev),
                    "reorder_bubble_gep": phase_bubble_gep(dev)}
+        qz322 = results["qz_window"].pop("plain_w322")
         log("== 4. n=1200 with B=70")
         b70 = phase_schur_b70(dev)
         log("== 5. main path")
@@ -2446,6 +2571,8 @@ def main() -> int:
         log(f"== 9. G1 at n={GEP_N} against its plain twin")
         finish_ht_plain(ht_plain, results["ht_cascade"],
                         SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
+        finish_qz_plain(qz322, results["qz_window"],
+                        SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
         log("== 10. DM: gloo ranks sharing the card")
         t_dm = time.perf_counter()
         dm = dict(a=phase_dm_sep(dev, main_res), b=phase_dm_four(dev))
@@ -2454,9 +2581,11 @@ def main() -> int:
         log("== 11. tools and examples")
         tools = phase_tools(dev)
     finally:
-        if ht_plain[0].is_alive():
-            ht_plain[0].terminate()
-        ht_plain[0].join()
+        for child in (ht_plain, qz322):
+            if child is not None and child[0].is_alive():
+                child[0].terminate()
+            if child is not None:
+                child[0].join()
     launches = {**main_res["launches"], **gep_res["launches"]}
 
     table = [dict(name=k, route="cuda", source=SOURCES[k],

@@ -11,12 +11,26 @@
 // What bounds it on the H100: DRAM bandwidth for the panel matvec, launch
 // latency for the rest.  At n = 4000 the frozen panel matrix is 128 MB,
 // more than the 50 MB L2, so the panel matvec streams it from HBM once per
-// column (2 flops per 8 bytes).  The transposed products read V[:, :j]
-// (4000 x j, ld 288, j = 0..287: at most 9.2 MB, 2.75 us of HBM) or the
-// small T[:j, :j], three times a column, so one launch's fixed cost is
-// most of their time.  Design:
-//   * trans = 0, u = M[:rows, :cols] x: one warp per row, each lane strides
-//     the row by 32 (coalesced 256-byte segments), shuffle-tree reduction;
+// column (2 flops per 8 bytes).  The products on the panel arrays read
+// 4000 x j views (ld 288, j = 1..288: at most 9.2 MB, 2.75 us of HBM) or
+// the small T[:j, :j], so one launch's fixed cost is most of their time.
+// Design:
+//   * trans = 0, u = M[:rows, :cols] x, one kernel in two regimes chosen
+//     from cols alone.  Wide rows (cols > 64: the panel matvec, a DM rank's
+//     column shard, the panel arrays from j = 65 on, T[:j, :j]): a warp a
+//     row, each lane with kLoads 16-byte loads in flight (where the view's
+//     start and ld and x allow them; 8-byte loads otherwise), one
+//     accumulator each, M read with the streaming hint (evict first, so x
+//     stays cached), four warps a block so that the card holds 64 warps an
+//     SM in one wave.  The previous form (one 8-byte load a lane, one
+//     accumulator) kept too few bytes in flight to stream the panel matrix
+//     at the HBM rate, and left most lanes idle on the narrow views.
+//     Narrow rows (cols <= 64: the panel arrays' 4000 x j views for small
+//     j, T[:j, :j]): G lanes across a row as in the transposed mode (G the
+//     least power of two with 2G >= cols), the other lanes on the next
+//     rows, a shuffle reduction over the G lanes, so every lane is busy at
+//     j = 1, in small blocks that spread the rows over the SMs.  Each sum runs in an
+//     order fixed by the shape alone (no atomics): bit-for-bit repeatable.
 //   * trans = 1, u = M[:rows, :cols]^T x: one launch, no scratch from the
 //     caller.  A block takes a fixed range of rows and a group of at most
 //     64 columns; G lanes of a warp run across a row (G the least power of
@@ -41,19 +55,92 @@
 namespace {
 
 constexpr int kWarps = 8;
+constexpr int kNarrowCols = 64;  // A x: rows of at most this many columns are narrow
+constexpr int kRowWarps = 4;     // A x, wide rows: warps a block, a row each
+constexpr int kLoads = 4;        //   16-byte loads in flight a lane
+constexpr int kNarrowWarps = 4;  // A x, narrow rows: warps a block
 
-__global__ void __launch_bounds__(kWarps * 32)
-gemv_n_kernel(const double* __restrict__ M, long long ld, int rows, int cols,
-              const double* __restrict__ x, double* __restrict__ u) {
+// the pair (p[0], p[1]): one 16-byte load when kVec, else two 8-byte ones;
+// M with the streaming hint (read once a call), x through the read-only path
+template <bool kVec>
+__device__ __forceinline__ double2 load_m(const double* p) {
+  if (kVec) return __ldcs(reinterpret_cast<const double2*>(p));
+  return make_double2(__ldcs(p), __ldcs(p + 1));
+}
+template <bool kVec>
+__device__ __forceinline__ double2 load_x(const double* p) {
+  if (kVec) return __ldg(reinterpret_cast<const double2*>(p));
+  return make_double2(__ldg(p), __ldg(p + 1));
+}
+
+// u = M x for rows of more than kNarrowCols columns: warp w of the block
+// takes row blockIdx.x kRowWarps + w; lane l the column pairs 2l + 64 q
+// (q < kLoads) of each 2 x 32 x kLoads-column stretch, all loaded before
+// any is summed; accumulator q sums its pairs in stretch order
+template <bool kVec>
+__global__ void __launch_bounds__(kRowWarps * 32)
+gemv_n_wide(const double* __restrict__ M, long long ld, int rows, int cols,
+            const double* __restrict__ x, double* __restrict__ u) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const double* m = M + (size_t)row * ld;
-  double acc = 0.0;
-  for (int j = lane; j < cols; j += 32) acc += m[j] * x[j];
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) u[row] = acc;
+  double acc[kLoads];
+#pragma unroll
+  for (int q = 0; q < kLoads; ++q) acc[q] = 0.0;
+  for (int c0 = 2 * lane; c0 < cols; c0 += 64 * kLoads) {
+    double2 a[kLoads], b[kLoads];
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) {
+      const int c = c0 + 64 * q;
+      a[q] = make_double2(0.0, 0.0);
+      b[q] = make_double2(0.0, 0.0);
+      if (c + 1 < cols) {
+        a[q] = load_m<kVec>(m + c);
+        b[q] = load_x<kVec>(x + c);
+      } else if (c < cols) {
+        a[q].x = __ldcs(m + c);
+        b[q].x = __ldg(x + c);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kLoads; ++q) acc[q] += a[q].x * b[q].x + a[q].y * b[q].y;
+  }
+#pragma unroll
+  for (int w = kLoads / 2; w > 0; w >>= 1)
+#pragma unroll
+    for (int q = 0; q < w; ++q) acc[q] += acc[q + w];
+  double sum = acc[0];
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) u[row] = sum;
+}
+
+// u = M x for rows of at most kNarrowCols columns: G = 2^lg lanes across a
+// row (lane p of the group the column pair 2p), the 32 / G groups of a warp
+// on consecutive rows, then each row's sum over its G lanes.  Blocks of
+// kNarrowWarps warps: a 4000 x 1 view then takes 32 blocks, each loading
+// its scattered rows on its own SM (the first form's 4 blocks of 8 warps
+// with 4 rows a lane were 0.5 us slower, PERF.md)
+template <bool kVec>
+__global__ void __launch_bounds__(kNarrowWarps * 32)
+gemv_n_narrow(const double* __restrict__ M, long long ld, int rows, int cols,
+              const double* __restrict__ x, double* __restrict__ u, int lg) {
+  const int lane = threadIdx.x & 31;
+  const int G = 1 << lg, p = lane & (G - 1), c = 2 * p;
+  const int r = ((blockIdx.x * kNarrowWarps + (threadIdx.x >> 5)) << (5 - lg)) + (lane >> lg);
+  const bool two = c + 1 < cols, one = c < cols;
+  double2 xv = make_double2(0.0, 0.0), a = make_double2(0.0, 0.0);
+  const double* m = M + (size_t)r * ld + c;
+  if (r < rows && two) {
+    a = load_m<kVec>(m);
+    xv = load_x<kVec>(x + c);
+  } else if (r < rows && one) {
+    a.x = __ldcs(m);
+    xv.x = __ldg(x + c);
+  }
+  double s = a.x * xv.x + a.y * xv.y;
+  for (int off = G >> 1; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (p == 0 && r < rows) u[r] = s;
 }
 
 constexpr int kRows = 4;            // rows a lane loads before it sums them
@@ -177,9 +264,27 @@ extern "C" int hess_gemv(const void* M, long long ld, int rows, int cols,
   const double* xd = static_cast<const double*>(x);
   double* ud = static_cast<double*>(u);
   if (rows <= 0 || cols <= 0) return 0;
+  const bool vec = reinterpret_cast<size_t>(Md) % 16 == 0 && ld % 2 == 0;
   if (!trans) {
-    gemv_n_kernel<<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
-        Md, ld, rows, cols, xd, ud);
+    const bool vx = vec && reinterpret_cast<size_t>(xd) % 16 == 0;
+    if (cols > kNarrowCols) {
+      const int nb = (rows + kRowWarps - 1) / kRowWarps;
+      if (vx)
+        gemv_n_wide<true><<<nb, kRowWarps * 32, 0, st>>>(Md, ld, rows, cols, xd, ud);
+      else
+        gemv_n_wide<false><<<nb, kRowWarps * 32, 0, st>>>(Md, ld, rows, cols, xd, ud);
+    } else {
+      int lg = 0;  // G = 2^lg lanes across a row: 2G >= cols
+      while ((2 << lg) < cols) ++lg;
+      const int rows_a_block = kNarrowWarps * (32 >> lg);
+      const int nb = (rows + rows_a_block - 1) / rows_a_block;
+      if (vx)
+        gemv_n_narrow<true><<<nb, kNarrowWarps * 32, 0, st>>>(Md, ld, rows, cols, xd, ud,
+                                                               lg);
+      else
+        gemv_n_narrow<false><<<nb, kNarrowWarps * 32, 0, st>>>(Md, ld, rows, cols, xd, ud,
+                                                                lg);
+    }
   } else {
     int G = 1;  // lanes across a row: 2G >= cols, G <= 32
     while (G < 32 && 2 * G < cols) G <<= 1;
@@ -193,7 +298,6 @@ extern "C" int hess_gemv(const void* M, long long ld, int rows, int cols,
     const int rpb = (rows + nbr - 1) / nbr;
     nbr = (rows + rpb - 1) / rpb;
     const dim3 grid(nbr, ncg);
-    const bool vec = reinterpret_cast<size_t>(Md) % 16 == 0 && ld % 2 == 0;
     if (vec)
       gemv_t_kernel<true><<<grid, kWarps * 32, 0, st>>>(Md, ld, rows, cols,
                                                         xd, ud, G, rpb);

@@ -12,185 +12,386 @@
 // rows k..k+2 of S and T (from the shifted product's first column at the
 // bulge's introduction, else from the bulge column k-1), the bulge column
 // planted, a right 3-reflector from T's row k+2 zeroing T[k+2, k:k+2], and a
-// right rotation zeroing T[k+1, k]; Qw and Zw accumulate.  The bulges of a
-// step touch disjoint row and column triples, so each phase runs for all of
-// them at once.
+// right rotation zeroing T[k+1, k]; Qw and Zw accumulate.
 //
-// What bounds it on the H100: the step chain (3B steps a hop, each three
-// dependent transforms a bulge), not flops or bytes.  Design, simple first:
-// one block a window, S, T, Qw and Zw in shared memory (4 x 46 KB at the
-// driver's B = 12, WC = 76), one thread a bulge for the reflectors and
-// rotations, the block for their updates at window width, a barrier between
-// phases.
+// What bounds it on the H100: not flops or bytes (a hop is ~2 MFLOP on
+// 277 KB) but the step chain (3B steps a hop, each three dependent
+// transforms a bulge, each a chain of divides and square roots) and the
+// block's instruction issue: every chase warp computes its reflectors in
+// all lanes and then its share of the updates, and at B = 12 a step takes
+// ~6,800 cycles, in which a warp's part with no work of its own waits
+// ~1,000 cycles for the SM's four schedulers (clock64, PERF.md).  The
+// first form ran the whole block through every phase: one
+// thread a bulge for each reflector and rotation, eight block barriers a
+// step, updates at full window width with a division and a modulo on every
+// element, Qw and Zw on the chain, and a row stride of WC = 6B+4 doubles
+// (a multiple of 4 banks pairs: 4-way conflicts on column walks).
+//
+// Design.  S, T, Qw and Zw live in shared memory with the odd row stride
+// WC + 1 (column walks conflict-free).
+//   * The chase group: warp b owns bulge b and computes its transforms in
+//     every lane.  A step has two phases, each ended by one named barrier
+//     of the chase group.  Phase L: the left reflector (from the bulge
+//     column, or the shifts at its introduction), its update of rows
+//     k..k+2 (a lane a column, all its columns loaded before any is
+//     updated), the plant; then, after __syncwarp, the right reflector from
+//     T's row k+2 and the rotation from T's row k+1 after it, in registers;
+//     the step's record goes to a ring slot, a value a lane.  Phase R: the
+//     right reflector and the rotation in one pass over the rows of
+//     columns k..k+2 (a lane a row, all its rows loaded first), with T's
+//     plants.  The JAX order holds
+//     where two bulges share entries: bulge b's left update reaches columns
+//     k+3..k+5 that bulge b-1's right transforms update, and its right
+//     transforms reach rows k-3..k-1 that bulge b+1's left update writes,
+//     so every left update precedes every right one in a step, and no two
+//     warps update one entry in a phase.
+//   * The update group (kUpdWarps warps) owns Qw and Zw, which never feed
+//     back into the chase: it takes each step's records from a ring of
+//     kRing steps and applies them behind the chase, warp g mod kUpdWarps
+//     a bulge g, a lane a row.  Two named barriers a slot hand it over
+//     (the chase arrives, the update group waits) and back: blocked warps
+//     take no issue slots, where polling a counter with __nanosleep let the
+//     update group fall behind by its sleeps and the chase wait for slots
+//     (clock64: ~700 cycles a step, PERF.md).
+//   * Only the entries that can change are touched: the left update skips
+//     S's columns left of k-1 and T's left of k (zeros: Hessenberg and
+//     triangular form, the exact plants); the right transforms skip S's
+//     rows below k+3 and T's below k+2 (zeros: the same, once every left
+//     update of the step has planted its bulge column); Qw's and Zw's
+//     updates skip the rows outside [min k, max k + 2] of the hop's steps
+//     so far (identity rows, zero in those columns).  Subtracting tau v 0
+//     from a zero leaves a zero, so the outputs equal the full-width
+//     twin's (tests/test_torch_gep_driver.py:test_g3_ranges models these
+//     ranges in torch and holds them to the twin entry for entry).  One
+//     input breaks the zeros: a hop that introduces bulges at l_rel where
+//     S[l_rel, l_rel - 1] != 0 (a sweep starts where that entry is zero,
+//     but a caller may pass any window); its first reflector fills column
+//     l_rel - 1 below the subdiagonal, so that hop runs at the full ranges.
+// The reflectors are householder() and the rotations givens(), the plain
+// twin's formulas; the updates differ from it only by fused multiply-adds.
 #include "gep_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxB = 13;  // WC = 6B+4 <= 82: four WC x WC buffers fit one block
+constexpr int kMaxB = 13;      // WC = 6B+4 <= 82: four padded windows fit one block
+constexpr int kUpdWarps = 4;   // the update group
+constexpr int kMaxThreads = (kMaxB + kUpdWarps) * 32;
+constexpr int kRing = 4;       // steps of records between the groups (a power of 2)
+constexpr int kRec = 9;        // v1 v2 tau (v0 = 1), u0 u1 u2 tau_r, c, s
+constexpr int kCols = 3;       // column blocks of 32 a lane covers: 96 >= WC
+constexpr int kRowsR = 6;      // row blocks of 32 of the right update: 192 >= 2 WC + 1
+constexpr int kBatchR = 3;     //   loaded together
+// named barriers (0 is __syncthreads): the chase group's, the update
+// group's, and for each ring slot one that hands its records to the update
+// group (the chase arrives, the update group waits) and one that frees it
+// (the update group arrives, the chase waits)
+constexpr int kBarChase = 1, kBarUpd = 2, kBarReady = 3, kBarFree = 3 + kRing;
 
-struct Bulge {
-  double v[3], tau, beta, vr[3], taur, c2, s2;
-  int k, b;  // the bulge's row, its index in the train (its shift row)
-  bool use3, intro;
+DEVI void bar_sync(int id, int nthreads) {
+  asm volatile("barrier.sync %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+DEVI void bar_arrive(int id, int nthreads) {
+  __threadfence_block();
+  __syncwarp();
+  asm volatile("barrier.arrive %0, %1;" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// (I - tau v v^T) on the column entries (a, b, c), v = (1, v1, v2)
+DEVI void refl_left(double& a, double& b, double& c, double v1, double v2, double tau) {
+  const double s = a + v1 * b + v2 * c;
+  a -= tau * s;
+  b -= tau * (v1 * s);
+  c -= tau * (v2 * s);
+}
+
+// the row entries (a, b, c) times (I - tau u u^T)
+DEVI void refl_right(double& a, double& b, double& c, const double* u, double tau) {
+  const double s = a * u[0] + b * u[1] + c * u[2];
+  a -= tau * (s * u[0]);
+  b -= tau * (s * u[1]);
+  c -= tau * (s * u[2]);
+}
+
+// the left reflector on rows (p, p + ld, p + 2 ld) over the columns
+// [c0, WC), a lane a column, every lane's loads before its updates; the
+// column `plant` (the bulge column) set to (beta, 0, 0 where use3) instead
+DEVI void left_rows(double* p, int ld, int c0, int WC, double v1, double v2, double tau,
+                    int plant, double beta, bool use3) {
+  const int lane = threadIdx.x & 31;
+  double a[kCols][3];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int c = c0 + lane + 32 * i;
+    if (c < WC) {
+      a[i][0] = p[c];
+      a[i][1] = p[ld + c];
+      a[i][2] = p[2 * ld + c];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int c = c0 + lane + 32 * i;
+    if (c < WC) {
+      refl_left(a[i][0], a[i][1], a[i][2], v1, v2, tau);
+      if (c == plant) {
+        a[i][0] = beta;
+        a[i][1] = 0.0;
+        if (use3) a[i][2] = 0.0;
+      }
+      p[c] = a[i][0];
+      p[ld + c] = a[i][1];
+      p[2 * ld + c] = a[i][2];
+    }
+  }
+}
+
+// the right reflector (where use3) and the rotation on columns k..k+2 of
+// the rows e in [e0, e0 + 32 kBatch) of the list S's rows 0..rS-1 then
+// T's rows 0..rT-1, a lane a row, its loads before its updates; T's plants
+template <int kBatch>
+DEVI void right_rows(double* S, double* T, int ld, int k, int rS, int rT, int e0,
+                     const double* u, double taur, double c2, double s2, bool use3) {
+  const int lane = threadIdx.x & 31;
+  double q[kBatch][3];
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) {
+    const int e = e0 + lane + 32 * i;
+    if (e < rS + rT) {
+      const double* p = (e >= rS ? T + (e - rS) * ld : S + e * ld) + k;
+      q[i][0] = p[0];
+      q[i][1] = p[1];
+      q[i][2] = p[2];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) {
+    const int e = e0 + lane + 32 * i;
+    if (e < rS + rT) {
+      const bool isT = e >= rS;
+      const int r = isT ? e - rS : e;
+      double aa = q[i][0], bb = q[i][1];
+      if (use3) {
+        refl_right(aa, bb, q[i][2], u, taur);
+        if (isT && r == k + 2) {
+          aa = 0.0;
+          bb = 0.0;
+        }
+      }
+      double* p = (isT ? T : S) + r * ld + k;
+      const double n0 = c2 * aa - s2 * bb, n1 = s2 * aa + c2 * bb;
+      p[0] = isT && r == k + 1 ? 0.0 : n0;
+      p[1] = n1;
+      p[2] = q[i][2];
+    }
+  }
+}
+
+// the left reflector's input at an introduction: the first column of the
+// shifted pencil product (out of line: at most one step a bulge a hop)
+__device__ __noinline__ void intro_column(const double* S, const double* T, int ld, int l,
+                                          const double* sh, bool use3, double* x) {
+  first_col_qz(S, T, ld, l, sh, use3, true, x);
+}
+
+struct Hop {
+  int WC, ld, B, HOP, l_rel, ihi_rel, s0;
+  bool full;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// the chase group: warp b runs bulge b's transforms on S and T
+DEVI void chase(const Hop& h, double* S, double* T, double* ring, int* ring_k,
+                const double* sh) {
+  const int b = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = h.ld, WC = h.WC, nchase = h.B * 32, nall = nchase + kUpdWarps * 32;
+  for (int t = 0; t < h.HOP; ++t) {
+    const int k = h.l_rel + h.s0 + t - 3 * b;
+    const bool active = k >= h.l_rel && k <= h.ihi_rel - 2;
+    const bool use3 = k <= h.ihi_rel - 3;
+    const int slot = t & (kRing - 1);
+    if (t >= kRing) bar_sync(kBarFree + slot, nall);  // the update group read the slot
+    double u[3] = {0.0, 0.0, 0.0}, taur = 0.0, c2 = 1.0, s2 = 0.0;
+    if (active) {
+      // ---- phase L: the left reflector and its update of rows k..k+2 ----
+      const bool intro = k == h.l_rel;
+      double x[3];
+      if (intro) {
+        intro_column(S, T, ld, k, sh + 4 * b, use3, x);
+      } else {
+        x[0] = S[k * ld + k - 1];
+        x[1] = S[(k + 1) * ld + k - 1];
+        x[2] = S[(k + 2) * ld + k - 1];
+      }
+      double v[3], tau, beta;
+      householder(x, use3 ? 7u : 3u, 3, v, tau, beta);
+      const double v1 = v[1], v2 = v[2];
+      const int cS = h.full ? 0 : (k >= 1 ? k - 1 : 0), cT = h.full ? 0 : k;
+      left_rows(S + k * ld, ld, cS, WC, v1, v2, tau, !intro ? k - 1 : -1, beta, use3);
+      left_rows(T + k * ld, ld, cT, WC, v1, v2, tau, -1, 0.0, false);
+      __syncwarp();
+      // the right reflector from T's row k+2 (reversed) and the rotation
+      // from T's row k+1 after it, in every lane
+      double r1[3] = {T[(k + 1) * ld + k], T[(k + 1) * ld + k + 1], T[(k + 1) * ld + k + 2]};
+      if (use3) {
+        const double xr[3] = {T[(k + 2) * ld + k + 2], T[(k + 2) * ld + k + 1],
+                              T[(k + 2) * ld + k]};
+        double vr[3], br;
+        householder(xr, 7u, 3, vr, taur, br);
+        u[0] = vr[2];
+        u[1] = vr[1];
+        u[2] = vr[0];
+        refl_right(r1[0], r1[1], r1[2], u, taur);
+      }
+      double rr;
+      givens(r1[1], r1[0], c2, s2, rr);
+      // the step's record, a value a lane
+      const double rv[kRec] = {v1, v2, tau, u[0], u[1], u[2], taur, c2, s2};
+      double val = rv[0];
+#pragma unroll
+      for (int j = 1; j < kRec; ++j)
+        if (lane == j) val = rv[j];
+      if (lane < kRec) ring[(slot * h.B + b) * kRec + lane] = val;
+    }
+    if (lane == 0) ring_k[slot * h.B + b] = active ? (k << 1) | (use3 ? 1 : 0) : -1;
+    bar_arrive(kBarReady + slot, nall);  // the update group takes the step
+    bar_sync(kBarChase, nchase);
+    // ---- phase R: the right reflector and the rotation on columns
+    // k..k+2, S's rows 0..k+3 and T's rows 0..k+2, T's plants; every
+    // lane's rows loaded before any is updated ----
+    if (active) {
+      const int rS = h.full ? WC : min(k + 4, WC), rT = h.full ? WC : k + 3;
+#pragma unroll
+      for (int e0 = 0; e0 < 32 * kRowsR; e0 += 32 * kBatchR)
+        if (e0 < rS + rT) right_rows<kBatchR>(S, T, ld, k, rS, rT, e0, u, taur, c2, s2, use3);
+    }
+    bar_sync(kBarChase, nchase);
+  }
+}
+
+// the update group: Qw's left reflectors and Zw's right reflectors and
+// rotations, behind the chase, on the rows [qlo, qhi)
+DEVI void update(const Hop& h, double* Qw, double* Zw, const double* ring,
+                 const int* ring_k) {
+  const int ut = threadIdx.x - h.B * 32, uw = ut >> 5, lane = ut & 31;
+  const int ld = h.ld, nall = h.B * 32 + kUpdWarps * 32;
+  int qlo = h.full ? 0 : h.WC, qhi = h.full ? h.WC : 0;
+  for (int t = 0; t < h.HOP; ++t) {
+    const int slot = t & (kRing - 1);
+    bar_sync(kBarReady + slot, nall);  // the chase's records of step t
+    const int* ks = ring_k + slot * h.B;
+    for (int g = 0; g < h.B; ++g) {
+      const int kk = ks[g];
+      if (kk >= 0) {
+        qlo = min(qlo, kk >> 1);
+        qhi = max(qhi, (kk >> 1) + 3);
+      }
+    }
+    for (int g = uw; g < h.B; g += kUpdWarps) {
+      const int kk = ks[g];
+      if (kk < 0) continue;
+      const int k = kk >> 1;
+      const bool use3 = kk & 1;
+      const double* rc = ring + (slot * h.B + g) * kRec;
+      const double v1 = rc[0], v2 = rc[1], tau = rc[2];
+      const double u[3] = {rc[3], rc[4], rc[5]};
+      const double taur = rc[6], c2 = rc[7], s2 = rc[8];
+      double w[kCols][3];
+      // Qw[:, k:k+3] -= tau (Qw[:, k:k+3] v) v^T
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int r = qlo + lane + 32 * i;
+        if (r < qhi) {
+          const double* q = Qw + r * ld + k;
+          w[i][0] = q[0];
+          w[i][1] = q[1];
+          w[i][2] = q[2];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int r = qlo + lane + 32 * i;
+        if (r < qhi) {
+          double* q = Qw + r * ld + k;
+          const double sq = w[i][0] + w[i][1] * v1 + w[i][2] * v2;
+          q[0] = w[i][0] - tau * sq;
+          q[1] = w[i][1] - tau * (sq * v1);
+          q[2] = w[i][2] - tau * (sq * v2);
+        }
+      }
+      // Zw's columns k..k+2: the right reflector, then the rotation
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int r = qlo + lane + 32 * i;
+        if (r < qhi) {
+          const double* z = Zw + r * ld + k;
+          w[i][0] = z[0];
+          w[i][1] = z[1];
+          w[i][2] = z[2];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int r = qlo + lane + 32 * i;
+        if (r < qhi) {
+          double* z = Zw + r * ld + k;
+          if (use3) refl_right(w[i][0], w[i][1], w[i][2], u, taur);
+          z[0] = c2 * w[i][0] - s2 * w[i][1];
+          z[1] = s2 * w[i][0] + c2 * w[i][1];
+          z[2] = w[i][2];
+        }
+      }
+    }
+    bar_sync(kBarUpd, kUpdWarps * 32);  // the rows are done
+    if (t + kRing < h.HOP) bar_arrive(kBarFree + slot, nall);  // the slot is read
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
 qz_sweep_kernel(double* __restrict__ Sg, double* __restrict__ Tg,
                 double* __restrict__ Qg, double* __restrict__ Zg,
                 const double* __restrict__ shifts, int WC, int B, int HOP,
                 int l_rel, int ihi_rel, int s0) {
-  extern __shared__ double smem[];
+  extern __shared__ __align__(16) double smem[];
+  __shared__ int ring_k[kRing * kMaxB];
+  const int ld = WC + 1;
   double* S = smem;
-  double* T = S + WC * WC;
-  double* Qw = T + WC * WC;
-  double* Zw = Qw + WC * WC;
-  __shared__ Bulge bl[kMaxB];
-  __shared__ int s_nact;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int n2 = WC * WC;
-  for (int e = tid; e < n2; e += nt) {
-    S[e] = Sg[e];
-    T[e] = Tg[e];
-    const double one = (e / WC == e % WC) ? 1.0 : 0.0;
-    Qw[e] = one;
-    Zw[e] = one;
-  }
+  double* T = S + WC * ld;
+  double* Qw = T + WC * ld;
+  double* Zw = Qw + WC * ld;
+  double* ring = Zw + WC * ld;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int r = warp; r < WC; r += nwarps)
+    for (int c = lane; c < WC; c += 32) {
+      S[r * ld + c] = Sg[r * WC + c];
+      T[r * ld + c] = Tg[r * WC + c];
+      const double one = r == c ? 1.0 : 0.0;
+      Qw[r * ld + c] = one;
+      Zw[r * ld + c] = one;
+    }
   __syncthreads();
+  // the full ranges where an introduction meets a nonzero subdiagonal
+  const int b_first = s0 <= 0 ? 0 : (s0 + 2) / 3;  // bulge b enters at step 3b
+  const bool intro_hop = b_first < B && 3 * b_first < s0 + HOP;
+  const bool full = intro_hop && l_rel >= 1 && l_rel < WC &&
+                    S[l_rel * ld + l_rel - 1] != 0.0;
+  const Hop h{WC, ld, B, HOP, l_rel, ihi_rel, s0, full};
+  if (warp < B)
+    chase(h, S, T, ring, ring_k, shifts);
+  else
+    update(h, Qw, Zw, ring, ring_k);
+  __syncthreads();
+  for (int r = warp; r < WC; r += nwarps)
+    for (int c = lane; c < WC; c += 32) {
+      Sg[r * WC + c] = S[r * ld + c];
+      Tg[r * WC + c] = T[r * ld + c];
+      Qg[r * WC + c] = Qw[r * ld + c];
+      Zg[r * WC + c] = Zw[r * ld + c];
+    }
+}
 
-  for (int t = 0; t < HOP; ++t) {
-    const int s = s0 + t;
-    __syncthreads();  // the previous step's bulge list has been read
-    // active bulges, in order of b; bulge b acts at k = l_rel + s - 3b
-    if (tid == 0) {
-      int na = 0;
-      for (int b = 0; b < B; ++b) {
-        const int k = l_rel + s - 3 * b;
-        if (k >= l_rel && k <= ihi_rel - 2) {
-          bl[na].k = k;
-          bl[na].use3 = k <= ihi_rel - 3;
-          bl[na].intro = k == l_rel;
-          bl[na].b = b;
-          ++na;
-        }
-      }
-      s_nact = na;
-    }
-    __syncthreads();
-    const int na = s_nact;
-    if (na == 0) continue;
-    // ---- left reflectors, a thread a bulge ----
-    if (tid < na) {
-      Bulge& g = bl[tid];
-      const int k = g.k;
-      double x[3];
-      if (g.intro) {
-        first_col_qz(S, T, WC, l_rel, shifts + 4 * g.b, g.use3, true, x);
-      } else {
-        x[0] = S[k * WC + k - 1];
-        x[1] = S[(k + 1) * WC + k - 1];
-        x[2] = S[(k + 2) * WC + k - 1];
-      }
-      double beta;
-      householder(x, g.use3 ? 7u : 3u, 3, g.v, g.tau, beta);
-      g.beta = beta;
-    }
-    __syncthreads();
-    // rows k..k+2 of S and T at column e % WC, and row e % WC of Qw at
-    // columns k..k+2, for the bulge e / WC
-    for (int e = tid; e < 3 * na * WC; e += nt) {
-      const int part = e / (na * WC), f = e % (na * WC);
-      const Bulge& g = bl[f / WC];
-      const int x = f % WC, k = g.k;
-      double *p0, *p1, *p2;
-      if (part < 2) {
-        double* M = part == 0 ? S : T;
-        p0 = M + k * WC + x;
-        p1 = p0 + WC;
-        p2 = p1 + WC;
-      } else {
-        p0 = Qw + x * WC + k;
-        p1 = p0 + 1;
-        p2 = p0 + 2;
-      }
-      const double a = *p0, b = *p1, c = *p2;
-      if (part < 2) {
-        const double sdot = g.v[0] * a + g.v[1] * b + g.v[2] * c;
-        *p0 = a - g.tau * (g.v[0] * sdot);
-        *p1 = b - g.tau * (g.v[1] * sdot);
-        *p2 = c - g.tau * (g.v[2] * sdot);
-      } else {
-        const double sdot = a * g.v[0] + b * g.v[1] + c * g.v[2];
-        *p0 = a - g.tau * (sdot * g.v[0]);
-        *p1 = b - g.tau * (sdot * g.v[1]);
-        *p2 = c - g.tau * (sdot * g.v[2]);
-      }
-    }
-    __syncthreads();
-    // ---- bulge-column plants, right reflectors from T's row k+2 ----
-    if (tid < na) {
-      Bulge& g = bl[tid];
-      const int k = g.k;
-      if (!g.intro) {
-        S[k * WC + k - 1] = g.beta;
-        S[(k + 1) * WC + k - 1] = 0.0;
-        if (g.use3) S[(k + 2) * WC + k - 1] = 0.0;
-      }
-      g.taur = 0.0;
-      if (g.use3) {
-        const double x[3] = {T[(k + 2) * WC + k + 2], T[(k + 2) * WC + k + 1],
-                             T[(k + 2) * WC + k]};
-        double v[3], beta;
-        householder(x, 7u, 3, v, g.taur, beta);
-        g.vr[0] = v[2];
-        g.vr[1] = v[1];
-        g.vr[2] = v[0];
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < 3 * na * WC; e += nt) {
-      const int part = e / (na * WC), f = e % (na * WC);
-      const Bulge& g = bl[f / WC];
-      if (!g.use3) continue;
-      double* M = part == 0 ? S : (part == 1 ? T : Zw);
-      double* p = M + (f % WC) * WC + g.k;
-      const double a = p[0], b = p[1], c = p[2];
-      const double sdot = a * g.vr[0] + b * g.vr[1] + c * g.vr[2];
-      p[0] = a - g.taur * (sdot * g.vr[0]);
-      p[1] = b - g.taur * (sdot * g.vr[1]);
-      p[2] = c - g.taur * (sdot * g.vr[2]);
-    }
-    __syncthreads();
-    // ---- plants of T's row k+2, rotations zeroing T[k+1, k] ----
-    if (tid < na) {
-      Bulge& g = bl[tid];
-      const int k = g.k;
-      if (g.use3) {
-        T[(k + 2) * WC + k] = 0.0;
-        T[(k + 2) * WC + k + 1] = 0.0;
-      }
-      double r;
-      givens(T[(k + 1) * WC + k + 1], T[(k + 1) * WC + k], g.c2, g.s2, r);
-    }
-    __syncthreads();
-    for (int e = tid; e < 3 * na * WC; e += nt) {
-      const int part = e / (na * WC), f = e % (na * WC);
-      const Bulge& g = bl[f / WC];
-      double* M = part == 0 ? S : (part == 1 ? T : Zw);
-      const int r = f % WC;
-      double* p = M + r * WC + g.k;
-      const double a = p[0], b = p[1];
-      p[0] = (part == 1 && r == g.k + 1) ? 0.0 : g.c2 * a - g.s2 * b;
-      p[1] = g.s2 * a + g.c2 * b;
-    }
-    __syncthreads();
-  }
-  for (int e = tid; e < n2; e += nt) {
-    Sg[e] = S[e];
-    Tg[e] = T[e];
-    Qg[e] = Qw[e];
-    Zg[e] = Zw[e];
-  }
+size_t smem_bytes(int B, int WC) {
+  return sizeof(double) * (4 * (size_t)WC * (WC + 1) + (size_t)kRing * B * kRec);
 }
 
 }  // namespace
@@ -198,17 +399,18 @@ qz_sweep_kernel(double* __restrict__ Sg, double* __restrict__ Tg,
 extern "C" int qz_sweep(void* S, void* T, void* Qw, void* Zw, void* shifts,
                         int WC, int B, int HOP, int l_rel, int ihi_rel, int s0,
                         void* stream) {
-  if (B < 1 || B > kMaxB || WC != 6 * B + 4)
+  if (B < 1 || B > kMaxB || WC != 6 * B + 4 || HOP < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 4 * (size_t)WC * WC * sizeof(double);
-  static size_t configured = 0;
-  if (smem > 48 * 1024 && smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        qz_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(qz_sweep_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(kMaxB, 6 * kMaxB + 4));
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = smem;
+    configured = true;
   }
-  qz_sweep_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  qz_sweep_kernel<<<1, (B + kUpdWarps) * 32, smem_bytes(B, WC),
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<double*>(S), static_cast<double*>(T), static_cast<double*>(Qw),
       static_cast<double*>(Zw), static_cast<const double*>(shifts), WC, B, HOP,
       l_rel, ihi_rel, s0);

@@ -151,7 +151,9 @@ def qz_sweep(Sw, Tw, shifts, l_rel: int, ihi_rel: int, s0: int, B: int,
     WC = _check_square("qz_sweep", Sw, Tw)
     if WC != 6 * B + 4:
         raise ValueError(f"qz_sweep: window {WC} is not 6 B + 4 = {6 * B + 4}")
-    S, T = Sw.contiguous().clone(), Tw.contiguous().clone()
+    # one contiguous copy of each window (the caller's views stay as they are)
+    S = Sw.clone(memory_format=torch.contiguous_format)
+    T = Tw.clone(memory_format=torch.contiguous_format)
     Qw, Zw = torch.empty_like(S), torch.empty_like(S)
     sh = shifts.contiguous()
     if tuple(sh.shape) != (B, 4):

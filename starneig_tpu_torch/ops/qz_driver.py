@@ -341,20 +341,22 @@ def qz_train_hop(Sw, Tw, sh, l_rel: int, ihi_rel: int, s0: int, B: int,
     return _qz_train_hop(Sw, Tw, sh, l_rel, ihi_rel, s0, B, HOP)
 
 
-def _qz_sweep(Spad, Tpad, Qpad, Zpad, l: int, ihi: int, sh, B: int):
+def _qz_sweep(Spad, Tpad, Qpad, Zpad, l: int, ihi: int, sh, B: int,
+              hop=qz_train_hop):
     """Chase one B-bulge train across the padded segment [l, ihi), in place:
     hops of 3B steps, each in the (6B+4)-row window that holds every bulge
     of the hop; the kernel (or its twin) runs the hop at window width and
     the off-window strips and Q, Z take the window transforms by GEMMs.
-    The same steps as the JAX package's full-width ``_qz_sweep_batch``."""
+    The same steps as the JAX package's full-width ``_qz_sweep_batch``.
+    ``hop`` runs one hop on the window views (which it must not modify):
+    :func:`qz_train_hop`, or a caller's wrapper of it."""
     WC, HOP = 6 * B + 4, 3 * B
     steps = (ihi - l) - 2 + 3 * (B - 1) + 1
     for s0 in range(0, steps, HOP):
         ws = l + s0 - 3 * (B - 1) - 1
         we = ws + WC
-        Sw2, Tw2, Qw, Zw = qz_train_hop(
-            Spad[ws:we, ws:we].contiguous(), Tpad[ws:we, ws:we].contiguous(),
-            sh, l - ws, ihi - ws, s0, B, HOP)
+        Sw2, Tw2, Qw, Zw = hop(Spad[ws:we, ws:we], Tpad[ws:we, ws:we],
+                               sh, l - ws, ihi - ws, s0, B, HOP)
         for M, M2 in ((Spad, Sw2), (Tpad, Tw2)):
             M[ws:we, we:] = Qw.T @ M[ws:we, we:]
             M[:ws, ws:we] = M[:ws, ws:we] @ Zw

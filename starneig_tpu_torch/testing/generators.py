@@ -3,7 +3,9 @@ against their plain twins, and copies of
 ``starneig_tpu/testing/generators.py`` (``random_dense``,
 ``random_orthogonal``, ``random_hessenberg``, ``known_spectrum_matrix``
 with ``_to_hessenberg``, ``known_spectrum_pencil``) so that a card without
-JAX builds the same matrices and pencils from the same seeds."""
+JAX builds the same matrices and pencils from the same seeds.  One
+generator, :func:`qz_train_hops`, runs the QZ driver's plain twin (torch)
+to give the windows a train's hops receive."""
 
 from __future__ import annotations
 
@@ -304,3 +306,39 @@ def planted_spike_reject(W: int, gap: int, seed: int):
     Q = np.eye(W) - 2 * np.outer(v, v) / (v @ v)
     Z = np.linalg.qr(np.eye(W) + 0.05 * rng.standard_normal((W, W)))[0]
     return S, T, Q, Z
+
+
+def qz_train_hops(n: int, B: int, seed: int, l: int = 0, ihi=None):
+    """The inputs of every hop of one B-bulge QZ train chased across [l,
+    ihi) of a random n-pencil, as the driver's sweep
+    (``ops/qz_driver.py:_qz_sweep``) cuts it, the plain twin running on the
+    CPU: S upper Hessenberg with S[l, l-1] = 0, T upper triangular with a
+    diagonal shifted by 3, padded by 6B + 6 rows on each side; the train's
+    shifts from the seed.  Returns (hops, shifts (B, 4) tensor), hops a list
+    of (Sw, Tw, l_rel, ihi_rel, s0) with (WC, WC) float64 CPU windows, WC =
+    6B + 4: the first hop introduces bulges at l_rel, the last one takes
+    them out at ihi_rel."""
+    import torch
+    from starneig_tpu_torch.ops import qz_driver
+    ihi = n if ihi is None else ihi
+    P = 6 * B + 6
+    NP = n + 2 * P
+    rng = np.random.default_rng(seed)
+    S = np.zeros((NP, NP))
+    T = np.zeros((NP, NP))
+    S[P:P + n, P:P + n] = np.triu(rng.standard_normal((n, n)), -1)
+    S[P + l, P + l - 1] = 0.0
+    T[P:P + n, P:P + n] = np.triu(rng.standard_normal((n, n))) + 3 * np.eye(n)
+    Q = np.zeros((n, NP))
+    Q[:, P:P + n] = np.eye(n)
+    sh = rng.standard_normal((B, 4))
+    sh[:, 3] = -sh[:, 1]
+    sh = torch.as_tensor(sh)
+    hops = []
+
+    def hop(Sw, Tw, sh_, l_rel, ihi_rel, s0, B_, HOP):
+        hops.append((Sw.clone(), Tw.clone(), l_rel, ihi_rel, s0))
+        return qz_driver._qz_train_hop(Sw, Tw, sh_, l_rel, ihi_rel, s0, B_, HOP)
+    qz_driver._qz_sweep(*(torch.as_tensor(x) for x in (S, T, Q, Q.copy())),
+                        P + l, P + ihi, sh, B, hop=hop)
+    return hops, sh

@@ -9,6 +9,8 @@ what it guarantees (the gates of tests/test_qz_driver.py): info, exact
 generalized Schur structure, residuals and orthogonality below 5000 u.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +22,7 @@ from starneig_tpu_torch.convert import from_numpy, to_numpy
 from starneig_tpu_torch.errors import Error
 from starneig_tpu_torch.ops import qz_driver as tqd
 from starneig_tpu_torch.testing import hooks
-from starneig_tpu_torch.testing.generators import planted_schur_pair
+from starneig_tpu_torch.testing.generators import planted_schur_pair, qz_train_hops
 
 torch.set_num_threads(1)
 
@@ -74,6 +76,120 @@ def test_qz_sweep(B, n, l, ihi):
     tqd._qz_sweep(*got, P + l, P + ihi, from_numpy(sh), B)
     for w, g in zip(want, got):
         assert _rel(w, to_numpy(g)) <= 1e-12
+
+
+def _g3_full(S, l_rel, s0, B, HOP):
+    """Kernel G3's switch to the full ranges: the hop introduces a bulge
+    (bulge b enters at step s = 3b) at l_rel where S[l_rel, l_rel - 1] is
+    not zero, the one input whose first reflector fills the columns left
+    of the bulge."""
+    intro = any(s0 <= 3 * b < s0 + HOP for b in range(B))
+    return intro and 1 <= l_rel < S.shape[0] and float(S[l_rel, l_rel - 1]) != 0.0
+
+
+def _g3_cut_hop(Sw, Tw, sh, l_rel, ihi_rel, s0, B, HOP, force_cut=False):
+    """tqd._qz_train_hop with every update cut to the entries kernel G3
+    touches: the left reflector on S's columns from k-1 and T's from k, the
+    right reflector and the rotation on S's rows up to k+3 and T's up to
+    k+2, and Qw's and Zw's updates on the rows [min k, max k + 2] of the
+    steps so far (the rows that can differ from the identity's); the full
+    ranges where _g3_full holds (unless force_cut)."""
+    from starneig_tpu_torch.ops import primitives as prim
+    from starneig_tpu_torch.ops.hess_triangular import rot_cols
+    S, T = Sw.clone(), Tw.clone()
+    WC = S.shape[0]
+    Qw = torch.eye(WC, dtype=S.dtype)
+    Zw = torch.eye(WC, dtype=S.dtype)
+    full = _g3_full(S, l_rel, s0, B, HOP) and not force_cut
+    m3 = torch.ones(3, dtype=torch.bool)
+    qlo, qhi = (0, WC) if full else (WC, 0)
+    for t in range(HOP):
+        s = s0 + t
+        act = [b for b in range(B) if l_rel <= l_rel + s - 3 * b <= ihi_rel - 2]
+        if not act:
+            continue
+        ks = [l_rel + s - 3 * b for b in act]
+        if not full:
+            qlo, qhi = min(qlo, min(ks)), max(qhi, max(ks) + 3)
+        use3 = torch.tensor([k <= ihi_rel - 3 for k in ks])
+        intro = [k == l_rel for k in ks]
+        x = torch.stack([S[k:k + 3, k - 1] if not it else S.new_zeros(3)
+                         for k, it in zip(ks, intro)])
+        if any(intro):
+            sa = sh[act]
+            ic = tqd._first_col_qz(S, T, l_rel, sa[:, 0], sa[:, 1], sa[:, 2], sa[:, 3],
+                                   use3, plus_floor=True)
+            x = torch.where(torch.tensor(intro)[:, None], ic, x)
+        on = torch.ones_like(use3)
+        v, tau, beta = prim.householder(x, torch.stack([on, on, use3], 1))
+        for g, k in enumerate(ks):
+            for M, c0 in ((S, 0 if full else max(k - 1, 0)), (T, 0 if full else k)):
+                rows = M[k:k + 3, c0:]
+                rows -= tau[g] * torch.outer(v[g], v[g] @ rows)
+            qc = Qw[qlo:qhi, k:k + 3]
+            qc -= tau[g] * torch.outer(qc @ v[g], v[g])
+        for g, k in enumerate(ks):
+            if not intro[g]:
+                S[k, k - 1] = beta[g]
+                S[k + 1, k - 1] = 0.0
+                if bool(use3[g]):
+                    S[k + 2, k - 1] = 0.0
+
+        def reach(k):
+            return (S, WC if full else min(k + 4, WC)), (T, WC if full else k + 3)
+        for g, k in enumerate(ks):
+            if not bool(use3[g]):
+                continue
+            vr, tau_r, _ = prim.householder(T[k + 2, k:k + 3].flip(0), m3)
+            vr = vr.flip(0)
+            for M, r1 in reach(k):
+                cols = M[:r1, k:k + 3]
+                cols -= tau_r * torch.outer(cols @ vr, vr)
+            cols = Zw[qlo:qhi, k:k + 3]
+            cols -= tau_r * torch.outer(cols @ vr, vr)
+            T[k + 2, k] = 0.0
+            T[k + 2, k + 1] = 0.0
+        for k in ks:
+            c2, s2, _ = prim.givens(T[k + 1, k + 1], T[k + 1, k])
+            for M, r1 in reach(k):
+                rot_cols(M[:r1], k + 1, c2, -s2)
+            rot_cols(Zw[qlo:qhi], k + 1, c2, -s2)
+            T[k + 1, k] = 0.0
+    return S, T, Qw, Zw
+
+
+@functools.lru_cache(maxsize=None)
+def _g3_hops(B):
+    """Every hop of one B-bulge train at a size with a middle hop."""
+    return qz_train_hops({1: 40, 3: 60}.get(B, 100), B, 7 + B)
+
+
+@pytest.mark.parametrize("hop", ["intro", "middle", "last", "subdiag"])
+@pytest.mark.parametrize("B", [1, 3, 12, 13])
+def test_g3_ranges(B, hop):
+    """Kernel G3 touches only the entries of a hop that can change:
+    _g3_cut_hop equals the full-width twin tqd._qz_train_hop entry for entry
+    (torch.equal, so a zero's sign is not compared) on the introduction
+    hop, a middle hop, the last hop (where use3 turns false) and, with
+    S[l_rel, l_rel - 1] != 0, an introduction hop that must take the full
+    ranges (the cut ranges alone differ there)."""
+    hops, sh = _g3_hops(B)
+    HOP = 3 * B
+    Sw, Tw, l_rel, ihi_rel, s0 = hops[{"middle": len(hops) // 2, "last": -1}.get(hop, 0)]
+    if hop == "subdiag":
+        Sw = Sw.clone()
+        Sw[l_rel, l_rel - 1] = 0.7
+    if hop == "last":
+        assert any(l_rel + s0 + t - 3 * b == ihi_rel - 2
+                   for t in range(HOP) for b in range(B))
+    assert _g3_full(Sw, l_rel, s0, B, HOP) == (hop == "subdiag")
+    want = tqd._qz_train_hop(Sw, Tw, sh, l_rel, ihi_rel, s0, B, HOP)
+    got = _g3_cut_hop(Sw, Tw, sh, l_rel, ihi_rel, s0, B, HOP)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    if hop == "subdiag":
+        cut = _g3_cut_hop(Sw, Tw, sh, l_rel, ihi_rel, s0, B, HOP, force_cut=True)
+        assert not all(torch.equal(w, g) for w, g in zip(want, cut))
 
 
 def test_standardize_blocks_gep():

@@ -24,12 +24,12 @@ from starneig_tpu_torch.ops.hess_triangular import (_ht_generate, _ht_reduce,
 from starneig_tpu_torch.ops.qz import _small_qz_plain
 from starneig_tpu_torch.ops.qz_driver import (_aed_deflate_gep,
                                               _aed_recondense_gep, _inf_chase_kernel,
-                                              _qz_sweep)
+                                              _qz_sweep, _qz_train_hop)
 from starneig_tpu_torch.ops.reorder import _window_bubble_gep
 from starneig_tpu_torch.testing import hooks
 from starneig_tpu_torch.testing.generators import (inf_push_window, known_spectrum_pencil,
                                                    planted_pencil_windows,
-                                                   planted_spike_reject)
+                                                   planted_spike_reject, qz_train_hops)
 from starneig_tpu_torch.testing.generators import planted_schur_pair as schur_pair
 
 U = np.finfo(np.float64).eps
@@ -221,6 +221,28 @@ def test_qz_sweep_train(cuda):
     _qz_sweep(*cpu, P + l, P + ihi, torch.as_tensor(sh), B)
     for g, w in zip(dev, cpu):
         assert _maxrel(g, w, w) <= 1e-11
+
+
+@pytest.mark.parametrize("hop", ["intro", "middle", "last", "subdiag"])
+@pytest.mark.parametrize("B", [1, 3, 12, 13])
+def test_qz_sweep_hop(cuda, B, hop):
+    """G3 on one hop of a train as the driver's sweep cuts it (the
+    introduction hop, a middle hop, the last hop where use3 turns false,
+    and an introduction hop with S[l_rel, l_rel - 1] != 0, which takes the
+    full ranges) against _qz_train_hop on the CPU, 1e-12 max|M| (the same
+    operations, other fused multiply-adds)."""
+    hops, sh = qz_train_hops({1: 40, 3: 60}.get(B, 100), B, 7 + B)
+    Sw, Tw, l_rel, ihi_rel, s0 = hops[{"middle": len(hops) // 2, "last": -1}.get(hop, 0)]
+    if hop == "subdiag":
+        Sw = Sw.clone()
+        Sw[l_rel, l_rel - 1] = 0.7
+    want = _qz_train_hop(Sw, Tw, sh, l_rel, ihi_rel, s0, B, 3 * B)
+    n0 = kernels.LAUNCHES["qz_sweep"]
+    got = gpu_gep.qz_sweep(Sw.to(cuda), Tw.to(cuda), sh.to(cuda), l_rel, ihi_rel, s0, B,
+                           3 * B)
+    assert kernels.LAUNCHES["qz_sweep"] == n0 + 1
+    for g, w in zip(got, want):
+        assert _maxrel(g, w, w) <= 1e-12
 
 
 # the spike: some bottom blocks deflate, the others move up (thresh is

@@ -44,16 +44,28 @@ def _block_eigs(S, m):
 
 
 def _gemv_case(kind, trans, j, cuda):
-    """(M, x) for a B1 case: a view with offsets into a small matrix; the
-    panel loop's V[:, :j] (4000 rows, ld 288, a row offset); or T[:j, :j]
-    (ld 288)."""
+    """(M, x) for a B1 case: a view with offsets into a small matrix (an
+    8-byte offset: the scalar path); the panel loop's 4000 x j views of an
+    (n, 288) panel array (ld 288, a row offset) or T[:j, :j] (ld 288); the
+    panel matvec's 4000 x 4000 matrix and its trailing block A[1152:,
+    1152:]; a DM rank's 4000 x 2000 column shard; a view with an odd ld,
+    or one starting 8 bytes past a 16-byte boundary (the scalar paths)."""
     rng = np.random.default_rng(int(trans) if j is None else j + int(trans))
     if kind == "view":
         M = torch.as_tensor(rng.standard_normal((700, 500)), device=cuda)[37:, 11:]
     elif kind == "panel":
         M = torch.as_tensor(rng.standard_normal((4100, 288)), device=cuda)[100:, :j]
-    else:
+    elif kind == "T":
         M = torch.as_tensor(rng.standard_normal((288, 288)), device=cuda)[:j, :j]
+    elif kind in ("A", "trailing"):
+        M = torch.as_tensor(rng.standard_normal((4000, 4000)), device=cuda)
+        M = M[1152:, 1152:] if kind == "trailing" else M
+    elif kind == "shard":
+        M = torch.as_tensor(rng.standard_normal((4000, 2000)), device=cuda)
+    elif kind == "odd_ld":
+        M = torch.as_tensor(rng.standard_normal((600, 501)), device=cuda)[:, :400]
+    else:  # "offset"
+        M = torch.as_tensor(rng.standard_normal((600, 500)), device=cuda)[:, 1:]
     x = torch.as_tensor(rng.standard_normal(M.shape[0] if trans else M.shape[1]),
                         device=cuda)
     return M, x
@@ -62,7 +74,11 @@ def _gemv_case(kind, trans, j, cuda):
 @pytest.mark.parametrize("kind,trans,j,tol", [
     ("view", False, None, 1e-13), ("view", True, None, 1e-13),
     *[("panel", True, j, 1e-12) for j in (1, 31, 32, 33, 288)],
-    *[("T", True, j, 1e-12) for j in (32, 144, 288)]])
+    *[("T", True, j, 1e-12) for j in (32, 144, 288)],
+    # A x: the narrow rows (<= 64 columns) and the wide ones on each side
+    *[("panel", False, j, 1e-12) for j in (1, 31, 32, 33, 64, 65, 288)],
+    *[("T", False, j, 1e-12) for j in (1, 32, 288)],
+    *[(k, False, None, 1e-12) for k in ("A", "trailing", "shard", "odd_ld", "offset")]])
 def test_gemv(cuda, kind, trans, j, tol):
     M, x = _gemv_case(kind, trans, j, cuda)
     n0 = kernels.LAUNCHES["hess_gemv"]
@@ -74,13 +90,16 @@ def test_gemv(cuda, kind, trans, j, tol):
     assert float((got - want).abs().max()) <= tol * scale
 
 
-@pytest.mark.parametrize("kind,j", [("panel", 288), ("panel", 33), ("T", 144)])
-def test_gemv_trans_repeatable(cuda, kind, j):
-    """The transposed mode sums across blocks in a fixed order: two launches
-    give the same bits."""
-    M, x = _gemv_case(kind, True, j, cuda)
-    first = gpu_hess.gemv(M, x, True)
-    assert torch.equal(first, gpu_hess.gemv(M, x, True))
+@pytest.mark.parametrize("kind,j,trans", [
+    ("panel", 288, True), ("panel", 33, True), ("T", 144, True),
+    ("panel", 1, False), ("panel", 33, False), ("panel", 288, False), ("T", 288, False),
+    ("A", None, False), ("odd_ld", None, False)])
+def test_gemv_trans_repeatable(cuda, kind, j, trans):
+    """Both modes sum in an order fixed by the shape (the transposed mode
+    across blocks too): two launches give the same bits."""
+    M, x = _gemv_case(kind, trans, j, cuda)
+    first = gpu_hess.gemv(M, x, trans)
+    assert torch.equal(first, gpu_hess.gemv(M, x, trans))
 
 
 # at w = 96 and 130 several 32-step blocks of a sweep are in flight at once
