@@ -142,12 +142,16 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
+# the harness (this checkout's chip_smoke, which imports nothing of the
+# package at import time) measures every ROOT alike
+from chip_smoke import (BUBBLE_CASES, DEFLATE_CASES, DEFLATE_S, DEFLATE_TH,  # noqa: E402
+                        HTWIN_S, HTWIN_WA, INF_CASES, U, block_eigs, bubble_check,
+                        cuda_ms, deflate_check, device_ms, hessenberg_np,
+                        recondense_gep_contract, tally, timed)
+
 if sys.argv[1:2] == ["_one"]:   # a per-ROOT worker: that checkout's package
     sys.path.insert(0, str(Path(sys.argv[3]).resolve()))
 
-from chip_smoke import (BUBBLE_CASES, DEFLATE_CASES, DEFLATE_S, DEFLATE_TH,  # noqa: E402
-                        U, block_eigs, bubble_check, cuda_ms, deflate_check,
-                        device_ms, hessenberg_np, tally, timed)
 from starneig_tpu_torch import kernels  # noqa: E402
 
 CASES = [(40, 40, 0), (40, 31, 1), (96, 96, 3), (130, 130, 4), (322, 322, 2)]
@@ -866,6 +870,144 @@ def ab_qzsweep(args) -> bool:
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     qzsweep_inputs(path)
     return None not in run_per_root("qzsweep", args, path)
+
+
+def _digest(out) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for x in out:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def gep_qz_profile(dev, keys):
+    """The GEP n=2000 chain's QZ phase (known_spectrum_pencil(2000, 0.3,
+    0.1, seed 0) after api.gep.hessenberg_triangular) and the n=512
+    infinite-rich one (tests/test_qz_driver.py's pencil) timed by CUDA
+    events, then each again under torch.profiler: {label: (device ms,
+    launches)} of the kernels whose names hold each key, info and rounds."""
+    from chip_smoke import profiled_kernels
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.testing.generators import known_spectrum_pencil
+    A_np, B_np, _al, _be = known_spectrum_pencil(2000, complex_ratio=0.3, inf_ratio=0.1,
+                                                 seed=0)
+    A, Bm = (torch.as_tensor(x, device=dev) for x in (A_np, B_np))
+    H, T, Q, Z = gep.hessenberg_triangular(A, Bm)
+    n = 512
+    rng = np.random.default_rng(21)
+    H0 = np.triu(rng.standard_normal((n, n)), -1)
+    T0 = np.triu(rng.standard_normal((n, n))) + 3 * np.eye(n)
+    for j in rng.choice(np.arange(1, n - 1), size=n // 10, replace=False):
+        T0[j, j] = 0.0
+    H0, T0 = (torch.as_tensor(x, device=dev) for x in (H0, T0))
+    res = {}
+    for name, fn in (("n2000", lambda st: gep.schur(H, T, Q, Z, stats=st)),
+                     ("n512_inf", lambda st: gep.schur(H0, T0, stats=st))):
+        stats = {}
+        out, qz_ms = timed(lambda: fn(stats))
+        _, prof, prof_ms = profiled_kernels(lambda: fn({}))
+        dev_tot = {}
+        for label, key in keys.items():
+            hits = [v for k, v in prof.items() if any(kk in k for kk in key)]
+            dev_tot[label] = (sum(v[0] for v in hits), sum(v[1] for v in hits))
+        res[name] = dict(info=int(out[7]), rounds=stats["rounds"],
+                         inf_rounds=stats["inf_rounds"], qz_ms=qz_ms,
+                         qz_ms_profiled=prof_ms, device=dev_tot)
+    return res
+
+
+def htwin_one(root: str) -> None:
+    """In a fresh process: G1's window mode (``gpu_gep.ht_recondense``) of
+    the package under root on chip_smoke's planted windows at WA = 84, 162
+    and 322 (kbot = WA - 4, s = 0.37): three runs of 5 launches by CUDA
+    events after a warm-up, the recondense contract, the SHA-256 of the
+    output, and at kbot = 10 the error against _aed_recondense_gep on the
+    CPU; then gep_qz_profile: the n=2000 and n=512 QZ phases with the
+    window mode's and G5's device totals and launches.  Prints one JSON
+    line, then fails where a window misses the smoke's gates (similarity
+    below 1e-13, the structure exact, the spike tail below 1e-14 WA, beta
+    within 1e-13, 1e-12 at kbot = 10) or a QZ phase's info is not 0."""
+    import json
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.qz_driver import _aed_recondense_gep
+    from starneig_tpu_torch.testing.generators import planted_schur_pair
+    assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
+    dev = torch.device("cuda:0")
+    kernels.lib()
+    out = {}
+    for WA in HTWIN_WA:
+        npx = planted_schur_pair(WA, WA, WA)
+        x = [torch.as_tensor(a, device=dev) for a in npx]
+        kbot = WA - 4
+        got = gpu_gep.ht_recondense(*x, HTWIN_S, kbot)
+        ms = [cuda_ms(lambda: gpu_gep.ht_recondense(*x, HTWIN_S, kbot), 5) for _ in range(3)]
+        g10 = gpu_gep.ht_recondense(*x, HTWIN_S, 10)
+        w10 = _aed_recondense_gep(*(a.cpu() for a in x), HTWIN_S, 10)
+        err10 = max(float((g.cpu() - w).abs().max()) / float(w.abs().max())
+                    for g, w in zip(g10[:4], w10[:4]))
+        steps = (kbot - 1) * kbot // 2
+        out[f"WA={WA}"] = dict(kbot=kbot, ms=ms, us_a_pair=min(ms) / steps * 1e3,
+                               contract=recondense_gep_contract(*npx, HTWIN_S, kbot, got),
+                               err_kbot10=err10, sha256=_digest(got))
+    qz = gep_qz_profile(dev, {"G1 window": ("ht_window_kernel", "ht_win_"),
+                              "G5": ("inf_chase_kernel",)})
+    print("HTWIN " + json.dumps(dict(root=root, windows=out, qz=qz)), flush=True)
+    bad = [k for k, w in out.items()
+           if not (w["contract"][0] < 1e-13 and w["contract"][1] == 0.0
+                   and w["contract"][2] < 1e-14 and w["contract"][3] <= 1e-13
+                   and w["err_kbot10"] <= 1e-12)]
+    bad += [k for k, r in qz.items() if r["info"] != 0]
+    if bad:
+        raise SystemExit(f"htwin: {root} misses the gates at {bad}")
+
+
+def ab_htwin(args) -> bool:
+    """ROOT ...: each ROOT's G1 window mode and the QZ phases in its own
+    process, in the order given (parent, change, change, parent)."""
+    return None not in run_per_root("htwin", args)
+
+
+def infchase_one(root: str) -> None:
+    """In a fresh process: G5 (``gpu_gep.inf_chase``) of the package under
+    root on chip_smoke.INF_CASES: three runs of 20 launches by CUDA events
+    after a warm-up, the error against _inf_chase_kernel on the CPU, the
+    exact zero and structure, and the SHA-256 of the output.  Prints one
+    JSON line, then fails where a window misses the smoke's gates (1e-12
+    max|M|, the zero and the structure exact)."""
+    import json
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.qz_driver import _inf_chase_kernel
+    from starneig_tpu_torch.testing import hooks
+    from starneig_tpu_torch.testing.generators import inf_push_window
+    assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
+    dev = torch.device("cuda:0")
+    kernels.lib()
+    out = []
+    for Wb, jrel, mrel, lrel in INF_CASES:
+        H, T = (torch.as_tensor(x, device=dev) for x in inf_push_window(Wb, Wb + jrel, jrel, lrel))
+        got = gpu_gep.inf_chase(H, T, jrel, mrel, lrel)
+        ms = [cuda_ms(lambda: gpu_gep.inf_chase(H, T, jrel, mrel, lrel), 20) for _ in range(3)]
+        want = _inf_chase_kernel(H.cpu(), T.cpu(), jrel, mrel, lrel)
+        err = max(float((g.cpu() - w).abs().max()) / float(w.abs().max())
+                  for g, w in zip(got, want))
+        Tk = got[1].cpu()
+        exact = (float(Tk[mrel - 1, mrel - 1]) == 0.0
+                 and hooks.triangular_structure_error(Tk) == 0.0
+                 and hooks.hessenberg_structure_error(got[0]) == 0.0)
+        steps = max(mrel - 1 - jrel, 0)
+        out.append(dict(case=[Wb, jrel, mrel, lrel], ms=ms, steps=steps,
+                        us_a_step=min(ms) / steps * 1e3 if steps else None, err=err,
+                        exact=exact, sha256=_digest(got)))
+    print("INFCHASE " + json.dumps(dict(root=root, cases=out)), flush=True)
+    bad = [c["case"] for c in out if not (c["err"] <= 1e-12 and c["exact"])]
+    if bad:
+        raise SystemExit(f"infchase: {root} misses the gates at {bad}")
+
+
+def ab_infchase(args) -> bool:
+    """ROOT ...: each ROOT's G5 in its own process, in the order given
+    (parent, change, change, parent)."""
+    return None not in run_per_root("infchase", args)
 
 
 # clock: where a kernel version spends its cycles.  The counters go into
@@ -1643,13 +1785,257 @@ def clock_qzsweep(specs) -> bool:
     return True
 
 
+# thread 0's counters of a one-block design (G1's window mode and G5 before
+# their redesigns): the cycles between marks, summed over the run; slot 31
+# the whole kernel
+P_CLK_MACROS = """
+__shared__ long long sn_sh_[32];
+__shared__ long long sn_last_, sn_t0_;
+#define P_CLK_INIT if (threadIdx.x == 0) { for (int i_ = 0; i_ < 32; ++i_) sn_sh_[i_] = 0; \\
+  sn_last_ = sn_t0_ = clock64(); }
+#define P_CLK(i) if (threadIdx.x == 0) { const long long n_ = clock64(); \\
+  sn_sh_[i] += n_ - sn_last_; sn_last_ = n_; }
+#define P_CLK_OUT if (threadIdx.x == 0) { sn_sh_[31] = clock64() - sn_t0_; \\
+  for (int i_ = 0; i_ < 32; ++i_) sn_ctr[i_] = sn_sh_[i_]; }
+"""
+# G1's window mode before this design (ht_cascade.cu's ht_window_kernel):
+# thread 0's cycles a rotation pair: the left rotation, the barrier, its
+# share of the row updates (S, T, Q), the barrier, the right rotation, the
+# barrier, its share of the column updates (T, S, Z), the barrier
+HTWIN_ONE_BLOCK_EDITS = [
+    ('#include "common.cuh"\n', '#include "common.cuh"\n' + P_CLK_MACROS),
+    ("  rot_cols(Q, n, i, 0, n, c, s, -1);\n  __syncthreads();\n",
+     "  rot_cols(Q, n, i, 0, n, c, s, -1);\n  P_CLK(2)\n  __syncthreads();\n  P_CLK(3)\n"),
+    ("    sh[3] = sr;\n  }\n  __syncthreads();\n",
+     "    sh[3] = sr;\n  }\n  P_CLK(4)\n  __syncthreads();\n  P_CLK(5)\n"),
+    ("  rot_cols(Z, n, i, 0, n, cr, msr, -1);\n  __syncthreads();\n}\n",
+     "  rot_cols(Z, n, i, 0, n, cr, msr, -1);\n  P_CLK(6)\n  __syncthreads();\n  P_CLK(7)\n}\n"),
+    ("int kbot, double spike, double* __restrict__ beta) {\n  extern __shared__ double sp[];\n"
+     "  __shared__ double sh[4];\n",
+     "int kbot, double spike, double* __restrict__ beta, long long* __restrict__ sn_ctr) {\n"
+     "  extern __shared__ double sp[];\n  __shared__ double sh[4];\n  P_CLK_INIT\n"),
+    ("    __syncthreads();\n    pair_step(S, T, Q, Z, W, i, -1, sh);\n",
+     "    P_CLK(0)\n    __syncthreads();\n    P_CLK(1)\n    pair_step(S, T, Q, Z, W, i, -1, sh);\n"),
+    ("      __syncthreads();\n      pair_step(S, T, Q, Z, W, i, j, sh);\n",
+     "      P_CLK(0)\n      __syncthreads();\n      P_CLK(1)\n      pair_step(S, T, Q, Z, W, i, j, sh);\n"),
+    ("    if (r > c) T[(size_t)r * W + c] = 0.0;\n  }\n}\n",
+     "    if (r > c) T[(size_t)r * W + c] = 0.0;\n  }\n  P_CLK_OUT\n}\n"),
+    ('extern "C" int ht_recondense(void* S, void* T, void* Q, void* Z, int W, int kbot,\n'
+     '                             double s, void* beta, void* stream) {',
+     'extern "C" int ht_recondense_clk(void* S, void* T, void* Q, void* Z, int W, int kbot,\n'
+     '                             double s, void* beta, void* sn_ctr, void* stream) {'),
+    ("      static_cast<double*>(Z), W, kbot, s, static_cast<double*>(beta));",
+     "      static_cast<double*>(Z), W, kbot, s, static_cast<double*>(beta),\n"
+     "      static_cast<long long*>(sn_ctr));"),
+]
+HTWIN_ONE_BLOCK_NAMES = {0: "left rotation", 1: "barrier", 2: "row updates", 3: "barrier ",
+                         4: "right rotation", 5: "barrier  ", 6: "column updates",
+                         7: "barrier   "}
+# G1's window mode as it ships (ht_recondense.cu's chain kernel): lane 0 of
+# each warp, summed over the cascades.  Phases A (the left rotations, the
+# block), B (the left pass), then C (warp 0, the right chain: 9 forming a
+# rotation, 10 the row updates and the publication) beside D (the other
+# warps: the right
+# pass behind the chain, its waits included), each phase ended by a block
+# barrier; 11 T's load, 12 its barrier, 13 the write-back
+HTWIN_EDITS = [
+    ('#include "common.cuh"\n', '#include "common.cuh"\n' + QZS_CLK_MACROS),
+    ("int v_shared, int t_shared) {", "int v_shared, int t_shared SN_CLK_KPARAM) {"),
+    ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n  if (kbot <= 1) {",
+     "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+     "  for (int i_ = tid; i_ < 32 * 32; i_ += blockDim.x) sn_sh_[i_] = 0;\n"
+     "  __syncthreads();\n  SN_CLK_DECL\n  if (kbot <= 1) {"),
+    ("  __syncthreads();\n  for (int m = 0; m <= kbot - 2; ++m) {",
+     "  SN_CLK(11)\n  __syncthreads();\n  SN_CLK(12)\n  for (int m = 0; m <= kbot - 2; ++m) {"),
+    ("    __syncthreads();\n    // -- B:", "    SN_CLK(0)\n    __syncthreads();\n    SN_CLK(1)\n"
+     "    // -- B:"),
+    ("    __syncthreads();\n    if (warp == 0) {\n      // -- C:",
+     "    SN_CLK(2)\n    __syncthreads();\n    SN_CLK(3)\n    if (warp == 0) {\n      // -- C:"),
+    ("        __syncwarp();   // every lane has read the pair before row k is written\n",
+     "        __syncwarp();   // every lane has read the pair before row k is written\n"
+     "        SN_CLK(9)\n"),
+    ("        __syncwarp();\n        ok -= k + 1;\n      }\n",
+     "        __syncwarp();\n        ok -= k + 1;\n        SN_CLK(10)\n      }\n"),
+    ("    __syncthreads();\n  }\n  // T's leading block back",
+     "    SN_CLK(4)\n    __syncthreads();\n    SN_CLK(5)\n  }\n  // T's leading block back"),
+    ("    Tg[(size_t)r * W + c] = r <= c ? Tp[poff(c) + r] : 0.0;\n  }\n}\n",
+     "    Tg[(size_t)r * W + c] = r <= c ? Tp[poff(c) + r] : 0.0;\n  }\n  SN_CLK(13)\n"
+     "  if (lane == 0) { SN_CLK_OUT(warp * 32, 0, 32) }\n}\n"),
+    ("double* beta, size_t budget) {", "double* beta, size_t budget SN_CLK_PARAM) {"),
+    ("t_shared ? 1 : 0);", "t_shared ? 1 : 0 SN_CLK_ARG);"),
+    ('extern "C" int ht_recondense(', 'extern "C" int ht_recondense_clk('),
+    ("int smem_cap, void* stream) {", "int smem_cap SN_CLK_PARAM, void* stream) {"),
+    ("kSmemMax - 1024 - tiles);", "kSmemMax - 1024 - tiles SN_CLK_FWD);"),
+]
+HTWIN_NAMES = {0: "A left rotations", 1: "barrier A", 2: "B left pass", 3: "barrier B",
+               9: "C forming", 10: "C updates", 4: "C/D tail", 5: "barrier C/D"}
+
+
+def clock_htwin(specs) -> bool:
+    """clock htwin [NAME=PATH ...]: where G1's window mode spends its cycles
+    on chip_ab htwin's windows (WA = 84 and 162, kbot = WA - 4): for the
+    one-block design (a NAME=PATH to the parent's ht_cascade.cu) thread
+    0's cycles a pair by part; for the current chain kernel warp 0's
+    cycles a pair by phase (its phases A and C: the serial chain), the
+    largest of the bulk phases over the other warps and their waits, and
+    the replay's share of the call (CUDA events less the chain's cycles)."""
+    from starneig_tpu_torch.testing.generators import planted_schur_pair
+    dev = torch.device("cuda:0")
+    fns = {name: clock_build_src(name, "ht_recondense", Path(p), HTWIN_EDITS,
+                                 HTWIN_ONE_BLOCK_EDITS, "ht_window_kernel")
+           for name, p in _clock_versions("ht_recondense", specs)}
+    hz = None
+    for WA in HTWIN_WA[:2]:
+        kbot = WA - 4
+        x = [torch.as_tensor(a, device=dev) for a in planted_schur_pair(WA, WA, WA)]
+        pairs = kbot * (kbot - 1) // 2
+        for name, (fn, one_block) in fns.items():
+            ctr = torch.zeros(1024, dtype=torch.int64, device=dev)
+            if one_block:
+                fn.argtypes = [_P] * 4 + [_I, _I, _D, _P, _P, _P]
+
+            def run(fn=fn, ctr=ctr, one_block=one_block):
+                S, T, Q, Z = (a.clone() for a in x)
+                beta = S.new_zeros(1)
+                ctr.zero_()
+                st = kernels.stream_ptr(S)
+                if one_block:
+                    code = fn(S.data_ptr(), T.data_ptr(), Q.data_ptr(), Z.data_ptr(), WA,
+                              kbot, HTWIN_S, beta.data_ptr(), ctr.data_ptr(), st)
+                else:
+                    tsc = S.new_empty(kbot * (kbot + 3) // 2 + 5 * kbot)
+                    lg = S.new_empty(2 * kbot * (kbot - 1))
+                    code = fn(S.data_ptr(), T.data_ptr(), Q.data_ptr(), Z.data_ptr(),
+                              tsc.data_ptr(), lg.data_ptr(), WA, kbot, HTWIN_S,
+                              beta.data_ptr(), 0, ctr.data_ptr(), st)
+                kernels.check(code, "ht_recondense_clk")
+            run()
+            ms = cuda_ms(run, 3)
+            c = ctr.cpu().tolist()
+            if one_block:
+                hz = c[31] / (ms * 1e6)
+                print(f"htwin WA={WA} kbot={kbot} {name} (one block): {ms:.3f} ms, "
+                      f"{c[31] / pairs:.0f} cycles a pair ({hz:.3f} GHz); cycles a pair: "
+                      + ", ".join(f"{k.strip()} {c[i] / pairs:.0f}"
+                                  for i, k in HTWIN_ONE_BLOCK_NAMES.items()), flush=True)
+                continue
+            w0 = c[:32]
+            chain = w0[0] + w0[9] + w0[10]
+            print(f"htwin WA={WA} kbot={kbot} {name}: {ms:.3f} ms a call, the chain kernel "
+                  f"{w0[31]} cycles ({w0[31] / pairs:.0f} a pair); warp 0, cycles a pair: "
+                  + ", ".join(f"{k} {w0[i] / pairs:.0f}" for i, k in HTWIN_NAMES.items())
+                  + f"; T's load {w0[11]}, its barrier {w0[12]}, write-back {w0[13]} cycles; "
+                  f"the serial chain (A + C) {chain / pairs:.0f} cycles a pair", flush=True)
+            top = {i: max(c[w * 32 + i] for w in range(1, 16)) / pairs for i in (1, 2, 4, 5)}
+            print("  the other warps, largest, cycles a pair: "
+                  + ", ".join(f"{({4: 'D right pass with its waits'}).get(i, HTWIN_NAMES[i])} "
+                              f"{v:.0f}" for i, v in top.items()), flush=True)
+    return True
+
+
+# G5 before this design (one block, thread 0 forming both rotations):
+# thread 0's cycles a step by part
+INF_ONE_BLOCK_EDITS = [
+    ('#include "common.cuh"\n', '#include "common.cuh"\n' + P_CLK_MACROS),
+    ("int jrel, int mrel, int lrel) {\n  extern __shared__ double smem[];\n",
+     "int jrel, int mrel, int lrel, long long* __restrict__ sn_ctr) {\n"
+     "  extern __shared__ double smem[];\n  P_CLK_INIT\n"),
+    ("      s_rot[2] = r;\n    }\n    __syncthreads();\n",
+     "      s_rot[2] = r;\n    }\n    P_CLK(0)\n    __syncthreads();\n    P_CLK(1)\n"),
+    ("    __syncthreads();\n    const int im1 = i - 1 > 0 ? i - 1 : 0;",
+     "    P_CLK(2)\n    __syncthreads();\n    P_CLK(3)\n    const int im1 = i - 1 > 0 ? i - 1 : 0;"),
+    ("    __syncthreads();\n    if (s_skip) continue;",
+     "    P_CLK(4)\n    __syncthreads();\n    P_CLK(5)\n    if (s_skip) continue;"),
+    ("        *b = nb;  // at i = 0, a == b: nb wins, as in the twin\n      }\n    }\n"
+     "    __syncthreads();\n",
+     "        *b = nb;  // at i = 0, a == b: nb wins, as in the twin\n      }\n    }\n"
+     "    P_CLK(6)\n    __syncthreads();\n    P_CLK(7)\n"),
+    ("    T[e] = sT[r * ld + c];\n  }\n}\n", "    T[e] = sT[r * ld + c];\n  }\n  P_CLK_OUT\n}\n"),
+    ('extern "C" int inf_chase(void* H, void* T, void* Q, void* Z, int Wb, int jrel,\n'
+     '                         int mrel, int lrel, void* stream) {',
+     'extern "C" int inf_chase_clk(void* H, void* T, void* Q, void* Z, int Wb, int jrel,\n'
+     '                         int mrel, int lrel, void* sn_ctr, void* stream) {'),
+    ("      static_cast<double*>(Z), Wb, jrel, mrel, lrel);",
+     "      static_cast<double*>(Z), Wb, jrel, mrel, lrel, static_cast<long long*>(sn_ctr));"),
+]
+INF_ONE_BLOCK_NAMES = {0: "left rotation", 1: "barrier", 2: "row updates", 3: "barrier ",
+                       4: "plants, reflection", 5: "barrier  ", 6: "column updates",
+                       7: "barrier   "}
+# G5 as it ships: the chase warp's lane 0, a step: the row updates with
+# T's plants, the hand-over, the two rotations formed (this step's
+# reflection and the next step's left rotation: the chain), the near rows'
+# column updates with H's plants and the step's record, the step's end
+INF_EDITS = [
+    ('#include "common.cuh"\n', '#include "common.cuh"\n' + QZS_CLK_MACROS),
+    ("int jrel, int mrel, int lrel) {\n  extern __shared__ double smem[];",
+     "int jrel, int mrel, int lrel SN_CLK_KPARAM) {\n  extern __shared__ double smem[];"),
+    ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+     "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+     "  for (int i_ = tid; i_ < 32 * 32; i_ += blockDim.x) sn_sh_[i_] = 0;\n"),
+    ("  if (warp == 0) {\n", "  if (warp == 0) {\n    SN_CLK_DECL\n"),
+    ("      __syncwarp();\n      // the next step's left rotation",
+     "      SN_CLK(0)\n      __syncwarp();\n      SN_CLK(1)\n      // the next step's left rotation"),
+    ("      if (i1 <= last) givens_rs(sT[i1 * ld + i1 + 1], sT[(i1 + 1) * ld + i1 + 1], cn, sn, rn);\n",
+     "      if (i1 <= last) givens_rs(sT[i1 * ld + i1 + 1], sT[(i1 + 1) * ld + i1 + 1], cn, sn, rn);\n"
+     "      if (cn + sn + cr + sr == 1234.5) sn_clk_[29] += 1;\n      SN_CLK(2)\n"),
+    ("      rl = rn;\n      __syncwarp();\n    }\n  } else if (warp <= kUpd) {",
+     "      rl = rn;\n      SN_CLK(3)\n      __syncwarp();\n      SN_CLK(4)\n    }\n"
+     "    if (lane == 0) { SN_CLK_OUT(0, 0, 32) }\n  } else if (warp <= kUpd) {"),
+    ('extern "C" int inf_chase(', 'extern "C" int inf_chase_clk('),
+    ("int mrel, int lrel, void* stream) {", "int mrel, int lrel SN_CLK_PARAM, void* stream) {"),
+    ("static_cast<double*>(ZT), Wb, jrel, mrel, lrel);",
+     "static_cast<double*>(ZT), Wb, jrel, mrel, lrel SN_CLK_ARG);"),
+]
+INF_NAMES = {0: "row updates, T's plants", 1: "hand-over", 2: "two rotations formed",
+             3: "near column updates, H's plants, record", 4: "step's end"}
+
+
+def clock_infchase(specs) -> bool:
+    """clock infchase [NAME=PATH ...]: where G5 spends a step's cycles on
+    the n=2000 push's window (Wb = 96, jrel = 1, 94 steps): thread 0's by
+    part for the one-block design (a NAME=PATH to the parent's
+    inf_chase.cu), the chase warp's for the current one, whose chain is
+    the rotations formed."""
+    from starneig_tpu_torch.testing.generators import inf_push_window
+    dev = torch.device("cuda:0")
+    Wb, jrel, mrel, lrel = INF_CASES[0]
+    H0, T0 = (torch.as_tensor(a, device=dev) for a in inf_push_window(Wb, Wb + jrel, jrel, lrel))
+    steps = mrel - 1 - jrel
+    for name, p in _clock_versions("inf_chase", specs):
+        fn, one_block = clock_build_src(name, "inf_chase", Path(p), INF_EDITS,
+                                        INF_ONE_BLOCK_EDITS, "s_rot[3]")
+        ctr = torch.zeros(1024, dtype=torch.int64, device=dev)
+        if one_block:     # the one-block design chased H and T in place
+            fn.argtypes = [_P] * 4 + [_I] * 4 + [_P, _P]
+
+        def run(fn=fn, ctr=ctr, one_block=one_block):
+            H, T = H0.clone(), T0.clone()
+            Q, Z = torch.empty_like(H), torch.empty_like(H)
+            ctr.zero_()
+            io = (H.data_ptr(), T.data_ptr()) if one_block else \
+                (H0.data_ptr(), T0.data_ptr(), H.data_ptr(), T.data_ptr())
+            kernels.check(fn(*io, Q.data_ptr(), Z.data_ptr(), Wb, jrel, mrel, lrel,
+                             ctr.data_ptr(), kernels.stream_ptr(H)), "inf_chase_clk")
+        run()
+        ms = cuda_ms(run, 20)
+        c = ctr.cpu().tolist()
+        names = INF_ONE_BLOCK_NAMES if one_block else INF_NAMES
+        print(f"infchase Wb={Wb} {name}{' (one block)' if one_block else ''}: {ms:.4f} ms, "
+              f"{c[31] / steps:.0f} cycles a step of {steps} ({c[31] / (ms * 1e6):.3f} GHz "
+              "over the call); cycles a step: "
+              + ", ".join(f"{k.strip()} {c[i] / steps:.0f}" for i, k in names.items()),
+              flush=True)
+    return True
+
+
 def ab_clock(args) -> bool:
-    """clock [deflate|hops|recondense|qz|qzsweep] [--skip-cur] [NAME=PATH ...]"""
+    """clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase] [--skip-cur] [NAME=PATH ...]"""
     kind = args[0] if args and "=" not in args[0] else "deflate"
     rest = args[1:] if args and "=" not in args[0] else args
     return {"deflate": clock_deflate, "hops": clock_hops,
             "recondense": clock_recondense, "qz": clock_qz,
-            "qzsweep": clock_qzsweep}[kind](rest)
+            "qzsweep": clock_qzsweep, "htwin": clock_htwin,
+            "infchase": clock_infchase}[kind](rest)
 
 
 # G2's infinite-eigenvalue decisions, printed in a copy: T-diagonal
@@ -1859,12 +2245,13 @@ def ab_qzinf(_args) -> bool:
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
-         "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep}
+         "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep,
+         "htwin": ab_htwin, "infchase": ab_infchase}
 # the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
 PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),
             "bitwise": lambda root, n, device: bitwise_one(root, int(n), device),
             "ht": lambda root, n: ht_one(root, int(n)), "qz": qz_one,
-            "qzsweep": qzsweep_one}
+            "qzsweep": qzsweep_one, "htwin": htwin_one, "infchase": infchase_one}
 
 
 def main() -> int:

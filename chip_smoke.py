@@ -35,8 +35,12 @@ Phases (any failure raises; the exit code is then nonzero):
      kernels against their plain twins (run on CPU copies of the inputs):
      G1 (blocked) at n=192 against the unblocked plain cascade, its
      generation kernel and its sliver kernel against their plain twins on
-     the first block of n=2000, and G1 in window mode at WA=84 and 162
-     (kbot 10 elementwise, kbot=WA-4 by contract), G2 at w=84 (with and without 8 infinite
+     the first block of n=2000, and G1 in window mode (the GEP AED
+     recondense, a chain and a replay launch, its own launch count) at
+     WA=84, 162 and 322 at kbot 0, 1, 2, 3, 10 (elementwise against the
+     plain twin), WA-4 and WA (by contract), at WA=802 and 1000 by
+     contract, and with its shared memory capped at WA=162 (the layouts of
+     a large kbot, bit-equal to the uncapped launch), G2 at w=84 (with and without 8 infinite
      eigenvalues) and 162 by contract against its twin, and at w=322 (the
      n=4000 path's window) by contract alone, microseconds a chase step
      (the kernel's own count), G3 for a whole train at n=512 and on the
@@ -45,7 +49,8 @@ Phases (any failure raises; the exit code is then nonzero):
      microseconds a step and the serial chain of the middle hop, G4 at WA=84, 162 and 322 and on two windows whose first move is
      rejected after 20 and 40 swaps (kbot, fail and steps equal),
      microseconds a swap, G5 (the
-     infinite push's window chase) at Wb=96 and 84, G6 (the pencil window
+     infinite push's window chase) at Wb=96 and 84, with no step and on a
+     push's last, short window, G6 (the pencil window
      bubble) on planted windows at W=16 and 128 (2x2 blocks, exact
      T-diagonal zeros, frozen rows, an insertion limit, a rejected swap;
      every integer equal); G1 also at
@@ -77,8 +82,9 @@ Phases (any failure raises; the exit code is then nonzero):
      at least once); the HT phase runs first under torch.profiler (each
      kernel's device total and launches, G1's time, the cold call's time),
      then warm outside it (ht_ms), the QZ phase again under it afterwards
-     (each kernel's device total, G2's, G3's and G4's with their
-     launches, the sweeps' time and G3's device idle share of it);
+     (each kernel's device total, G2's, G3's, G4's, G1's window mode's
+     (below 150 ms) and G5's with their launches, the sweeps' time and
+     G3's device idle share of it);
      then api.gep.select (finite, Re(alpha/beta) > 0), api.gep.reorder_schur
      and api.gep.eigenvectors of the leading selected block, gated on info,
      exact structure, 500 u, the leading rows holding exactly the selected
@@ -178,6 +184,12 @@ RECONDENSE_STEP_CYCLES = 6648
 # rotation; the largest over the chase warps), clock64 counters
 # (chip_ab.py clock qzsweep, PERF.md section 6)
 QZSWEEP_STEP_CYCLES = 4142
+# G1's window mode's chain a rotation pair (WA=162, kbot=158) and G5's a
+# step (Wb=96), in cycles: warp 0's left rotations and right chain (phases
+# A and C), and the chase warp's two rotations formed a step (clock64
+# counters, chip_ab.py clock htwin / clock infchase, PERF.md section 6)
+HTWIN_PAIR_CYCLES = 1201
+INF_STEP_CYCLES = 611
 
 REPLACES = {
     "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
@@ -189,9 +201,10 @@ REPLACES = {
     # while-loop (_run_bubble_b), which the TPU executed
     "reorder_bubble": "starneig_tpu/ops/reorder.py:156",
     # the GEP path has no Pallas kernel either: G1-G4 replace its serial XLA
-    # loops (the HT cascade, the window QZ machine, the QZ train sweep, the
-    # GEP spike deflation's moves)
+    # loops (the HT cascade and its window mode, the AED recondense; the
+    # window QZ machine, the QZ train sweep, the GEP spike deflation's moves)
     "ht_cascade": "starneig_tpu/ops/hess_triangular.py:36",
+    "ht_recondense": "starneig_tpu/ops/qz_driver.py:166",
     "qz_window": "starneig_tpu/ops/qz.py:215",
     "qz_sweep": "starneig_tpu/ops/qz_driver.py:444",
     "aed_deflate_gep": "starneig_tpu/ops/qz_driver.py:121",
@@ -209,7 +222,8 @@ F64_FLOPS = 34e12
 SCHUR_KERNELS = ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense")
 # the kernels of the GEP path hessenberg_triangular -> schur, and of the
 # chain past it (select -> reorder_schur -> eigenvectors)
-GEP_KERNELS = ("ht_cascade", "qz_window", "qz_sweep", "aed_deflate_gep", "inf_chase")
+GEP_KERNELS = ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
+               "inf_chase")
 GEP_CHAIN_KERNELS = ("reorder_bubble_gep",)
 GEP_N = 2000                       # the GEP chain's size
 SMOKE_DEADLINE_S = 1100.0          # phase 9 waits for the plain cascade until then
@@ -1336,8 +1350,6 @@ def phase_ht_cascade(dev, inp2000):
     from starneig_tpu_torch.ops.hess_triangular import (NB, _ht_generate, _ht_reduce,
                                                         _ht_slivers, _rot_offset, blocks,
                                                         sliver_len)
-    from starneig_tpu_torch.ops.qz_driver import _aed_recondense_gep
-    from starneig_tpu_torch.testing.generators import planted_schur_pair
     # full mode (blocked) at n=192 (tests/test_torch_gep_kernels.py's shape)
     # against the unblocked plain cascade
     n = 192
@@ -1352,36 +1364,7 @@ def phase_ht_cascade(dev, inp2000):
     log(f"  G1 n={n}: max err {err:.2e} max|M|; kernel {ms:.2f} ms "
         f"({ms / steps * 1e3:.3f} us a step of {steps}), plain (CPU) {plain_ms:.1f} ms, "
         f"bound {bms:.4f} ms ({by})")
-    # window mode (the GEP recondense) at the AED windows of n=512 and 2000
     detail = {}
-    for WA in (84, 162):
-        S, T, Q, Z = (torch.as_tensor(x, device=dev) for x in planted_schur_pair(WA, WA, WA))
-        s_ = 0.37
-        for kbot in (10, WA - 4):
-            gk = gpu_gep.ht_recondense(S, T, Q, Z, s_, kbot)
-            gp, pms = host_ms(lambda: _aed_recondense_gep(*_cpu(S, T, Q, Z), s_, kbot))
-            e = max(_rel(w, g) for g, w in zip(gk[:4], gp[:4]))
-            S2, T2, Q2, Z2 = (x.cpu().numpy() for x in gk[:4])
-            Sn, Tn, Qn, Zn = (x.cpu().numpy() for x in (S, T, Q, Z))
-            Ul, Vr = Qn.T @ Q2, Zn.T @ Z2
-            sim = max(np.linalg.norm(Ul.T @ Sn @ Vr - S2) / np.linalg.norm(Sn),
-                      np.linalg.norm(Ul.T @ Tn @ Vr - T2) / np.linalg.norm(Tn))
-            struct = max(np.abs(np.tril(S2[:kbot, :kbot], -2)).max(),
-                         np.abs(np.tril(T2[:kbot, :kbot], -1)).max())
-            spike = np.abs(s_ * Q2[0, 1:kbot]).max()
-            log(f"  G1 window WA={WA} kbot={kbot}: max err {e:.2e} (held to 1e-12 at "
-                f"kbot=10; by contract above: ill-conditioned re-reduction), similarity "
-                f"{sim:.1e}, structure {struct}, spike tail {spike:.1e}")
-            check(sim < 1e-13 and struct == 0.0 and spike < 1e-14 * WA
-                  and (kbot != 10 or e <= 1e-12), f"G1 window WA={WA} kbot={kbot}")
-        kbot = WA - 4
-        wms = cuda_ms(lambda: gpu_gep.ht_recondense(S, T, Q, Z, s_, kbot), 3)
-        st = ht_window_steps(kbot)
-        wb, wby = bound(8 * 8 * WA * WA, st * 36 * WA)
-        log(f"  G1 window WA={WA} kbot={kbot}: kernel {wms:.3f} ms ({wms / st * 1e3:.3f} us "
-            f"a step of {st}), plain (CPU) {pms:.1f} ms, bound {wb:.5f} ms ({wby})")
-        detail[f"window WA={WA}"] = dict(kbot=kbot, ms=wms, plain_ms=pms, bound_ms=wb,
-                                         bound_by=wby, steps=st)
     detail["full n=192"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                 bound_by=by, us_a_step=ms / steps * 1e3)
     # the blocked form's two kernels against their plain twins at the GEP
@@ -1425,6 +1408,119 @@ def phase_ht_cascade(dev, inp2000):
     d192 = detail["full n=192"]
     return dict(max_abs_err=err, ms=d192["ms"], plain_ms=plain_ms, bound_ms=d192["bound_ms"],
                 bound_by=d192["bound_by"], detail=detail, out_n2000=out)
+
+
+def ht_window_flops(W, kbot):
+    """fp64 operations of G1's window mode on a (W, W) window: 6 for each
+    entry pair a rotation updates where it can change (the chain's leading
+    block: S's rows and columns, T's upper triangle; the replay: Q's and
+    Z's rows, the rows below the block and the columns right of it)."""
+    pairs = 0
+    for m in range(kbot - 1):
+        j, lo = m - 1, max(m, 0)
+        for k in range(kbot - 1, m, -1):
+            pairs += (kbot - lo) + (kbot - k + 1)        # left: S's, T's row pair
+            pairs += kbot + (k + 1)                      # right: S's, T's column pair
+            pairs += 2 * W + 4 * (W - kbot)              # the replay
+    return 6 * pairs
+
+
+# G1 window mode's cases: the AED windows of n = 512, 2000 and 4000 at kbot
+# 0, 1, 2, 3, 10, WA - 4 and WA, elementwise against the plain twin at kbot
+# <= 10; the n=10,000 geometry's window (T's block in global memory) and
+# WA = 1000 (26 replay vectors a block) by the contract alone; at WA = 162
+# the layouts of a large kbot, reached by capping the shared memory
+# (HTWIN_CAPS: the bytes for what grows with kbot), bit-equal to the
+# uncapped launch
+HTWIN_WA = (84, 162, 322)
+HTWIN_WIDE = (802, 1000)
+HTWIN_KBOTS = ("0", "1", "2", "3", "10", "WA-4", "WA")
+HTWIN_S = 0.37
+HTWIN_CAPS = {"global": lambda kbot: 8, "vectors": lambda kbot: 40 * kbot}
+
+
+def recondense_gep_contract(S, T, Q, Z, s, kbot, out):
+    """(similarity (relative), structure, spike tail / WA, beta's error
+    against sigma |s| ||Q[0, :kbot]||, sigma the sign of the spike's first
+    nonzero) of a GEP recondense output (numpy inputs)."""
+    import numpy as np
+    S2, T2, Q2, Z2 = (x.cpu().numpy() for x in out[:4])
+    WA = S.shape[0]
+    Ul, Vr = Q.T @ Q2, Z.T @ Z2
+    sim = max(np.linalg.norm(Ul.T @ S @ Vr - S2) / np.linalg.norm(S),
+              np.linalg.norm(Ul.T @ T @ Vr - T2) / np.linalg.norm(T))
+    struct = max(np.abs(np.tril(S2[:kbot, :kbot], -2)).max(initial=0.0),
+                 np.abs(np.tril(T2[:kbot, :kbot], -1)).max(initial=0.0))
+    x0 = s * Q[0, :kbot]
+    nz = np.flatnonzero(x0)
+    sigma = np.sign(x0[nz[0]]) if len(nz) else 1.0
+    return (sim, struct, float(np.abs(s * Q2[0, 1:kbot]).max(initial=0.0)) / WA,
+            abs(float(out[4]) - sigma * np.linalg.norm(x0)))
+
+
+def phase_ht_recondense(dev):
+    """G1's window mode (the GEP AED recondense: a chain and a replay
+    launch) against _aed_recondense_gep: HTWIN_WA x HTWIN_KBOTS, within
+    1e-12 max|M| at kbot <= 10, every case by the contract (similarity
+    below 1e-13, the structure exact, the spike tail below 1e-14 WA,
+    beta within 1e-13; kbot = 0 leaves the window unchanged), HTWIN_WIDE
+    by the contract, HTWIN_CAPS' layouts at WA = 162 bit-equal to the
+    uncapped launch; times at kbot = WA - 4, the kernel-table row WA=162's
+    (the n=2000 path's window)."""
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.qz_driver import _aed_recondense_gep
+    from starneig_tpu_torch.testing.generators import planted_schur_pair
+    err, detail = 0.0, {}
+    for WA in HTWIN_WA + HTWIN_WIDE:
+        npx = planted_schur_pair(WA, WA, WA)
+        S, T, Q, Z = (torch.as_tensor(x, device=dev) for x in npx)
+        for kb in (HTWIN_KBOTS if WA not in HTWIN_WIDE else ("WA-4",)):
+            kbot = {"WA-4": WA - 4, "WA": WA}.get(kb) or int(kb)
+            gk = gpu_gep.ht_recondense(S, T, Q, Z, HTWIN_S, kbot)
+            sim, struct, spike, berr = recondense_gep_contract(*npx, HTWIN_S, kbot, gk)
+            ok = sim < 1e-13 and struct == 0.0 and spike < 1e-14 and berr <= 1e-13
+            e = None
+            if kbot <= 10:
+                gp = _aed_recondense_gep(*_cpu(S, T, Q, Z), HTWIN_S, kbot)
+                e = max(_rel(w, g) for g, w in zip(gk[:4], gp[:4]))
+                ok = ok and e <= 1e-12 and abs(float(gk[4]) - float(gp[4])) <= 1e-13
+                err = max(err, e)
+            if kbot == 0:
+                ok = ok and float(gk[4]) == 0.0 and all(
+                    torch.equal(g, x) for g, x in zip(gk[:4], (S, T, Q, Z)))
+            log(f"  G1 window WA={WA} kbot={kbot}: "
+                + (f"max err {e:.2e} (1e-12), " if e is not None else "")
+                + f"similarity {sim:.1e}, structure {struct}, spike tail {spike:.1e} WA, "
+                f"beta err {berr:.1e}")
+            check(ok, f"G1 window WA={WA} kbot={kbot}")
+            if WA == HTWIN_WA[1] and kb in ("10", "WA-4"):
+                for name, cap in HTWIN_CAPS.items():
+                    gc = gpu_gep.ht_recondense(S, T, Q, Z, HTWIN_S, kbot, smem_cap=cap(kbot))
+                    same = all(torch.equal(a, b) for a, b in zip(gc, gk))
+                    log(f"  G1 window WA={WA} kbot={kbot} shared memory capped ({name}, "
+                        f"{cap(kbot)} B): bit-equal to the uncapped launch {same}")
+                    check(same, f"G1 window WA={WA} kbot={kbot} {name}")
+        if WA in HTWIN_WIDE:
+            continue
+        kbot = WA - 4
+        wms = cuda_ms(lambda: gpu_gep.ht_recondense(S, T, Q, Z, HTWIN_S, kbot), 3)
+        st = ht_window_steps(kbot)
+        wb, wby = bound(8 * 8 * WA * WA, ht_window_flops(WA, kbot))
+        pms = None
+        if WA <= 162:
+            _, pms = host_ms(lambda: _aed_recondense_gep(*_cpu(S, T, Q, Z), HTWIN_S, kbot))
+        chain = st * HTWIN_PAIR_CYCLES / SM_HZ * 1e3
+        log(f"  G1 window WA={WA} kbot={kbot}: kernel {wms:.3f} ms ({wms / st * 1e3:.3f} us "
+            f"a pair of {st}), plain (CPU) "
+            + (f"{pms:.1f} ms" if pms is not None else "not run (contract only)")
+            + f", bound {wb:.5f} ms ({wby}), serial chain {chain:.2f} ms ({st} pairs x "
+            f"{HTWIN_PAIR_CYCLES} cycles)")
+        detail[f"WA={WA}"] = dict(kbot=kbot, ms=wms, plain_ms=pms, bound_ms=wb, bound_by=wby,
+                                  steps=st, us_a_pair=wms / st * 1e3, chain_ms=chain)
+    d = detail[f"WA={HTWIN_WA[1]}"]
+    return dict(max_abs_err=err, ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound_ms"],
+                bound_by=d["bound_by"], detail=detail)
 
 
 def ht_window_np(w, seed, ninf=0):
@@ -1758,8 +1854,23 @@ def phase_aed_deflate_gep(dev):
 # G5's windows (Wb, jrel, mrel, lrel): the n=2000 push's INFW=96 window as
 # the push's later windows take it (the zero at row 1, no segment top); the
 # n=512 geometry's 84 with the zero at the segment top (the reflection
-# skipped there); a window cut short (mrel < Wb) with the top inside
-INF_CASES = ((96, 1, 96, -1), (84, 0, 84, 0), (96, 7, 60, 7))
+# skipped there); a window cut short (mrel < Wb) with the top inside; a
+# window with no step (jrel = mrel - 1); the last, short window of a push
+INF_CASES = ((96, 1, 96, -1), (84, 0, 84, 0), (96, 7, 60, 7), (96, 95, 96, -1),
+             (96, 1, 37, -1))
+
+
+def inf_chase_flops(Wb, jrel, mrel, lrel):
+    """fp64 operations of G5 on a window: 6 for each entry pair a step's
+    rotation or reflection updates where it can change (H's row pair from
+    column i-1, T's from i+1, H's column pair in rows 0 .. i+1, T's in 0 ..
+    i, Qw's and Zw's rows the chase has reached)."""
+    pairs = 0
+    for i in range(jrel, mrel - 1):
+        pairs += (Wb - max(i - 1, 0)) + (Wb - i - 1) + (i + 2 - jrel)
+        if i != lrel:
+            pairs += (i + 2) + (i + 1) + (i + 1 - max(jrel - 1, 0))
+    return 6 * pairs
 
 
 def phase_inf_chase(dev):
@@ -1784,20 +1895,20 @@ def phase_inf_chase(dev):
         # the same rotations, other rounding (FMA contraction)
         check(e <= 1e-12 and exact, f"G5 Wb={Wb} jrel={jrel}: {e}, {exact}")
         err = max(err, e)
-        if (Wb, jrel, lrel) == (96, 1, -1):
+        if (Wb, jrel, mrel, lrel) == INF_CASES[0]:
             timed_case = (H, T, jrel, mrel, lrel, pms)
     H, T, jrel, mrel, lrel, pms = timed_case
     Wb = H.shape[0]
     ms = cuda_ms(lambda: gpu_gep.inf_chase(H, T, jrel, mrel, lrel), 20)
     steps = mrel - 1 - jrel
-    # a step: a left rotation on 2 Wb-wide row pairs (H, T) and Wb Qw
-    # column pairs, a right reflection on as many column pairs, 6 flops a
-    # pair; H, T read, H, T, Qw, Zw written
-    bms, by = bound(8 * 6 * Wb * Wb, steps * 36 * Wb)
+    # H, T read, H, T, Qw, Zw written; the pairs that can change
+    bms, by = bound(8 * 6 * Wb * Wb, inf_chase_flops(Wb, jrel, mrel, lrel))
+    chain = steps * INF_STEP_CYCLES / SM_HZ * 1e3
     log(f"  G5 Wb={Wb}: kernel {ms:.4f} ms ({ms / steps * 1e3:.2f} us a step of {steps}), "
-        f"plain (CPU) {pms:.1f} ms, bound {bms:.5f} ms ({by})")
+        f"plain (CPU) {pms:.1f} ms, bound {bms:.5f} ms ({by}), serial chain {chain:.4f} ms "
+        f"({steps} steps x {INF_STEP_CYCLES} cycles)")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                detail=dict(steps=steps, us_a_step=ms / steps * 1e3))
+                detail=dict(steps=steps, us_a_step=ms / steps * 1e3, chain_ms=chain))
 
 
 # G6's inputs (G, W, seed, (dst0s, dst_limits, wlims)): W=16 windows with a
@@ -1994,17 +2105,24 @@ def phase_gep(dev):
     log(f"  GEP n={n} QZ device time by kernel (ms, calls; under the profiler): {top}")
     g2_g4 = {}
     for label, key in (("G2", "qz_window_kernel"), ("G3", "qz_sweep_kernel"),
-                       ("G4", "aed_deflate_gep_kernel")):
+                       ("G4", "aed_deflate_gep_kernel"), ("G1w", "ht_win_"),
+                       ("G5", "inf_chase_kernel")):
         hits = [v for k, v in prof.items() if key in k]
         g2_g4[label] = (sum(v[0] for v in hits), sum(v[1] for v in hits))
     # the sweeps' device idle share: G3's device time against their time
     idle = 1.0 - g2_g4["G3"][0] / sweep_ms[0] if sweep_ms[0] else None
     log(f"  GEP n={n} QZ phase: G2 {g2_g4['G2'][0]:.1f} ms device time in {g2_g4['G2'][1]} "
         f"launches, G3 {g2_g4['G3'][0]:.1f} ms in {g2_g4['G3'][1]}, G4 {g2_g4['G4'][0]:.1f} ms "
-        f"in {g2_g4['G4'][1]}; the sweeps {sweep_ms[0]:.1f} ms, G3 idle {idle:.1%} of them "
+        f"in {g2_g4['G4'][1]}, G1's window mode {g2_g4['G1w'][0]:.1f} ms in {g2_g4['G1w'][1]} "
+        f"kernel launches (a chain and a replay a recondense), G5 {g2_g4['G5'][0]:.2f} ms in "
+        f"{g2_g4['G5'][1]}; the sweeps {sweep_ms[0]:.1f} ms, G3 idle {idle:.1%} of them "
         f"(under the profiler)")
     check(min(v[1] for v in g2_g4.values()) > 0,
-          f"GEP n={n}: the profiler saw no G2/G3/G4 launch")
+          f"GEP n={n}: the profiler saw no G1 window/G2/G3/G4/G5 launch")
+    # the window mode's device total on the path (37.9 ms a WA=162 window in
+    # its first, one-block form; ~370 ms over the path's 29 recondenses)
+    check(g2_g4["G1w"][0] < 150.0, f"GEP n={n}: G1's window mode took "
+          f"{g2_g4['G1w'][0]:.1f} ms of device time")
     log(f"  GEP n={n} HT device time by kernel: "
         f"{ {k: (round(v[0], 3), v[1]) for k, v in list(prof_ht.items())[:10]} }")
     log(f"  GEP n={n} infinite push: {inf_calls[0]} G5 window chases, "
@@ -2194,7 +2312,7 @@ DM_TIMEOUT_S = 600.0
 # every rank B1 in the sharded Hessenberg reduction
 DM_SEP_KERNELS = SCHUR_KERNELS + ("reorder_bubble",)
 DM_SHARED_KERNELS = ("hess_gemv",)
-DM_GEP_KERNELS = ("ht_cascade", "qz_window", "qz_sweep", "aed_deflate_gep",
+DM_GEP_KERNELS = ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
                   "reorder_bubble_gep")
 # 10a's H and Q against phase 5's: the DM reduction sums the panel matvec,
 # Ytop and Q V in another order (partial products over the shards, then
@@ -2552,6 +2670,7 @@ def main() -> int:
                    "recondense": phase_recondense(dev),
                    "reorder_bubble": phase_bubble(dev),
                    "ht_cascade": phase_ht_cascade(dev, ht_plain[2]),
+                   "ht_recondense": phase_ht_recondense(dev),
                    "qz_window": phase_qz_window(dev),
                    "qz_sweep": phase_qz_sweep(dev),
                    "aed_deflate_gep": phase_aed_deflate_gep(dev),

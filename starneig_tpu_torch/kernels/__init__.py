@@ -30,8 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"hess_gemv": 0, "francis": 0, "train_hops": 0, "aed_deflate": 0,
             "recondense": 0, "reorder_bubble": 0, "ht_cascade": 0,
-            "qz_window": 0, "qz_sweep": 0, "aed_deflate_gep": 0,
-            "inf_chase": 0, "reorder_bubble_gep": 0}
+            "ht_recondense": 0, "qz_window": 0, "qz_sweep": 0,
+            "aed_deflate_gep": 0, "inf_chase": 0, "reorder_bubble_gep": 0}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
@@ -51,16 +51,16 @@ _SIGNATURES = {
     "ht_generate": [_P, _P, _P, _P, _I, _I, _I, _P],
     # rot, U, n, J0, J1, L, S, stream
     "ht_slivers": [_P, _P, _I, _I, _I, _I, _I, _P],
-    # S, T, Q, Z, WA, kbot, s, beta, stream
-    "ht_recondense": [_P, _P, _P, _P, _I, _I, _D, _P, _P],
+    # S, T, Q, Z, Tscratch, log, WA, kbot, s, beta, stream
+    "ht_recondense": [_P, _P, _P, _P, _P, _P, _I, _I, _D, _P, _I, _P],
     # Hp, Tp, Qp, Zp, w, m, thresh_h, thresh_t, info, stream
     "qz_window": [_P, _P, _P, _P, _I, _I, _D, _D, _P, _P],
     # S, T, Qw, Zw, shifts, WC, B, HOP, l_rel, ihi_rel, s0, stream
     "qz_sweep": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # Sp, Tp, Qp, Zp, WA, w, s, thresh, stat, stream
     "aed_deflate_gep": [_P, _P, _P, _P, _I, _I, _D, _D, _P, _P],
-    # H, T, Q, Z, Wb, jrel, mrel, lrel, stream
-    "inf_chase": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # Hin, Tin, H, T, QT, ZT, Wb, jrel, mrel, lrel, stream
+    "inf_chase": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # Sp, Tp, Qp, Zp, sel, state, G, W, stream
     "reorder_bubble_gep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
 }

@@ -153,6 +153,26 @@ DEVI void givens(double f, double g, double& c, double& s, double& r) {
   r = g == 0.0 ? f : (f == 0.0 ? g : r0);
 }
 
+// givens' (c, s, r) by one reciprocal square root where f^2 + g^2 neither
+// overflows nor underflows (else givens itself, as where f or g is zero):
+// the same rotation to rounding, a third of the dependent latency
+DEVI void givens_rs(double f, double g, double& c, double& s, double& r) {
+  const double mx = dmax(fabs(f), fabs(g));
+  if (g == 0.0 || f == 0.0 || mx > 1e150 || mx < 1e-150) {
+    givens(f, g, c, s, r);
+    return;
+  }
+  const double ss = f * f + g * g, rs = rsqrt(ss);
+  c = fabs(f) * rs;
+  s = (f >= 0.0 ? g : -g) * rs;
+  r = (f >= 0.0 ? ss : -ss) * rs;
+}
+
+DEVI void givens_rs(double f, double g, double& c, double& s) {
+  double r;
+  givens_rs(f, g, c, s, r);
+}
+
 DEVI void eig2x2(double a, double b, double c, double d, double& l1r,
                  double& l1i, double& l2r, double& l2i) {
   double sc = fabs(a) + fabs(b) + fabs(c) + fabs(d);

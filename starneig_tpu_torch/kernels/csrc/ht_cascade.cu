@@ -1,13 +1,11 @@
-// G1: the Hessenberg-triangular reduction, blocked, and its window mode,
-// the GEP AED recondense.
+// G1: the Hessenberg-triangular reduction, blocked.  Its window mode, the
+// GEP AED recondense, is ht_recondense.cu.
 //
-// Replaces two XLA loops of the JAX package (no Pallas kernel there):
+// Replaces an XLA loop of the JAX package (no Pallas kernel there):
 // starneig_tpu/ops/hess_triangular.py:_ht_reduce (:36), a double fori_loop
-// over the ~n^2/2 rotation steps, and starneig_tpu/ops/qz_driver.py:
-// _aed_recondense_gep (:166), the spike chase and the window re-reduction.
-// Plain twins: ops/hess_triangular.py:_ht_generate and _ht_slivers (the
-// blocked form, held to the unblocked _ht_reduce) and
-// ops/qz_driver.py:_aed_recondense_gep.
+// over the ~n^2/2 rotation steps.  Plain twins:
+// ops/hess_triangular.py:_ht_generate and _ht_slivers (the blocked form,
+// held to the unblocked _ht_reduce).
 //
 // The cascade: for each column j, bottom-up for k >= j+2, a left rotation
 // on rows (k-1, k) of A and B zeroes A[k, j]; it fills B[k, k-1], which a
@@ -51,72 +49,9 @@
 //     sliver's left or right rotations into its dense factor of order L + nb
 //     (a thread a row).  The host then applies the factors to Q, Z and the
 //     rows above the block as matrix products.
-// Window mode (WA <= a few hundred) is the unblocked design: one block,
-// the rotations in the JAX order at the window's full width, Q and Z in
-// the step.
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 512;
-
-// rows (i-1, i) <- (c r0 + s r1, -s r0 + c r1) on columns [c0, c1); the
-// entry (i, zero_col) is planted 0 (zero_col < 0: none)
-DEVI void rot_rows(double* M, int ld, int i, int c0, int c1, double c,
-                   double s, int zero_col) {
-  double* r0 = M + (size_t)(i - 1) * ld;
-  double* r1 = M + (size_t)i * ld;
-  for (int col = c0 + (int)threadIdx.x; col < c1; col += blockDim.x) {
-    const double a = r0[col], b = r1[col];
-    r0[col] = c * a + s * b;
-    r1[col] = col == zero_col ? 0.0 : -s * a + c * b;
-  }
-}
-
-// columns (i-1, i) <- (c c0 + s c1, -s c0 + c c1) on rows [r0, r1); the
-// entry (zero_row, i-1) is planted 0 (zero_row < 0: none)
-DEVI void rot_cols(double* M, int ld, int i, int r0, int r1, double c,
-                   double s, int zero_row) {
-  for (int r = r0 + (int)threadIdx.x; r < r1; r += blockDim.x) {
-    double* p = M + (size_t)r * ld + i - 1;
-    const double a = p[0], b = p[1];
-    p[0] = r == zero_row ? 0.0 : c * a + s * b;
-    p[1] = -s * a + c * b;
-  }
-}
-
-// Window mode's rotation pair at row i after the left rotation (c, s) is
-// in sh[0..1] and visible to the block: full widths, Q and Z in the step.
-// jcol >= 0 is the column whose entry A[i, jcol] the left rotation zeroes.
-DEVI void pair_step(double* A, double* B, double* Q, double* Z, int n, int i,
-                    int jcol, double* sh) {
-  const double c = sh[0], s = sh[1];
-  rot_rows(A, n, i, 0, n, c, s, jcol);
-  rot_rows(B, n, i, 0, n, c, s, -1);
-  rot_cols(Q, n, i, 0, n, c, s, -1);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double cr, sr, r;
-    givens(B[(size_t)i * n + i], B[(size_t)i * n + i - 1], cr, sr, r);
-    sh[2] = cr;
-    sh[3] = sr;
-  }
-  __syncthreads();
-  const double cr = sh[2], msr = -sh[3];
-  rot_cols(B, n, i, 0, n, cr, msr, i);
-  rot_cols(A, n, i, 0, n, cr, msr, -1);
-  rot_cols(Z, n, i, 0, n, cr, msr, -1);
-  __syncthreads();
-}
-
-// the cascade's left rotation from (f, g), by thread 0 into sh[0..1]
-DEVI void left_rotation(double f, double g, double* sh, double* r_out) {
-  double c, s, r;
-  givens(f, g, c, s, r);
-  sh[0] = c;
-  sh[1] = s;
-  if (r_out) *r_out = r;
-}
 
 // -- the blocked reduction ----------------------------------------------------
 
@@ -459,43 +394,6 @@ __global__ void ht_sliver_kernel(const double* __restrict__ rot,
   for (int e = threadIdx.x; e < w * w; e += blockDim.x) U[e] = ut[(e % w) * w + e / w];
 }
 
-// window mode: the spike s Q[0, :kbot] condensed into beta e1 by rotation
-// pairs (the cascade's column -1), then the cascade on the leading kbot
-// block, then T's lower triangle inside it zeroed
-__global__ void __launch_bounds__(kThreads)
-ht_window_kernel(double* __restrict__ S, double* __restrict__ T,
-                 double* __restrict__ Q, double* __restrict__ Z, int W,
-                 int kbot, double spike, double* __restrict__ beta) {
-  extern __shared__ double sp[];
-  __shared__ double sh[4];
-  for (int e = threadIdx.x; e < W; e += blockDim.x)
-    sp[e] = e < kbot ? spike * Q[e] : 0.0;
-  __syncthreads();
-  for (int i = kbot - 1; i >= 1; --i) {
-    if (threadIdx.x == 0) {
-      double r;
-      left_rotation(sp[i - 1], sp[i], sh, &r);
-      sp[i - 1] = r;
-      sp[i] = 0.0;
-    }
-    __syncthreads();
-    pair_step(S, T, Q, Z, W, i, -1, sh);
-  }
-  if (threadIdx.x == 0) beta[0] = sp[0];
-  for (int j = 0; j < kbot - 2; ++j) {
-    for (int i = kbot - 1; i >= j + 2; --i) {
-      if (threadIdx.x == 0)
-        left_rotation(S[(size_t)(i - 1) * W + j], S[(size_t)i * W + j], sh, nullptr);
-      __syncthreads();
-      pair_step(S, T, Q, Z, W, i, j, sh);
-    }
-  }
-  for (int e = threadIdx.x; e < kbot * kbot; e += blockDim.x) {
-    const int r = e / kbot, c = e % kbot;
-    if (r > c) T[(size_t)r * W + c] = 0.0;
-  }
-}
-
 }  // namespace
 
 static cudaError_t smem_attr(const void* fn, size_t bytes) {
@@ -539,19 +437,5 @@ extern "C" int ht_slivers(void* rot, void* U, int n, int J0, int J1, int L,
   const int threads = ((w + 31) / 32) * 32;
   ht_sliver_kernel<<<dim3(S, 2), threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(rot), static_cast<double*>(U), n, J0, J1, L);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int ht_recondense(void* S, void* T, void* Q, void* Z, int W, int kbot,
-                             double s, void* beta, void* stream) {
-  const size_t smem = (size_t)W * sizeof(double);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        ht_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  ht_window_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<double*>(S), static_cast<double*>(T), static_cast<double*>(Q),
-      static_cast<double*>(Z), W, kbot, s, static_cast<double*>(beta));
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,8 @@ programs with no Pallas kernel; their step counts are serial (about n^2/2
 rotation steps for the HT cascade, thousands of chase steps a window).  The
 port runs those loops as hand-written CUDA kernels, one launch each (G1,
 blocked: a generation call a block of cascades and a sliver call a block,
-the deferred updates as products).  Each wrapper
+the deferred updates as products; its window mode a chain launch and a
+replay launch).  Each wrapper
 here launches its kernel on CUDA tensors and raises on any other; the op
 that owns the plain PyTorch twin dispatches on the device:
 
@@ -15,8 +16,9 @@ that owns the plain PyTorch twin dispatches on the device:
   ht_cascade       ht_cascade.cu        ops/hess_triangular.py: ht_reduce,
   (ht_generate,                         ht_blocked with _ht_generate and
    ht_slivers)                          _ht_slivers (oracle: _ht_reduce)
-  ht_recondense    ht_cascade.cu        ops/qz_driver.py: aed_recondense_gep,
-                   (window mode)        _aed_recondense_gep
+  ht_recondense    ht_recondense.cu     ops/qz_driver.py: aed_recondense_gep,
+  (G1's window                          _aed_recondense_gep (stages:
+   mode)                                testing/recondense.py)
   qz_window        qz_window.cu         ops/qz.py: small_qz, _small_qz_plain
   qz_sweep         qz_sweep.cu          ops/qz_driver.py: qz_train_hop,
                                         _qz_train_hop
@@ -91,23 +93,35 @@ def ht_slivers(rot, n: int, J0: int, J1: int, L: int):
     return U
 
 
-def ht_recondense(Sw, Tw, Qw, Zw, s: float, kbot: int):
+def ht_recondense(Sw, Tw, Qw, Zw, s: float, kbot: int, smem_cap: int = 0):
     """Kernel G1 in window mode: the AED spike condensed into beta e1 by the
     cascade's rotation pairs, then the cascade on the leading kbot block,
     on CUDA tensors (see
-    :func:`starneig_tpu_torch.ops.qz_driver._aed_recondense_gep`).  Returns
-    (Sw, Tw, Qw, Zw, beta), beta a 0-d tensor."""
+    :func:`starneig_tpu_torch.ops.qz_driver._aed_recondense_gep`; the
+    kernel's stages are :func:`~starneig_tpu_torch.testing.recondense.recondense_chain`
+    and :func:`~starneig_tpu_torch.testing.recondense.recondense_replay`): a
+    chain launch and a replay launch, whatever kbot.  Tw's leading kbot
+    block must be upper triangular.  ``smem_cap`` (bytes, 0: all the card
+    allows) caps the shared memory a launch gives to what grows with kbot;
+    what does not fit runs from global memory, as at a large kbot (the
+    tests lower it to reach those layouts at a small kbot).  Returns (Sw,
+    Tw, Qw, Zw, beta), beta a 0-d tensor."""
     WA = _check_square("ht_recondense", Sw, Tw, Qw, Zw)
     if not 0 <= kbot <= WA:
         raise ValueError(f"ht_recondense: kbot {kbot} outside [0, {WA}]")
     S, T, Q, Z = (M.contiguous().clone() for M in (Sw, Tw, Qw, Zw))
     beta = S.new_zeros(1)
+    # T's packed leading block and the cascade's vectors where they do not
+    # fit shared memory; the log
+    t_scratch = S.new_empty(max(kbot * (kbot + 3) // 2 + 5 * kbot, 1))
+    log = S.new_empty(max(2 * kbot * (kbot - 1), 1))
     kernels.require_cuda_f64("ht_recondense", S, T, Q, Z)
     lib = kernels.lib()
-    kernels.LAUNCHES["ht_cascade"] += 1
+    kernels.LAUNCHES["ht_recondense"] += 1
     kernels.check(lib.ht_recondense(S.data_ptr(), T.data_ptr(), Q.data_ptr(),
-                                    Z.data_ptr(), WA, int(kbot), float(s),
-                                    beta.data_ptr(), kernels.stream_ptr(Sw)),
+                                    Z.data_ptr(), t_scratch.data_ptr(), log.data_ptr(),
+                                    WA, int(kbot), float(s), beta.data_ptr(),
+                                    int(smem_cap), kernels.stream_ptr(Sw)),
                   "ht_recondense")
     return S, T, Q, Z, beta[0]
 
@@ -199,16 +213,17 @@ def aed_deflate_gep(Sw, Tw, Qw, Zw, s: float, w: int, thresh: float):
 def inf_chase(Hw, Tw, jrel: int, mrel: int, lrel: int):
     """Kernel G5: the window chase of the infinite push on a (Wb, Wb) CUDA
     window pair (see :func:`starneig_tpu_torch.ops.qz_driver._inf_chase_kernel`).
-    Returns (Hw, Tw, Qw, Zw)."""
+    Returns (Hw, Tw, Qw, Zw), new tensors; Qw and Zw are transposed views
+    (the kernel writes a finished column of each as a contiguous row)."""
     Wb = _check_square("inf_chase", Hw, Tw)
     if not (0 <= jrel < Wb and mrel <= Wb):
         raise ValueError(f"inf_chase: jrel {jrel}, mrel {mrel} outside the window {Wb}")
-    H, T = Hw.contiguous().clone(), Tw.contiguous().clone()
-    Qw, Zw = torch.empty_like(H), torch.empty_like(H)
-    kernels.require_cuda_f64("inf_chase", H, T, Qw, Zw)
+    Hin, Tin = Hw.contiguous(), Tw.contiguous()
+    H, T, QT, ZT = (torch.empty_like(Hin) for _ in range(4))
+    kernels.require_cuda_f64("inf_chase", Hin, Tin, H, T, QT, ZT)
     lib = kernels.lib()
     kernels.LAUNCHES["inf_chase"] += 1
-    kernels.check(lib.inf_chase(H.data_ptr(), T.data_ptr(), Qw.data_ptr(),
-                                Zw.data_ptr(), Wb, int(jrel), int(mrel), int(lrel),
-                                kernels.stream_ptr(Hw)), "inf_chase")
-    return H, T, Qw, Zw
+    kernels.check(lib.inf_chase(Hin.data_ptr(), Tin.data_ptr(), H.data_ptr(), T.data_ptr(),
+                                QT.data_ptr(), ZT.data_ptr(), Wb, int(jrel), int(mrel),
+                                int(lrel), kernels.stream_ptr(Hw)), "inf_chase")
+    return H, T, QT.t(), ZT.t()

@@ -8,7 +8,11 @@ and the deferred products' rounding only), with the structures exact.
 One input is held to the contract instead: the recondense of a random
 window at a large kbot, where the re-reduction is ill-conditioned (a
 one-ulp change of the input moves the JAX result itself by O(1) from
-kbot ~ 25 on).
+kbot ~ 25 on).  The stages of kernel G1's window mode
+(``testing.recondense``: the chain's left rotations from suffix norms,
+each cascade's left rotations before its right ones, a replayed log) run
+the same rotations in another order of arithmetic and are held the same
+way.
 """
 
 import jax.numpy as jnp
@@ -21,12 +25,16 @@ from starneig_tpu.ops import qz_driver as jqd
 from starneig_tpu.ops.eigvals import extract_eigenvalues_gen as jextract_gen
 from starneig_tpu_torch.convert import from_numpy, to_numpy
 from starneig_tpu_torch.ops import hess_triangular as tht
+from starneig_tpu_torch.ops import primitives as prim
 from starneig_tpu_torch.ops import qz_driver as tqd
 from starneig_tpu_torch.ops.eigvals import extract_eigenvalues_gen
 from starneig_tpu_torch.testing import hooks
+from starneig_tpu_torch.testing import recondense as trc
 from starneig_tpu_torch.testing.generators import known_spectrum_pencil, planted_schur_pair
 
 torch.set_num_threads(1)
+
+U = np.finfo(np.float64).eps
 
 
 def _rel(a, b):
@@ -133,6 +141,64 @@ def test_aed_recondense_gep(kbot):
     for out in (want, got):
         sim, struct, spike, beta = _recondense_contract(S, T, Q, Z, s, kbot, out)
         assert sim < 1e-14 and struct == 0.0 and spike < 1e-15 and beta < 1e-14
+
+
+@pytest.mark.parametrize("kbot", [0, 1, 2, 3, 10, 11, 38, 40])
+def test_recondense_split(kbot):
+    """Kernel G1's window mode in plain PyTorch, stage for stage
+    (testing.recondense.aed_recondense_split: recondense_chain, then
+    recondense_replay of its log), against the oracle _aed_recondense_gep of both packages: within
+    1e-12 max|M| at kbot <= 11 (at 11 a 2x2 block's subdiagonal entry lies
+    below the block, so S's rows there take the replay's right rotations),
+    the recondense contract at every kbot (at 38 and 40 the re-reduction is
+    ill-conditioned elementwise)."""
+    WA, s = 40, 0.7
+    S, T, Q, Z = planted_schur_pair(WA, WA, 40)
+    assert S[11, 10] != 0.0
+    want_j = [np.asarray(x) for x in jqd._aed_recondense_gep(
+        *(jnp.asarray(x) for x in (S, T, Q, Z)), s, kbot)]
+    want_t = [to_numpy(x) for x in tqd._aed_recondense_gep(
+        *(from_numpy(x) for x in (S, T, Q, Z)), s, kbot)]
+    got = [to_numpy(x) for x in trc.aed_recondense_split(
+        *(from_numpy(x) for x in (S, T, Q, Z)), s, kbot)]
+    if kbot <= 11:
+        for want in (want_j, want_t):
+            for w, g in zip(want, got):
+                assert _rel(w, g) <= 1e-12
+    sim, struct, spike, beta = _recondense_contract(S, T, Q, Z, s, kbot, got)
+    assert sim < 1e-14 and struct == 0.0 and spike < 1e-15 and beta < 1e-14
+
+
+@pytest.mark.parametrize("case", ["random", "zeros", "signs", "tiny", "huge"])
+def test_suffix_left_rotations(case):
+    """The window mode's left rotations from suffix norms against the
+    serial chain of the oracle (each rotation from the entry the previous
+    one carried, prim.givens): the rotations within 4 ulps, the entry
+    carried to the top within 4 ulps relative, on columns with zeros at
+    the ends and inside, a negative first nonzero, and entries whose
+    squares leave the normal range."""
+    rng = np.random.default_rng(len(case))
+    x = rng.standard_normal(37)
+    if case == "zeros":
+        x[[0, 5, 6, 7, 20]] = 0.0
+        x[-4:] = 0.0
+    elif case == "signs":
+        x[:3] = 0.0
+        x[3] = -abs(x[3])
+    elif case == "tiny":
+        x *= 1e-170
+    elif case == "huge":
+        x *= 1e170
+    rots, y0 = trc.suffix_left_rotations(torch.as_tensor(x))
+    y = torch.as_tensor(x[-1])
+    want = []
+    for r in range(len(x) - 1, 0, -1):
+        c, s_, y = prim.givens(torch.as_tensor(x[r - 1]), y)
+        want.append((float(c), float(s_)))
+    got = rots[::-1]
+    assert len(got) == len(want)
+    assert np.abs(np.array(got) - np.array(want)).max() <= 4 * U
+    assert abs(y0 - float(y)) <= 4 * U * abs(float(y))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -120,32 +120,108 @@ def test_ht_slivers(cuda):
         assert float((got.cpu() - want).abs().max()) <= 1e-13
 
 
-@pytest.mark.parametrize("WA", [84, 162])
-def test_ht_recondense(cuda, WA):
-    """G1's window mode against _aed_recondense_gep: at kbot = 10 within
-    1e-12; at kbot = WA - 4 (where the re-reduction of a random window is
-    ill-conditioned: one ulp of input moves the JAX result by O(1) from
-    kbot ~ 25 on) by contract: similarity, Hessenberg-triangular structure
-    and the spike condensed into beta e1."""
+def _recondense_case(WA):
     S, T, Q, Z = schur_pair(WA, WA, WA)
-    s = 0.37
+    return S, T, Q, Z, 0.37
+
+
+@pytest.mark.parametrize("kb", ["0", "1", "2", "3", "10", "WA-4", "WA"])
+@pytest.mark.parametrize("WA", [84, 162, 322])
+def test_ht_recondense(cuda, WA, kb):
+    """G1's window mode (a chain and a replay launch) against
+    _aed_recondense_gep: at kbot <= 10 within 1e-12 max|M|; at kbot = WA - 4
+    and WA, where the re-reduction of a random
+    window is ill-conditioned (one ulp of input moves the JAX result by O(1)
+    from kbot ~ 25 on), by contract: similarity within 1e-13 WA, the
+    Hessenberg-triangular structure exact, the spike tail below 1e-14 WA,
+    beta within 1e-13 of sigma |s| ||Q[0, :kbot]||; kbot = 0 leaves the
+    window unchanged with beta = 0.  WA = 84, 162, 322: the AED windows of
+    the n=512, 2000 and 4000 geometries."""
+    kbot = {"WA-4": WA - 4, "WA": WA}.get(kb) or int(kb)
+    S, T, Q, Z, s = _recondense_case(WA)
     args = [torch.as_tensor(x) for x in (S, T, Q, Z)]
-    for kbot in (10, WA - 4):
-        got = gpu_gep.ht_recondense(*(x.to(cuda) for x in args), s, kbot)
+    n0 = kernels.LAUNCHES["ht_recondense"]
+    got = gpu_gep.ht_recondense(*(x.to(cuda) for x in args), s, kbot)
+    assert kernels.LAUNCHES["ht_recondense"] == n0 + 1
+    if kbot == 0:
+        for g, x in zip(got[:4], args):
+            assert torch.equal(g.cpu(), x)
+        assert float(got[4]) == 0.0
+    if kbot <= 10:
         want = _aed_recondense_gep(*args, s, kbot)
-        if kbot == 10:
-            for g, w in zip(got[:4], want[:4]):
-                assert _maxrel(g, w, w) <= 1e-12
-        S2, T2, Q2, Z2 = (x.cpu().numpy() for x in got[:4])
-        Ul, Vr = Q.T @ Q2, Z.T @ Z2
-        assert np.linalg.norm(Ul.T @ S @ Vr - S2) <= 1e-13 * WA * np.linalg.norm(S)
-        assert np.linalg.norm(Ul.T @ T @ Vr - T2) <= 1e-13 * WA * np.linalg.norm(T)
-        assert np.abs(np.tril(S2[:kbot, :kbot], -2)).max(initial=0.0) == 0.0
-        assert np.abs(np.tril(T2[:kbot, :kbot], -1)).max(initial=0.0) == 0.0
-        spike = s * Q2[0, :kbot]
-        assert np.abs(spike[1:]).max() <= 1e-14 * WA
+        for g, w in zip(got[:4], want[:4]):
+            assert _maxrel(g, w, w) <= 1e-12
         assert abs(float(got[4]) - float(want[4])) <= 1e-13
-        assert abs(abs(float(got[4])) - abs(s) * np.linalg.norm(Q[0, :kbot])) <= 1e-13
+    _recondense_contract(S, T, Q, Z, s, kbot, got)
+
+
+def _recondense_contract(S, T, Q, Z, s, kbot, got):
+    WA = S.shape[0]
+    S2, T2, Q2, Z2 = (x.cpu().numpy() for x in got[:4])
+    Ul, Vr = Q.T @ Q2, Z.T @ Z2
+    assert np.linalg.norm(Ul.T @ S @ Vr - S2) <= 1e-13 * WA * np.linalg.norm(S)
+    assert np.linalg.norm(Ul.T @ T @ Vr - T2) <= 1e-13 * WA * np.linalg.norm(T)
+    assert np.abs(np.tril(S2[:kbot, :kbot], -2)).max(initial=0.0) == 0.0
+    assert np.abs(np.tril(T2[:kbot, :kbot], -1)).max(initial=0.0) == 0.0
+    assert np.abs(s * Q2[0, 1:kbot]).max(initial=0.0) <= 1e-14 * WA
+    x0 = s * Q[0, :kbot]
+    nz = np.flatnonzero(x0)
+    sigma = np.sign(x0[nz[0]]) if len(nz) else 1.0
+    assert abs(float(got[4]) - sigma * np.linalg.norm(x0)) <= 1e-13
+
+
+def test_ht_recondense_802(cuda):
+    """G1's window mode at WA = 802 (the n=10,000 geometry; T's block in
+    global memory) at kbot = WA - 4, by the contract alone."""
+    WA = 802
+    S, T, Q, Z, s = _recondense_case(WA)
+    got = gpu_gep.ht_recondense(*(torch.as_tensor(x).to(cuda) for x in (S, T, Q, Z)), s,
+                                WA - 4)
+    _recondense_contract(S, T, Q, Z, s, WA - 4, got)
+
+
+@pytest.mark.parametrize("kb", ["10", "WA-4"])
+def test_ht_recondense_1000(cuda, kb):
+    """G1's window mode at WA = 1000 (past kbot = 854, where 32 replay
+    vectors no longer fit a block's shared memory: 26 a block here): at
+    kbot = 10 within 1e-12 max|M| of _aed_recondense_gep, at kbot = WA - 4
+    by the contract alone."""
+    WA = 1000
+    kbot = WA - 4 if kb == "WA-4" else int(kb)
+    S, T, Q, Z, s = _recondense_case(WA)
+    args = [torch.as_tensor(x) for x in (S, T, Q, Z)]
+    got = gpu_gep.ht_recondense(*(x.to(cuda) for x in args), s, kbot)
+    if kbot <= 10:
+        want = _aed_recondense_gep(*args, s, kbot)
+        for g, w in zip(got[:4], want[:4]):
+            assert _maxrel(g, w, w) <= 1e-12
+    _recondense_contract(S, T, Q, Z, s, kbot, got)
+
+
+@pytest.mark.parametrize("cap", ["global", "vectors"])
+@pytest.mark.parametrize("kb", ["10", "WA-4"])
+@pytest.mark.parametrize("WA", [84, 162])
+def test_ht_recondense_layouts(cuda, WA, kb, cap):
+    """G1's window mode with its shared memory capped (smem_cap), so that
+    a small window runs the layouts of a large kbot: "global" keeps the
+    chain's vectors, T's block and the replay's vectors and rotations in
+    global memory (past kbot ~ 9,680), "vectors" the chain's vectors in
+    shared memory and T's block in global memory, the replay 2 or 3
+    vectors a block.  The same arithmetic: bit-equal to the uncapped
+    launch, and held as test_ht_recondense holds it."""
+    kbot = WA - 4 if kb == "WA-4" else int(kb)
+    S, T, Q, Z, s = _recondense_case(WA)
+    args = [torch.as_tensor(x) for x in (S, T, Q, Z)]
+    x = [a.to(cuda) for a in args]
+    want = gpu_gep.ht_recondense(*x, s, kbot)
+    got = gpu_gep.ht_recondense(*x, s, kbot, smem_cap=8 if cap == "global" else 40 * kbot)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if kbot <= 10:
+        plain = _aed_recondense_gep(*args, s, kbot)
+        for g, w in zip(got[:4], plain[:4]):
+            assert _maxrel(g, w, w) <= 1e-12
+    _recondense_contract(S, T, Q, Z, s, kbot, got)
 
 
 def _ht_window(w, seed, ninf=0):
@@ -303,15 +379,19 @@ def test_gep_schur_inf_rich(cuda):
     bt = bt.cpu().numpy()
     assert int((np.abs(bt) <= 1e-12 * np.abs(bt).max()).sum()) >= int(0.9 * len(inf_pos))
     assert stats["inf_rounds"] > 0 and stats["recondense_calls"] > 0
-    for k in ("qz_window", "qz_sweep", "aed_deflate_gep", "ht_cascade", "inf_chase"):
+    for k in ("qz_window", "qz_sweep", "aed_deflate_gep", "ht_recondense", "inf_chase"):
         assert kernels.LAUNCHES[k] > 0, k
 
 
 @pytest.mark.parametrize("Wb,jrel,mrel,lrel", [(96, 1, 96, -1), (84, 0, 84, 0),
-                                               (96, 7, 60, 7)])
+                                               (96, 7, 60, 7), (96, 95, 96, -1),
+                                               (96, 1, 37, -1), (24, 3, 20, 5)])
 def test_inf_chase(cuda, Wb, jrel, mrel, lrel):
     """G5 against _inf_chase_kernel: the same rotations, 1e-12 max|M|; the
-    zero moved to mrel - 1 exactly, H Hessenberg and T triangular exactly."""
+    zero moved to mrel - 1 exactly, H Hessenberg and T triangular exactly.
+    The push's windows (chip_smoke.INF_CASES), a window with no step (jrel =
+    mrel - 1), the last, short window of a push (mrel = 37 < Wb), and a
+    reflection skipped inside the chase (lrel > jrel: the full ranges)."""
     H, T = (torch.as_tensor(x) for x in inf_push_window(Wb, Wb + jrel, jrel, lrel))
     n0 = kernels.LAUNCHES["inf_chase"]
     got = gpu_gep.inf_chase(H.to(cuda), T.to(cuda), jrel, mrel, lrel)
@@ -322,7 +402,8 @@ def test_inf_chase(cuda, Wb, jrel, mrel, lrel):
     Tg = got[1].cpu()
     assert float(Tg[mrel - 1, mrel - 1]) == 0.0
     assert hooks.triangular_structure_error(Tg) == 0.0
-    assert hooks.hessenberg_structure_error(got[0]) == 0.0
+    if lrel <= jrel:   # a reflection skipped inside the chase leaves H's fill (the twin's too)
+        assert hooks.hessenberg_structure_error(got[0]) == 0.0
 
 
 @pytest.mark.parametrize("W,lims", [(16, ([0, 1, 0], [16, 16, 5], [16, 15, 16])),
