@@ -14,6 +14,8 @@
     python3 chip_ab.py ht [--n N] ROOT [ROOT ...]
     python3 chip_ab.py qz ROOT [ROOT ...]
     python3 chip_ab.py qzsweep ROOT [ROOT ...]
+    python3 chip_ab.py panel [--n N] ROOT [ROOT ...]
+    python3 chip_ab.py backsolve [--n N] ROOT [ROOT ...]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -125,6 +127,24 @@ a regular pencil in a process of its own: three runs and the generation
 alone by CUDA events, the first four blocks' kernels under
 ``torch.profiler``, and the SHA-256 of the output (equal digests: the
 same bits).
+
+panel: each ROOT's ``api.sep.hessenberg`` at size N (default 4000; A
+from default_rng(0)) in a process of its own, in the order given (parent,
+change, change, parent): three runs timed to a synchronize after a
+warm-up, the launches of a run by kernel (``kernels.LAUNCHES``), a run
+under ``torch.profiler`` (each kernel's device total, and the device's
+idle share of that run), H1 alone on the first panel (k = t0 = 0, nb =
+288) by CUDA events where the package has it, the SHA-256 of H and Q,
+and the SHA-256 of B1's A x on a seeded 4000 x 4000 matrix (equal
+digests: B1's bits unchanged).
+
+backsolve: the size-N (default 4000) chain of this checkout (hessenberg,
+schur, select Re > 0, reorder_schur), saved once, then each ROOT's
+``api.sep.eigenvectors`` of its leading block in a process of its own:
+three runs timed to a synchronize after a warm-up, the launches, a run
+under ``torch.profiler`` (device totals, idle share), the worst
+eigenvector residual (``chip_smoke.eigenvector_residual``) and the SHA-256
+of X.
 
 Prints the card's name and power limit first; exits nonzero if a check
 fails.  Needs a CUDA card and nvcc (bitwise on the CPU needs neither).
@@ -870,6 +890,122 @@ def ab_qzsweep(args) -> bool:
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     qzsweep_inputs(path)
     return None not in run_per_root("qzsweep", args, path)
+
+
+def _wall_and_profile(fn, reps: int = 3):
+    """fn() once to warm up, then reps runs each timed to a synchronize
+    (ms), then one run under torch.profiler: ({kernel: [device ms,
+    launches]}, the device's idle share of that run's wall time, taken
+    inside the profiler, so its cost a launch counts as idle)."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0][:60]
+            kern[name] = [e.self_device_time_total / 1e3, e.count]
+    busy = sum(v[0] for v in kern.values())
+    return ms, kern, 1.0 - busy / wall
+
+
+def _launches(fn) -> dict:
+    """Each kernel's launches in one run of fn (nonzero counts)."""
+    kernels.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+
+def panel_one(root: str, n: int) -> None:
+    """In a fresh process: api.sep.hessenberg of the package under root at
+    size n (see the module note).  Prints one JSON line."""
+    import json
+    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.ops import gpu_hess
+    assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
+    A = torch.as_tensor(np.random.default_rng(0).standard_normal((n, n)), device="cuda")
+    ms, kern, idle = _wall_and_profile(lambda: sep.hessenberg(A))
+    launches = _launches(lambda: sep.hessenberg(A))
+    H, Q = sep.hessenberg(A)
+    # H1 alone on the first panel (k = t0 = 0, nb = 288), where the package has it
+    h1_ms = (cuda_ms(lambda: gpu_hess.panel(A, 0, 288), 5)
+             if hasattr(gpu_hess, "panel") else None)
+    g = torch.Generator(device="cpu").manual_seed(1)
+    M = torch.randn(4000, 4000, generator=g, dtype=torch.float64).to("cuda")
+    x = torch.randn(4000, generator=g, dtype=torch.float64).to("cuda")
+    print("PANEL " + json.dumps(dict(
+        root=root, n=n, hessenberg_ms=ms, h1_first_panel_ms=h1_ms, launches=launches,
+        device_ms=kern,
+        idle_share=idle, sha256=_digest((H, Q)), b1_sha256=_digest((gpu_hess.gemv(M, x),)))),
+        flush=True)
+
+
+def backsolve_inputs(n: int, path: Path):
+    """chip_ab backsolve's input: this checkout's size-n chain (A from
+    default_rng(0); hessenberg, schur, select Re > 0, reorder_schur),
+    saved to path for the per-ROOT workers."""
+    from starneig_tpu_torch.api import sep
+    A = torch.as_tensor(np.random.default_rng(0).standard_normal((n, n)), device="cuda")
+    S, Q, *_rest, info = sep.schur(*sep.hessenberg(A))
+    S2, Q3, m, rinfo = sep.reorder_schur(S, Q, sep.select(S, lambda lam: lam.real > 0))
+    assert int(info) == 0 and int(rinfo) == 0, (info, rinfo)
+    torch.save(dict(A=A.cpu(), S=S2.cpu(), Q=Q3.cpu(), m=int(m)), path)
+
+
+def backsolve_one(root: str, path: str) -> None:
+    """In a fresh process: api.sep.eigenvectors of the package under root
+    on the saved chain's leading block (see the module note).  Prints one
+    JSON line."""
+    import json
+    from chip_smoke import eigenvector_residual
+    from starneig_tpu_torch.api import sep
+    assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
+    d = torch.load(path)
+    A, S, Q = (d[k].to("cuda") for k in "ASQ")
+    m, n = d["m"], S.shape[0]
+    lead = np.arange(n) < m
+    ms, kern, idle = _wall_and_profile(lambda: sep.eigenvectors(S, Q, lead))
+    launches = _launches(lambda: sep.eigenvectors(S, Q, lead))
+    X, info = sep.eigenvectors(S, Q, lead)
+    print("BACKSOLVE " + json.dumps(dict(
+        root=root, n=n, m=m, eigenvectors_ms=ms, info=int(info), launches=launches,
+        device_ms=kern, idle_share=idle, residual=eigenvector_residual(A, S, X, m),
+        sha256=_digest((X,)))), flush=True)
+
+
+def ab_panel(args) -> bool:
+    """[--n N] ROOT ...: each ROOT's sep.hessenberg in its own process, in
+    the order given (parent, change, change, parent)."""
+    n = 4000
+    if args[:1] == ["--n"]:
+        n, args = int(args[1]), args[2:]
+    return None not in run_per_root("panel", args, n)
+
+
+def ab_backsolve(args) -> bool:
+    """[--n N] ROOT ...: this checkout's size-N chain once, then each
+    ROOT's sep.eigenvectors on it in its own process, in the order given."""
+    n = 4000
+    if args[:1] == ["--n"]:
+        n, args = int(args[1]), args[2:]
+    path = kernels.BUILD_DIR / "backsolve_chain.pt"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    backsolve_inputs(n, path)
+    return None not in run_per_root("backsolve", args, path)
 
 
 def _digest(out) -> str:
@@ -2246,12 +2382,14 @@ MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
          "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep,
-         "htwin": ab_htwin, "infchase": ab_infchase}
+         "htwin": ab_htwin, "infchase": ab_infchase, "panel": ab_panel,
+         "backsolve": ab_backsolve}
 # the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
 PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),
             "bitwise": lambda root, n, device: bitwise_one(root, int(n), device),
             "ht": lambda root, n: ht_one(root, int(n)), "qz": qz_one,
-            "qzsweep": qzsweep_one, "htwin": htwin_one, "infchase": infchase_one}
+            "qzsweep": qzsweep_one, "htwin": htwin_one, "infchase": infchase_one,
+            "panel": lambda root, n: panel_one(root, int(n)), "backsolve": backsolve_one}
 
 
 def main() -> int:

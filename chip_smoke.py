@@ -57,7 +57,11 @@ Phases (any failure raises; the exit code is then nonzero):
      the GEP path's n=2000 on a regular pencil (A and B Gaussian, B made
      triangular, seed 2000): the kernel here, its plain twin in a child
      process started at the top of this phase, which runs on the host
-     while the later phases use the card (compared in phase 9);
+     while the later phases use the card (compared in phase 9); H1 (the
+     Hessenberg panel, one cooperative launch) on phase 5's input at
+     n=4000, nb=288, on the first panel and on the panel at k = t0 = 2016,
+     against its all-torch twin on the card (ops.hessenberg.panel_plain):
+     V, T, Y and P within 1e-12 max|A|, two launches bit-equal;
   4. n=1200 with B=70: api.sep.hessenberg and api.sep.schur with a
      geometry of 70 bulges a train, gated on info, residual,
      orthogonality, the Schur form, the eigenvalues against numpy and B3's
@@ -72,7 +76,12 @@ Phases (any failure raises; the exit code is then nonzero):
      spectrum kept by the reordering, the eigenvector residuals, and the
      launch counts, zeroed before each of the two paths (Hessenberg ->
      Schur; select -> reorder -> eigenvectors) and read after it: every
-     kernel of a path launched at least once there;
+     kernel of a path launched at least once there (H1 once a panel, 14
+     times, and B1 never in the Hessenberg reduction; E1 once);
+ 5b. E1 (the eigenvector backsolve, one launch) on phase 5's selection
+     against the plain row loop on the card: the normalized vectors within
+     1e-12, the close flags equal, E1's eigenvector residual below
+     EVEC_BOUND; E1's row in the kernel table is this run;
   6. GEP path: known_spectrum_pencil(2000, complex_ratio=0.3, inf_ratio=0.1,
      seed=0) through api.gep.hessenberg_triangular and api.gep.schur, gated
      on info, residuals and orthogonality < 500 u and exact structure,
@@ -212,14 +221,21 @@ REPLACES = {
     # bubble (a while_loop), both on the GEP chain past the reduction
     "inf_chase": "starneig_tpu/ops/qz_driver.py:329",
     "reorder_bubble_gep": "starneig_tpu/ops/reorder.py:405",
+    # the SEP chain's last two device loops: the Hessenberg panel (a
+    # fori_loop a panel, :158 with B1 inside) and the eigenvector backsolve
+    "hess_panel": "starneig_tpu/ops/hessenberg.py:158",
+    "eig_backsolve": "starneig_tpu/ops/eigenvectors.py:173",
 }
 SOURCES = {k: f"starneig_tpu_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 # the card's peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes per second and fp64 operations per second outside the tensor cores
 HBM_BPS = 3.35e12
 F64_FLOPS = 34e12
-# the kernels of Hessenberg -> Schur; the reordering runs reorder_bubble
-SCHUR_KERNELS = ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense")
+# the kernels of Hessenberg -> Schur (H1 a panel; B1 only in the DM
+# reduction); the chain past it runs reorder_bubble and eig_backsolve
+SCHUR_KERNELS = ("hess_panel", "francis", "train_hops", "aed_deflate", "recondense")
+CHAIN_KERNELS = ("reorder_bubble", "eig_backsolve")
+H1_PANELS = ((0, 0), (2016, 2016))  # (k, t0): n=4000's first panel and its fifth t0 bucket
 # the kernels of the GEP path hessenberg_triangular -> schur, and of the
 # chain past it (select -> reorder_schur -> eigenvectors)
 GEP_KERNELS = ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
@@ -451,6 +467,56 @@ def phase_gemv(dev):
                             shard=dict(shape=(n, w), kernel_ms=[sh[0], sh[3]],
                                        library_ms=[sh[1], sh[2]], plain_ms=sh_plain,
                                        bound_ms=sbms, bound_by=sby, max_abs_err=dsh)))
+
+
+def h1_work(n, nb, k, t0):
+    """(bytes, flops) an H1 panel must move and do: A's trailing columns
+    A[t0:, k:] (the reflectors vanish above row k + 1) and the panel's
+    columns read once, V, Y, P and T written once; per column the matvec
+    over the reflector's support (n - t0)(n - c - 1) and the compact-WY
+    products (Y V[c], U tcol on rows >= t0; V^T a, V z, V^T v on rows > k;
+    the two triangular T products)."""
+    nbytes = 8 * ((n - t0) * (n - k) + n * nb + 3 * n * nb + nb * nb)
+    flops = sum(2 * (n - t0) * (n - (k + j) - 1) + 4 * (n - t0) * j + 6 * (n - k) * j
+                + 2 * j * j for j in range(nb))
+    return nbytes, flops
+
+
+def phase_hess_panel(dev):
+    """H1 on phase 5's input (A from default_rng(0), n=4000, nb=288) at two
+    panels of the main path's geometry (H1_PANELS), against its all-torch
+    twin on the card (ops.hessenberg.panel_plain): V, T, Y and P within
+    1e-12 max|A|, two launches bit-equal; CUDA-event times of both."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.convert import from_numpy
+    from starneig_tpu_torch.ops import gpu_hess
+    from starneig_tpu_torch.ops.hessenberg import panel_plain
+    n, nb = MAIN_N, 288
+    A = from_numpy(np.random.default_rng(0).standard_normal((n, n)), dev)
+    scale = float(A.abs().max())
+    grid = gpu_hess.panel_grid(n, nb)[0]
+    rows = []
+    for k, t0 in H1_PANELS:
+        got = gpu_hess.panel(A, k, nb, t0)
+        same = all(torch.equal(a, b) for a, b in zip(got, gpu_hess.panel(A, k, nb, t0)))
+        want, plain_ms = timed(lambda: panel_plain(A, k, nb, t0))
+        errs = {name: float((g - w).abs().max()) for name, g, w in zip("VTYP", got, want)}
+        ms = cuda_ms(lambda: gpu_hess.panel(A, k, nb, t0), 5)
+        bms, by = bound(*h1_work(n, nb, k, t0))
+        log(f"  H1 panel k={k} t0={t0} (n={n}, nb={nb}, {grid} blocks): max abs err "
+            f"{errs} (max|A| {scale:.2f}); two launches bit-for-bit equal: {same}; kernel "
+            f"{ms:.3f} ms ({ms / nb * 1e3:.1f} us a column), plain {plain_ms:.1f} ms, bound "
+            f"{bms:.4f} ms ({by})")
+        check(max(errs.values()) <= 1e-12 * scale, f"H1 k={k} t0={t0} disagrees: {errs}")
+        check(same, f"H1 k={k} t0={t0}: two launches differ")
+        rows.append(dict(k=k, t0=t0, max_abs_err=max(errs.values()), errors=errs, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+    first = rows[0]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=first["ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None,
+                detail=dict(grid=grid, panels=rows))
 
 
 def phase_francis(dev):
@@ -1129,6 +1195,7 @@ def phase_main(dev):
     import torch
     from starneig_tpu_torch import kernels
     from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.config import HessenbergConf
     from starneig_tpu_torch.convert import from_numpy, to_numpy
     from starneig_tpu_torch.errors import Error
     from starneig_tpu_torch.testing.hooks import eigenvalue_error, schur_form_error
@@ -1225,8 +1292,13 @@ def phase_main(dev):
     check(evec < EVEC_BOUND, f"eigenvector residual {evec}")
     for k in SCHUR_KERNELS:
         check(schur_launches[k] > 0, f"kernel {k} was not launched by Hessenberg -> Schur")
-    check(chain_launches["reorder_bubble"] > 0,
-          "kernel reorder_bubble was not launched by the reordering")
+    npanels = len(range(0, n - 2, HessenbergConf().resolve(n).panel_width))
+    check(schur_launches["hess_panel"] == npanels and schur_launches["hess_gemv"] == 0,
+          f"Hessenberg: H1 launched {schur_launches['hess_panel']} times ({npanels} "
+          f"panels), B1 {schur_launches['hess_gemv']}")
+    for k in CHAIN_KERNELS:
+        check(chain_launches[k] > 0, f"kernel {k} was not launched by the chain past Schur")
+    check(chain_launches["eig_backsolve"] == 1, "E1 launched more than once")
     return dict(info=info, hessenberg_ms=hess_ms, schur_ms=schur_ms,
                 residual_u=res, orthogonality_u=orth, schur_form_error=form,
                 stats=stats, schur_launches=schur_launches,
@@ -1240,8 +1312,75 @@ def phase_main(dev):
                 launches=launches, n200=dict(eig_vs_numpy=d_np,
                                              eig_vs_cpu=d_cpu, residual_u=res_s,
                                              orthogonality_u=orth_s),
-                n200_reduce=n200_reduce, spectrum=before, hess=hess)
+                n200_reduce=n200_reduce, spectrum=before, hess=hess,
+                chain=(A, S2, Q3, m))
 
+
+
+def e1_work(S, pos, is_pair, kind):
+    """(bytes, flops) of E1 on these eigenvalues: S's rows above the
+    lowest selected block and the vectors read once, the vectors written
+    once; per eigenvalue and solved row k < pos the dot over its nonzero
+    x[k+1 : pos+2] (two for a 2x2 block's rows, twice that for a pair)."""
+    import numpy as np
+    n = S.shape[0]
+    pos = np.asarray(pos, np.int64)
+    m = len(pos)
+    top = int(pos.max())
+    nbytes = 8 * (sum(min(n, top + 2) - k for k in range(top)) + 4 * m * n)
+    w = np.where(kind == 2, 0, np.where(kind == 1, 2, 1)).astype(np.float64)
+    k = np.arange(n, dtype=np.float64)
+    c0 = np.concatenate([[0.0], np.cumsum(w)])               # sum of w[k], k < p
+    c1 = np.concatenate([[0.0], np.cumsum(w * (k + 1))])     # sum of w[k] (k + 1)
+    hi = np.minimum(n, pos + 2)
+    per = hi * c0[pos] - c1[pos]                              # sum of w[k] (hi - k - 1)
+    flops = float((2 * per * np.where(np.asarray(is_pair), 2, 1)).sum())
+    return nbytes, flops
+
+
+def phase_backsolve(dev, main_res):
+    """5b: E1 on phase 5's n=4000 selection (the eigenvalues of the leading
+    block after reordering) against the plain row loop on the card: the
+    normalized vectors within 1e-12, the close flags equal, and E1's
+    eigenvectors' residual below EVEC_BOUND; CUDA-event times of both."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops import eigenvectors as ev
+    from starneig_tpu_torch.ops import gpu_eig
+    A, S2, Q3, m = main_res["chain"]
+    n = S2.shape[0]
+    pos, pair, lr, li = (list(x) for x in zip(*ev._selected_blocks(S2, np.arange(n) < m)))
+    lam_r, lam_i = (torch.tensor(v, dtype=S2.dtype, device=dev) for v in (lr, li))
+    kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs(S2, lam_r, lam_i, pos, pair)
+
+    def kernel():
+        xk, xik = xr.clone(), xi.clone()
+        close = gpu_eig.backsolve(S2, lam_r, lam_i, pos, pair, kind, smin, omega, smlnum,
+                                  xk, xik)
+        return xk, xik, close
+    xk, xik, ck = kernel()
+    xk2, xik2, _ = kernel()
+    same = torch.equal(xk, xk2) and torch.equal(xik, xik2)
+    ms = cuda_ms(kernel, 3)
+    close_p, plain_ms = timed(lambda: ev._backsolve_rows(
+        S2, lam_r, lam_i, pos, pair, kind, smin, omega, smlnum, xr, xi))
+    gk, gp = ev._normalize(xk, xik), ev._normalize(xr, xi)
+    err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    X = Q3 @ ev._columns(*gk, pair)
+    evec = eigenvector_residual(A, S2, X, m)
+    bms, by = bound(*e1_work(S2, pos, pair, kind))
+    log(f"  5b E1 n={n}: {len(pos)} eigenvalues ({sum(pair)} pairs) in "
+        f"{(len(pos) + 7) // 8} blocks; max abs err {err:.2e} against the plain loop, close "
+        f"flags equal {torch.equal(ck, close_p)} ({int(ck.sum())} set), two launches "
+        f"bit-for-bit equal: {same}; worst residual {evec:.2e}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    check(err <= 1e-12, f"E1 disagrees with the plain loop by {err}")
+    check(torch.equal(ck, close_p), "E1's close flags differ from the plain loop's")
+    check(tuple(X.shape) == (n, m) and bool(torch.isfinite(X).all()), "E1: X not finite")
+    check(evec < EVEC_BOUND, f"E1 eigenvector residual {evec}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, detail=dict(m=len(pos), pairs=sum(pair), residual=evec,
+                                             bit_equal=same, close=int(ck.sum())))
 
 
 # ---------------------------------------------------------------------------
@@ -2309,8 +2448,9 @@ DM_RANKS_A, DM_RANKS_B = 2, 4
 DM_N4, DM_GEP_N = 1200, 512
 DM_TIMEOUT_S = 600.0
 # what each rank of a DM run may launch: the owner (rank 0) all of them,
-# every rank B1 in the sharded Hessenberg reduction
-DM_SEP_KERNELS = SCHUR_KERNELS + ("reorder_bubble",)
+# every rank B1 in the sharded Hessenberg reduction (panel_factor, not H1);
+# 10a's chain ends in the eigenvectors (E1)
+DM_SEP_KERNELS = ("hess_gemv",) + SCHUR_KERNELS[1:] + ("reorder_bubble",)
 DM_SHARED_KERNELS = ("hess_gemv",)
 DM_GEP_KERNELS = ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
                   "reorder_bubble_gep")
@@ -2445,7 +2585,7 @@ def phase_dm_sep(dev, main_res):
           "10a: the Hessenberg stage broadcast (an owner's hand-out)")
     rounds5 = main_res["stats"].get("rounds")
     check(abs(st["rounds"] - rounds5) <= 2, f"10a: {st['rounds']} rounds, phase 5 {rounds5}")
-    dm_launch_check("10a", cnt, DM_SEP_KERNELS, DM_SHARED_KERNELS)
+    dm_launch_check("10a", cnt, DM_SEP_KERNELS + ("eig_backsolve",), DM_SHARED_KERNELS)
     return dict(ms=ms, wall_s=wall, startup_s=[c["startup_s"] for c in cnt],
                 hess=dict(h_vs_phase5=dH, q_vs_phase5=dQ, b1_launches=hess_b1,
                           peak_bytes=hess_peak,
@@ -2675,12 +2815,15 @@ def main() -> int:
                    "qz_sweep": phase_qz_sweep(dev),
                    "aed_deflate_gep": phase_aed_deflate_gep(dev),
                    "inf_chase": phase_inf_chase(dev),
-                   "reorder_bubble_gep": phase_bubble_gep(dev)}
+                   "reorder_bubble_gep": phase_bubble_gep(dev),
+                   "hess_panel": phase_hess_panel(dev)}
         qz322 = results["qz_window"].pop("plain_w322")
         log("== 4. n=1200 with B=70")
         b70 = phase_schur_b70(dev)
         log("== 5. main path")
         main_res = phase_main(dev)
+        log("== 5b. E1 on the main path's selection against its plain loop")
+        results["eig_backsolve"] = phase_backsolve(dev, main_res)
         log(f"== 6. GEP path, n={GEP_N}")
         gep_res = phase_gep(dev)
         log("== 7. GEP n=512 infinite-rich")
@@ -2717,7 +2860,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70,
-                 main={k: v for k, v in main_res.items() if k not in ("spectrum", "hess")},
+                 main={k: v for k, v in main_res.items()
+                       if k not in ("spectrum", "hess", "chain")},
                  gep=gep_res, gep_inf=gep_inf, cli=cli, dm=dm, tools=tools,
                  torch=torch.__version__,
                  cuda=torch.version.cuda),

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"hess_gemv": 0, "francis": 0, "train_hops": 0, "aed_deflate": 0,
             "recondense": 0, "reorder_bubble": 0, "ht_cascade": 0,
             "ht_recondense": 0, "qz_window": 0, "qz_sweep": 0,
-            "aed_deflate_gep": 0, "inf_chase": 0, "reorder_bubble_gep": 0}
+            "aed_deflate_gep": 0, "inf_chase": 0, "reorder_bubble_gep": 0,
+            "hess_panel": 0, "eig_backsolve": 0}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
@@ -63,6 +64,13 @@ _SIGNATURES = {
     "inf_chase": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # Sp, Tp, Qp, Zp, sel, state, G, W, stream
     "reorder_bubble_gep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # n, nb, t0, grid (int*, in and out), work (long long*, out)
+    "hess_panel_grid": [_I, _I, _I, _P, _P],
+    # A, lda, n, k, nb, t0, lim, V, T, Y, P, work, work_len, grid, stream
+    "hess_panel": [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _I, _P],
+    # S, n, lam_r, lam_i, smin, pos, pair, kind, order, m, omega, smlnum,
+    # xr, xi, close, stream
+    "eig_backsolve": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -3,10 +3,12 @@
 // Replaces starneig_tpu/ops/pallas_hess.py:_matvec_kernel (pallas_call at
 // :81, wrapper matvec_df), which computed u = M x at df32 precision over
 // row blocks [row0, R).  Plain twin: ops/gpu_hess.py:gemv_plain (M @ x).
-// It serves every matvec of the panel loop: the panel matvec
-// A[t0:, t0:] v against the frozen panel-start matrix, and the compact-WY
-// correction products Y V[c], V^T a, V (T^T w), V^T v, U tcol and the two
-// small T products.
+// It serves every matvec of ops/hessenberg.py:panel_factor, the panel
+// loop that the distributed reduction (parallel/dm_hess.py) runs on every
+// rank (the single-process reduction runs a panel as one H1 launch,
+// hess_panel.cu): the panel matvec A[t0:, t0:] v against the frozen
+// panel-start matrix, and the compact-WY correction products Y V[c],
+// V^T a, V (T^T w), V^T v, U tcol and the two small T products.
 //
 // What bounds it on the H100: DRAM bandwidth for the panel matvec, launch
 // latency for the rest.  At n = 4000 the frozen panel matrix is 128 MB,
@@ -25,6 +27,8 @@
 //     SM in one wave.  The previous form (one 8-byte load a lane, one
 //     accumulator) kept too few bytes in flight to stream the panel matrix
 //     at the HBM rate, and left most lanes idle on the narrow views.
+//     (That row form lives in hess_gemv.cuh: H1, hess_panel.cu, runs it
+//     on the panel matvec inside its cooperative launch.)
 //     Narrow rows (cols <= 64: the panel arrays' 4000 x j views for small
 //     j, T[:j, :j]): G lanes across a row as in the transposed mode (G the
 //     least power of two with 2G >= cols), the other lanes on the next
@@ -52,31 +56,26 @@
 // M is any row-major view with unit column stride and leading dimension ld.
 #include <cuda_runtime.h>
 
+#include "hess_gemv.cuh"
+
 namespace {
+
+using gemv_row::load_m;
 
 constexpr int kWarps = 8;
 constexpr int kNarrowCols = 64;  // A x: rows of at most this many columns are narrow
 constexpr int kRowWarps = 4;     // A x, wide rows: warps a block, a row each
-constexpr int kLoads = 4;        //   16-byte loads in flight a lane
 constexpr int kNarrowWarps = 4;  // A x, narrow rows: warps a block
 
 // the pair (p[0], p[1]): one 16-byte load when kVec, else two 8-byte ones;
 // M with the streaming hint (read once a call), x through the read-only path
 template <bool kVec>
-__device__ __forceinline__ double2 load_m(const double* p) {
-  if (kVec) return __ldcs(reinterpret_cast<const double2*>(p));
-  return make_double2(__ldcs(p), __ldcs(p + 1));
-}
-template <bool kVec>
 __device__ __forceinline__ double2 load_x(const double* p) {
-  if (kVec) return __ldg(reinterpret_cast<const double2*>(p));
-  return make_double2(__ldg(p), __ldg(p + 1));
+  return gemv_row::load_x<kVec, false>(p);
 }
 
 // u = M x for rows of more than kNarrowCols columns: warp w of the block
-// takes row blockIdx.x kRowWarps + w; lane l the column pairs 2l + 64 q
-// (q < kLoads) of each 2 x 32 x kLoads-column stretch, all loaded before
-// any is summed; accumulator q sums its pairs in stretch order
+// takes row blockIdx.x kRowWarps + w (hess_gemv.cuh's warp_row_dot)
 template <bool kVec>
 __global__ void __launch_bounds__(kRowWarps * 32)
 gemv_n_wide(const double* __restrict__ M, long long ld, int rows, int cols,
@@ -84,34 +83,7 @@ gemv_n_wide(const double* __restrict__ M, long long ld, int rows, int cols,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const double* m = M + (size_t)row * ld;
-  double acc[kLoads];
-#pragma unroll
-  for (int q = 0; q < kLoads; ++q) acc[q] = 0.0;
-  for (int c0 = 2 * lane; c0 < cols; c0 += 64 * kLoads) {
-    double2 a[kLoads], b[kLoads];
-#pragma unroll
-    for (int q = 0; q < kLoads; ++q) {
-      const int c = c0 + 64 * q;
-      a[q] = make_double2(0.0, 0.0);
-      b[q] = make_double2(0.0, 0.0);
-      if (c + 1 < cols) {
-        a[q] = load_m<kVec>(m + c);
-        b[q] = load_x<kVec>(x + c);
-      } else if (c < cols) {
-        a[q].x = __ldcs(m + c);
-        b[q].x = __ldg(x + c);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kLoads; ++q) acc[q] += a[q].x * b[q].x + a[q].y * b[q].y;
-  }
-#pragma unroll
-  for (int w = kLoads / 2; w > 0; w >>= 1)
-#pragma unroll
-    for (int q = 0; q < w; ++q) acc[q] += acc[q + w];
-  double sum = acc[0];
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  const double sum = gemv_row::warp_row_dot<kVec, false>(M + (size_t)row * ld, x, cols, lane);
   if (lane == 0) u[row] = sum;
 }
 

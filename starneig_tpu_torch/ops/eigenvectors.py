@@ -4,10 +4,13 @@ Port of the SEP part of ``starneig_tpu/ops/eigenvectors.py``.  For each
 selected eigenvalue, (S - lambda I) y = 0 is solved by backward
 substitution over the quasi-triangular S, and X = Q Y is one GEMM.  All
 selected eigenvalues run at once: the JAX package vmapped one recurrence
-per eigenvalue; here each row step is batched over the eigenvalues, and a
-host loop walks the n - 1 rows.  Which rows are 1x1 rows, 2x2 block rows
-or second rows of a block is decided on the host from S's subdiagonal,
-read once; nothing in the loop reads the device.
+per eigenvalue and ran its row loop on the device.  On the card the row
+loop is kernel E1 (:mod:`starneig_tpu_torch.ops.gpu_eig`, one launch); its
+plain twin :func:`_backsolve_rows`, which runs on the CPU, batches each
+row step over the eigenvalues in a host loop over the n - 1 rows.  Which
+rows are 1x1 rows, 2x2 block rows or second rows of a block is decided on
+the host from S's subdiagonal, read once; nothing in the loop reads the
+device.
 
 Robustness is the JAX package's (reference robust.h:185-381, recast per
 column): each column is rescaled before a division whose result would
@@ -38,6 +41,7 @@ import torch
 
 from starneig_tpu_torch.config import EigenvectorsConf
 from starneig_tpu_torch.errors import Error
+from starneig_tpu_torch.ops import gpu_eig
 
 
 def _cdiv(ar, ai, br, bi, guard: float):
@@ -61,50 +65,40 @@ def _cdiv(ar, ai, br, bi, guard: float):
     return torch.where(big, xr1, xr2), torch.where(big, xi1, xi2)
 
 
-def _backsolve_all(S, lam_r, lam_i, pos, is_pair):
-    """Backward substitution for a batch of m eigenvalues.
+def _row_kinds(sub):
+    """What the backsolve does at each row k of S, from its subdiagonal
+    ``sub`` (length n, host): 0 a 1x1 row, 1 the first row of a 2x2 block
+    (solved with the second), 2 a block's second row (skipped)."""
+    sub = np.asarray(sub)
+    kind = np.where(sub != 0, 1, 0).astype(np.int32)
+    kind[1:][sub[:-1] != 0] = 2
+    return kind
 
-    Args:
-      S: (n, n) real Schur form.
-      lam_r, lam_i: (m,) eigenvalues (lam_i > 0 for pairs), on S's device.
-      pos: (m,) host int block starts; is_pair: (m,) host bools.
 
-    Returns:
-      (xr, xi, close): (m, n) normalized eigenvector parts and an (m,)
-      bool close-eigenvalues flag per column.
-    """
+def _rescale(do, num, den, omega, smlnum):
+    """fac <= 1 that keeps num * fac / den below omega where ``do``
+    (robust.h's protect_update: solve only after the bound admits it)."""
+    return torch.where(do & (num > den * omega),
+                       den * omega / torch.clamp_min(num, smlnum), 1.0)
+
+
+def _backsolve_rows(S, lam_r, lam_i, pos, is_pair, kind, smin, omega, smlnum,
+                    xr, xi):
+    """The row loop of :func:`_backsolve_all`, in place on (xr, xi): the
+    plain twin of kernel E1 (``gpu_eig.backsolve``, same arguments).
+    Returns the (m,) bool close-eigenvalues flags."""
     n = S.shape[0]
     m = len(pos)
-    dtype, dev = S.dtype, S.device
-    finfo = torch.finfo(dtype)
-    ulp = finfo.eps
-    smlnum = finfo.tiny / finfo.eps
-    snorm = S.abs().max() + smlnum
-    # growth bound: keep max|x| below Omega so the row dot n snorm |x|
-    # stays far from the overflow threshold
-    omega = finfo.max / (16.0 * n) / snorm
-    sub = np.concatenate([torch.diagonal(S, -1).cpu().numpy(), [0.0]])
-    smin = torch.clamp_min(ulp * (lam_r.abs() + lam_i.abs()), smlnum)
-
+    dev = S.device
     pos_t = torch.as_tensor(np.asarray(pos, np.int64), device=dev)
-    pair_t = torch.as_tensor(np.asarray(is_pair, bool), device=dev)
-    cols = torch.arange(m, device=dev)
-    xr = S.new_zeros((m, n))
-    xi = S.new_zeros((m, n))
-    p1 = torch.clamp_max(pos_t + 1, n - 1)
-    # initial entries at the eigenvalue's own block
-    xr[cols, pos_t] = torch.where(pair_t, S[pos_t, p1], 1.0)
-    xi[cols, p1] += torch.where(pair_t, lam_i, 0.0)
     close = torch.zeros(m, dtype=torch.bool, device=dev)
-
     for k in range(n - 2, -1, -1):
-        is_second = k >= 1 and sub[max(k - 1, 0)] != 0
-        if is_second:
+        if kind[k] == 2:
             continue        # rows of a 2x2 block are solved at its first row
         in_range = k < pos_t
         rhs_r = -(xr[:, k + 1:] @ S[k, k + 1:])
         rhs_i = -(xi[:, k + 1:] @ S[k, k + 1:])
-        if sub[k] == 0:
+        if kind[k] == 0:
             # 1x1 row: x[k] = rhs / (S[k, k] - lambda), protected
             do_1 = in_range
             d_r = S[k, k] - lam_r
@@ -115,11 +109,8 @@ def _backsolve_all(S, lam_r, lam_i, pos, is_pair):
             d_i = torch.where(near, 0.0, d_i)
             dabs = torch.maximum(dabs, smin)
             close |= near
-            # scale the column before a growing division (robust.h's
-            # protect_update: solve only after the bound admits it)
-            rabs = rhs_r.abs() + rhs_i.abs()
-            fac = torch.where(do_1 & (rabs > dabs * omega),
-                              dabs * omega / torch.clamp_min(rabs, smlnum), 1.0)
+            # scale the column before a growing division
+            fac = _rescale(do_1, rhs_r.abs() + rhs_i.abs(), dabs, omega, smlnum)
             xr *= fac[:, None]
             xi *= fac[:, None]
             vr, vi = _cdiv(rhs_r * fac, rhs_i * fac, d_r, d_i, smlnum)
@@ -151,8 +142,7 @@ def _backsolve_all(S, lam_r, lam_i, pos, is_pair):
         n2r = m11r * rhs2_r - m11i * rhs2_i - m21 * rhs_r
         n2i = m11r * rhs2_i + m11i * rhs2_r - m21 * rhs_i
         nmax = torch.maximum(n1r.abs() + n1i.abs(), n2r.abs() + n2i.abs())
-        fac = torch.where(do_2 & (nmax > detabs * omega),
-                          detabs * omega / torch.clamp_min(nmax, smlnum), 1.0)
+        fac = _rescale(do_2, nmax, detabs, omega, smlnum)
         xr *= fac[:, None]
         xi *= fac[:, None]
         w1r, w1i = _cdiv(n1r * fac, n1i * fac, detr, deti, smlnum)
@@ -161,14 +151,76 @@ def _backsolve_all(S, lam_r, lam_i, pos, is_pair):
         xi[:, k] = torch.where(do_2, w1i, xi[:, k])
         xr[:, k1] = torch.where(do_2, w2r, xr[:, k1])
         xi[:, k1] = torch.where(do_2, w2i, xi[:, k1])
+    return close
 
-    # safe two-stage normalization
+
+def _backsolve_inputs(S, lam_r, lam_i, pos, is_pair):
+    """The row loop's arguments after (S, lam_r, lam_i, pos, is_pair):
+    (kind, smin, omega, smlnum, xr, xi), x holding the initial entries at
+    each eigenvalue's own block."""
+    n = S.shape[0]
+    m = len(pos)
+    dtype, dev = S.dtype, S.device
+    finfo = torch.finfo(dtype)
+    ulp = finfo.eps
+    smlnum = finfo.tiny / finfo.eps
+    snorm = S.abs().max() + smlnum
+    # growth bound: keep max|x| below Omega so the row dot n snorm |x|
+    # stays far from the overflow threshold
+    omega = finfo.max / (16.0 * n) / snorm
+    sub = np.concatenate([torch.diagonal(S, -1).cpu().numpy(), [0.0]])
+    smin = torch.clamp_min(ulp * (lam_r.abs() + lam_i.abs()), smlnum)
+
+    pos_t = torch.as_tensor(np.asarray(pos, np.int64), device=dev)
+    pair_t = torch.as_tensor(np.asarray(is_pair, bool), device=dev)
+    cols = torch.arange(m, device=dev)
+    xr = S.new_zeros((m, n))
+    xi = S.new_zeros((m, n))
+    p1 = torch.clamp_max(pos_t + 1, n - 1)
+    xr[cols, pos_t] = torch.where(pair_t, S[pos_t, p1], 1.0)
+    xi[cols, p1] += torch.where(pair_t, lam_i, 0.0)
+    return _row_kinds(sub), smin, omega, smlnum, xr, xi
+
+
+def _normalize(xr, xi):
+    """Safe two-stage normalization of each row of (xr, xi): by max |x|,
+    then to unit 2-norm."""
     mx = torch.maximum(xr.abs().amax(1), xi.abs().amax(1))
     mx = torch.where(mx == 0, 1.0, mx)
     xr, xi = xr / mx[:, None], xi / mx[:, None]
     nrm = torch.sqrt((xr * xr).sum(1) + (xi * xi).sum(1))
     nrm = torch.where(nrm == 0, 1.0, nrm)
-    return xr / nrm[:, None], xi / nrm[:, None], close
+    return xr / nrm[:, None], xi / nrm[:, None]
+
+
+def _backsolve_all(S, lam_r, lam_i, pos, is_pair):
+    """Backward substitution for a batch of m eigenvalues.
+
+    Args:
+      S: (n, n) real Schur form.
+      lam_r, lam_i: (m,) eigenvalues (lam_i > 0 for pairs), on S's device.
+      pos: (m,) host int block starts; is_pair: (m,) host bools.
+
+    Returns:
+      (xr, xi, close): (m, n) normalized eigenvector parts and an (m,)
+      bool close-eigenvalues flag per column.  The row loop is kernel E1
+      (``gpu_eig.backsolve``) for a CUDA S and :func:`_backsolve_rows` for
+      a CPU one.
+    """
+    if S.is_cuda:
+        S = S.contiguous()
+    args = _backsolve_inputs(S, lam_r, lam_i, pos, is_pair)
+    run = gpu_eig.backsolve if S.is_cuda else _backsolve_rows
+    close = run(S, lam_r, lam_i, pos, is_pair, *args)
+    return (*_normalize(*args[-2:]), close)
+
+
+def _columns(xr, xi, is_pair):
+    """Y (n, ncols): Re of every eigenvalue's vector, Im right after it for
+    a pair (one gather of the rows of [xr; xi])."""
+    m = len(is_pair)
+    rows = [r for j, pr in enumerate(is_pair) for r in ((j, m + j) if pr else (j,))]
+    return torch.cat([xr, xi])[torch.as_tensor(rows, device=xr.device)].T
 
 
 def _backtransform(Q, Y):
@@ -190,6 +242,24 @@ def eigenvectors_schur(S, Q, select, conf: Optional[EigenvectorsConf] = None):
       eigenvalue and (Re, Im) column pairs per selected complex pair; info
       Error.SUCCESS or Error.CLOSE_EIGENVALUES.
     """
+    n = S.shape[0]
+    entries = _selected_blocks(S, select)
+    if not entries:
+        return S.new_zeros((n, 0)), Error.SUCCESS
+
+    pos, is_pair, lam_r, lam_i = (list(x) for x in zip(*entries))
+    as_t = dict(dtype=S.dtype, device=S.device)
+    xr, xi, close = _backsolve_all(S, torch.tensor(lam_r, **as_t),
+                                   torch.tensor(lam_i, **as_t), pos, is_pair)
+    X = _backtransform(Q, _columns(xr, xi, is_pair))
+    # close-eigenvalue warning (reference: interface.c:57-88 + error.h:122)
+    info = Error.CLOSE_EIGENVALUES if bool(close.any()) else Error.SUCCESS
+    return X, info
+
+
+def _selected_blocks(S, select):
+    """The selected diagonal blocks of S, on the host: a list of (pos,
+    is_pair, lam_r, lam_i), 2x2 blocks selected atomically (lam_i > 0)."""
     n = S.shape[0]
     if torch.is_tensor(select):
         select = select.cpu().numpy()
@@ -213,25 +283,7 @@ def eigenvectors_schur(S, Q, select, conf: Optional[EigenvectorsConf] = None):
             if select[i]:
                 entries.append((i, False, diag[i], 0.0))
             i += 1
-
-    if not entries:
-        return S.new_zeros((n, 0)), Error.SUCCESS
-
-    pos, is_pair, lam_r, lam_i = (list(x) for x in zip(*entries))
-    as_t = dict(dtype=S.dtype, device=S.device)
-    xr, xi, close = _backsolve_all(S, torch.tensor(lam_r, **as_t),
-                                   torch.tensor(lam_i, **as_t), pos, is_pair)
-    # Y's columns: Re of every entry, Im right after it for a pair
-    parts = []
-    for j, pr in enumerate(is_pair):
-        parts.append(xr[j])
-        if pr:
-            parts.append(xi[j])
-    Y = torch.stack(parts, 1)
-    X = _backtransform(Q, Y)
-    # close-eigenvalue warning (reference: interface.c:57-88 + error.h:122)
-    info = Error.CLOSE_EIGENVALUES if bool(close.any()) else Error.SUCCESS
-    return X, info
+    return entries
 
 
 # ===========================================================================

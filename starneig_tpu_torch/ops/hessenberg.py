@@ -7,11 +7,16 @@ frozen panel-start matrix (the sequential part); the panel yields V, T and
 Y = A V T, and the trailing matrix is then updated from the right and the
 left by large GEMMs, with Q accumulated per panel.
 
-Every matrix-vector product of the panel loop goes through kernel B1
-(:func:`starneig_tpu_torch.ops.gpu_hess.gemv`); the per-panel GEMMs of
-:func:`_apply_panel` are ``torch.matmul``, as the JAX package left them to
-XLA.  Tensors are updated in place where the JAX version rebuilt them;
-:func:`hessenberg` works on copies of the caller's tensors.
+On the card a panel is one launch of kernel H1
+(:func:`starneig_tpu_torch.ops.gpu_hess.panel`), as the JAX package ran
+it as one device loop; on the CPU it is the plain twin
+:func:`panel_factor`, whose matrix-vector products go through
+:func:`starneig_tpu_torch.ops.gpu_hess.gemv` (kernel B1 on CUDA tensors:
+the distributed reduction runs ``panel_factor`` on the card).  The
+per-panel GEMMs of :func:`_apply_panel` are ``torch.matmul``, as the JAX
+package left them to XLA.  Tensors are updated in place where the JAX
+version rebuilt them; :func:`hessenberg` works on copies of the caller's
+tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional
 import torch
 
 from starneig_tpu_torch.config import HessenbergConf
+from starneig_tpu_torch.ops import gpu_hess
 from starneig_tpu_torch.ops import primitives as prim
 from starneig_tpu_torch.ops.gpu_hess import gemv
 
@@ -33,17 +39,30 @@ def _panel(A, k: int, nb: int, t0: int = 0, end: Optional[int] = None):
     the final panel column values P (n, nb) with exact zeros below the
     subdiagonal.  Every reflector is supported on rows > t0 <= k, so the
     panel matvec contracts only over the trailing block A[t0:, t0:].
+    A CUDA tensor goes to kernel H1, a CPU tensor to :func:`panel_factor`.
     """
+    if A.is_cuda:
+        return gpu_hess.panel(A, k, nb, t0, end)
     At = A[t0:, t0:]
     return panel_factor(A[:, k:k + nb], lambda x: gemv(At, x), k, t0, end)
 
 
-def panel_factor(cols, matvec, k: int, t0: int = 0, end: Optional[int] = None):
+def panel_plain(A, k: int, nb: int, t0: int = 0, end: Optional[int] = None):
+    """:func:`_panel` in torch operations alone on any device: on the card,
+    the plain twin of kernel H1 (its products ``torch.mv``, not B1)."""
+    At = A[t0:, t0:]
+    return panel_factor(A[:, k:k + nb], lambda x: At @ x, k, t0, end,
+                        gemv=gpu_hess.gemv_plain)
+
+
+def panel_factor(cols, matvec, k: int, t0: int = 0, end: Optional[int] = None,
+                 gemv=gemv):
     """:func:`_panel` on the panel's columns ``cols`` = A[:, k:k+nb]; the
     rest of A enters only through ``matvec(x)`` = A[t0:, t0:] @ x (x of
     length n - t0).  The distributed reduction
     (``parallel/dm_hess.py``) passes a gathered panel and a matvec over
-    column shards."""
+    column shards.  ``gemv`` computes the compact-WY products (B1's
+    wrapper; :func:`panel_plain` passes ``gpu_hess.gemv_plain``)."""
     n, nb = cols.shape
     lim = n if end is None else end
     V = cols.new_zeros((n, nb))

@@ -3,9 +3,10 @@ against their plain twins, and copies of
 ``starneig_tpu/testing/generators.py`` (``random_dense``,
 ``random_orthogonal``, ``random_hessenberg``, ``known_spectrum_matrix``
 with ``_to_hessenberg``, ``known_spectrum_pencil``) so that a card without
-JAX builds the same matrices and pencils from the same seeds.  One
-generator, :func:`qz_train_hops`, runs the QZ driver's plain twin (torch)
-to give the windows a train's hops receive."""
+JAX builds the same matrices and pencils from the same seeds; Schur forms
+that exercise the eigenvector backsolve's guards.  One generator,
+:func:`qz_train_hops`, runs the QZ driver's plain twin (torch) to give the
+windows a train's hops receive."""
 
 from __future__ import annotations
 
@@ -122,6 +123,45 @@ def random_orthogonal(n: int, seed: int = 0, dtype=np.float64) -> np.ndarray:
 
 def random_hessenberg(n: int, seed: int = 0, dtype=np.float64) -> np.ndarray:
     return np.triu(random_dense(n, seed, dtype), -1)
+
+
+def graded_schur():
+    """(S, select): an upper triangular S graded from 1e150 down to 1e-150
+    (n=40), two eigenvalues selected: the backsolve must not overflow."""
+    n = 40
+    rng = _rng(7)
+    d = np.logspace(150, -150, n)
+    S = np.triu(rng.standard_normal((n, n))) * np.sqrt(np.outer(d, d))
+    np.fill_diagonal(S, d)
+    sel = np.zeros(n, bool)
+    sel[n // 2] = sel[-1] = True
+    return S, sel
+
+
+def close_schur(distinct: bool):
+    """(S, select): n=12, diagonal 1..12, the 6th eigenvalue selected; unless
+    ``distinct`` it equals the 3rd, and the backsolve's guard lifts the
+    shifted diagonal (CLOSE_EIGENVALUES)."""
+    n = 12
+    rng = _rng(8)
+    S = np.triu(rng.standard_normal((n, n)))
+    np.fill_diagonal(S, np.arange(1, n + 1, dtype=float))
+    S[5, 5] = 6.0 if distinct else S[2, 2]
+    return S, np.arange(n) == 5
+
+
+def growth_schur():
+    """(S, select): off-diagonal entries 1e100 over diagonal gaps of order 1
+    (n=24). Each row step grows a vector by ~1e100, past the growth bound
+    omega (~1e205 here) within three rows, so the backsolve's guarded
+    rescale (fac < 1) fires."""
+    n = 24
+    rng = _rng(9)
+    S = np.triu(rng.standard_normal((n, n))) * 1e100
+    np.fill_diagonal(S, np.arange(1, n + 1, dtype=float))
+    sel = np.zeros(n, bool)
+    sel[n // 2] = sel[-1] = True
+    return S, sel
 
 
 def known_spectrum_matrix(n: int, complex_ratio: float = 0.5,

@@ -19,7 +19,9 @@ from starneig_tpu.ops.small_schur import small_schur as jsmall
 from starneig_tpu.testing import random_hessenberg
 from starneig_tpu_torch.convert import from_numpy, to_numpy
 from starneig_tpu_torch.errors import Error
+from starneig_tpu_torch.ops import eigenvectors as tev_mod
 from starneig_tpu_torch.ops.eigenvectors import eigenvectors_schur as tevec
+from starneig_tpu_torch.testing import generators
 
 torch.set_num_threads(1)
 
@@ -31,24 +33,10 @@ def _schur(n, seed):
     return H, np.asarray(S), np.asarray(Q)
 
 
-def _graded():
-    n = 40
-    rng = np.random.default_rng(7)
-    d = np.logspace(150, -150, n)
-    S = np.triu(rng.standard_normal((n, n))) * np.sqrt(np.outer(d, d))
-    np.fill_diagonal(S, d)
-    sel = np.zeros(n, bool)
-    sel[n // 2] = sel[-1] = True
-    return None, S, np.eye(n), sel
-
-
-def _close(distinct):
-    n = 12
-    rng = np.random.default_rng(8)
-    S = np.triu(rng.standard_normal((n, n)))
-    np.fill_diagonal(S, np.arange(1, n + 1, dtype=float))
-    S[5, 5] = 6.0 if distinct else S[2, 2]
-    return None, S, np.eye(n), np.arange(n) == 5
+def _planted(case):
+    """(None, S, I, select) of a numpy-made Schur form (no Hessenberg input)."""
+    S, sel = case
+    return None, S, np.eye(S.shape[0]), sel
 
 
 def _random(n, seed, pick):
@@ -60,9 +48,10 @@ CASES = {
     "all_selected": lambda: _random(32, 1, lambda n: np.ones(n, bool)),
     "subset_with_pairs": lambda: _random(40, 2, lambda n: np.random.default_rng(41).random(n) < 0.3),
     "none_selected": lambda: _random(10, 3, lambda n: np.zeros(n, bool)),
-    "graded": _graded,
-    "close_eigenvalues": lambda: _close(False),
-    "distinct_eigenvalues": lambda: _close(True),
+    "graded": lambda: _planted(generators.graded_schur()),
+    "close_eigenvalues": lambda: _planted(generators.close_schur(False)),
+    "distinct_eigenvalues": lambda: _planted(generators.close_schur(True)),
+    "growth": lambda: _planted(generators.growth_schur()),
 }
 
 
@@ -117,3 +106,26 @@ def test_eigenvectors_schur(case):
         assert infot == Error.SUCCESS
         if H is not None:
             assert _worst_residual(H, S, Xt, sel) < 1e-12
+
+
+def test_eigenvectors_rescale_fires(monkeypatch):
+    """The growth case scales its vectors (fac < 1) in the plain row loop,
+    and the guarded result still matches JAX, finite and normalized."""
+    facs = []
+    rescale = tev_mod._rescale
+
+    def spy(*args):
+        fac = rescale(*args)
+        facs.append(float(fac.min()))
+        return fac
+    monkeypatch.setattr(tev_mod, "_rescale", spy)
+    S, sel = generators.growth_schur()
+    Q = np.eye(S.shape[0])
+    Xt, infot = tevec(from_numpy(S), from_numpy(Q), sel)
+    assert min(facs) < 1e-50           # at least one vector scaled down hard
+    Xj, infoj = jevec(jnp.asarray(S), jnp.asarray(Q), sel)
+    assert int(infot) == int(infoj) == Error.SUCCESS
+    Xt = to_numpy(Xt)
+    np.testing.assert_allclose(Xt, np.asarray(Xj), rtol=0, atol=1e-12)
+    assert np.isfinite(Xt).all()
+    np.testing.assert_allclose(np.linalg.norm(Xt, axis=0), 1.0, rtol=0, atol=1e-14)

@@ -30,6 +30,50 @@ def test_panel(k, t0):
                                    atol=1e-12, err_msg=name)
 
 
+# (n, k, nb, t0, end): a width that is no multiple of 32; an end inside
+# the panel (columns from end - 1 on are not reduced); a trailing bucket
+# t0 > 0 with a panel of 24
+PANEL_CASES = {"nb24": (64, 0, 24, 0, None), "end_inside": (64, 16, 16, 8, 26),
+               "t0": (80, 40, 24, 32, None)}
+
+
+@pytest.mark.parametrize("case", list(PANEL_CASES))
+def test_panel_cases(case):
+    n, k, nb, t0, end = PANEL_CASES[case]
+    A = np.random.default_rng(n + k).standard_normal((n, n))
+    want = jhess._panel(jnp.asarray(A), k, nb, t0, jnp.int32(n if end is None else end))
+    got = thess._panel(from_numpy(A), k, nb, t0, end)
+    for name, g, w in zip("VTYP", got, want):
+        np.testing.assert_allclose(to_numpy(g), np.asarray(w), rtol=0,
+                                   atol=1e-12, err_msg=name)
+    if end is not None:
+        # the columns past the range keep their corrected values: tau = 0
+        tau = np.diagonal(to_numpy(got[1]))
+        assert (tau[end - 1 - k:] == 0).all() and (tau[:end - 1 - k] != 0).all()
+
+
+def test_panel_overlap_is_noop():
+    """The overlapping last panel (k = n - nb, hessenberg's k_eff) re-reduces
+    columns that earlier panels reduced: their reflectors are degenerate
+    (tau = 0, v = e_{c+1}), they add nothing to T and Y, and their panel
+    values come back bit for bit."""
+    n, nb = 64, 24
+    A = from_numpy(np.random.default_rng(11).standard_normal((n, n)))
+    Q = torch.eye(n, dtype=torch.float64)
+    for k in (0, nb):
+        thess._apply_panel(A, Q, *thess._panel(A, k, nb, 0, n), k, 0)
+    k, done = n - nb, 2 * nb - (n - nb)       # columns 40..47 already reduced
+    A_np = to_numpy(A)
+    want = jhess._panel(jnp.asarray(A_np), k, nb, 0, jnp.int32(n))
+    V, T, Y, P = map(to_numpy, thess._panel(A, k, nb, 0, n))
+    for name, g, w in zip("VTYP", (V, T, Y, P), want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-12, err_msg=name)
+    assert (T[:, :done] == 0).all() and (T[:done] == 0).all()
+    assert (Y[:, :done] == 0).all()
+    np.testing.assert_array_equal(V[:, :done], np.eye(n)[:, k + 1:k + 1 + done])
+    np.testing.assert_array_equal(P[:, :done], A_np[:, k:k + done])
+
+
 @pytest.mark.parametrize("end", [None, 90])
 def test_hessenberg(end):
     n = 150
@@ -65,3 +109,19 @@ def test_hessenberg_begin_and_initial_q():
         end=80))
     np.testing.assert_allclose(Ht, Hj, rtol=0, atol=1e-11 * np.linalg.norm(A))
     np.testing.assert_allclose(Qt, Qj, rtol=0, atol=1e-11)
+
+
+def test_hessenberg_wide_panel():
+    # a panel wider than n / 2: the second panel overlaps the first
+    # (k_eff = n - nb), re-reducing its last columns as an exact no-op
+    n = 40
+    A = np.random.default_rng(5).standard_normal((n, n))
+    conf = JConf(panel_width=24)
+    Hj, Qj = map(np.asarray, jhess.hessenberg(jnp.asarray(A), conf=conf))
+    Ht, Qt = map(to_numpy, thess.hessenberg(from_numpy(A), conf=conf_from_jax(conf)))
+    na = np.linalg.norm(A)
+    np.testing.assert_allclose(Ht, Hj, rtol=0, atol=1e-11 * na)
+    np.testing.assert_allclose(Qt, Qj, rtol=0, atol=1e-11)
+    assert np.abs(np.tril(Ht, -2)).max() == 0.0
+    u = np.finfo(np.float64).eps / 2
+    assert np.linalg.norm(Qt @ Ht @ Qt.T - A) / na / u < 500

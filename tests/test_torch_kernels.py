@@ -13,11 +13,14 @@ import pytest
 import torch
 
 from starneig_tpu_torch import kernels
-from starneig_tpu_torch.ops import gpu_hess, gpu_reorder, gpu_schur
+from starneig_tpu_torch.ops import eigenvectors as ev
+from starneig_tpu_torch.ops import gpu_eig, gpu_hess, gpu_reorder, gpu_schur
+from starneig_tpu_torch.ops import hessenberg as hess
 from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
 from starneig_tpu_torch.ops.reorder import _window_bubble
 from starneig_tpu_torch.ops.schur import _aed_deflate, _aed_recondense, _train_hop
 from starneig_tpu_torch.ops.small_schur import _small_schur_plain
+from starneig_tpu_torch.testing import generators
 from starneig_tpu_torch.testing.generators import planted_windows
 from starneig_tpu_torch.testing.hooks import schur_form_error
 
@@ -362,3 +365,121 @@ def test_reorder_bubble(cuda, G, W, seed, lims):
         # engine's accumulated segment transforms change the rounding only
         assert float((Tk[g] - Tp).abs().max()) <= 1e-10 * float(Td[g].abs().max())
         assert float((Qk[g] - Qp).abs().max()) <= 1e-10
+
+
+# H1's panels (n, k, nb, t0, end): widths 24 (no multiple of 32), 288 (n =
+# 4000's) and 464 (n = 10,000's); t0 = 0 and a trailing bucket t0 > 0; an
+# end inside the panel (columns from end - 1 on not reduced)
+H1_CASES = [(300, 0, 24, 0, None), (300, 8, 288, 0, None), (300, 40, 24, 32, 50),
+            (1000, 0, 288, 0, None), (1000, 400, 288, 384, None), (1000, 0, 464, 0, 200),
+            (1000, 500, 464, 496, None)]
+
+
+def _h1_check(A, got, k, nb, t0, end):
+    """H1's (V, T, Y, P) against the all-torch twin on the card, within
+    1e-12 max|A| (summation order and fused multiply-adds only)."""
+    want = hess.panel_plain(A, k, nb, t0, end)
+    scale = float(A.abs().max())
+    for name, g, w in zip("VTYP", got, want):
+        err = float((g - w).abs().max())
+        assert err <= 1e-12 * scale, (name, err)
+
+
+@pytest.mark.parametrize("n,k,nb,t0,end", H1_CASES)
+def test_hess_panel(cuda, n, k, nb, t0, end):
+    A = torch.as_tensor(np.random.default_rng(n + k + nb).standard_normal((n, n)), device=cuda)
+    n0 = kernels.LAUNCHES["hess_panel"]
+    got = gpu_hess.panel(A, k, nb, t0, end)
+    assert kernels.LAUNCHES["hess_panel"] == n0 + 1
+    _h1_check(A, got, k, nb, t0, end)
+    # every sum in an order fixed by the shape and the grid: the same bits
+    assert all(torch.equal(a, b) for a, b in zip(got, gpu_hess.panel(A, k, nb, t0, end)))
+    if end is not None:
+        tau = torch.diagonal(got[1])
+        assert bool((tau[end - 1 - k:] == 0).all())
+
+
+def test_hess_panel_overlap_is_noop(cuda):
+    """hessenberg's overlapping last panel (k = n - nb) on the card: the
+    columns earlier panels reduced come back bit for bit, with tau = 0,
+    v = e_{c+1} and nothing in T or Y."""
+    n, nb = 300, 24
+    A = torch.as_tensor(np.random.default_rng(11).standard_normal((n, n)), device=cuda)
+    Q = torch.eye(n, dtype=torch.float64, device=cuda)
+    for k in range(0, n - nb, nb):
+        hess._apply_panel(A, Q, *hess._panel(A, k, nb, 0, n), k, 0)
+    k, done = n - nb, (n - nb) // nb * nb + nb - (n - nb)
+    V, T, Y, P = gpu_hess.panel(A, k, nb, 0, n)
+    _h1_check(A, (V, T, Y, P), k, nb, 0, n)
+    assert bool((T[:, :done] == 0).all()) and bool((T[:done] == 0).all())
+    assert bool((Y[:, :done] == 0).all())
+    assert torch.equal(V[:, :done], torch.eye(n, dtype=V.dtype, device=cuda)[:, k + 1:k + 1 + done])
+    assert torch.equal(P[:, :done], A[:, k:k + done])
+
+
+def test_hess_panel_grid(cuda):
+    """A grid the card cannot hold at once is refused with an error, not a
+    hang, and leaves the card usable; a small grid (long slabs) agrees with
+    the twin."""
+    n, nb = 300, 24
+    A = torch.as_tensor(np.random.default_rng(3).standard_normal((n, n)), device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert gpu_hess.panel_grid(n, nb)[0] == sms       # one block an SM
+    with pytest.raises(RuntimeError, match="hess_panel"):
+        gpu_hess.panel(A, 0, nb, grid=8 * sms)        # 4,096 threads an SM
+    torch.cuda.synchronize()
+    _h1_check(A, gpu_hess.panel(A, 0, nb, grid=7), 0, nb, 0, None)
+    _h1_check(A, gpu_hess.panel(A, 0, nb), 0, nb, 0, None)
+
+
+def _eig_case(case, cuda):
+    """(S on the card, select) for E1: tests/test_torch_eigenvectors.py's
+    cases (the random Schur forms made here by the port's plain solver on
+    the CPU), and n=1000 with complex pairs (its Schur form on the card)."""
+    from starneig_tpu_torch.api import sep
+    if case in ("graded", "close_eigenvalues", "distinct_eigenvalues", "growth"):
+        S, sel = {"graded": generators.graded_schur,
+                  "close_eigenvalues": lambda: generators.close_schur(False),
+                  "distinct_eigenvalues": lambda: generators.close_schur(True),
+                  "growth": generators.growth_schur}[case]()
+        return torch.as_tensor(S, device=cuda), sel
+    n, seed, pick = {"all_selected": (32, 1, lambda n: np.ones(n, bool)),
+                     "subset_with_pairs": (40, 2, lambda n: np.random.default_rng(41).random(n) < 0.3),
+                     "none_selected": (10, 3, lambda n: np.zeros(n, bool)),
+                     "n1000_pairs": (1000, 1000, lambda n: np.random.default_rng(5).random(n) < 0.5),
+                     }[case]
+    dev = cuda if n > 64 else "cpu"
+    H = torch.as_tensor(generators.random_hessenberg(n, seed), device=dev)
+    S, _Q, _er, ei, info = sep.schur(H, torch.eye(n, dtype=H.dtype, device=dev), device=dev)
+    assert int(info) == 0
+    if case == "n1000_pairs":
+        assert int((ei > 0).sum()) > 100
+    return S.to(cuda), pick(n)
+
+
+@pytest.mark.parametrize("case", ["all_selected", "subset_with_pairs", "none_selected",
+                                  "graded", "close_eigenvalues", "distinct_eigenvalues",
+                                  "growth", "n1000_pairs"])
+def test_eig_backsolve(cuda, case):
+    """E1 against the plain row loop on the card: the normalized vectors
+    within 1e-12 (the dots sum in another order), the close flags equal."""
+    S, sel = _eig_case(case, cuda)
+    entries = ev._selected_blocks(S, sel)
+    n0 = kernels.LAUNCHES["eig_backsolve"]
+    if not entries:                     # m = 0: no launch
+        X, info = ev.eigenvectors_schur(S, torch.eye(S.shape[0], dtype=S.dtype, device=cuda), sel)
+        assert X.shape == (S.shape[0], 0) and kernels.LAUNCHES["eig_backsolve"] == n0
+        return
+    pos, pair, lr, li = (list(x) for x in zip(*entries))
+    lam_r, lam_i = (torch.tensor(v, dtype=S.dtype, device=cuda) for v in (lr, li))
+    kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs(S, lam_r, lam_i, pos, pair)
+    xrk, xik = xr.clone(), xi.clone()
+    ck = gpu_eig.backsolve(S, lam_r, lam_i, pos, pair, kind, smin, omega, smlnum, xrk, xik)
+    assert kernels.LAUNCHES["eig_backsolve"] == n0 + 1
+    cp = ev._backsolve_rows(S, lam_r, lam_i, pos, pair, kind, smin, omega, smlnum, xr, xi)
+    assert torch.equal(ck, cp)
+    if case == "close_eigenvalues":
+        assert bool(ck.any())
+    for g, w in zip(ev._normalize(xrk, xik), ev._normalize(xr, xi)):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-12
