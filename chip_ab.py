@@ -16,6 +16,7 @@
     python3 chip_ab.py qzsweep ROOT [ROOT ...]
     python3 chip_ab.py panel [--n N] ROOT [ROOT ...]
     python3 chip_ab.py backsolve [--n N] ROOT [ROOT ...]
+    python3 chip_ab.py backsolvegep [--n N] ROOT [ROOT ...]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -145,6 +146,15 @@ three runs timed to a synchronize after a warm-up, the launches, a run
 under ``torch.profiler`` (device totals, idle share), the worst
 eigenvector residual (``chip_smoke.eigenvector_residual``) and the SHA-256
 of X.
+
+backsolvegep: the same for the GEP chain: the size-N (default 2000)
+``known_spectrum_pencil(N, 0.3, 0.1, seed 0)`` of this checkout through
+hessenberg_triangular, schur, select (finite, Re(alpha/beta) > 0) and
+reorder_schur, saved once, then each ROOT's ``api.gep.eigenvectors`` of
+its leading block in a process of its own, in the order given (parent,
+change, change, parent): the times, launches, device totals and idle
+share as for backsolve, the worst eigenvector residual
+(``testing.hooks.eigenvector_residual_gep``) and the SHA-256 of X.
 
 Prints the card's name and power limit first; exits nonzero if a check
 fails.  Needs a CUDA card and nvcc (bitwise on the CPU needs neither).
@@ -966,25 +976,60 @@ def backsolve_inputs(n: int, path: Path):
     torch.save(dict(A=A.cpu(), S=S2.cpu(), Q=Q3.cpu(), m=int(m)), path)
 
 
-def backsolve_one(root: str, path: str) -> None:
-    """In a fresh process: api.sep.eigenvectors of the package under root
-    on the saved chain's leading block (see the module note).  Prints one
-    JSON line."""
+def backsolvegep_inputs(n: int, path: Path):
+    """chip_ab backsolvegep's input: this checkout's size-n GEP chain
+    (known_spectrum_pencil(n, 0.3, 0.1, seed 0); hessenberg_triangular,
+    schur, select finite Re(alpha/beta) > 0, reorder_schur), saved to
+    path for the per-ROOT workers."""
+    from chip_smoke import finite_right_half
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.testing.generators import known_spectrum_pencil
+    A, B, _alpha, _beta = known_spectrum_pencil(n, complex_ratio=0.3, inf_ratio=0.1, seed=0)
+    S, T, Q, Z, *_e, info = gep.schur(*gep.hessenberg_triangular(A, B))
+    S2, T2, Q2, Z2, m, rinfo = gep.reorder_schur(S, T, Q, Z,
+                                                 gep.select(S, T, finite_right_half))
+    assert int(info) == 0 and int(rinfo) == 0, (info, rinfo)
+    torch.save(dict(A=torch.as_tensor(A), B=torch.as_tensor(B), S=S2.cpu(), T=T2.cpu(),
+                    Q=Q2.cpu(), Z=Z2.cpu(), m=int(m)), path)
+
+
+def backsolve_one(mode: str, root: str, path: str) -> None:
+    """In a fresh process: api.sep.eigenvectors (mode backsolve) or
+    api.gep.eigenvectors (backsolvegep) of the package under root on the
+    saved chain's leading block (see the module note).  Prints one JSON
+    line tagged with mode."""
     import json
-    from chip_smoke import eigenvector_residual
-    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.api import gep, sep
     assert Path(kernels.__file__).is_relative_to(Path(root).resolve()), kernels.__file__
     d = torch.load(path)
-    A, S, Q = (d[k].to("cuda") for k in "ASQ")
+    S, Q = d["S"].to("cuda"), d["Q"].to("cuda")
     m, n = d["m"], S.shape[0]
     lead = np.arange(n) < m
-    ms, kern, idle = _wall_and_profile(lambda: sep.eigenvectors(S, Q, lead))
-    launches = _launches(lambda: sep.eigenvectors(S, Q, lead))
-    X, info = sep.eigenvectors(S, Q, lead)
-    print("BACKSOLVE " + json.dumps(dict(
+    if mode == "backsolve":
+        from chip_smoke import eigenvector_residual
+        A = d["A"].to("cuda")
+
+        def call():
+            return sep.eigenvectors(S, Q, lead)
+
+        def residual(X):
+            return eigenvector_residual(A, S, X, m)
+    else:
+        from starneig_tpu_torch.testing import hooks
+        T, Z = d["T"].to("cuda"), d["Z"].to("cuda")
+
+        def call():
+            return gep.eigenvectors(S, T, Q, Z, lead)
+
+        def residual(X):
+            return hooks.eigenvector_residual_gep(d["A"], d["B"], S, T, X, lead)
+    ms, kern, idle = _wall_and_profile(call)
+    launches = _launches(call)
+    X, info = call()
+    print(mode.upper() + " " + json.dumps(dict(
         root=root, n=n, m=m, eigenvectors_ms=ms, info=int(info), launches=launches,
-        device_ms=kern, idle_share=idle, residual=eigenvector_residual(A, S, X, m),
-        sha256=_digest((X,)))), flush=True)
+        device_ms=kern, idle_share=idle, residual=residual(X), sha256=_digest((X,)))),
+        flush=True)
 
 
 def ab_panel(args) -> bool:
@@ -996,16 +1041,21 @@ def ab_panel(args) -> bool:
     return None not in run_per_root("panel", args, n)
 
 
-def ab_backsolve(args) -> bool:
-    """[--n N] ROOT ...: this checkout's size-N chain once, then each
-    ROOT's sep.eigenvectors on it in its own process, in the order given."""
-    n = 4000
+# the backsolve modes: (default N, the function that saves this checkout's chain)
+BACKSOLVE = {"backsolve": (4000, backsolve_inputs), "backsolvegep": (2000, backsolvegep_inputs)}
+
+
+def ab_backsolve(args, mode: str = "backsolve") -> bool:
+    """[--n N] ROOT ...: this checkout's size-N chain (SEP, or GEP for
+    backsolvegep) once, then each ROOT's eigenvectors on it in its own
+    process, in the order given."""
+    n, save = BACKSOLVE[mode]
     if args[:1] == ["--n"]:
         n, args = int(args[1]), args[2:]
-    path = kernels.BUILD_DIR / "backsolve_chain.pt"
+    path = kernels.BUILD_DIR / f"{mode}_chain.pt"
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    backsolve_inputs(n, path)
-    return None not in run_per_root("backsolve", args, path)
+    save(n, path)
+    return None not in run_per_root(mode, args, path)
 
 
 def _digest(out) -> str:
@@ -2383,13 +2433,16 @@ MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
          "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep,
          "htwin": ab_htwin, "infchase": ab_infchase, "panel": ab_panel,
-         "backsolve": ab_backsolve}
+         "backsolve": ab_backsolve,
+         "backsolvegep": lambda args: ab_backsolve(args, "backsolvegep")}
 # the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
 PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),
             "bitwise": lambda root, n, device: bitwise_one(root, int(n), device),
             "ht": lambda root, n: ht_one(root, int(n)), "qz": qz_one,
             "qzsweep": qzsweep_one, "htwin": htwin_one, "infchase": infchase_one,
-            "panel": lambda root, n: panel_one(root, int(n)), "backsolve": backsolve_one}
+            "panel": lambda root, n: panel_one(root, int(n)),
+            "backsolve": lambda root, path: backsolve_one("backsolve", root, path),
+            "backsolvegep": lambda root, path: backsolve_one("backsolvegep", root, path)}
 
 
 def main() -> int:

@@ -99,12 +99,18 @@ Phases (any failure raises; the exit code is then nonzero):
      exact structure, 500 u, the leading rows holding exactly the selected
      eigenvalues, the spectrum kept (1e-10 chordal) and the eigenvector
      residuals, the launch counts zeroed before and read after (G6 at
-     least once);
+     least once, E2 exactly once);
+ 6b. E2 (the GEP eigenvector backsolve, one launch) on phase 6's
+     selection against the plain row loop on the card: the normalized
+     vectors within 1e-12, the close flags equal, two launches
+     bit-equal, E2's eigenvector residual below EVEC_BOUND; E2's row in
+     the kernel table is this run;
   7. GEP n=512 infinite-rich: api.gep.schur on tests/test_qz_driver.py's
      HT pencil with 51 exact T-diagonal zeros, under that test's gates (G5
      launched); then its infinite eigenvalues (|beta| <= 1e-12 max|beta|)
      reordered to the top (all of them leading, as the JAX package leaves
-     them) and their eigenvectors, gated on ||B x|| / (||B||_F ||x||);
+     them) and their eigenvectors (E2 launched once), gated on
+     ||B x|| / (||B||_F ||x||);
   8. the CLI: python -m starneig_tpu_torch.cli --experiment full-chain
      --generalized --init known --complex-ratio 0.3 --inf-ratio 0.1
      --n 512 in a child process, exit code 0 and no hook line failed;
@@ -133,7 +139,9 @@ Phases (any failure raises; the exit code is then nonzero):
      (calls, bytes, seconds) by stage.  10b: on 4 ranks,
      api.sep_dm.reduce at n=1200 and api.gep_dm.reduce of
      known_spectrum_pencil(512, 0.3, 0.1, seed 0) (finite, Re(alpha/beta)
-     > 0) under the gates of phases 5 and 6, with the same launch rule.
+     > 0), then api.gep_dm.eigenvectors of its leading block, under the
+     gates of phases 5 and 6, with the same launch rule (rank 0 launches
+     E2).
  11. tools and examples: phase 5's stages at n=512 with the sanity checks
      on and each stage in a trace span, the trace dumped and parsed; then
      the three examples (python -m starneig_tpu_torch.examples.<name>)
@@ -225,6 +233,8 @@ REPLACES = {
     # fori_loop a panel, :158 with B1 inside) and the eigenvector backsolve
     "hess_panel": "starneig_tpu/ops/hessenberg.py:158",
     "eig_backsolve": "starneig_tpu/ops/eigenvectors.py:173",
+    # the GEP chain's eigenvector backsolve (a fori_loop, vmapped)
+    "eig_backsolve_gep": "starneig_tpu/ops/eigenvectors.py:395",
 }
 SOURCES = {k: f"starneig_tpu_torch/kernels/csrc/{k}.cu" for k in REPLACES}
 # the card's peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): HBM
@@ -240,7 +250,7 @@ H1_PANELS = ((0, 0), (2016, 2016))  # (k, t0): n=4000's first panel and its fift
 # chain past it (select -> reorder_schur -> eigenvectors)
 GEP_KERNELS = ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
                "inf_chase")
-GEP_CHAIN_KERNELS = ("reorder_bubble_gep",)
+GEP_CHAIN_KERNELS = ("reorder_bubble_gep", "eig_backsolve_gep")
 GEP_N = 2000                       # the GEP chain's size
 SMOKE_DEADLINE_S = 1100.0          # phase 9 waits for the plain cascade until then
 GEP_INF_GATE_U = 5000.0            # tests/test_qz_driver.py's gates (n=512 infinite-rich)
@@ -1317,25 +1327,37 @@ def phase_main(dev):
 
 
 
-def e1_work(S, pos, is_pair, kind):
-    """(bytes, flops) of E1 on these eigenvalues: S's rows above the
-    lowest selected block and the vectors read once, the vectors written
-    once; per eigenvalue and solved row k < pos the dot over its nonzero
-    x[k+1 : pos+2] (two for a 2x2 block's rows, twice that for a pair)."""
+def backsolve_entries(n, pos, is_pair, kind):
+    """(entries of the rows above the lowest block, per eigenvalue the
+    entries its dots read, the vector entries read and written): for
+    each eigenvalue the sum over its solved rows k < pos of its nonzero
+    x[k+1 : pos+2], twice for a 2x2 block's rows; its live vector
+    x[0 : pos+2] read once and written once, xi only for a pair (E1's and
+    E2's work; the vectors counted as read once, though each row step
+    reads them again)."""
     import numpy as np
-    n = S.shape[0]
-    pos = np.asarray(pos, np.int64)
-    m = len(pos)
     top = int(pos.max())
-    nbytes = 8 * (sum(min(n, top + 2) - k for k in range(top)) + 4 * m * n)
+    rows = sum(min(n, top + 2) - k for k in range(top))
     w = np.where(kind == 2, 0, np.where(kind == 1, 2, 1)).astype(np.float64)
     k = np.arange(n, dtype=np.float64)
     c0 = np.concatenate([[0.0], np.cumsum(w)])               # sum of w[k], k < p
     c1 = np.concatenate([[0.0], np.cumsum(w * (k + 1))])     # sum of w[k] (k + 1)
     hi = np.minimum(n, pos + 2)
-    per = hi * c0[pos] - c1[pos]                              # sum of w[k] (hi - k - 1)
+    vec = float((2 * hi * np.where(np.asarray(is_pair), 2, 1)).sum())
+    return rows, hi * c0[pos] - c1[pos], vec                  # sum of w[k] (hi - k - 1)
+
+
+def e1_work(S, pos, is_pair, kind):
+    """(bytes, flops) of E1 on these eigenvalues: S's rows above the
+    lowest selected block, the live vectors read once and written once;
+    per eigenvalue and solved row k < pos the dot over its nonzero
+    x[k+1 : pos+2] (two for a 2x2 block's rows, twice that for a pair)."""
+    import numpy as np
+    n = S.shape[0]
+    pos = np.asarray(pos, np.int64)
+    rows, per, vec = backsolve_entries(n, pos, is_pair, kind)
     flops = float((2 * per * np.where(np.asarray(is_pair), 2, 1)).sum())
-    return nbytes, flops
+    return 8 * (rows + vec), flops
 
 
 def phase_backsolve(dev, main_res):
@@ -2166,7 +2188,8 @@ def phase_gep(dev):
     inf_ratio 0.1, seed 0), the GEP_BENCH mix, through
     api.gep.hessenberg_triangular -> api.gep.schur (default geometry: WA=162,
     NS=120, B=12, TMAX=5), gated at 500 u; then the same QZ phase again
-    under torch.profiler for each kernel's device total."""
+    under torch.profiler for each kernel's device total; then the chain
+    past QZ and phase 6b on its selection: (the report, 6b's E2 row)."""
     import numpy as np
     import torch
     from starneig_tpu_torch import kernels
@@ -2266,7 +2289,9 @@ def phase_gep(dev):
         f"{ {k: (round(v[0], 3), v[1]) for k, v in list(prof_ht.items())[:10]} }")
     log(f"  GEP n={n} infinite push: {inf_calls[0]} G5 window chases, "
         f"{inf_ms[0]:.1f} ms (CUDA events around each call, under the profiler)")
-    chain = gep_chain(A_np, B_np, A, B, S, Tt, Qo, Zo, ar, ai, bt)
+    chain, state = gep_chain(A_np, B_np, A, B, S, Tt, Qo, Zo, ar, ai, bt)
+    log("== 6b. E2 on the GEP path's selection against its plain loop")
+    e2 = phase_backsolve_gep(dev, A_np, B_np, *state)
     return dict(info=int(info), ht_ms=ht_ms, ht_first_ms=ht_first_ms, qz_ms=qz_ms,
                 ht_kernel_ms=ht_kernel_ms, ht_calls=ht_calls,
                 ht_kernel_launches=ht_kernel_launches,
@@ -2279,7 +2304,8 @@ def phase_gep(dev):
                 sweeps_ms=sweep_ms[0], sweep_idle_share=idle,
                 recondense_calls=stats["recondense_calls"],
                 launches={**launches, **chain["launches"]}, g2_g4_device=g2_g4,
-                qz_log=stats["qz_log"], profile_qz=prof, profile_ht=prof_ht, chain=chain)
+                qz_log=stats["qz_log"], profile_qz=prof, profile_ht=prof_ht,
+                chain=chain), e2
 
 
 def finite_right_half(alpha, beta):
@@ -2289,7 +2315,8 @@ def finite_right_half(alpha, beta):
 
 def gep_chain(A_np, B_np, A, B, S, T, Q, Z, ar, ai, bt):
     """Phase 6 past QZ: select -> reorder_schur -> eigenvectors of the
-    leading selected block, with the launch counts of this path alone."""
+    leading selected block, with the launch counts of this path alone:
+    (the report, (S, T, Z, m) after reordering for phase 6b)."""
     import numpy as np
     import torch
     from starneig_tpu_torch import kernels
@@ -2336,13 +2363,81 @@ def gep_chain(A_np, B_np, A, B, S, T, Q, Z, ar, ai, bt):
           "GEP eigenvectors: wrong shape or not finite")
     check(evec < EVEC_BOUND, f"GEP eigenvector residual {evec}")
     for k in GEP_CHAIN_KERNELS:
-        check(launches[k] > 0, f"kernel {k} was not launched by the GEP reordering")
+        check(launches[k] > 0, f"kernel {k} was not launched by the GEP chain past QZ")
+    check(launches["eig_backsolve_gep"] == 1, "E2 launched more than once")
     return dict(info=int(rinfo), selected=int(sel.sum()), lead=m, reorder_ms=reorder_ms,
                 select_ms=select_ms, stats=rstats, residual_a_u=ra, residual_b_u=rb,
                 orth_q_u=oq, orth_z_u=oz, spectrum_moved_chordal=kept,
                 eigenvectors=dict(info=int(xinfo), eigenvectors_ms=eigenvectors_ms,
                                   worst_residual=evec),
-                launches=launches)
+                launches=launches), (S2, T2, Z2, m)
+
+
+def e2_work(S, pos, is_pair, kind):
+    """(bytes, flops) of E2 on these eigenvalues: S's and T's rows above
+    the lowest selected block, the live vectors read once and written once
+    (see backsolve_entries); per eigenvalue and solved row k < pos, over
+    its nonzero x[k+1 : pos+2], beta (S[k, :] x) - alpha (T[k, :] x): two
+    dots (4 flops an entry), four for a pair (8 flops an entry), twice for
+    a 2x2 block's rows."""
+    import numpy as np
+    n = S.shape[0]
+    pos = np.asarray(pos, np.int64)
+    rows, per, vec = backsolve_entries(n, pos, is_pair, kind)
+    flops = float((4 * per * np.where(np.asarray(is_pair), 2, 1)).sum())
+    return 8 * (2 * rows + vec), flops
+
+
+def phase_backsolve_gep(dev, A_np, B_np, S2, T2, Z2, m):
+    """6b: E2 on phase 6's n=GEP_N selection (the leading block after
+    reordering) against the plain row loop on the card: the normalized
+    vectors within 1e-12, the close flags equal, two launches bit-equal,
+    and E2's eigenvectors' residual below EVEC_BOUND; CUDA-event times of
+    both."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops import eigenvectors as ev
+    from starneig_tpu_torch.ops import gpu_eig
+    from starneig_tpu_torch.testing import hooks
+    n = S2.shape[0]
+    lead = np.arange(n) < m
+    S2, T2 = S2.contiguous(), T2.contiguous()
+    pos, pair, ar, ai, bt = (list(x) for x in zip(*ev._selected_blocks_gep(S2, T2, lead)))
+    ar, ai, bt = (torch.tensor(v, dtype=S2.dtype, device=dev) for v in (ar, ai, bt))
+    kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs_gep(S2, T2, ar, ai, bt, pos,
+                                                                 pair)
+
+    def kernel():
+        xk, xik = xr.clone(), xi.clone()
+        close = gpu_eig.backsolve_gep(S2, T2, ar, ai, bt, pos, pair, kind, smin, omega,
+                                      smlnum, xk, xik)
+        return xk, xik, close
+    xk, xik, ck = kernel()
+    xk2, xik2, _ = kernel()
+    same = torch.equal(xk, xk2) and torch.equal(xik, xik2)
+    ms = cuda_ms(kernel, 3)
+    close_p, plain_ms = timed(lambda: ev._backsolve_rows_gep(
+        S2, T2, ar, ai, bt, pos, pair, kind, smin, omega, smlnum, xr, xi))
+    gk, gp = ev._normalize(xk, xik), ev._normalize(xr, xi)
+    err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    X = Z2 @ ev._columns(*gk, pair)
+    evec = hooks.eigenvector_residual_gep(A_np, B_np, S2, T2, X, lead)
+    bms, by = bound(*e2_work(S2, pos, pair, kind))
+    log(f"  6b E2 n={n}: {len(pos)} eigenvalues ({sum(pair)} pairs), rows < {max(pos)} "
+        f"in {(len(pos) + 7) // 8} blocks; max abs err {err:.2e} against the plain loop, "
+        f"close flags equal {torch.equal(ck, close_p)} ({int(ck.sum())} set), two launches "
+        f"bit-for-bit equal: {same}; worst residual {evec:.2e}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+    check(err <= 1e-12, f"E2 disagrees with the plain loop by {err}")
+    check(torch.equal(ck, close_p), "E2's close flags differ from the plain loop's")
+    check(same, "E2: two launches differ")
+    check(tuple(X.shape) == (n, m) and bool(torch.isfinite(X).all()),
+          "E2: X not finite or of the wrong shape")
+    check(evec < EVEC_BOUND, f"E2 eigenvector residual {evec}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=None, detail=dict(m=len(pos), pairs=sum(pair), rows=max(pos),
+                                             residual=evec, bit_equal=same,
+                                             close=int(ck.sum())))
 
 
 def phase_gep_inf(dev):
@@ -2389,6 +2484,7 @@ def phase_gep_inf(dev):
         lambda: gep.reorder_schur(S, Tt, Qo, Zo, sel, stats=rstats))
     (X, xinfo), evec_ms = timed(lambda: gep.eigenvectors(S2, T2, Q2, Z2, np.arange(n) < m))
     bubble = kernels.LAUNCHES["reorder_bubble_gep"]
+    e2 = kernels.LAUNCHES["eig_backsolve_gep"]
     d = torch.diagonal(T2).abs().cpu().numpy()
     lead_inf = int((d[:m] <= 1e-12 * d.max()).sum())
     Bd = torch.as_tensor(T0, device=dev)
@@ -2396,7 +2492,7 @@ def phase_gep_inf(dev):
     ra2, rb2, oq2, oz2, fs2, ft2, _ = gep_gates(H0, T0, S2, T2, Q2, Z2, bt)
     log(f"  GEP n={n} infinities to the top: info {int(rinfo)}, selected {int(sel.sum())}, "
         f"leading block {m} rows, {lead_inf} of them with |beta| <= 1e-12 max|beta|; "
-        f"reorder_ms {reorder_ms:.1f} ({rstats}), G6 launches {bubble}; residual "
+        f"reorder_ms {reorder_ms:.1f} ({rstats}), G6 launches {bubble}, E2 {e2}; residual "
         f"{ra2:.1f}u {rb2:.1f}u, orthogonality {oq2:.1f}u {oz2:.1f}u, structure {fs2} {ft2}; "
         f"eigenvectors info {int(xinfo)} {tuple(X.shape)} in {evec_ms:.1f} ms, worst "
         f"||B x|| / (||B||_F ||x||) {bx:.2e}")
@@ -2405,6 +2501,7 @@ def phase_gep_inf(dev):
     check(max(ra2, rb2, oq2, oz2) < GEP_INF_GATE_U and fs2 == 0.0 and ft2 == 0.0,
           f"GEP n={n} reorder gates")
     check(bubble > 0, f"GEP n={n}: G6 was not launched")
+    check(e2 == 1, f"GEP n={n}: E2 launched {e2} times, not once")
     check(tuple(X.shape) == (n, m) and bx < EVEC_BOUND, f"GEP n={n}: ||B x|| {bx}")
     return dict(info=int(info), qz_ms=qz_ms, residual_a_u=ra, residual_b_u=rb,
                 orth_q_u=oq, orth_z_u=oz, infinities=ninf, planted=len(inf_pos),
@@ -2607,6 +2704,8 @@ def phase_dm_four(dev):
     import numpy as np
     import torch
     from starneig_tpu_torch.convert import from_numpy
+    from starneig_tpu_torch.errors import Error
+    from starneig_tpu_torch.testing import hooks
     from starneig_tpu_torch.testing.dm import finite_right_half as frh
     from starneig_tpu_torch.testing.dm import run_ranks
     from starneig_tpu_torch.testing.generators import known_spectrum_pencil
@@ -2647,9 +2746,12 @@ def phase_dm_four(dev):
                                               torch.as_tensor(g["bt"]))
     sel = [frh(complex(a, b), c) for a, b, c in zip(g["ar"], g["ai"], g["bt"])]
     mg = g["nsel"]
+    evec_g = hooks.eigenvector_residual_gep(GA, GB, g["S"], g["T"], g["X"],
+                                            np.arange(ng) < mg)
     log(f"  10b gep_dm.reduce n={ng} on {DM_RANKS_B} ranks: info {g['info']}, residual "
         f"A {ra:.1f}u B {rb:.1f}u, orthogonality Q {oq:.1f}u Z {oz:.1f}u, structure S "
-        f"{fs} T {ft}, leading block {mg} rows ({sum(sel)} selected), "
+        f"{fs} T {ft}, leading block {mg} rows ({sum(sel)} selected), eigenvectors info "
+        f"{g['xinfo']} {g['X'].shape}, worst residual {evec_g:.2e}, "
         f"{cntg[0]['wall_s']:.1f} s; "
         f"collectives {[dm_comm(c['stats']) for c in cntg]}; launches "
         f"{dm_launches(cntg)}")
@@ -2658,13 +2760,18 @@ def phase_dm_four(dev):
     check(fs == 0.0 and ft == 0.0, f"10b GEP structure {fs} {ft}")
     check(mg == sum(sel) and all(sel[:mg]), f"10b GEP leading block {mg}, {sum(sel)} selected")
     check(all(c["shards"]["S"] == (ng, ng // DM_RANKS_B) for c in cntg), "10b GEP: S shards")
-    dm_launch_check("10b gep", cntg, DM_GEP_KERNELS)
+    check(g["xinfo"] in (Error.SUCCESS, Error.CLOSE_EIGENVALUES) and g["X"].shape == (ng, mg)
+          and np.isfinite(g["X"]).all(),
+          f"10b GEP eigenvectors: info {g['xinfo']}, {g['X'].shape}")
+    check(evec_g < EVEC_BOUND, f"10b GEP eigenvector residual {evec_g}")
+    dm_launch_check("10b gep", cntg, DM_GEP_KERNELS + ("eig_backsolve_gep",))
     return dict(wall_s=wall, startup_s=[c["startup_s"] for c in cnt_all],
                 teardown_s=cnt_all[0]["teardown_s"],
                 sep=dict(job_s=cnt[0]["wall_s"], residual_u=res, orthogonality_u=orth,
                          lead=m, eig_vs_numpy=d_np, comm=[dm_comm(c["stats"]) for c in cnt]),
                 gep=dict(job_s=cntg[0]["wall_s"], residual_a_u=ra, residual_b_u=rb, orth_q_u=oq,
-                         orth_z_u=oz, lead=mg, comm=[dm_comm(c["stats"]) for c in cntg]))
+                         orth_z_u=oz, lead=mg, eigvec_residual=evec_g,
+                         comm=[dm_comm(c["stats"]) for c in cntg]))
 
 
 # ---------------------------------------------------------------------------
@@ -2825,7 +2932,7 @@ def main() -> int:
         log("== 5b. E1 on the main path's selection against its plain loop")
         results["eig_backsolve"] = phase_backsolve(dev, main_res)
         log(f"== 6. GEP path, n={GEP_N}")
-        gep_res = phase_gep(dev)
+        gep_res, results["eig_backsolve_gep"] = phase_gep(dev)
         log("== 7. GEP n=512 infinite-rich")
         gep_inf = phase_gep_inf(dev)
         log("== 8. the CLI's generalized full chain")

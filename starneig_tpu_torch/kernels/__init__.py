@@ -32,7 +32,7 @@ LAUNCHES = {"hess_gemv": 0, "francis": 0, "train_hops": 0, "aed_deflate": 0,
             "recondense": 0, "reorder_bubble": 0, "ht_cascade": 0,
             "ht_recondense": 0, "qz_window": 0, "qz_sweep": 0,
             "aed_deflate_gep": 0, "inf_chase": 0, "reorder_bubble_gep": 0,
-            "hess_panel": 0, "eig_backsolve": 0}
+            "hess_panel": 0, "eig_backsolve": 0, "eig_backsolve_gep": 0}
 
 _P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
 _SIGNATURES = {
@@ -71,6 +71,10 @@ _SIGNATURES = {
     # S, n, lam_r, lam_i, smin, pos, pair, kind, order, m, omega, smlnum,
     # xr, xi, close, stream
     "eig_backsolve": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P, _P, _P],
+    # S, T, n, ar, ai, bt, smin, pos, pair, kind, order, m, omega, smlnum,
+    # xr, xi, close, stream
+    "eig_backsolve_gep": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P,
+                          _P, _P],
 }
 
 _lib = None

@@ -28,14 +28,14 @@
 // and every lane then runs the same guarded 1x1 or 2x2 solve on the same
 // sums (no broadcast).  Where fac < 1 the warp scales its vector before
 // lane 0 writes x[k].  The solve's arithmetic uses explicitly rounded
-// operations (no fused multiply-adds), as the twin's elementwise torch ops
-// round each one, so the guards' decisions (near, near2: they read S and
-// lambda alone) equal the twin's bit for bit; the dots sum in another
-// order than the twin's matmul.  Only the warp that owns a vector reads
+// operations (no fused multiply-adds; eig_solve.cuh), as the twin's
+// elementwise torch ops round each one, so the guards' decisions (near,
+// near2: they read S and lambda alone) equal the twin's bit for bit; the
+// dots sum in another order than the twin's matmul.  Only the warp that owns a vector reads
 // and writes it.
 #include <cuda_runtime.h>
 
-#include "common.cuh"
+#include "eig_solve.cuh"
 
 namespace {
 
@@ -52,38 +52,6 @@ struct Solve {
   double *xr, *xi;
   int* close;
 };
-
-DEVI double radd(double a, double b) { return __dadd_rn(a, b); }
-DEVI double rsub(double a, double b) { return __dsub_rn(a, b); }
-DEVI double rmul(double a, double b) { return __dmul_rn(a, b); }
-DEVI double rdiv(double a, double b) { return __ddiv_rn(a, b); }
-
-// ops/eigenvectors.py:_cdiv: (ar + i ai) / (br + i bi), Smith's algorithm,
-// a denominator below guard lifted by guard
-DEVI void cdiv(double ar, double ai, double br, double bi, double guard, double& xr,
-               double& xi) {
-  const double babs = radd(fabs(br), fabs(bi));
-  br = radd(br, babs < guard ? guard : 0.0);
-  if (fabs(br) >= fabs(bi)) {
-    const double r = rdiv(bi, br == 0.0 ? 1.0 : br);
-    double den = radd(br, rmul(bi, r));
-    den = den == 0.0 ? guard : den;
-    xr = rdiv(radd(ar, rmul(ai, r)), den);
-    xi = rdiv(rsub(ai, rmul(ar, r)), den);
-  } else {
-    const double r = rdiv(br, bi == 0.0 ? 1.0 : bi);
-    double den = radd(bi, rmul(br, r));
-    den = den == 0.0 ? guard : den;
-    xr = rdiv(radd(rmul(ar, r), ai), den);
-    xi = rdiv(rsub(rmul(ai, r), ar), den);
-  }
-}
-
-// fac <= 1 that keeps num fac / den below omega (the twin's _rescale)
-DEVI double rescale(double num, double den, double omega, double smlnum) {
-  const double lim = rmul(den, omega);
-  return num > lim ? rdiv(lim, dmax(num, smlnum)) : 1.0;
-}
 
 __global__ void __launch_bounds__(kG * 32) eig_backsolve_kernel(Solve p) {
   __shared__ double s1[kChunk], s2[kChunk];

@@ -26,10 +26,11 @@ part, imaginary part) for the eigenvalue with positive imaginary part.
 
 The generalized (pencil) variant, :func:`eigenvectors_schur_gep`, solves
 (beta S - alpha T) y = 0 by the same batched recurrence
-(:func:`_backsolve_all_gep`, JAX ``eigenvectors.py:274-420``), infinite
-eigenvalues (beta = 0) included, and returns X = Z Y.  Its backsolve
-walks only the rows above the lowest selected block: the rows below it
-are zero in every vector.
+(:func:`_backsolve_all_gep`, JAX ``eigenvectors.py:274-407``), infinite
+eigenvalues (beta = 0) included, and returns X = Z Y.  On the card its
+row loop is kernel E2 (``gpu_eig.backsolve_gep``, one launch); its plain
+twin :func:`_backsolve_rows_gep` walks only the rows above the lowest
+selected block, the rows below it being zero in every vector.
 """
 
 from __future__ import annotations
@@ -291,21 +292,10 @@ def _selected_blocks(S, select):
 # src/eigenvectors/generalized/, the robust solve of sirobust-geig.c:760)
 # ===========================================================================
 
-def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
-    """Backward substitution for (beta S - alpha T) x = 0, batched over m
-    eigenvalues with a host loop over rows.
-
-    Args:
-      S, T: (n, n) generalized Schur form.
-      ar, ai, bt: (m,) alpha = ar + i ai and beta, scaled to magnitude
-        about 1 (the pair case carries the alpha of the eigenvalue with
-        positive imaginary part), on S's device.
-      pos: (m,) host int block starts; is_pair: (m,) host bools.
-
-    Returns:
-      (xr, xi, close): (m, n) normalized eigenvector parts and an (m,)
-      bool close-eigenvalues flag per column.
-    """
+def _backsolve_inputs_gep(S, T, ar, ai, bt, pos, is_pair):
+    """The GEP row loop's arguments after (S, T, ar, ai, bt, pos, is_pair):
+    (kind, smin, omega, smlnum, xr, xi), x holding each eigenvalue's start
+    entries at its own block."""
     n = S.shape[0]
     m = len(pos)
     dtype, dev = S.dtype, S.device
@@ -317,9 +307,6 @@ def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
     omega = finfo.max / (16.0 * n) / pnorm
     sub = np.concatenate([torch.diagonal(S, -1).cpu().numpy(), [0.0]])
     smin = torch.clamp_min(ulp * (ar.abs() + ai.abs() + bt.abs()), smlnum)
-    # every vector is zero below its block: work on the leading N rows
-    N = min(max(pos) + 2, n)
-    S, T = S[:N, :N], T[:N, :N]
 
     pos_t = torch.as_tensor(np.asarray(pos, np.int64), device=dev)
     pair_t = torch.as_tensor(np.asarray(is_pair, bool), device=dev)
@@ -328,7 +315,7 @@ def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
     xi = S.new_zeros((m, n))
     # starting vector: for a pair the null vector of the singular 2x2 of
     # M = beta S - alpha T at (p, p+1), from the row of larger magnitude
-    p1 = torch.clamp_max(pos_t + 1, N - 1)
+    p1 = torch.clamp_max(pos_t + 1, n - 1)
     m11r = bt * S[pos_t, pos_t] - ar * T[pos_t, pos_t]
     m11i = -ai * T[pos_t, pos_t]
     m12r = bt * S[pos_t, p1] - ar * T[pos_t, p1]
@@ -348,6 +335,22 @@ def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
     xi[cols, pos_t] = torch.where(pair_t, w0i, 0.0)
     xr[cols, p1] += torch.where(pair_t, w1r, 0.0)
     xi[cols, p1] += torch.where(pair_t, w1i, 0.0)
+    return _row_kinds(sub), smin, omega, smlnum, xr, xi
+
+
+def _backsolve_rows_gep(S, T, ar, ai, bt, pos, is_pair, kind, smin, omega, smlnum,
+                        xr, xi):
+    """The row loop of :func:`_backsolve_all_gep`, in place on (xr, xi):
+    the plain twin of kernel E2 (``gpu_eig.backsolve_gep``, same
+    arguments), a host loop over the rows above the lowest selected block.
+    Returns the (m,) bool close-eigenvalues flags."""
+    n = S.shape[0]
+    m = len(pos)
+    dev = S.device
+    # every vector is zero below its block: work on the leading N rows
+    N = min(max(pos) + 2, n)
+    S, T = S[:N, :N], T[:N, :N]
+    pos_t = torch.as_tensor(np.asarray(pos, np.int64), device=dev)
     close = torch.zeros(m, dtype=torch.bool, device=dev)
     bt_, ar_, ai_ = bt[:, None], ar[:, None], ai[:, None]
 
@@ -364,12 +367,11 @@ def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
 
     # rows at or below the lowest block start are in no vector's range
     for k in range(min(max(pos) - 1, n - 2), -1, -1):
-        is_second = k >= 1 and sub[max(k - 1, 0)] != 0
-        if is_second:
+        if kind[k] == 2:
             continue        # rows of a 2x2 block are solved at its first row
         in_range = k < pos_t
         rhs_r, rhs_i = rhs(k)
-        if sub[k] == 0:
+        if kind[k] == 0:
             # 1x1 row, with the robust.h protections (perturb a
             # near-singular diagonal, scale before a growing division)
             do_1 = in_range
@@ -380,9 +382,7 @@ def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
             d_i = torch.where(near, 0.0, d_i)
             dabs = torch.maximum(dabs, smin)
             close |= near
-            rabs = rhs_r.abs() + rhs_i.abs()
-            fac = torch.where(do_1 & (rabs > dabs * omega),
-                              dabs * omega / torch.clamp_min(rabs, smlnum), 1.0)
+            fac = _rescale(do_1, rhs_r.abs() + rhs_i.abs(), dabs, omega, smlnum)
             xr *= fac[:, None]
             xi *= fac[:, None]
             vr, vi = _cdiv(rhs_r * fac, rhs_i * fac, d_r, d_i, smlnum)
@@ -412,8 +412,7 @@ def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
         n2r = a11r * rhs2_r - a11i * rhs2_i - (a21r * rhs_r - a21i * rhs_i)
         n2i = a11r * rhs2_i + a11i * rhs2_r - (a21r * rhs_i + a21i * rhs_r)
         nmax = torch.maximum(n1r.abs() + n1i.abs(), n2r.abs() + n2i.abs())
-        fac = torch.where(do_2 & (nmax > detabs * omega),
-                          detabs * omega / torch.clamp_min(nmax, smlnum), 1.0)
+        fac = _rescale(do_2, nmax, detabs, omega, smlnum)
         xr *= fac[:, None]
         xi *= fac[:, None]
         w1r, w1i = _cdiv(n1r * fac, n1i * fac, detr, deti, smlnum)
@@ -422,32 +421,39 @@ def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
         xi[:, k] = torch.where(do_2, w1i, xi[:, k])
         xr[:, k1] = torch.where(do_2, w2r, xr[:, k1])
         xi[:, k1] = torch.where(do_2, w2i, xi[:, k1])
-
-    mx = torch.maximum(xr.abs().amax(1), xi.abs().amax(1))
-    mx = torch.where(mx == 0, 1.0, mx)
-    xr, xi = xr / mx[:, None], xi / mx[:, None]
-    nrm = torch.sqrt((xr * xr).sum(1) + (xi * xi).sum(1))
-    nrm = torch.where(nrm == 0, 1.0, nrm)
-    return xr / nrm[:, None], xi / nrm[:, None], close
+    return close
 
 
-def eigenvectors_schur_gep(S, T, Q, Z, select,
-                           conf: Optional[EigenvectorsConf] = None):
-    """Right eigenvectors of the pencil (A, B) = (Q S Z^T, Q T Z^T) for the
-    selected eigenvalues (``starneig_GEP_SM_Eigenvectors``, reference
-    gep_sm.h:400-629).
+def _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair):
+    """Backward substitution for (beta S - alpha T) x = 0, batched over m
+    eigenvalues.
 
     Args:
-      S, T: (n, n) generalized Schur form; Q, Z: (n, n) orthogonal, on S's
-        device (Q is not used: X = Z Y).
-      select: (n,) bool array or tensor, 2x2 blocks selected atomically.
-      conf: accepted for parity with the JAX package.
+      S, T: (n, n) generalized Schur form.
+      ar, ai, bt: (m,) alpha = ar + i ai and beta, scaled to magnitude
+        about 1 (the pair case carries the alpha of the eigenvalue with
+        positive imaginary part), on S's device.
+      pos: (m,) host int block starts; is_pair: (m,) host bools.
 
     Returns:
-      (X, info): X (n, ncols) on S's device in LAPACK-style real storage,
-      an infinite eigenvalue's column solving T x = 0 on its leading block;
-      info Error.SUCCESS or Error.CLOSE_EIGENVALUES.
+      (xr, xi, close): (m, n) normalized eigenvector parts and an (m,)
+      bool close-eigenvalues flag per column.  The row loop is kernel E2
+      (``gpu_eig.backsolve_gep``) for a CUDA S and
+      :func:`_backsolve_rows_gep` for a CPU one.
     """
+    if S.is_cuda:
+        S, T = S.contiguous(), T.contiguous()
+    args = _backsolve_inputs_gep(S, T, ar, ai, bt, pos, is_pair)
+    run = gpu_eig.backsolve_gep if S.is_cuda else _backsolve_rows_gep
+    close = run(S, T, ar, ai, bt, pos, is_pair, *args)
+    return (*_normalize(*args[-2:]), close)
+
+
+def _selected_blocks_gep(S, T, select):
+    """The selected diagonal blocks of the pencil (S, T), on the host: a
+    list of (pos, is_pair, alpha_r, alpha_i, beta), (alpha, beta) scaled
+    to magnitude about 1, 2x2 blocks selected atomically (the pair's alpha
+    that of the eigenvalue with positive imaginary part)."""
     n = S.shape[0]
     if torch.is_tensor(select):
         select = select.cpu().numpy()
@@ -458,7 +464,6 @@ def eigenvectors_schur_gep(S, T, Q, Z, select,
         torch.cat([torch.diagonal(S, 1), z]),
         torch.cat([torch.diagonal(T, 1), z])]).cpu().numpy()
 
-    # the selected blocks, on the host: (pos, is_pair, alpha_r, alpha_i, beta)
     entries = []
     i = 0
     while i < n:
@@ -484,24 +489,40 @@ def eigenvectors_schur_gep(S, T, Q, Z, select,
             if select[i]:
                 entries.append((i, False, ds[i], 0.0, dt[i]))
             i += 1
-
-    if not entries:
-        return S.new_zeros((n, 0)), Error.SUCCESS
-
-    pos, is_pair, lr, li, b = (list(x) for x in zip(*entries))
     # (alpha, beta) scaled to magnitude about 1
-    scale = [max(abs(r) + abs(im), abs(bb), 1e-300) for r, im, bb in zip(lr, li, b)]
+    out = []
+    for p, pr, r, im, b in entries:
+        c = max(abs(r) + abs(im), abs(b), 1e-300)
+        out.append((p, pr, r / c, im / c, b / c))
+    return out
+
+
+def eigenvectors_schur_gep(S, T, Q, Z, select,
+                           conf: Optional[EigenvectorsConf] = None):
+    """Right eigenvectors of the pencil (A, B) = (Q S Z^T, Q T Z^T) for the
+    selected eigenvalues (``starneig_GEP_SM_Eigenvectors``, reference
+    gep_sm.h:400-629).
+
+    Args:
+      S, T: (n, n) generalized Schur form; Q, Z: (n, n) orthogonal, on S's
+        device (Q is not used: X = Z Y).
+      select: (n,) bool array or tensor, 2x2 blocks selected atomically.
+      conf: accepted for parity with the JAX package.
+
+    Returns:
+      (X, info): X (n, ncols) on S's device in LAPACK-style real storage,
+      an infinite eigenvalue's column solving T x = 0 on its leading block;
+      info Error.SUCCESS or Error.CLOSE_EIGENVALUES.
+    """
+    entries = _selected_blocks_gep(S, T, select)
+    if not entries:
+        return S.new_zeros((S.shape[0], 0)), Error.SUCCESS
+
+    pos, is_pair, ar, ai, bt = (list(x) for x in zip(*entries))
     as_t = dict(dtype=S.dtype, device=S.device)
-    ar = torch.tensor([r / c for r, c in zip(lr, scale)], **as_t)
-    ai = torch.tensor([im / c for im, c in zip(li, scale)], **as_t)
-    bt = torch.tensor([bb / c for bb, c in zip(b, scale)], **as_t)
-    xr, xi, close = _backsolve_all_gep(S, T, ar, ai, bt, pos, is_pair)
-    parts = []
-    for j, pr in enumerate(is_pair):
-        parts.append(xr[j])
-        if pr:
-            parts.append(xi[j])
-    Y = torch.stack(parts, 1)
-    X = _backtransform(Z, Y)
+    xr, xi, close = _backsolve_all_gep(S, T, torch.tensor(ar, **as_t),
+                                       torch.tensor(ai, **as_t),
+                                       torch.tensor(bt, **as_t), pos, is_pair)
+    X = _backtransform(Z, _columns(xr, xi, is_pair))
     info = Error.CLOSE_EIGENVALUES if bool(close.any()) else Error.SUCCESS
     return X, info

@@ -219,15 +219,18 @@ def sep_reduce(A, predicate: str = "positive_real"):
 
 
 def gep_reduce(A, B, predicate: str = "finite_right_half"):
-    """api.gep_dm.reduce of the whole pencil (A, B)."""
+    """api.gep_dm.reduce of the whole pencil (A, B), then api.gep_dm.eigenvectors
+    of the leading selected block."""
     from starneig_tpu_torch.api import gep_dm
 
     stats = {}
     *mats, ar, ai, bt, nsel, info = gep_dm.reduce(
         A, B, predicate=PREDICATES[predicate], stats=stats)
+    X, xinfo = gep_dm.eigenvectors(*mats, np.arange(A.shape[0]) < int(nsel),
+                                   stats=stats)
     result = dict(zip("STQZ", (M.to_array() for M in mats)),
                   ar=ar.cpu().numpy(), ai=ai.cpu().numpy(), bt=bt.cpu().numpy(),
-                  nsel=int(nsel), info=int(info))
+                  nsel=int(nsel), info=int(info), X=X.to_array(), xinfo=int(xinfo))
     return result, dict(stats=stats, shards=dict(S=tuple(mats[0].data.shape)))
 
 

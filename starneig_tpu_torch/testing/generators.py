@@ -4,7 +4,7 @@ against their plain twins, and copies of
 ``random_orthogonal``, ``random_hessenberg``, ``known_spectrum_matrix``
 with ``_to_hessenberg``, ``known_spectrum_pencil``) so that a card without
 JAX builds the same matrices and pencils from the same seeds; Schur forms
-that exercise the eigenvector backsolve's guards.  One generator,
+and pencils that exercise the eigenvector backsolves' guards.  One generator,
 :func:`qz_train_hops`, runs the QZ driver's plain twin (torch) to give the
 windows a train's hops receive."""
 
@@ -162,6 +162,42 @@ def growth_schur():
     sel = np.zeros(n, bool)
     sel[n // 2] = sel[-1] = True
     return S, sel
+
+
+def close_pencil():
+    """(S, T, select): a generalized Schur form (n=12, no 2x2 block), S's
+    diagonal 1..12 and T's 1, the 6th eigenvalue selected and equal to the
+    3rd (S = 4, T = 2 at both): beta S[2, 2] - alpha T[2, 2] is exactly
+    zero, and the backsolve's guard lifts it (CLOSE_EIGENVALUES)."""
+    n = 12
+    rng = _rng(18)
+    S = np.triu(rng.standard_normal((n, n)))
+    T = np.triu(rng.standard_normal((n, n)))
+    np.fill_diagonal(S, np.arange(1, n + 1, dtype=float))
+    np.fill_diagonal(T, 1.0)
+    S[2, 2] = S[5, 5] = 4.0
+    T[2, 2] = T[5, 5] = 2.0
+    return S, T, np.arange(n) == 5
+
+
+def growth_pencil():
+    """(S, T, select): S's off-diagonal entries 1e100 over diagonal gaps of
+    order 1 (n=24), T upper triangular of order 1, a 2x2 block (4 +- i) at
+    rows 3-4.  Each row step grows a vector by ~1e100, past the growth
+    bound omega (~1e205 here) within three rows, so the backsolve's
+    guarded rescale (fac < 1) fires, in 1x1 rows and in the block's 2x2
+    solve; the block, the middle and the last eigenvalue are selected."""
+    n = 24
+    rng = _rng(19)
+    S = np.triu(rng.standard_normal((n, n))) * 1e100
+    T = np.triu(rng.standard_normal((n, n)))
+    np.fill_diagonal(S, np.arange(1, n + 1, dtype=float))
+    np.fill_diagonal(T, 1.0 + np.abs(rng.standard_normal(n)))
+    S[3:5, 3:5] = [[4.0, 1.0], [-1.0, 4.0]]
+    T[3:5, 3:5] = np.eye(2)
+    sel = np.zeros(n, bool)
+    sel[3] = sel[n // 2] = sel[-1] = True
+    return S, T, sel
 
 
 def known_spectrum_matrix(n: int, complex_ratio: float = 0.5,

@@ -6,7 +6,12 @@ selected, n = 32 with a subset, n = 20 with infinite eigenvalues.
 Both run the same recurrence per eigenvalue (the port batched over the
 eigenvalues, JAX vmapped), so info is equal and X agrees within 1e-10
 max|X| (summation order of the row products); the port's vectors also
-pass that test's residual checks.
+pass that test's residual checks.  ``test_backsolve_gep_twin`` holds the
+port's plain row loop (the twin of kernel E2) to JAX's
+``_backsolve_all_gep`` on the same scaled eigenvalues, before the
+back-transformation: the normalized vectors within 1e-12, the close flags
+equal, on those three inputs and on two numpy pencils that fire the
+guards (a rescale, a lifted diagonal).
 """
 
 import jax.numpy as jnp
@@ -15,12 +20,15 @@ import pytest
 import scipy.linalg
 import torch
 
+from starneig_tpu.ops.eigenvectors import _backsolve_all_gep as j_backsolve_gep
 from starneig_tpu.ops.eigenvectors import eigenvectors_schur_gep as j_evec_gep
 from starneig_tpu.ops.hess_triangular import hessenberg_triangular
 from starneig_tpu.ops.qz import small_qz
 from starneig_tpu.testing import known_spectrum_pencil, random_dense
 from starneig_tpu_torch.convert import from_numpy, to_numpy
+from starneig_tpu_torch.ops import eigenvectors as ev
 from starneig_tpu_torch.ops.eigenvectors import eigenvectors_schur_gep
+from starneig_tpu_torch.testing import generators
 
 torch.set_num_threads(1)
 
@@ -96,3 +104,63 @@ def test_eigenvectors_schur_gep_none_selected():
     X, info = eigenvectors_schur_gep(*(from_numpy(x) for x in (S, Tt, Q, Z)),
                                      np.zeros(8, bool))
     assert X.shape == (8, 0) and int(info) == 0
+
+
+def _twin_case(case):
+    """(S, T, select) of a twin case: the three inputs above, or a numpy
+    pencil whose backsolve rescales (growth) or lifts a diagonal (close)."""
+    if case == "growth":
+        return generators.growth_pencil()
+    if case == "close":
+        return generators.close_pencil()
+    n, seed, kw = {"all": (24, 1, {}), "subset": (32, 5, {}),
+                   "infinite": (20, 9, dict(complex_ratio=0.2, inf_ratio=0.2))}[case]
+    _A, _B, S, Tt, _Q, _Z = _make(n, seed, **kw)
+    sel = (np.random.default_rng(0).random(n) < 0.4) if case == "subset" \
+        else np.ones(n, bool)
+    return S, Tt, sel
+
+
+@pytest.mark.parametrize("case", ["all", "subset", "infinite", "growth", "close"])
+def test_backsolve_gep_twin(case, monkeypatch):
+    """The plain GEP row loop (_backsolve_inputs_gep, _backsolve_rows_gep,
+    _normalize) against JAX's _backsolve_all_gep (jitted, XLA on the CPU)
+    on the same scaled (ar, ai, bt, pos, is_pair): xr and xi within 1e-12,
+    the close flags equal; growth scales a vector by fac < 1e-50, close
+    sets a flag."""
+    facs = []
+    rescale = ev._rescale
+
+    def spy(*args):
+        fac = rescale(*args)
+        facs.append(float(fac.min()))
+        return fac
+    monkeypatch.setattr(ev, "_rescale", spy)
+    S, Tt, sel = _twin_case(case)
+    St, Tq = from_numpy(S), from_numpy(Tt)
+    pos, pair, ar, ai, bt = (list(x) for x in zip(*ev._selected_blocks_gep(St, Tq, sel)))
+    m = len(pos)
+    as_t = dict(dtype=torch.float64)
+    ar_t, ai_t, bt_t = (torch.tensor(v, **as_t) for v in (ar, ai, bt))
+    args = ev._backsolve_inputs_gep(St, Tq, ar_t, ai_t, bt_t, pos, pair)
+    close = ev._backsolve_rows_gep(St, Tq, ar_t, ai_t, bt_t, pos, pair, *args)
+    xr, xi = (to_numpy(x) for x in ev._normalize(*args[-2:]))
+    # JAX's call, padded as its eigenvectors_schur_gep pads
+    mp = max(8, -(-m // 8) * 8)
+    pad = mp - m
+    jxr, jxi, jclose = j_backsolve_gep(
+        jnp.asarray(S), jnp.asarray(Tt), jnp.asarray(ar + [0.0] * pad),
+        jnp.asarray(ai + [0.0] * pad), jnp.asarray(bt + [1.0] * pad),
+        jnp.asarray(pos + [0] * pad, jnp.int32), jnp.asarray(pair + [False] * pad),
+        jnp.asarray([True] * m + [False] * pad))
+    assert np.abs(xr - np.asarray(jxr)[:m]).max() <= 1e-12
+    assert np.abs(xi - np.asarray(jxi)[:m]).max() <= 1e-12
+    np.testing.assert_array_equal(to_numpy(close), np.asarray(jclose)[:m])
+    assert np.isfinite(xr).all() and np.isfinite(xi).all()
+    assert not any(xi[j].any() for j in range(m) if not pair[j])   # real: xi zero
+    if case == "growth":
+        assert min(facs) < 1e-50           # at least one vector scaled down hard
+    if case == "close":
+        assert bool(close.any())
+    if case == "infinite":
+        assert any(b == 0.0 for b in bt)

@@ -1,4 +1,4 @@
-"""The GEP kernels G1-G6 against their plain PyTorch twins, on the card.
+"""The GEP kernels G1-G6 and E2 against their plain PyTorch twins, on the card.
 
 Every test needs a CUDA device and nvcc and skips without one (the CPU
 suite holds the plain twins to the JAX package).  On the card,
@@ -16,7 +16,8 @@ import torch
 
 from starneig_tpu_torch import kernels
 from starneig_tpu_torch.api import gep
-from starneig_tpu_torch.ops import gpu_gep, gpu_reorder
+from starneig_tpu_torch.ops import eigenvectors as ev
+from starneig_tpu_torch.ops import gpu_eig, gpu_gep, gpu_reorder
 from starneig_tpu_torch.ops.eigvals import extract_eigenvalues_gen
 from starneig_tpu_torch.ops.hess_triangular import (_ht_generate, _ht_reduce,
                                                     _ht_slivers, _rot_offset,
@@ -27,6 +28,7 @@ from starneig_tpu_torch.ops.qz_driver import (_aed_deflate_gep,
                                               _qz_sweep, _qz_train_hop)
 from starneig_tpu_torch.ops.reorder import _window_bubble_gep
 from starneig_tpu_torch.testing import hooks
+from starneig_tpu_torch.testing import generators
 from starneig_tpu_torch.testing.generators import (inf_push_window, known_spectrum_pencil,
                                                    planted_pencil_windows,
                                                    planted_spike_reject, qz_train_hops)
@@ -512,3 +514,88 @@ def test_gep_reorder_eigenvectors(cuda):
     X, xinfo = gep.eigenvectors(S2, T2, Q2, Z2, lead)
     assert X.shape == (n, m) and bool(torch.isfinite(X).all())
     assert hooks.eigenvector_residual_gep(A, B, S2, T2, X, lead) < 1e-10
+
+
+def _evec_gep_case(case, cuda):
+    """(A, B, S, T, Z, select) on the card: tests/test_torch_gep_eigenvectors.py's
+    twin cases (the three pencils reduced by the port on the CPU, the
+    growth and close pencils with A, B = S, T and Z = I), the close pencil
+    with nothing selected, or the n=1000
+    GEP_BENCH mix through the port's HT and QZ on the card with the finite
+    right half selected."""
+    if case in ("growth", "close", "none"):
+        S, T, sel = (generators.growth_pencil if case == "growth" else generators.close_pencil)()
+        S, T = (torch.as_tensor(M, device=cuda) for M in (S, T))
+        sel = sel & (case != "none")
+        return S, T, S, T, torch.eye(S.shape[0], dtype=S.dtype, device=cuda), sel
+    n, seed, kw = {"all": (24, 1, {}), "subset": (32, 5, {}),
+                   "infinite": (20, 9, dict(complex_ratio=0.2, inf_ratio=0.2)),
+                   "n1000": (1000, 1000, dict(complex_ratio=0.3, inf_ratio=0.1))}[case]
+    if kw:
+        A, B, _alpha, _beta = known_spectrum_pencil(n, seed=seed, **kw)
+    else:
+        A = generators.random_dense(n, seed=seed)
+        B = generators.random_dense(n, seed=seed + 77) + 3 * np.eye(n)
+    dev = cuda if n > 64 else "cpu"
+    S, T, _Q, Z, *_e, info = gep.schur(*gep.hessenberg_triangular(A, B, device=dev),
+                                       device=dev)
+    assert int(info) == 0
+    if case == "n1000":
+        sel = gep.select(S, T, lambda a, b: b != 0 and (a / b).real > 0)
+    elif case == "subset":
+        sel = np.random.default_rng(0).random(n) < 0.4
+    else:
+        sel = np.ones(n, bool)
+    A, B, S, T, Z = (torch.as_tensor(M).to(cuda) for M in (A, B, S, T, Z))
+    return A, B, S, T, Z, sel
+
+
+@pytest.mark.parametrize("case", ["all", "subset", "infinite", "growth", "close", "n1000",
+                                  "none"])
+def test_eig_backsolve_gep(cuda, case):
+    """E2 against the plain GEP row loop on the card: the normalized
+    vectors within 1e-12 (the dots sum in another order), the close flags
+    equal, two launches bit-equal; eigenvectors_schur_gep launches E2
+    exactly once, its vectors under the chain's residual bound; with
+    nothing selected (m = 0) neither the wrapper nor the entry point
+    launches."""
+    A, B, S, T, Z, sel = _evec_gep_case(case, cuda)
+    n0 = kernels.LAUNCHES["eig_backsolve_gep"]
+    entries = ev._selected_blocks_gep(S, T, sel)
+    if not entries:
+        n = S.shape[0]
+        e = S.new_zeros(0)
+        close = gpu_eig.backsolve_gep(S, T, e, e, e, [], [], ev._row_kinds(np.zeros(n)), e,
+                                      1.0, 1e-300, S.new_zeros((0, n)), S.new_zeros((0, n)))
+        X, info = ev.eigenvectors_schur_gep(S, T, Z, Z, sel)
+        assert close.shape == (0,) and X.shape == (n, 0) and int(info) == 0
+        assert kernels.LAUNCHES["eig_backsolve_gep"] == n0
+        return
+    pos, pair, ar, ai, bt = (list(x) for x in zip(*entries))
+    ar, ai, bt = (torch.tensor(v, dtype=S.dtype, device=cuda) for v in (ar, ai, bt))
+    kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs_gep(S, T, ar, ai, bt, pos, pair)
+    runs = []
+    for _ in range(2):
+        xrk, xik = xr.clone(), xi.clone()
+        ck = gpu_eig.backsolve_gep(S, T, ar, ai, bt, pos, pair, kind, smin, omega, smlnum,
+                                   xrk, xik)
+        runs.append((xrk, xik, ck))
+    assert kernels.LAUNCHES["eig_backsolve_gep"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    cp = ev._backsolve_rows_gep(S, T, ar, ai, bt, pos, pair, kind, smin, omega, smlnum,
+                                xr, xi)
+    xrk, xik, ck = runs[0]
+    assert torch.equal(ck, cp)
+    if case == "close":
+        assert bool(ck.any())
+    for g, w in zip(ev._normalize(xrk, xik), ev._normalize(xr, xi)):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-12
+    real = ~torch.as_tensor(np.asarray(pair), device=cuda)
+    assert not bool(xik[real].any())          # a real eigenvalue's xi stays zero
+    X, info = ev.eigenvectors_schur_gep(S, T, Z, Z, sel)
+    assert kernels.LAUNCHES["eig_backsolve_gep"] == n0 + 3
+    assert bool(torch.isfinite(X).all())
+    if case == "n1000":
+        assert hooks.eigenvector_residual_gep(A, B, S, T, X, sel) < 1e-10
+

@@ -72,14 +72,17 @@ def test_cpu_path_launches_no_kernel():
 @pytest.mark.parametrize("wrapper", ["aed_recondense", "window_bubble", "ht_cascade",
                                      "ht_recondense", "qz_window", "qz_sweep",
                                      "aed_deflate_gep", "inf_chase",
-                                     "window_bubble_gep"])
+                                     "window_bubble_gep", "eig_backsolve",
+                                     "eig_backsolve_gep"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A wrapper launches its kernel or raises: a CPU tensor never reaches
     the kernel library."""
     from starneig_tpu_torch import kernels
-    from starneig_tpu_torch.ops import gpu_gep, gpu_reorder, gpu_schur
+    from starneig_tpu_torch.ops import gpu_eig, gpu_gep, gpu_reorder, gpu_schur
     T = torch.eye(8, dtype=torch.float64)
     W = torch.eye(16, dtype=torch.float64)         # a train window, B = 2
+    v, x = torch.ones(1, dtype=torch.float64), torch.zeros(1, 8, dtype=torch.float64)
+    kind = np.zeros(8, np.int32)                   # one eigenvalue at row 4
     calls = {
         "aed_recondense": lambda: gpu_schur.aed_recondense(T, T, 0.5, 4),
         "window_bubble": lambda: gpu_reorder.window_bubble(
@@ -93,6 +96,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "inf_chase": lambda: gpu_gep.inf_chase(T, T, 1, 8, -1),
         "window_bubble_gep": lambda: gpu_reorder.window_bubble_gep(
             T[None], T[None], np.ones((1, 8), bool), [0], [8], [8]),
+        "eig_backsolve": lambda: gpu_eig.backsolve(T, v, 0 * v, [4], [False], kind, v,
+                                                   1.0, 1e-300, x, x.clone()),
+        "eig_backsolve_gep": lambda: gpu_eig.backsolve_gep(
+            T, T, v, 0 * v, v, [4], [False], kind, v, 1.0, 1e-300, x, x.clone()),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[wrapper]()
