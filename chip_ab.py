@@ -8,7 +8,9 @@
     python3 chip_ab.py hops NAME=path/to/train_hops_NAME.cu [...]
     python3 chip_ab.py recondense NAME=path/to/recondense_NAME.cu [...]
     python3 chip_ab.py mainpath [--n N] ROOT [ROOT ...]
-    python3 chip_ab.py clock [deflate|hops|recondense|qz|qzsweep] [--skip-cur] [NAME=PATH ...]
+    python3 chip_ab.py clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase|panel|backsolve]
+        [--skip-cur] [NAME=PATH ...]
+    python3 chip_ab.py l2probe
     python3 chip_ab.py qzinf
     python3 chip_ab.py bitwise [--n N] [--device cpu|cuda] ROOT [ROOT ...]
     python3 chip_ab.py ht [--n N] ROOT [ROOT ...]
@@ -92,6 +94,25 @@ chase warp's (a bulge's) reflectors, updates, record and barriers, the
 largest of each over the chase warps (their sum: the chain a step) and
 the update warps' waits, updates and barriers.
 
+``clock panel`` runs H1 on n=4000's first panel and its k = t0 = 2016
+one: every block's thread 0, a column by phase, the mean over the
+blocks and, for the barriers and reductions, the least and the most
+(the least: the sync's own cost, paid by the block that arrives last);
+then this checkout's H1 on the first panel with the plan's L2 share
+scanned (0-48 MiB: the kept columns get what the panel's V, Y and Z
+rows leave of it).  ``clock backsolve`` runs E1 on the n=4000 chain's
+leading block (made here): block 0's first warp (the longest chain), a
+solved row by phase, and the serial chain (the cycles a row of the phases
+on it).  Both take the older designs (H1's with three grid.sync a column,
+E1's row by row; a NAME=PATH to such a source) as well as the ones that
+ship.
+
+l2probe: whether L2 keeps a buffer read with the evict-last policy while
+80 MB slices stream past it evict-first, as H1's matvec reads its kept
+and streamed columns: rounds of both in one kernel, timed for each policy
+and buffer size (8-40 MiB), with the context's persisting set-aside (read
+only).
+
 qzinf: why G2 (``qz_window.cu``) and its plain twin may end an
 infinite-eigenvalue chase at different steps.  On ``chip_smoke.py``'s w=84
 window with 8 T-diagonal zeros it runs the shipped kernel, two copies of it
@@ -135,7 +156,8 @@ change, change, parent): three runs timed to a synchronize after a
 warm-up, the launches of a run by kernel (``kernels.LAUNCHES``), a run
 under ``torch.profiler`` (each kernel's device total, and the device's
 idle share of that run), H1 alone on the first panel (k = t0 = 0, nb =
-288) by CUDA events where the package has it, the SHA-256 of H and Q,
+288) and the k = t0 = 2016 one by CUDA events where the package has it
+(with its plan where it has one), the SHA-256 of H and Q,
 and the SHA-256 of B1's A x on a seeded 4000 x 4000 matrix (equal
 digests: B1's bits unchanged).
 
@@ -951,14 +973,20 @@ def panel_one(root: str, n: int) -> None:
     ms, kern, idle = _wall_and_profile(lambda: sep.hessenberg(A))
     launches = _launches(lambda: sep.hessenberg(A))
     H, Q = sep.hessenberg(A)
-    # H1 alone on the first panel (k = t0 = 0, nb = 288), where the package has it
-    h1_ms = (cuda_ms(lambda: gpu_hess.panel(A, 0, 288), 5)
-             if hasattr(gpu_hess, "panel") else None)
+    # H1 alone on n = 4000's first panel (k = t0 = 0, nb = 288) and the k = t0
+    # = 2016 one, where the package has it, and the plan where it has one
+    h1_ms = ([cuda_ms(lambda: gpu_hess.panel(A, k, 288, t0), 5) for k, t0 in ((0, 0), (2016, 2016))]
+             if hasattr(gpu_hess, "panel") and n == 4000 else None)
+    plans = None
+    if hasattr(gpu_hess, "panel_plan") and n == 4000:
+        g, _w, _s, smax = gpu_hess.panel_grid(n, 288)
+        plans = [gpu_hess.panel_plan(n, k, 288, t0, g, smax)._asdict()
+                 for k, t0 in ((0, 0), (2016, 2016))]
     g = torch.Generator(device="cpu").manual_seed(1)
     M = torch.randn(4000, 4000, generator=g, dtype=torch.float64).to("cuda")
     x = torch.randn(4000, generator=g, dtype=torch.float64).to("cuda")
     print("PANEL " + json.dumps(dict(
-        root=root, n=n, hessenberg_ms=ms, h1_first_panel_ms=h1_ms, launches=launches,
+        root=root, n=n, hessenberg_ms=ms, h1_panels_ms=h1_ms, plans=plans, launches=launches,
         device_ms=kern,
         idle_share=idle, sha256=_digest((H, Q)), b1_sha256=_digest((gpu_hess.gemv(M, x),)))),
         flush=True)
@@ -2214,14 +2242,397 @@ def clock_infchase(specs) -> bool:
     return True
 
 
+# H1's grid.sync design (three grid.sync a column, each block adding all the
+# grid's partials): thread 0 of every block, a column: (a) the Y V[c] dot,
+# the partial V^T a, sync 1; (b) the Z update, the grid-wide sum w1, a -= Z
+# w1 with the norms, sync 2; (c) dlarfg's scalars, v, the partial V^T v,
+# sync 3; (d) the grid-wide sum q, T's column, the matvec with Y
+PANEL_GRID_SYNC_EDITS = [
+    ('#include "hess_gemv.cuh"\n', '#include "hess_gemv.cuh"\n' + CLK_MACROS),
+    ("hess_panel_kernel(Panel p) {", "hess_panel_kernel(Panel p SN_CLK_KPARAM) {"),
+    ("  const int z0 = clampi(k + 1 - r0, 0, nr);  // the slab's first row where V, Z may be nonzero\n",
+     "  const int z0 = clampi(k + 1 - r0, 0, nr);  // the slab's first row where V, Z may be nonzero\n"
+     "  SN_CLK_DECL\n"),
+    ("      if (lane == 0) a_s[rr] = p.A[(size_t)r * p.lda + c] - d;\n    }\n    __syncthreads();\n",
+     "      if (lane == 0) a_s[rr] = p.A[(size_t)r * p.lda + c] - d;\n    }\n    __syncthreads();\n"
+     "    SN_CLK(0)\n"),
+    ("p.part_w + (size_t)b * nb, red);  // the slab's partial V^T a\n    grid.sync();\n",
+     "p.part_w + (size_t)b * nb, red);  // the slab's partial V^T a\n    SN_CLK(1)\n"
+     "    grid.sync();\n    SN_CLK(2)\n"),
+    ("    col_sum<true>(p.part_w, nb, nblk, j, nullptr, w_s, red);\n",
+     "    SN_CLK(3)\n    col_sum<true>(p.part_w, nb, nblk, j, nullptr, w_s, red);\n    SN_CLK(4)\n"),
+    ("      if (c + 1 >= r0 && c + 1 < r1) *p.alpha = a_s[c + 1 - r0];\n    }\n    grid.sync();\n",
+     "      if (c + 1 >= r0 && c + 1 < r1) *p.alpha = a_s[c + 1 - r0];\n    }\n    SN_CLK(5)\n"
+     "    grid.sync();\n    SN_CLK(6)\n"),
+    ("    __syncthreads();\n    const double tau = sc[0];\n",
+     "    __syncthreads();\n    SN_CLK(7)\n    const double tau = sc[0];\n"),
+    ("    __syncthreads();\n    {  // the slab's partial V^T v",
+     "    __syncthreads();\n    SN_CLK(8)\n    {  // the slab's partial V^T v"),
+    ("                     p.part_v + (size_t)b * nb, red);\n    }\n    grid.sync();\n",
+     "                     p.part_v + (size_t)b * nb, red);\n    }\n    SN_CLK(9)\n"
+     "    grid.sync();\n    SN_CLK(10)\n"),
+    ("    col_sum<true>(p.part_v, nb, nblk, j, nullptr, w_s, red);\n",
+     "    col_sum<true>(p.part_v, nb, nblk, j, nullptr, w_s, red);\n    SN_CLK(11)\n"),
+    ("    if (b == 0 && tid == 0) p.T[(size_t)j * nb + j] = tau;\n",
+     "    if (b == 0 && tid == 0) p.T[(size_t)j * nb + j] = tau;\n    SN_CLK(12)\n"),
+    ("      if (lane == 0) p.Y[(size_t)r * nb + j] = tau * (u - y);\n    }\n    __syncthreads();\n  }\n}\n",
+     "      if (lane == 0) p.Y[(size_t)r * nb + j] = tau * (u - y);\n    }\n    __syncthreads();\n"
+     "    SN_CLK(13)\n  }\n  if (tid == 0) { SN_CLK_OUT(b * 32, 0, 32) }\n}\n"),
+    ("    void* args[] = {&p};\n",
+     "    long long* sn_ctr_p = static_cast<long long*>(sn_ctr);\n    void* args[] = {&p, &sn_ctr_p};\n"),
+    ('extern "C" int hess_panel(', 'extern "C" int hess_panel_clk('),
+    ("long long work_len, int grid, void* stream) {",
+     "long long work_len, int grid SN_CLK_PARAM, void* stream) {"),
+]
+PANEL_GRID_SYNC_NAMES = {0: "(a) Y V[c] dot", 1: "(a) partial V^T a", 2: "sync 1",
+                    3: "(b) Z update", 4: "(b) grid-wide sum w1", 5: "(b) a -= Z w1, norms",
+                    6: "sync 2", 7: "(c) dlarfg scalars", 8: "(c) v, V, P",
+                    9: "(c) partial V^T v", 10: "sync 3", 11: "(d) grid-wide sum q",
+                    12: "(d) T column", 13: "(d) matvec and Y"}
+PANEL_SYNCS = ("sync 1", "sync 2", "sync 3")
+
+# H1 as it ships (two-level sums behind epoch flags, A kept on the chip,
+# two card-wide dependencies a column): thread 0 of every block, a column:
+# (a) a, the partial V^T a, reduce W (the flags, the group's sum in its
+# first block, the groups' sums); (b) the Z and a pass, the norms with a
+# published and the partial V_tail^T a_tail, reduce N; (c) dlarfg's
+# scalars, v staged with q, V, P and the pass over the slab's Y; (d) T's
+# column, the matvec and Y
+PANEL_EDITS = [
+    ('#include "hess_gemv.cuh"\n', '#include "hess_gemv.cuh"\n' + CLK_MACROS),
+    ("hess_panel_kernel(Panel p) {", "hess_panel_kernel(Panel p SN_CLK_KPARAM) {"),
+    ("  bool prev_active = false;\n", "  bool prev_active = false;\n  SN_CLK_DECL\n"),
+    ("      a_s[rr] = acol[rr] - (d1_s[rr] + (prev_active ? ycol[rr] : 0.0));\n    __syncthreads();\n",
+     "      a_s[rr] = acol[rr] - (d1_s[rr] + (prev_active ? ycol[rr] : 0.0));\n    __syncthreads();\n"
+     "    SN_CLK(0)\n"),
+    ("    reduce_partials(p.part_w, p.gsum_w, bflag_w, gflag_w, epoch, nb, j, w_s);\n",
+     "    SN_CLK(1)\n    reduce_partials(p.part_w, p.gsum_w, bflag_w, gflag_w, epoch, nb, j, w_s);\n"
+     "    SN_CLK(2)\n"),
+    ("      if (sub == 0 && rr < nr) a_s[rr] -= d;\n    }\n    __syncthreads();\n",
+     "      if (sub == 0 && rr < nr) a_s[rr] -= d;\n    }\n    __syncthreads();\n    SN_CLK(3)\n"),
+    ("    reduce_partials(p.part_q, p.gsum_q, bflag_n, gflag_n, epoch, nb, j, t_s);\n",
+     "    SN_CLK(4)\n    reduce_partials(p.part_q, p.gsum_q, bflag_n, gflag_n, epoch, nb, j, t_s);\n"
+     "    SN_CLK(5)\n"),
+    ("    __syncthreads();\n    const double tau = sc[0];\n",
+     "    __syncthreads();\n    SN_CLK(6)\n    const double tau = sc[0];\n"),
+    ("        y_s[rr] = active ? d1 + (degen ? 0.0 : d2 * vscale) : 0.0;\n      }\n    }\n"
+     "    __syncthreads();\n",
+     "        y_s[rr] = active ? d1 + (degen ? 0.0 : d2 * vscale) : 0.0;\n      }\n    }\n"
+     "    __syncthreads();\n    SN_CLK(7)\n"),
+    ("    if (b == 0 && tid == 0) p.T[(size_t)j * nb + j] = tau;\n",
+     "    if (b == 0 && tid == 0) p.T[(size_t)j * nb + j] = tau;\n    SN_CLK(8)\n"),
+    ("    prev_active = active;\n    __syncthreads();\n  }\n}\n",
+     "    prev_active = active;\n    __syncthreads();\n    SN_CLK(9)\n  }\n"
+     "  if (tid == 0) { SN_CLK_OUT(b * 32, 0, 32) }\n}\n"),
+    ("    void* args[] = {&p};\n",
+     "    long long* sn_ctr_p = static_cast<long long*>(sn_ctr);\n    void* args[] = {&p, &sn_ctr_p};\n"),
+    ('extern "C" int hess_panel(', 'extern "C" int hess_panel_clk('),
+    ("int smem_bytes,\n                          void* stream) {",
+     "int smem_bytes SN_CLK_PARAM,\n                          void* stream) {"),
+]
+PANEL_NAMES = {0: "(a) a", 1: "(a) partial V^T a", 2: "reduce W",
+               3: "(b) Z and a pass", 4: "(b) norms, a out, partial tail", 5: "reduce N",
+               6: "(c) dlarfg scalars", 7: "(c) v, q, V, P, Y pass", 8: "(d) T column",
+               9: "(d) matvec and Y"}
+# the grid.sync design's C entry: no counters, no plan
+PANEL_GRID_SYNC_SIG = [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _I, _P, _P]
+
+# E1 as it ships (row blocks: a far product, then each warp's near chain):
+# the first warp of block 0 (the eigenvalue with the largest pos, the
+# longest chain), summed over its row blocks: the staging, the far product,
+# the barrier with the slices' sum; per solved row the row's start, the
+# near dot with its shuffle sum, the guarded solve with the writes; the
+# chain's end and the block barrier; slot 30 the solved rows
+BACKSOLVE_EDITS = [
+    ('#include "eig_solve.cuh"\n', '#include "eig_solve.cuh"\n' + CLK_MACROS),
+    ("eig_backsolve_kernel(Solve p) {", "eig_backsolve_kernel(Solve p SN_CLK_KPARAM) {"),
+    ("  bool close = false;\n", "  bool close = false;\n  SN_CLK_DECL\n"),
+    ("      xni[i] = pair ? xi[r0 + i] : 0.0;\n    }\n",
+     "      xni[i] = pair ? xi[r0 + i] : 0.0;\n    }\n    SN_CLK(0)\n"),
+    ("red[(8 * nt + 2 * ak + i) * kNB + 8 * mt + ar] = acc[mt][nt][i];\n    }\n",
+     "red[(8 * nt + 2 * ak + i) * kNB + 8 * mt + ar] = acc[mt][nt][i];\n    }\n    SN_CLK(1)\n"),
+    ("      sF[idx] = s;\n    }\n",
+     "      sF[idx] = s;\n    }\n    SN_CLK(2)\n"),
+    ("pre + i * kPre, close);\n    __syncthreads();\n",
+     "pre + i * kPre, close);\n    SN_CLK(8)\n    __syncthreads();\n    SN_CLK(9)\n"),
+    ("      double d1r = 0.0, d1i = 0.0, d2r = 0.0, d2i = 0.0;\n",
+     "      SN_CLK(3)\n      double d1r = 0.0, d1i = 0.0, d2r = 0.0, d2i = 0.0;\n"),
+    ("      double v1r, v1i, v2r = 0.0, v2i = 0.0;\n",
+     "      SN_CLK(4)\n      double v1r, v1i, v2r = 0.0, v2i = 0.0;\n"),
+    ("      __syncwarp();\n    }\n    __syncthreads();  // x[r0:r1]",
+     "      __syncwarp();\n      SN_CLK(5)\n      SN_CLK_ADD(30, 1)\n    }\n    SN_CLK(6)\n"
+     "    __syncthreads();  // x[r0:r1]"),
+    ("    r1 = r0;\n  }\n", "    SN_CLK(7)\n    r1 = r0;\n  }\n"
+     "  if (blockIdx.x == 0 && tid == 0) { SN_CLK_OUT(0, 0, 32) }\n"),
+    ("<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);",
+     "<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p SN_CLK_ARG);"),
+    ('extern "C" int eig_backsolve(', 'extern "C" int eig_backsolve_clk('),
+    ("double smlnum, void* xr, void* xi, void* close, void* stream) {",
+     "double smlnum, void* xr, void* xi, void* close SN_CLK_PARAM, void* stream) {"),
+]
+BACKSOLVE_NAMES = {0: "staging", 1: "far product", 2: "barrier, slices' sum",
+                   8: "solve steps ahead", 9: "barrier", 3: "row start", 4: "near dot",
+                   5: "guarded solve's rest, writes", 6: "chain end", 7: "block barrier"}
+BACKSOLVE_CHAIN = (3, 4, 5)                # the near chain: a solved row's own steps
+
+
+def _clock_report(label, names, c, per, ms, hz_total):
+    """One line: each slot's mean over the blocks a unit (column, row), with
+    its minimum over the blocks for the barriers."""
+    arr = np.asarray(c, dtype=np.float64) / per
+    parts = []
+    for i, k in names.items():
+        col = arr[:, i]
+        txt = f"{k} {col.mean():.0f}"
+        if k.startswith(("sync", "barrier", "reduce")):
+            txt += f" (min {col.min():.0f}, max {col.max():.0f})"
+        parts.append(txt)
+    tot = arr[:, 31].mean()
+    print(f"{label}: {ms:.3f} ms, {tot:.0f} cycles a unit ({hz_total / (ms * 1e6):.3f} GHz "
+          "over the call); mean over the blocks, cycles a unit: " + ", ".join(parts), flush=True)
+
+
+def clock_panel(specs) -> bool:
+    """clock panel [NAME=PATH ...]: where H1 spends a column's cycles on
+    n=4000's first panel (k = t0 = 0) and the k = t0 = 2016 panel (nb = 288,
+    A from default_rng(0)): every block's thread 0, by phase, the mean over
+    the blocks and, for the barriers, the least and the most (the least: the
+    barrier's own cost, paid by the block that arrives last)."""
+    from chip_smoke import H1_PANELS, MAIN_N
+    from starneig_tpu_torch.ops import gpu_hess
+    dev = torch.device("cuda:0")
+    n, nb = MAIN_N, 288
+    A = torch.as_tensor(np.random.default_rng(0).standard_normal((n, n)), device=dev)
+    sms, _work, _sync, smem_max = gpu_hess.panel_grid(n, nb)
+    for name, p in _clock_versions("hess_panel", specs):
+        fn, older = clock_build_src(name, "hess_panel", Path(p), PANEL_EDITS,
+                                   PANEL_GRID_SYNC_EDITS, "col_sum<true>(p.part_w")
+        if older:
+            fn.argtypes = PANEL_GRID_SYNC_SIG
+        names = PANEL_GRID_SYNC_NAMES if older else PANEL_NAMES
+        for k, t0 in H1_PANELS:
+            ctr = torch.zeros(sms * 32, dtype=torch.int64, device=dev)
+            nwork = 4 * n * nb + 64 * sms * nb + 4 * n
+            work = A.new_zeros(nwork)
+
+            plan = gpu_hess.panel_plan(n, k, nb, t0, sms, smem_max)
+
+            def run(fn=fn, ctr=ctr, work=work, nwork=nwork, k=k, t0=t0, older=older, plan=plan):
+                V, Y, P = (A.new_zeros((n, nb)) for _ in range(3))
+                T = A.new_zeros((nb, nb))
+                ctr.zero_()
+                sync = torch.zeros(256, dtype=torch.int32, device=dev)
+                args = [A.data_ptr(), A.stride(0), n, k, nb, t0, n, V.data_ptr(), T.data_ptr(),
+                        Y.data_ptr(), P.data_ptr(), work.data_ptr(), nwork]
+                args += [sms] if older else [sync.data_ptr(), sms, plan.res_cols, plan.pin_cols,
+                                            plan.smem_bytes]
+                kernels.check(fn(*args, ctr.data_ptr(), kernels.stream_ptr(A)), "hess_panel_clk")
+            run()
+            ms = cuda_ms(run, 3)
+            c = ctr.view(sms, 32).cpu().tolist()
+            _clock_report(f"panel k={k} t0={t0} {name}{' (grid.sync design)' if older else ''}"
+                          + ("" if older else f" (plan {plan.res_cols} resident, {plan.pin_cols}"
+                                             f" kept, {plan.pin0 - plan.cs0} streamed columns)"),
+                          names, c, nb, ms, np.asarray(c)[:, 31].mean())
+    # this checkout's H1 on the first panel with the L2 share of the plan
+    # scanned (0: nothing kept, all left of the resident columns streamed)
+    for l2 in PANEL_L2_SCAN:
+        plan = gpu_hess.panel_plan(n, 0, nb, 0, sms, smem_max, l2)
+        ms = cuda_ms(lambda: gpu_hess.panel(A, 0, nb, 0, l2_bytes=l2), 3)
+        print(f"panel k=0 t0=0 L2 share {l2 >> 20} MiB ({plan.pin_cols} columns kept, "
+              f"{plan.streamed_bytes / 1e6:.1f} MB a column streamed): {ms:.3f} ms", flush=True)
+    return True
+
+
+PANEL_L2_SCAN = (0, 24 << 20, 32 << 20, 40 << 20, 48 << 20)
+
+
+# E1's row-by-row design (a warp an eigenvalue, S's row staged a row): the
+# first warp of block 0 (the eigenvalue with the largest pos, the longest
+# chain), a solved row: the row's start, the staging of S's rows between two
+# block barriers, the warp's dot, the shuffle sum, the guarded solve with the
+# writes; slot 30 the solved rows
+BACKSOLVE_ROW_EDITS = [
+    ('#include "eig_solve.cuh"\n', '#include "eig_solve.cuh"\n' + CLK_MACROS),
+    ("eig_backsolve_kernel(Solve p) {", "eig_backsolve_kernel(Solve p SN_CLK_KPARAM) {"),
+    ("  bool close = false;\n", "  bool close = false;\n  SN_CLK_DECL\n"),
+    ("    double d1r = 0.0, d1i = 0.0, d2r = 0.0, d2i = 0.0;\n",
+     "    double d1r = 0.0, d1i = 0.0, d2r = 0.0, d2i = 0.0;\n    SN_CLK(0)\n"),
+    ("      __syncthreads();\n      if (in) {\n", "      __syncthreads();\n      SN_CLK(1)\n      if (in) {\n"),
+    ("    if (!in) continue;\n", "    SN_CLK(2)\n    if (!in) continue;\n"),
+    ("    const double rhs_r = -d1r, rhs_i = -d1i;\n",
+     "    SN_CLK(3)\n    const double rhs_r = -d1r, rhs_i = -d1i;\n"),
+    ("    __syncwarp();\n  }\n  if (live && lane == 0) p.close[e] = close ? 1 : 0;\n",
+     "    __syncwarp();\n    SN_CLK(4)\n    SN_CLK_ADD(30, 1)\n  }\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) { SN_CLK_OUT(0, 0, 32) }\n"
+     "  if (live && lane == 0) p.close[e] = close ? 1 : 0;\n"),
+    ("eig_backsolve_kernel<<<blocks, kG * 32, 0, static_cast<cudaStream_t>(stream)>>>(p);",
+     "eig_backsolve_kernel<<<blocks, kG * 32, 0, static_cast<cudaStream_t>(stream)>>>(p SN_CLK_ARG);"),
+    ('extern "C" int eig_backsolve(', 'extern "C" int eig_backsolve_clk('),
+    ("double smlnum, void* xr, void* xi, void* close, void* stream) {",
+     "double smlnum, void* xr, void* xi, void* close SN_CLK_PARAM, void* stream) {"),
+]
+BACKSOLVE_ROW_NAMES = {0: "row start", 1: "staging (two block barriers)", 2: "dot",
+                        3: "shuffle sum", 4: "guarded solve, writes"}
+BACKSOLVE_ROW_CHAIN = (0, 1, 2, 3, 4)     # every phase of a row is on its chain
+
+
+def clock_backsolve(specs) -> bool:
+    """clock backsolve [NAME=PATH ...]: where E1 spends its cycles on the
+    n=4000 chain's leading block (chip_ab backsolve's input, made here):
+    the longest chain's warp (block 0's first), a solved row by phase; the
+    serial chain is its rows times the cycles a row of the phases on it."""
+    from starneig_tpu_torch.ops import eigenvectors as ev
+    from starneig_tpu_torch.ops.gpu_eig import _host_arrays
+    dev = torch.device("cuda:0")
+    path = kernels.BUILD_DIR / "backsolve_chain.pt"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    backsolve_inputs(4000, path)
+    d = torch.load(path)
+    S = d["S"].to(dev).contiguous()
+    n, m = S.shape[0], d["m"]
+    pos, pair, lr, li = (list(x) for x in zip(*ev._selected_blocks(S, np.arange(n) < m)))
+    lam_r, lam_i = (torch.tensor(v, dtype=S.dtype, device=dev) for v in (lr, li))
+    kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs(S, lam_r, lam_i, pos, pair)
+    order, pos_d, pair_d, kind_d = _host_arrays(np.asarray(pos), pair, kind, dev)
+    for name, p in _clock_versions("eig_backsolve", specs):
+        fn, older = clock_build_src(name, "eig_backsolve", Path(p), BACKSOLVE_EDITS,
+                                   BACKSOLVE_ROW_EDITS, "kChunk = 2048")
+        names = BACKSOLVE_ROW_NAMES if older else BACKSOLVE_NAMES
+        ctr = torch.zeros(32, dtype=torch.int64, device=dev)
+
+        def run(fn=fn, ctr=ctr):
+            xk, xik = xr.clone(), xi.clone()
+            close = torch.zeros(len(pos), dtype=torch.int32, device=dev)
+            ctr.zero_()
+            kernels.check(fn(S.data_ptr(), n, lam_r.data_ptr(), lam_i.data_ptr(),
+                             smin.data_ptr(), pos_d.data_ptr(), pair_d.data_ptr(),
+                             kind_d.data_ptr(), order.data_ptr(), len(pos), float(omega),
+                             float(smlnum), xk.data_ptr(), xik.data_ptr(), close.data_ptr(),
+                             ctr.data_ptr(), kernels.stream_ptr(S)), "eig_backsolve_clk")
+        run()
+        ms = cuda_ms(run, 3)
+        c = ctr.cpu().tolist()
+        rows = max(c[30], 1)
+        chain = sum(c[i] for i in (BACKSOLVE_ROW_CHAIN if older else BACKSOLVE_CHAIN))
+        print(f"backsolve n={n} m={len(pos)} {name}{' (row-by-row design)' if older else ''}: "
+              f"{ms:.3f} ms; block 0's first warp: {rows} solved rows, {c[31] / rows:.0f} "
+              f"cycles a row ({c[31] / (ms * 1e6):.3f} GHz over the call); cycles a row: "
+              + ", ".join(f"{k} {c[i] / rows:.0f}" for i, k in names.items())
+              + f"; serial chain {chain / rows:.0f} cycles a row, {chain / 1.98e6:.3f} ms "
+              "at 1.98 GHz", flush=True)
+    return True
+
+
+# L2 residency on the card, as H1's matvec meets it: in one kernel, rounds
+# of a buffer P (the kept columns) read with a cache policy followed by a
+# fresh 80 MB slice of a larger buffer read evict-first (the streamed ones)
+L2_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__device__ __forceinline__ double2 ld_pol(const double* p, unsigned long long pol) {
+  double2 v;
+  asm volatile("ld.global.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+               : "=d"(v.x), "=d"(v.y) : "l"(p), "l"(pol));
+  return v;
+}
+__global__ void __launch_bounds__(1024) mix(const double* __restrict__ P, long long np,
+                                            const double* __restrict__ S, long long slice,
+                                            int nslices, int rounds, int mode, double* out) {
+  unsigned long long pol = 0;
+  if (mode == 1) asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  if (mode == 3) asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+  const long long t0 = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 2;
+  const long long st = (long long)gridDim.x * blockDim.x * 2;
+  double s = 0.0;
+  for (int it = 0; it < rounds; ++it) {
+    for (long long i = t0; i < np; i += st) {
+      double2 v;
+      if (mode == 1 || mode == 3) v = ld_pol(P + i, pol);
+      else if (mode == 2) v = __ldcs(reinterpret_cast<const double2*>(P + i));
+      else v = *reinterpret_cast<const double2*>(P + i);
+      s += v.x + v.y;
+    }
+    const double* Si = S + (long long)(it % nslices) * slice;
+    for (long long i = t0; i < slice; i += st) {
+      const double2 v = __ldcs(reinterpret_cast<const double2*>(Si + i));
+      s += v.x + v.y;
+    }
+  }
+  if (s == 1234.5) out[0] = s;
+}
+extern "C" int probe_mix(const void* P, long long np, const void* S, long long slice,
+                         int nslices, int rounds, int mode, void* out, void* stream) {
+  mix<<<132, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(P), np, static_cast<const double*>(S), slice, nslices, rounds,
+      mode, static_cast<double*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int probe_persist(void* limit, void* max_bytes) {
+  size_t o = 0;
+  int dev = 0, mx = 0;
+  cudaError_t e = cudaDeviceGetLimit(&o, cudaLimitPersistingL2CacheSize);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&mx, cudaDevAttrMaxPersistingL2CacheSize, dev);
+  *static_cast<long long*>(limit) = (long long)o;
+  *static_cast<long long*>(max_bytes) = (long long)mx;
+  return static_cast<int>(e);
+}
+"""
+L2_MODES = (("evict_last", 1), ("no hint", 0), ("evict_first", 3), ("ldcs", 2))
+
+
+def ab_l2probe(_args) -> bool:
+    """l2probe: rounds of P (0-40 MiB, with each cache policy) and a fresh
+    80 MB slice streamed evict-first, in one kernel: the microseconds a
+    round, beside the slice alone (P empty).  Where P stays in L2 a round
+    costs about the slice's time; where it does not, P's bytes at HBM's
+    rate more.  Prints the persisting L2 set-aside the context has and its
+    largest (read only)."""
+    dev = torch.device("cuda:0")
+    out = kernels.BUILD_DIR / "l2probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "probe.cu").write_text(L2_PROBE_SRC)
+    r = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
+                        str(out / "probe.so"), str(out / "probe.cu")], capture_output=True,
+                       text=True)
+    if r.returncode != 0:
+        print(r.stderr[-3000:], flush=True)
+        return False
+    lib = ctypes.CDLL(str(out / "probe.so"))
+    lib.probe_mix.argtypes = [_P, _LL, _P, _LL, _I, _I, _I, _P, _P]
+    lib.probe_persist.argtypes = [_P, _P]
+    lim, mx = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    kernels.check(lib.probe_persist(ctypes.addressof(lim), ctypes.addressof(mx)), "probe")
+    print(f"persisting L2 set-aside {lim.value} bytes, largest {mx.value} bytes", flush=True)
+    slice_d, nslices, rounds = 80_000_000 // 8, 5, 20
+    S = torch.ones(slice_d * nslices, dtype=torch.float64, device=dev)
+    sink = torch.zeros(1, dtype=torch.float64, device=dev)
+    st = kernels.stream_ptr(S)
+
+    def run(P, mode):
+        kernels.check(lib.probe_mix(P.data_ptr(), P.numel(), S.data_ptr(), slice_d, nslices,
+                                    rounds, mode, sink.data_ptr(), st), "probe_mix")
+    empty = torch.ones(2, dtype=torch.float64, device=dev)
+    base = cuda_ms(lambda: run(empty, 2), 3) / rounds * 1e3
+    print(f"slice alone: {base:.1f} us a round ({80e6 / base / 1e6:.2f} TB/s)", flush=True)
+    for mb in (8, 16, 24, 32, 40):
+        P = torch.ones(mb * 2**20 // 8, dtype=torch.float64, device=dev)
+        us = {name: cuda_ms(lambda: run(P, mode), 3) / rounds * 1e3 for name, mode in L2_MODES}
+        print(f"P {mb} MiB: us a round " + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
+              + f"; P from HBM would add {mb * 2**20 / 3.35e12 * 1e6:.1f}", flush=True)
+    return True
+
+
 def ab_clock(args) -> bool:
-    """clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase] [--skip-cur] [NAME=PATH ...]"""
+    """clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase|panel|backsolve]
+    [--skip-cur] [NAME=PATH ...]"""
     kind = args[0] if args and "=" not in args[0] else "deflate"
     rest = args[1:] if args and "=" not in args[0] else args
     return {"deflate": clock_deflate, "hops": clock_hops,
             "recondense": clock_recondense, "qz": clock_qz,
             "qzsweep": clock_qzsweep, "htwin": clock_htwin,
-            "infchase": clock_infchase}[kind](rest)
+            "infchase": clock_infchase, "panel": clock_panel,
+            "backsolve": clock_backsolve}[kind](rest)
 
 
 # G2's infinite-eigenvalue decisions, printed in a copy: T-diagonal
@@ -2433,7 +2844,7 @@ MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
          "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep,
          "htwin": ab_htwin, "infchase": ab_infchase, "panel": ab_panel,
-         "backsolve": ab_backsolve,
+         "backsolve": ab_backsolve, "l2probe": ab_l2probe,
          "backsolvegep": lambda args: ab_backsolve(args, "backsolvegep")}
 # the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
 PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),

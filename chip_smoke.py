@@ -207,6 +207,12 @@ QZSWEEP_STEP_CYCLES = 4142
 # counters, chip_ab.py clock htwin / clock infchase, PERF.md section 6)
 HTWIN_PAIR_CYCLES = 1201
 INF_STEP_CYCLES = 611
+# E1's chain a solve step (a 1x1 row or a 2x2 block) of a near chain, in
+# cycles: the first warp of block 0's row start, near dot and the guarded
+# solve's part that needs the right-hand side (clock64 counters on the
+# n=4000 chain's leading block, chip_ab.py clock backsolve, PERF.md section
+# 6); its solve steps x these over SM_HZ is its serial chain
+E1_STEP_CYCLES = 2475
 
 REPLACES = {
     "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
@@ -492,11 +498,22 @@ def h1_work(n, nb, k, t0):
     return nbytes, flops
 
 
+def h1_stream_floor(n, nb, k, t0):
+    """ms a panel takes that streams its matvec's rows from HBM every
+    column: sum over columns c of (n - t0)(n - c') doubles, c' = c + 1
+    rounded down to even, over HBM_BPS."""
+    cols = sum(n - ((k + j + 1) & ~1) for j in range(nb) if k + j < n - 1)
+    return 8.0 * (n - t0) * cols / HBM_BPS * 1e3
+
+
 def phase_hess_panel(dev):
     """H1 on phase 5's input (A from default_rng(0), n=4000, nb=288) at two
     panels of the main path's geometry (H1_PANELS), against its all-torch
     twin on the card (ops.hessenberg.panel_plain): V, T, Y and P within
-    1e-12 max|A|, two launches bit-equal; CUDA-event times of both."""
+    1e-12 max|A|, two launches bit-equal; CUDA-event times of both, beside
+    the read-once bound and the column-stream floor, with the launch's plan
+    (the bytes of A[t0:, cs0:] resident in shared memory, kept in L2 and
+    streamed)."""
     import numpy as np
     import torch
     from starneig_tpu_torch.convert import from_numpy
@@ -505,23 +522,30 @@ def phase_hess_panel(dev):
     n, nb = MAIN_N, 288
     A = from_numpy(np.random.default_rng(0).standard_normal((n, n)), dev)
     scale = float(A.abs().max())
-    grid = gpu_hess.panel_grid(n, nb)[0]
+    grid, _work, _sync, smem_max = gpu_hess.panel_grid(n, nb)
     rows = []
     for k, t0 in H1_PANELS:
+        plan = gpu_hess.panel_plan(n, k, nb, t0, grid, smem_max)
         got = gpu_hess.panel(A, k, nb, t0)
         same = all(torch.equal(a, b) for a, b in zip(got, gpu_hess.panel(A, k, nb, t0)))
         want, plain_ms = timed(lambda: panel_plain(A, k, nb, t0))
         errs = {name: float((g - w).abs().max()) for name, g, w in zip("VTYP", got, want)}
         ms = cuda_ms(lambda: gpu_hess.panel(A, k, nb, t0), 5)
         bms, by = bound(*h1_work(n, nb, k, t0))
+        floor = h1_stream_floor(n, nb, k, t0)
         log(f"  H1 panel k={k} t0={t0} (n={n}, nb={nb}, {grid} blocks): max abs err "
             f"{errs} (max|A| {scale:.2f}); two launches bit-for-bit equal: {same}; kernel "
             f"{ms:.3f} ms ({ms / nb * 1e3:.1f} us a column), plain {plain_ms:.1f} ms, bound "
-            f"{bms:.4f} ms ({by})")
+            f"{bms:.4f} ms ({by}, A read once), column-stream floor {floor:.3f} ms; plan: "
+            f"{plan.res_cols} columns resident ({plan.resident_bytes / 1e6:.1f} MB in shared "
+            f"memory, {plan.smem_bytes} bytes a block), {plan.pin_cols} kept in L2 "
+            f"({plan.pinned_bytes / 1e6:.1f} MB), {plan.pin0 - plan.cs0} streamed "
+            f"({plan.streamed_bytes / 1e6:.1f} MB a column)")
         check(max(errs.values()) <= 1e-12 * scale, f"H1 k={k} t0={t0} disagrees: {errs}")
         check(same, f"H1 k={k} t0={t0}: two launches differ")
         rows.append(dict(k=k, t0=t0, max_abs_err=max(errs.values()), errors=errs, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by, stream_floor_ms=floor,
+                         plan=plan._asdict()))
     first = rows[0]
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=first["ms"],
                 plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
@@ -1360,6 +1384,13 @@ def e1_work(S, pos, is_pair, kind):
     return 8 * (rows + vec), flops
 
 
+def e1_chain_steps(pos, kind):
+    """E1's longest chain: the solve steps (1x1 rows and 2x2 blocks) below
+    the highest selected block."""
+    top = int(max(pos))
+    return int(sum(1 for k in range(top) if kind[k] != 2))
+
+
 def phase_backsolve(dev, main_res):
     """5b: E1 on phase 5's n=4000 selection (the eigenvalues of the leading
     block after reordering) against the plain row loop on the card: the
@@ -1391,18 +1422,22 @@ def phase_backsolve(dev, main_res):
     X = Q3 @ ev._columns(*gk, pair)
     evec = eigenvector_residual(A, S2, X, m)
     bms, by = bound(*e1_work(S2, pos, pair, kind))
+    steps = e1_chain_steps(pos, kind)
+    chain = steps * E1_STEP_CYCLES / SM_HZ * 1e3
     log(f"  5b E1 n={n}: {len(pos)} eigenvalues ({sum(pair)} pairs) in "
         f"{(len(pos) + 7) // 8} blocks; max abs err {err:.2e} against the plain loop, close "
         f"flags equal {torch.equal(ck, close_p)} ({int(ck.sum())} set), two launches "
         f"bit-for-bit equal: {same}; worst residual {evec:.2e}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by}), serial chain {chain:.3f} ms "
+        f"({steps} solve steps x {E1_STEP_CYCLES} cycles)")
     check(err <= 1e-12, f"E1 disagrees with the plain loop by {err}")
     check(torch.equal(ck, close_p), "E1's close flags differ from the plain loop's")
     check(tuple(X.shape) == (n, m) and bool(torch.isfinite(X).all()), "E1: X not finite")
     check(evec < EVEC_BOUND, f"E1 eigenvector residual {evec}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, detail=dict(m=len(pos), pairs=sum(pair), residual=evec,
-                                             bit_equal=same, close=int(ck.sum())))
+                                             bit_equal=same, close=int(ck.sum()),
+                                             chain_steps=steps, serial_chain_ms=chain))
 
 
 # ---------------------------------------------------------------------------

@@ -64,10 +64,13 @@ _SIGNATURES = {
     "inf_chase": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # Sp, Tp, Qp, Zp, sel, state, G, W, stream
     "reorder_bubble_gep": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    # n, nb, t0, grid (int*, in and out), work (long long*, out)
-    "hess_panel_grid": [_I, _I, _I, _P, _P],
-    # A, lda, n, k, nb, t0, lim, V, T, Y, P, work, work_len, grid, stream
-    "hess_panel": [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _I, _P],
+    # n, nb, t0, grid (int*, in and out), work (long long*, out), sync
+    # (int*, out), smem_max (int*, out)
+    "hess_panel_grid": [_I, _I, _I, _P, _P, _P, _P],
+    # A, lda, n, k, nb, t0, lim, V, T, Y, P, work, work_len, sync, grid,
+    # res_cols, pin_cols, smem_bytes, stream
+    "hess_panel": [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I,
+                   _P],
     # S, n, lam_r, lam_i, smin, pos, pair, kind, order, m, omega, smlnum,
     # xr, xi, close, stream
     "eig_backsolve": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P, _P, _P],

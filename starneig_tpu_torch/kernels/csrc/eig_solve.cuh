@@ -13,29 +13,53 @@ DEVI double rsub(double a, double b) { return __dsub_rn(a, b); }
 DEVI double rmul(double a, double b) { return __dmul_rn(a, b); }
 DEVI double rdiv(double a, double b) { return __ddiv_rn(a, b); }
 
+// ops/eigenvectors.py:_cdiv's denominator part: (br + i bi) lifted by
+// guard where below it, then Smith's ratio r and denominator den of the
+// branch big (|br| >= |bi|); the numerator's part is cdiv_fin
+struct CdivDen {
+  bool big;
+  double r, den;
+};
+
+DEVI CdivDen cdiv_den(double br, double bi, double guard) {
+  const double babs = radd(fabs(br), fabs(bi));
+  br = radd(br, babs < guard ? guard : 0.0);
+  CdivDen d;
+  d.big = fabs(br) >= fabs(bi);
+  if (d.big) {
+    d.r = rdiv(bi, br == 0.0 ? 1.0 : br);
+    d.den = radd(br, rmul(bi, d.r));
+  } else {
+    d.r = rdiv(br, bi == 0.0 ? 1.0 : bi);
+    d.den = radd(bi, rmul(br, d.r));
+  }
+  d.den = d.den == 0.0 ? guard : d.den;
+  return d;
+}
+
+DEVI void cdiv_fin(double ar, double ai, const CdivDen& d, double& xr, double& xi) {
+  if (d.big) {
+    xr = rdiv(radd(ar, rmul(ai, d.r)), d.den);
+    xi = rdiv(rsub(ai, rmul(ar, d.r)), d.den);
+  } else {
+    xr = rdiv(radd(rmul(ar, d.r), ai), d.den);
+    xi = rdiv(rsub(rmul(ai, d.r), ar), d.den);
+  }
+}
+
 // ops/eigenvectors.py:_cdiv: (ar + i ai) / (br + i bi), Smith's algorithm,
 // a denominator below guard lifted by guard
 DEVI void cdiv(double ar, double ai, double br, double bi, double guard, double& xr,
                double& xi) {
-  const double babs = radd(fabs(br), fabs(bi));
-  br = radd(br, babs < guard ? guard : 0.0);
-  if (fabs(br) >= fabs(bi)) {
-    const double r = rdiv(bi, br == 0.0 ? 1.0 : br);
-    double den = radd(br, rmul(bi, r));
-    den = den == 0.0 ? guard : den;
-    xr = rdiv(radd(ar, rmul(ai, r)), den);
-    xi = rdiv(rsub(ai, rmul(ar, r)), den);
-  } else {
-    const double r = rdiv(br, bi == 0.0 ? 1.0 : bi);
-    double den = radd(bi, rmul(br, r));
-    den = den == 0.0 ? guard : den;
-    xr = rdiv(radd(rmul(ar, r), ai), den);
-    xi = rdiv(rsub(rmul(ai, r), ar), den);
-  }
+  cdiv_fin(ar, ai, cdiv_den(br, bi, guard), xr, xi);
 }
 
-// fac <= 1 that keeps num fac / den below omega (the twin's _rescale)
-DEVI double rescale(double num, double den, double omega, double smlnum) {
-  const double lim = rmul(den, omega);
+// fac <= 1 that keeps num fac / den below omega (the twin's _rescale);
+// rescale_lim takes lim = den omega, rounded, computed ahead
+DEVI double rescale_lim(double num, double lim, double smlnum) {
   return num > lim ? rdiv(lim, dmax(num, smlnum)) : 1.0;
+}
+
+DEVI double rescale(double num, double den, double omega, double smlnum) {
+  return rescale_lim(num, rmul(den, omega), smlnum);
 }

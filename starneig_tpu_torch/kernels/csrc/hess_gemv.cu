@@ -71,7 +71,7 @@ constexpr int kNarrowWarps = 4;  // A x, narrow rows: warps a block
 // M with the streaming hint (read once a call), x through the read-only path
 template <bool kVec>
 __device__ __forceinline__ double2 load_x(const double* p) {
-  return gemv_row::load_x<kVec, false>(p);
+  return gemv_row::load_x<kVec>(p);
 }
 
 // u = M x for rows of more than kNarrowCols columns: warp w of the block
@@ -83,7 +83,7 @@ gemv_n_wide(const double* __restrict__ M, long long ld, int rows, int cols,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const double sum = gemv_row::warp_row_dot<kVec, false>(M + (size_t)row * ld, x, cols, lane);
+  const double sum = gemv_row::warp_row_dot<kVec>(M + (size_t)row * ld, x, cols, lane);
   if (lane == 0) u[row] = sum;
 }
 

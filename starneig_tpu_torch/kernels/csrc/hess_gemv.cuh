@@ -5,11 +5,11 @@
 // 16-byte loads in flight before any is summed; accumulator q sums its
 // pairs in stretch order, then the accumulators fold in halves and the
 // lanes by an xor shuffle.  The order is fixed by the row length alone, so
-// every lane ends with the same bits on every launch.  M is read with the
-// streaming hint (read once a call).  x goes through the read-only path
-// in B1, where nothing writes it during the launch, and through L2
-// (kCoherentX) in H1, whose blocks write the reflector x during the
-// launch: the read-only cache may hold an earlier column's x.
+// every lane ends with the same bits on every launch.  How a row and x
+// are read is the caller's: B1 streams M (__ldcs, read once a call) and
+// reads x through the read-only path; H1 reads a row in up to three
+// stretches (streamed, kept in L2 by the evict-last policy, or held in
+// shared memory) into the same accumulators, and x from shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,34 +18,87 @@ namespace gemv_row {
 
 constexpr int kLoads = 4;  // 16-byte loads in flight a lane
 
+// loaders of M's entries: a pair (16-byte aligned where kVec) and one
+struct StreamM {  // read once: evict first
+  template <bool kVec>
+  __device__ __forceinline__ double2 pair(const double* p) const {
+    if (kVec) return __ldcs(reinterpret_cast<const double2*>(p));
+    return make_double2(__ldcs(p), __ldcs(p + 1));
+  }
+  __device__ __forceinline__ double one(const double* p) const { return __ldcs(p); }
+};
+
+struct KeepM {  // read again and again: L2's evict-last policy
+  unsigned long long pol;
+  template <bool kVec>
+  __device__ __forceinline__ double2 pair(const double* p) const {
+    double2 v;
+    if (kVec) {
+      asm volatile("ld.global.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+                   : "=d"(v.x), "=d"(v.y)
+                   : "l"(p), "l"(pol));
+    } else {
+      v.x = one(p);
+      v.y = one(p + 1);
+    }
+    return v;
+  }
+  __device__ __forceinline__ double one(const double* p) const {
+    double v;
+    asm volatile("ld.global.L2::cache_hint.f64 %0, [%1], %2;" : "=d"(v) : "l"(p), "l"(pol));
+    return v;
+  }
+};
+
+struct SharedM {  // shared memory, 16-byte aligned pairs
+  template <bool kVec>
+  __device__ __forceinline__ double2 pair(const double* p) const {
+    return *reinterpret_cast<const double2*>(p);
+  }
+  __device__ __forceinline__ double one(const double* p) const { return *p; }
+};
+
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long pol;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+// loaders of x: the read-only path (B1), shared memory (H1; 16-byte
+// aligned pairs)
+struct ReadOnlyX {
+  template <bool kVec>
+  __device__ __forceinline__ double2 pair(const double* p) const {
+    if (kVec) return __ldg(reinterpret_cast<const double2*>(p));
+    return make_double2(__ldg(p), __ldg(p + 1));
+  }
+  __device__ __forceinline__ double one(const double* p) const { return __ldg(p); }
+};
+
+struct SharedX {
+  template <bool kVec>
+  __device__ __forceinline__ double2 pair(const double* p) const {
+    return *reinterpret_cast<const double2*>(p);
+  }
+  __device__ __forceinline__ double one(const double* p) const { return *p; }
+};
+
 template <bool kVec>
 __device__ __forceinline__ double2 load_m(const double* p) {
-  if (kVec) return __ldcs(reinterpret_cast<const double2*>(p));
-  return make_double2(__ldcs(p), __ldcs(p + 1));
+  return StreamM().pair<kVec>(p);
 }
 
-template <bool kCoherentX>
-__device__ __forceinline__ double load_x1(const double* p) {
-  return kCoherentX ? __ldcg(p) : __ldg(p);
-}
-
-template <bool kVec, bool kCoherentX>
+template <bool kVec>
 __device__ __forceinline__ double2 load_x(const double* p) {
-  if (kVec)
-    return kCoherentX ? __ldcg(reinterpret_cast<const double2*>(p))
-                      : __ldg(reinterpret_cast<const double2*>(p));
-  return make_double2(load_x1<kCoherentX>(p), load_x1<kCoherentX>(p + 1));
+  return ReadOnlyX().pair<kVec>(p);
 }
 
-// sum over c < cols of m[c] x[c], in every lane of the calling warp; kVec
-// needs m and x 16-byte aligned
-template <bool kVec, bool kCoherentX>
-__device__ __forceinline__ double warp_row_dot(const double* __restrict__ m,
-                                               const double* __restrict__ x, int cols,
-                                               int lane) {
-  double acc[kLoads];
-#pragma unroll
-  for (int q = 0; q < kLoads; ++q) acc[q] = 0.0;
+// acc[q] += the stretch's pairs of m[c] x[c], c < cols, in every lane of
+// the calling warp; kVec needs m and x 16-byte aligned
+template <bool kVec, class LM, class LX>
+__device__ __forceinline__ void row_dot_acc(double (&acc)[kLoads], const double* __restrict__ m,
+                                            const double* __restrict__ x, int cols, int lane,
+                                            const LM& lm, const LX& lx) {
   for (int c0 = 2 * lane; c0 < cols; c0 += 64 * kLoads) {
     double2 a[kLoads], b[kLoads];
 #pragma unroll
@@ -54,16 +107,20 @@ __device__ __forceinline__ double warp_row_dot(const double* __restrict__ m,
       a[q] = make_double2(0.0, 0.0);
       b[q] = make_double2(0.0, 0.0);
       if (c + 1 < cols) {
-        a[q] = load_m<kVec>(m + c);
-        b[q] = load_x<kVec, kCoherentX>(x + c);
+        a[q] = lm.template pair<kVec>(m + c);
+        b[q] = lx.template pair<kVec>(x + c);
       } else if (c < cols) {
-        a[q].x = __ldcs(m + c);
-        b[q].x = load_x1<kCoherentX>(x + c);
+        a[q].x = lm.one(m + c);
+        b[q].x = lx.one(x + c);
       }
     }
 #pragma unroll
     for (int q = 0; q < kLoads; ++q) acc[q] += a[q].x * b[q].x + a[q].y * b[q].y;
   }
+}
+
+// the accumulators folded in halves, then the lanes: every lane's sum
+__device__ __forceinline__ double fold(double (&acc)[kLoads]) {
 #pragma unroll
   for (int w = kLoads / 2; w > 0; w >>= 1)
 #pragma unroll
@@ -71,6 +128,19 @@ __device__ __forceinline__ double warp_row_dot(const double* __restrict__ m,
   double sum = acc[0];
   for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   return sum;
+}
+
+// sum over c < cols of m[c] x[c] (M streamed, x read-only), in every lane
+// of the calling warp; kVec needs m and x 16-byte aligned
+template <bool kVec>
+__device__ __forceinline__ double warp_row_dot(const double* __restrict__ m,
+                                               const double* __restrict__ x, int cols,
+                                               int lane) {
+  double acc[kLoads];
+#pragma unroll
+  for (int q = 0; q < kLoads; ++q) acc[q] = 0.0;
+  row_dot_acc<kVec>(acc, m, x, cols, lane, StreamM(), ReadOnlyX());
+  return fold(acc);
 }
 
 }  // namespace gemv_row

@@ -83,6 +83,54 @@ def _rescale(do, num, den, omega, smlnum):
                        den * omega / torch.clamp_min(num, smlnum), 1.0)
 
 
+def _solve_row(S, k: int, two: bool, lam_r, lam_i, smin, omega, smlnum, do,
+               rhs_r, rhs_i, rhs2_r=None, rhs2_i=None):
+    """The guarded solve of row k (a 1x1 row), or of rows k, k+1 (``two``:
+    a 2x2 block), for every eigenvalue at once, on the right-hand sides
+    rhs = -(the row's dot).  Returns (fac, w1r, w1i, w2r, w2i, near): the
+    scale the vectors take before the new entries join them (1 where not
+    ``do``), x[k] (and x[k+1], None for a 1x1 row), and the close flags."""
+    if not two:
+        # 1x1 row: x[k] = rhs / (S[k, k] - lambda), protected
+        d_r = S[k, k] - lam_r
+        d_i = -lam_i
+        dabs = d_r.abs() + d_i.abs()
+        near = do & (dabs < smin)
+        d_r = torch.where(near, smin, d_r)
+        d_i = torch.where(near, 0.0, d_i)
+        dabs = torch.maximum(dabs, smin)
+        # scale the column before a growing division
+        fac = _rescale(do, rhs_r.abs() + rhs_i.abs(), dabs, omega, smlnum)
+        vr, vi = _cdiv(rhs_r * fac, rhs_i * fac, d_r, d_i, smlnum)
+        return fac, vr, vi, None, None, near
+    # 2x2 block rows (k, k+1): solve the complex 2x2 system
+    n = S.shape[0]
+    k1 = min(k + 1, n - 1)
+    m11r, m11i = S[k, k] - lam_r, -lam_i
+    m22r, m22i = S[k1, k1] - lam_r, -lam_i
+    m12, m21 = S[k, k1], S[k1, k]
+    # det = m11 m22 - m12 m21 (complex)
+    detr = m11r * m22r - m11i * m22i - m12 * m21
+    deti = m11r * m22i + m11i * m22r
+    detabs = detr.abs() + deti.abs()
+    blkscale = m11r.abs() + m11i.abs() + m12.abs() + m21.abs() \
+        + m22r.abs() + m22i.abs() + smin
+    near2 = do & (detabs < smin * blkscale)
+    detr = torch.where(near2, smin * blkscale, detr)
+    deti = torch.where(near2, 0.0, deti)
+    detabs = torch.maximum(detabs, smin * blkscale)
+    # x_k = (m22 r1 - m12 r2) / det ; x_k1 = (m11 r2 - m21 r1) / det
+    n1r = m22r * rhs_r - m22i * rhs_i - m12 * rhs2_r
+    n1i = m22r * rhs_i + m22i * rhs_r - m12 * rhs2_i
+    n2r = m11r * rhs2_r - m11i * rhs2_i - m21 * rhs_r
+    n2i = m11r * rhs2_i + m11i * rhs2_r - m21 * rhs_i
+    nmax = torch.maximum(n1r.abs() + n1i.abs(), n2r.abs() + n2i.abs())
+    fac = _rescale(do, nmax, detabs, omega, smlnum)
+    w1r, w1i = _cdiv(n1r * fac, n1i * fac, detr, deti, smlnum)
+    w2r, w2i = _cdiv(n2r * fac, n2i * fac, detr, deti, smlnum)
+    return fac, w1r, w1i, w2r, w2i, near2
+
+
 def _backsolve_rows(S, lam_r, lam_i, pos, is_pair, kind, smin, omega, smlnum,
                     xr, xi):
     """The row loop of :func:`_backsolve_all`, in place on (xr, xi): the
@@ -97,61 +145,25 @@ def _backsolve_rows(S, lam_r, lam_i, pos, is_pair, kind, smin, omega, smlnum,
         if kind[k] == 2:
             continue        # rows of a 2x2 block are solved at its first row
         in_range = k < pos_t
+        two = kind[k] == 1
         rhs_r = -(xr[:, k + 1:] @ S[k, k + 1:])
         rhs_i = -(xi[:, k + 1:] @ S[k, k + 1:])
-        if kind[k] == 0:
-            # 1x1 row: x[k] = rhs / (S[k, k] - lambda), protected
-            do_1 = in_range
-            d_r = S[k, k] - lam_r
-            d_i = -lam_i
-            dabs = d_r.abs() + d_i.abs()
-            near = do_1 & (dabs < smin)
-            d_r = torch.where(near, smin, d_r)
-            d_i = torch.where(near, 0.0, d_i)
-            dabs = torch.maximum(dabs, smin)
-            close |= near
-            # scale the column before a growing division
-            fac = _rescale(do_1, rhs_r.abs() + rhs_i.abs(), dabs, omega, smlnum)
-            xr *= fac[:, None]
-            xi *= fac[:, None]
-            vr, vi = _cdiv(rhs_r * fac, rhs_i * fac, d_r, d_i, smlnum)
-            xr[:, k] = torch.where(do_1, vr, xr[:, k])
-            xi[:, k] = torch.where(do_1, vi, xi[:, k])
-            continue
-        # 2x2 block rows (k, k+1): solve the complex 2x2 system
-        do_2 = in_range
-        k1 = min(k + 1, n - 1)
-        rhs2_r = -(xr[:, k1 + 1:] @ S[k1, k1 + 1:])
-        rhs2_i = -(xi[:, k1 + 1:] @ S[k1, k1 + 1:])
-        m11r, m11i = S[k, k] - lam_r, -lam_i
-        m22r, m22i = S[k1, k1] - lam_r, -lam_i
-        m12, m21 = S[k, k1], S[k1, k]
-        # det = m11 m22 - m12 m21 (complex)
-        detr = m11r * m22r - m11i * m22i - m12 * m21
-        deti = m11r * m22i + m11i * m22r
-        detabs = detr.abs() + deti.abs()
-        blkscale = m11r.abs() + m11i.abs() + m12.abs() + m21.abs() \
-            + m22r.abs() + m22i.abs() + smin
-        near2 = do_2 & (detabs < smin * blkscale)
-        detr = torch.where(near2, smin * blkscale, detr)
-        deti = torch.where(near2, 0.0, deti)
-        detabs = torch.maximum(detabs, smin * blkscale)
-        close |= near2
-        # x_k = (m22 r1 - m12 r2) / det ; x_k1 = (m11 r2 - m21 r1) / det
-        n1r = m22r * rhs_r - m22i * rhs_i - m12 * rhs2_r
-        n1i = m22r * rhs_i + m22i * rhs_r - m12 * rhs2_i
-        n2r = m11r * rhs2_r - m11i * rhs2_i - m21 * rhs_r
-        n2i = m11r * rhs2_i + m11i * rhs2_r - m21 * rhs_i
-        nmax = torch.maximum(n1r.abs() + n1i.abs(), n2r.abs() + n2i.abs())
-        fac = _rescale(do_2, nmax, detabs, omega, smlnum)
+        rhs2_r = rhs2_i = None
+        if two:
+            k1 = min(k + 1, n - 1)
+            rhs2_r = -(xr[:, k1 + 1:] @ S[k1, k1 + 1:])
+            rhs2_i = -(xi[:, k1 + 1:] @ S[k1, k1 + 1:])
+        fac, w1r, w1i, w2r, w2i, near = _solve_row(
+            S, k, two, lam_r, lam_i, smin, omega, smlnum, in_range, rhs_r, rhs_i,
+            rhs2_r, rhs2_i)
+        close |= near
         xr *= fac[:, None]
         xi *= fac[:, None]
-        w1r, w1i = _cdiv(n1r * fac, n1i * fac, detr, deti, smlnum)
-        w2r, w2i = _cdiv(n2r * fac, n2i * fac, detr, deti, smlnum)
-        xr[:, k] = torch.where(do_2, w1r, xr[:, k])
-        xi[:, k] = torch.where(do_2, w1i, xi[:, k])
-        xr[:, k1] = torch.where(do_2, w2r, xr[:, k1])
-        xi[:, k1] = torch.where(do_2, w2i, xi[:, k1])
+        xr[:, k] = torch.where(in_range, w1r, xr[:, k])
+        xi[:, k] = torch.where(in_range, w1i, xi[:, k])
+        if two:
+            xr[:, k + 1] = torch.where(in_range, w2r, xr[:, k + 1])
+            xi[:, k + 1] = torch.where(in_range, w2i, xi[:, k + 1])
     return close
 
 

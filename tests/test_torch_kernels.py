@@ -372,7 +372,7 @@ def test_reorder_bubble(cuda, G, W, seed, lims):
 # end inside the panel (columns from end - 1 on not reduced)
 H1_CASES = [(300, 0, 24, 0, None), (300, 8, 288, 0, None), (300, 40, 24, 32, 50),
             (1000, 0, 288, 0, None), (1000, 400, 288, 384, None), (1000, 0, 464, 0, 200),
-            (1000, 500, 464, 496, None)]
+            (1000, 500, 464, 496, None), (3000, 0, 288, 0, None), (3000, 1152, 288, 1008, None)]
 
 
 def _h1_check(A, got, k, nb, t0, end):
@@ -387,6 +387,12 @@ def _h1_check(A, got, k, nb, t0, end):
 
 @pytest.mark.parametrize("n,k,nb,t0,end", H1_CASES)
 def test_hess_panel(cuda, n, k, nb, t0, end):
+    """H1 on both sides of the on-chip boundary: n = 300 and 1,000 keep
+    the whole trailing block in shared memory; n = 3,000 streams part of
+    it (panel_plan)."""
+    grid = gpu_hess.panel_grid(n, nb, t0)[0]
+    plan = gpu_hess.panel_plan(n, k, nb, t0, grid, gpu_hess.panel_grid(n, nb, t0)[3])
+    assert (plan.streamed_bytes > 0) == (n == 3000 and t0 == 0)
     A = torch.as_tensor(np.random.default_rng(n + k + nb).standard_normal((n, n)), device=cuda)
     n0 = kernels.LAUNCHES["hess_panel"]
     got = gpu_hess.panel(A, k, nb, t0, end)
@@ -397,6 +403,23 @@ def test_hess_panel(cuda, n, k, nb, t0, end):
     if end is not None:
         tau = torch.diagonal(got[1])
         assert bool((tau[end - 1 - k:] == 0).all())
+
+
+@pytest.mark.parametrize("n,k,nb,t0,smem,l2", [(1000, 0, 288, 0, 40_000, 8 << 20),
+                                               (999, 0, 24, 0, 30_000, 1 << 20),
+                                               (1000, 400, 288, 384, 30_000, 0)])
+def test_hess_panel_streamed(cuda, n, k, nb, t0, smem, l2):
+    """The shared-memory budget (and L2 share) forced small, so that every
+    stretch of the matvec's rows runs at a small n: resident, kept in L2
+    and streamed (none kept where l2 = 0); an odd n."""
+    grid = gpu_hess.panel_grid(n, nb, t0)[0]
+    plan = gpu_hess.panel_plan(n, k, nb, t0, grid, smem, l2)
+    assert plan.res_cols > 0 and plan.streamed_bytes > 0 and (plan.pin_cols > 0) == (l2 > 0)
+    A = torch.as_tensor(np.random.default_rng(n + nb).standard_normal((n, n)), device=cuda)
+    got = gpu_hess.panel(A, k, nb, t0, smem_budget=smem, l2_bytes=l2)
+    _h1_check(A, got, k, nb, t0, None)
+    again = gpu_hess.panel(A, k, nb, t0, smem_budget=smem, l2_bytes=l2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_hess_panel_overlap_is_noop(cuda):
@@ -430,6 +453,37 @@ def test_hess_panel_grid(cuda):
     torch.cuda.synchronize()
     _h1_check(A, gpu_hess.panel(A, 0, nb, grid=7), 0, nb, 0, None)
     _h1_check(A, gpu_hess.panel(A, 0, nb), 0, nb, 0, None)
+
+
+def test_eig_backsolve_block_edges(cuda):
+    """E1 where every group's rows span several of the kernel's row blocks
+    (64 rows) and 2x2 blocks sit at block edges (the boundary moves up a
+    row): n = 600, every eigenvalue selected, against the plain row loop."""
+    from starneig_tpu_torch.api import sep
+    from starneig_tpu_torch.testing import backsolve_blocked as bb
+    n = 600
+    H = torch.as_tensor(generators.random_hessenberg(n, 600), device=cuda)
+    S, _Q, _er, ei, info = sep.schur(H, torch.eye(n, dtype=H.dtype, device=cuda))
+    assert int(info) == 0 and int((ei > 0).sum()) > 100
+    entries = ev._selected_blocks(S, np.ones(n, bool))
+    pos, pair, lr, li = (list(x) for x in zip(*entries))
+    lam_r, lam_i = (torch.tensor(v, dtype=S.dtype, device=cuda) for v in (lr, li))
+    kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs(S, lam_r, lam_i, pos, pair)
+    order = np.argsort(-np.asarray(pos), kind="stable")
+    tops = [max(pos[i] for i in order[g:g + bb.GROUP]) for g in range(0, len(pos), bb.GROUP)]
+    blocks = [blk for top in tops for blk in bb.row_blocks(top, kind)]
+    assert max(len(bb.row_blocks(top, kind)) for top in tops) >= 9
+    assert any(r0 > 0 and kind[r0 - 1] == 2 for r0, _r1 in blocks)   # a moved boundary
+    xrk, xik = xr.clone(), xi.clone()
+    ck = gpu_eig.backsolve(S, lam_r, lam_i, pos, pair, kind, smin, omega, smlnum, xrk, xik)
+    xr2, xi2 = xr.clone(), xi.clone()
+    gpu_eig.backsolve(S, lam_r, lam_i, pos, pair, kind, smin, omega, smlnum, xr2, xi2)
+    assert torch.equal(xrk, xr2) and torch.equal(xik, xi2)
+    cp = ev._backsolve_rows(S, lam_r, lam_i, pos, pair, kind, smin, omega, smlnum, xr, xi)
+    assert torch.equal(ck, cp)
+    for g, w in zip(ev._normalize(xrk, xik), ev._normalize(xr, xi)):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-12
 
 
 def _eig_case(case, cuda):
