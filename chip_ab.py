@@ -10,7 +10,6 @@
     python3 chip_ab.py mainpath [--n N] ROOT [ROOT ...]
     python3 chip_ab.py clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase|panel|backsolve]
         [--skip-cur] [NAME=PATH ...]
-    python3 chip_ab.py l2probe
     python3 chip_ab.py qzinf
     python3 chip_ab.py bitwise [--n N] [--device cpu|cuda] ROOT [ROOT ...]
     python3 chip_ab.py ht [--n N] ROOT [ROOT ...]
@@ -97,21 +96,13 @@ the update warps' waits, updates and barriers.
 ``clock panel`` runs H1 on n=4000's first panel and its k = t0 = 2016
 one: every block's thread 0, a column by phase, the mean over the
 blocks and, for the barriers and reductions, the least and the most
-(the least: the sync's own cost, paid by the block that arrives last);
-then this checkout's H1 on the first panel with the plan's L2 share
-scanned (0-48 MiB: the kept columns get what the panel's V, Y and Z
-rows leave of it).  ``clock backsolve`` runs E1 on the n=4000 chain's
+(the least: the sync's own cost, paid by the block that arrives last).
+``clock backsolve`` runs E1 on the n=4000 chain's
 leading block (made here): block 0's first warp (the longest chain), a
 solved row by phase, and the serial chain (the cycles a row of the phases
 on it).  Both take the older designs (H1's with three grid.sync a column,
 E1's row by row; a NAME=PATH to such a source) as well as the ones that
 ship.
-
-l2probe: whether L2 keeps a buffer read with the evict-last policy while
-80 MB slices stream past it evict-first, as H1's matvec reads its kept
-and streamed columns: rounds of both in one kernel, timed for each policy
-and buffer size (8-40 MiB), with the context's persisting set-aside (read
-only).
 
 qzinf: why G2 (``qz_window.cu``) and its plain twin may end an
 infinite-eigenvalue chase at different steps.  On ``chip_smoke.py``'s w=84
@@ -2424,27 +2415,17 @@ def clock_panel(specs) -> bool:
                 sync = torch.zeros(256, dtype=torch.int32, device=dev)
                 args = [A.data_ptr(), A.stride(0), n, k, nb, t0, n, V.data_ptr(), T.data_ptr(),
                         Y.data_ptr(), P.data_ptr(), work.data_ptr(), nwork]
-                args += [sms] if older else [sync.data_ptr(), sms, plan.res_cols, plan.pin_cols,
+                args += [sms] if older else [sync.data_ptr(), sms, plan.res_cols, plan.vs,
                                             plan.smem_bytes]
                 kernels.check(fn(*args, ctr.data_ptr(), kernels.stream_ptr(A)), "hess_panel_clk")
             run()
             ms = cuda_ms(run, 3)
             c = ctr.view(sms, 32).cpu().tolist()
             _clock_report(f"panel k={k} t0={t0} {name}{' (grid.sync design)' if older else ''}"
-                          + ("" if older else f" (plan {plan.res_cols} resident, {plan.pin_cols}"
-                                             f" kept, {plan.pin0 - plan.cs0} streamed columns)"),
+                          + ("" if older else f" (plan {plan.res_cols} resident, "
+                                             f"{plan.gend - plan.cs0} streamed columns)"),
                           names, c, nb, ms, np.asarray(c)[:, 31].mean())
-    # this checkout's H1 on the first panel with the L2 share of the plan
-    # scanned (0: nothing kept, all left of the resident columns streamed)
-    for l2 in PANEL_L2_SCAN:
-        plan = gpu_hess.panel_plan(n, 0, nb, 0, sms, smem_max, l2)
-        ms = cuda_ms(lambda: gpu_hess.panel(A, 0, nb, 0, l2_bytes=l2), 3)
-        print(f"panel k=0 t0=0 L2 share {l2 >> 20} MiB ({plan.pin_cols} columns kept, "
-              f"{plan.streamed_bytes / 1e6:.1f} MB a column streamed): {ms:.3f} ms", flush=True)
     return True
-
-
-PANEL_L2_SCAN = (0, 24 << 20, 32 << 20, 40 << 20, 48 << 20)
 
 
 # E1's row-by-row design (a warp an eigenvalue, S's row staged a row): the
@@ -2521,105 +2502,6 @@ def clock_backsolve(specs) -> bool:
               + ", ".join(f"{k} {c[i] / rows:.0f}" for i, k in names.items())
               + f"; serial chain {chain / rows:.0f} cycles a row, {chain / 1.98e6:.3f} ms "
               "at 1.98 GHz", flush=True)
-    return True
-
-
-# L2 residency on the card, as H1's matvec meets it: in one kernel, rounds
-# of a buffer P (the kept columns) read with a cache policy followed by a
-# fresh 80 MB slice of a larger buffer read evict-first (the streamed ones)
-L2_PROBE_SRC = r"""
-#include <cuda_runtime.h>
-__device__ __forceinline__ double2 ld_pol(const double* p, unsigned long long pol) {
-  double2 v;
-  asm volatile("ld.global.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
-               : "=d"(v.x), "=d"(v.y) : "l"(p), "l"(pol));
-  return v;
-}
-__global__ void __launch_bounds__(1024) mix(const double* __restrict__ P, long long np,
-                                            const double* __restrict__ S, long long slice,
-                                            int nslices, int rounds, int mode, double* out) {
-  unsigned long long pol = 0;
-  if (mode == 1) asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
-  if (mode == 3) asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
-  const long long t0 = (blockIdx.x * (long long)blockDim.x + threadIdx.x) * 2;
-  const long long st = (long long)gridDim.x * blockDim.x * 2;
-  double s = 0.0;
-  for (int it = 0; it < rounds; ++it) {
-    for (long long i = t0; i < np; i += st) {
-      double2 v;
-      if (mode == 1 || mode == 3) v = ld_pol(P + i, pol);
-      else if (mode == 2) v = __ldcs(reinterpret_cast<const double2*>(P + i));
-      else v = *reinterpret_cast<const double2*>(P + i);
-      s += v.x + v.y;
-    }
-    const double* Si = S + (long long)(it % nslices) * slice;
-    for (long long i = t0; i < slice; i += st) {
-      const double2 v = __ldcs(reinterpret_cast<const double2*>(Si + i));
-      s += v.x + v.y;
-    }
-  }
-  if (s == 1234.5) out[0] = s;
-}
-extern "C" int probe_mix(const void* P, long long np, const void* S, long long slice,
-                         int nslices, int rounds, int mode, void* out, void* stream) {
-  mix<<<132, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(P), np, static_cast<const double*>(S), slice, nslices, rounds,
-      mode, static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-extern "C" int probe_persist(void* limit, void* max_bytes) {
-  size_t o = 0;
-  int dev = 0, mx = 0;
-  cudaError_t e = cudaDeviceGetLimit(&o, cudaLimitPersistingL2CacheSize);
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&mx, cudaDevAttrMaxPersistingL2CacheSize, dev);
-  *static_cast<long long*>(limit) = (long long)o;
-  *static_cast<long long*>(max_bytes) = (long long)mx;
-  return static_cast<int>(e);
-}
-"""
-L2_MODES = (("evict_last", 1), ("no hint", 0), ("evict_first", 3), ("ldcs", 2))
-
-
-def ab_l2probe(_args) -> bool:
-    """l2probe: rounds of P (0-40 MiB, with each cache policy) and a fresh
-    80 MB slice streamed evict-first, in one kernel: the microseconds a
-    round, beside the slice alone (P empty).  Where P stays in L2 a round
-    costs about the slice's time; where it does not, P's bytes at HBM's
-    rate more.  Prints the persisting L2 set-aside the context has and its
-    largest (read only)."""
-    dev = torch.device("cuda:0")
-    out = kernels.BUILD_DIR / "l2probe"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "probe.cu").write_text(L2_PROBE_SRC)
-    r = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
-                        str(out / "probe.so"), str(out / "probe.cu")], capture_output=True,
-                       text=True)
-    if r.returncode != 0:
-        print(r.stderr[-3000:], flush=True)
-        return False
-    lib = ctypes.CDLL(str(out / "probe.so"))
-    lib.probe_mix.argtypes = [_P, _LL, _P, _LL, _I, _I, _I, _P, _P]
-    lib.probe_persist.argtypes = [_P, _P]
-    lim, mx = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    kernels.check(lib.probe_persist(ctypes.addressof(lim), ctypes.addressof(mx)), "probe")
-    print(f"persisting L2 set-aside {lim.value} bytes, largest {mx.value} bytes", flush=True)
-    slice_d, nslices, rounds = 80_000_000 // 8, 5, 20
-    S = torch.ones(slice_d * nslices, dtype=torch.float64, device=dev)
-    sink = torch.zeros(1, dtype=torch.float64, device=dev)
-    st = kernels.stream_ptr(S)
-
-    def run(P, mode):
-        kernels.check(lib.probe_mix(P.data_ptr(), P.numel(), S.data_ptr(), slice_d, nslices,
-                                    rounds, mode, sink.data_ptr(), st), "probe_mix")
-    empty = torch.ones(2, dtype=torch.float64, device=dev)
-    base = cuda_ms(lambda: run(empty, 2), 3) / rounds * 1e3
-    print(f"slice alone: {base:.1f} us a round ({80e6 / base / 1e6:.2f} TB/s)", flush=True)
-    for mb in (8, 16, 24, 32, 40):
-        P = torch.ones(mb * 2**20 // 8, dtype=torch.float64, device=dev)
-        us = {name: cuda_ms(lambda: run(P, mode), 3) / rounds * 1e3 for name, mode in L2_MODES}
-        print(f"P {mb} MiB: us a round " + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
-              + f"; P from HBM would add {mb * 2**20 / 3.35e12 * 1e6:.1f}", flush=True)
     return True
 
 
@@ -2844,7 +2726,7 @@ MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
          "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep,
          "htwin": ab_htwin, "infchase": ab_infchase, "panel": ab_panel,
-         "backsolve": ab_backsolve, "l2probe": ab_l2probe,
+         "backsolve": ab_backsolve,
          "backsolvegep": lambda args: ab_backsolve(args, "backsolvegep")}
 # the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
 PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),

@@ -512,8 +512,8 @@ def phase_hess_panel(dev):
     twin on the card (ops.hessenberg.panel_plain): V, T, Y and P within
     1e-12 max|A|, two launches bit-equal; CUDA-event times of both, beside
     the read-once bound and the column-stream floor, with the launch's plan
-    (the bytes of A[t0:, cs0:] resident in shared memory, kept in L2 and
-    streamed)."""
+    (v's entries staged and the bytes of A[t0:, cs0:] resident in shared
+    memory, and those streamed)."""
     import numpy as np
     import torch
     from starneig_tpu_torch.convert import from_numpy
@@ -538,9 +538,8 @@ def phase_hess_panel(dev):
             f"{ms:.3f} ms ({ms / nb * 1e3:.1f} us a column), plain {plain_ms:.1f} ms, bound "
             f"{bms:.4f} ms ({by}, A read once), column-stream floor {floor:.3f} ms; plan: "
             f"{plan.res_cols} columns resident ({plan.resident_bytes / 1e6:.1f} MB in shared "
-            f"memory, {plan.smem_bytes} bytes a block), {plan.pin_cols} kept in L2 "
-            f"({plan.pinned_bytes / 1e6:.1f} MB), {plan.pin0 - plan.cs0} streamed "
-            f"({plan.streamed_bytes / 1e6:.1f} MB a column)")
+            f"memory, {plan.smem_bytes} bytes a block, v staged from entry {plan.vs}), "
+            f"{plan.gend - plan.cs0} streamed ({plan.streamed_bytes / 1e6:.1f} MB a column)")
         check(max(errs.values()) <= 1e-12 * scale, f"H1 k={k} t0={t0} disagrees: {errs}")
         check(same, f"H1 k={k} t0={t0}: two launches differ")
         rows.append(dict(k=k, t0=t0, max_abs_err=max(errs.values()), errors=errs, ms=ms,

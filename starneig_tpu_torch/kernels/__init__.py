@@ -68,7 +68,7 @@ _SIGNATURES = {
     # (int*, out), smem_max (int*, out)
     "hess_panel_grid": [_I, _I, _I, _P, _P, _P, _P],
     # A, lda, n, k, nb, t0, lim, V, T, Y, P, work, work_len, sync, grid,
-    # res_cols, pin_cols, smem_bytes, stream
+    # res_cols, vs, smem_bytes, stream
     "hess_panel": [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I,
                    _P],
     # S, n, lam_r, lam_i, smin, pos, pair, kind, order, m, omega, smlnum,

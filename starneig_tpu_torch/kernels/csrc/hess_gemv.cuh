@@ -7,9 +7,9 @@
 // lanes by an xor shuffle.  The order is fixed by the row length alone, so
 // every lane ends with the same bits on every launch.  How a row and x
 // are read is the caller's: B1 streams M (__ldcs, read once a call) and
-// reads x through the read-only path; H1 reads a row in up to three
-// stretches (streamed, kept in L2 by the evict-last policy, or held in
-// shared memory) into the same accumulators, and x from shared memory.
+// reads x through the read-only path; H1 reads a row in stretches
+// (streamed, or held in shared memory) into the same accumulators, and x
+// from shared memory or, where it is not staged there, from L2.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,29 +28,8 @@ struct StreamM {  // read once: evict first
   __device__ __forceinline__ double one(const double* p) const { return __ldcs(p); }
 };
 
-struct KeepM {  // read again and again: L2's evict-last policy
-  unsigned long long pol;
-  template <bool kVec>
-  __device__ __forceinline__ double2 pair(const double* p) const {
-    double2 v;
-    if (kVec) {
-      asm volatile("ld.global.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
-                   : "=d"(v.x), "=d"(v.y)
-                   : "l"(p), "l"(pol));
-    } else {
-      v.x = one(p);
-      v.y = one(p + 1);
-    }
-    return v;
-  }
-  __device__ __forceinline__ double one(const double* p) const {
-    double v;
-    asm volatile("ld.global.L2::cache_hint.f64 %0, [%1], %2;" : "=d"(v) : "l"(p), "l"(pol));
-    return v;
-  }
-};
-
-struct SharedM {  // shared memory, 16-byte aligned pairs
+// a loader of M or x in shared memory (H1), 16-byte aligned pairs
+struct Shared {
   template <bool kVec>
   __device__ __forceinline__ double2 pair(const double* p) const {
     return *reinterpret_cast<const double2*>(p);
@@ -58,14 +37,7 @@ struct SharedM {  // shared memory, 16-byte aligned pairs
   __device__ __forceinline__ double one(const double* p) const { return *p; }
 };
 
-__device__ __forceinline__ unsigned long long evict_last_policy() {
-  unsigned long long pol;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(pol));
-  return pol;
-}
-
-// loaders of x: the read-only path (B1), shared memory (H1; 16-byte
-// aligned pairs)
+// loaders of x: the read-only path (B1)
 struct ReadOnlyX {
   template <bool kVec>
   __device__ __forceinline__ double2 pair(const double* p) const {
@@ -73,14 +45,6 @@ struct ReadOnlyX {
     return make_double2(__ldg(p), __ldg(p + 1));
   }
   __device__ __forceinline__ double one(const double* p) const { return __ldg(p); }
-};
-
-struct SharedX {
-  template <bool kVec>
-  __device__ __forceinline__ double2 pair(const double* p) const {
-    return *reinterpret_cast<const double2*>(p);
-  }
-  __device__ __forceinline__ double one(const double* p) const { return *p; }
 };
 
 template <bool kVec>

@@ -20,14 +20,14 @@
 // every block resident) runs the column loop.  Block b owns a fixed slab
 // of rows [t0 + b rpb, t0 + (b + 1) rpb) in every phase, so what a block
 // writes for its rows (a, v, Y, Z, V's rows) only it reads back.
-//   The frozen matrix stays on the chip where it fits (a plan from the
-// wrapper, ops/gpu_hess.py:panel_plan): each block keeps its slab's
-// right-most res_cols columns [gend, n) in shared memory for the whole
-// panel; the pin_cols columns left of them, [pin0, gend), as many as L2
-// holds beside the panel's own V, Y and Z rows, are read with L2's
-// evict-last policy, so that they stay in L2 from one column to the next;
-// only [c', pin0) streams from HBM, evict-first.  A column's reflector v
-// is staged once in shared memory; no warp reads it from L2 a row.
+//   A plan from the wrapper (ops/gpu_hess.py:panel_plan) splits each
+// block's shared memory between the column's reflector and the frozen
+// matrix.  v[vs:n) is staged once a column, so no warp reads it from L2 a
+// row: all of v from c' where it fits (8 n bytes: up to n of about 27,000
+// beside the scratch), else its right-most part, the rest of it read from
+// the published column through L2 as each row needs it.  What the
+// staged v leaves holds the slab's right-most res_cols columns [gend, n)
+// of A for the whole panel; only [c', gend) streams from HBM, evict-first.
 //   Products that mix rows go through per-block partial sums, added in two
 // levels behind epoch flags: a block publishes its partial with its flag;
 // the first block of each group of kGroup waits for its members' flags,
@@ -58,8 +58,9 @@
 //   (d) T[:j, j] = -tau T q, its rows dealt out over the blocks (a row i
 //       to block i mod grid); u[r] = A[r, c':] v[c':] on the slab, a warp
 //       a row in B1's wide-row form (hess_gemv.cuh) over the row's
-//       streamed, kept and resident stretches, c' = c + 1 rounded down to
-//       even (v is zero above c + 1); Y[r, j] = tau (u[r] - Y[r, :j] q),
+//       streamed and resident stretches (v from L2 left of vs), c' = c + 1
+//       rounded down to even (v is zero above c + 1); Y[r, j] = tau (u[r]
+//       - Y[r, :j] q),
 //       which needs no T and no U.
 //   Column j + 1's (b) reads T's column j, which reduce W publishes, and
 //   its (c) V[c + 2, :j + 1], which reduce N publishes.  The passes over
@@ -93,8 +94,8 @@ struct Panel {
   const double* A;
   long long lda;
   int n, k, nb, t0, lim, rpb;
-  int v0;                      // v's first staged entry: t0 rounded down to even
-  int gend, pin0, ws;          // resident columns [gend, n) (row stride ws); kept [pin0, gend)
+  int vs;                      // v's first staged entry (even)
+  int gend, ws;                // resident columns [gend, n), row stride ws
   double *V, *T, *Y, *P;       // n x nb (T nb x nb), row-major, zeroed by the caller
   double* Z;                   // n x nb: V T^T on the slabs' rows
   double* a;                   // n: the corrected column, published for every block's v
@@ -105,14 +106,38 @@ struct Panel {
 };
 
 // shared doubles before the resident columns (ops/gpu_hess.py:
-// panel_plan computes the same): v's staged entries, six slab vectors (a,
-// v, the next column, Y q, the next Y V[c] and Y[:, j]), three vectors of
-// length nb and the column's scalars, rounded up to even (the resident
+// panel_plan computes the same): nv staged entries of v, six slab vectors
+// (a, v, the next column, Y q, the next Y V[c] and Y[:, j]), three vectors
+// of length nb and the column's scalars, rounded up to even (the resident
 // rows are read in 16-byte pairs)
-__host__ __device__ long long fixed_doubles(int n, int nb, int t0, int rpb) {
-  const long long vlen = ((long long)(n - (t0 & ~1)) + 1) & ~1LL;
-  return (vlen + 6LL * rpb + 3LL * nb + 8 + 1) & ~1LL;
+__host__ __device__ long long fixed_doubles(int nv, int nb, int rpb) {
+  return ((((long long)nv + 1) & ~1LL) + 6LL * rpb + 3LL * nb + 8 + 1) & ~1LL;
 }
+
+// v[r] from the corrected column's a[r], alike in every block: 0 on rows
+// <= c, 1 on c + 1, a scale below (0 where dlarfg found nothing to reduce)
+__device__ __forceinline__ double v_of(int r, double a, int c, double scale, bool degen) {
+  return r <= c ? 0.0 : (r == c + 1 ? 1.0 : (degen ? 0.0 : a * scale));
+}
+
+// the matvec's loader of v where it is not staged: from the published
+// column a through L2, by v_of (the staged entries' operations, so their
+// bits); a pair's entry is even, and a 16-byte aligned
+struct PublishedV {
+  const double* a;
+  int c;
+  double scale;
+  bool degen;
+  template <bool kVec>
+  __device__ __forceinline__ double2 pair(const double* p) const {
+    const double2 x = __ldcg(reinterpret_cast<const double2*>(p));
+    const int r = static_cast<int>(p - a);
+    return make_double2(v_of(r, x.x, c, scale, degen), v_of(r + 1, x.y, c, scale, degen));
+  }
+  __device__ __forceinline__ double one(const double* p) const {
+    return v_of(static_cast<int>(p - a), __ldcg(p), c, scale, degen);
+  }
+};
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
@@ -248,9 +273,9 @@ __global__ void __launch_bounds__(kThreads, 1) hess_panel_kernel(Panel p) {
   const int sub = tid % kTPR, rsub = tid / kTPR;  // the row passes: kTPR threads a row
   const int b = blockIdx.x, nblk = gridDim.x;
   const int r0 = min(n, p.t0 + b * p.rpb), r1 = min(n, r0 + p.rpb), nr = r1 - r0;
-  const int ws = p.ws, gend = p.gend, pin0 = p.pin0, v0 = p.v0;
-  const int vlen = ((n - v0) + 1) & ~1;
-  double* vsh = sm;                      // vlen: v[v0:n] for the matvec
+  const int ws = p.ws, gend = p.gend, vs = p.vs;
+  const int vlen = ((n - vs) + 1) & ~1;
+  double* vsh = sm;                      // vlen: v[vs:n] for the matvec
   double* a_s = vsh + vlen;              // rpb: the slab's corrected column
   double* v_s = a_s + p.rpb;             // rpb: the slab's reflector entries
   double* acol = v_s + p.rpb;            // rpb: the slab's A[:, c], read a column ahead
@@ -261,12 +286,11 @@ __global__ void __launch_bounds__(kThreads, 1) hess_panel_kernel(Panel p) {
   double* w_s = vc_s + nb;               // nb: w1 = V^T a, then q = V^T v
   double* t_s = w_s + nb;                // nb: T[:j, j - 1], then V_tail^T a_tail
   double* sc = t_s + nb;                 // 8: the column's scalars
-  double* sA = sm + fixed_doubles(n, nb, p.t0, p.rpb);  // rpb x ws: the slab's columns [gend, n)
+  double* sA = sm + fixed_doubles(n - vs, nb, p.rpb);  // rpb x ws: the slab's columns [gend, n)
   unsigned* bflag_w = p.sync;
   unsigned* gflag_w = bflag_w + kMaxGrid;
   unsigned* bflag_n = gflag_w + kMaxGroups;
   unsigned* gflag_n = bflag_n + kMaxGrid;
-  const unsigned long long keep = gemv_row::evict_last_policy();
 
   // rows above t0 take no part in the loop: P = the panel's columns there
   // (_apply_panel rebuilds them); Y and V stay zero
@@ -402,10 +426,6 @@ __global__ void __launch_bounds__(kThreads, 1) hess_panel_kernel(Panel p) {
     const double tau = sc[0];
     const double vscale = sc[5];
     const bool degen = sc[4] != 0.0;
-    // v[r] from a[r] alike in every block: 0 on rows <= c, 1 on c + 1
-    auto vof = [&](int r, double a) {
-      return r <= c ? 0.0 : (r == c + 1 ? 1.0 : (degen ? 0.0 : a * vscale));
-    };
     {
       const double beta = sc[2];
       for (int rr = tid; rr < nr; rr += kThreads) {
@@ -413,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, 1) hess_panel_kernel(Panel p) {
         const double a = a_s[rr];
         double v = 0.0, pc = a;  // outside [begin, end): the corrected column
         if (active) {
-          v = vof(r, a);
+          v = v_of(r, a, c, vscale, degen);
           pc = r <= c ? a : (r == c + 1 ? beta : 0.0);
         }
         v_s[rr] = v;
@@ -430,10 +450,10 @@ __global__ void __launch_bounds__(kThreads, 1) hess_panel_kernel(Panel p) {
       w_s[i] = active ? vn + (degen ? 0.0 : t_s[i] * vscale) : 0.0;
     }
     if (active) {
-      // v over [c', n) for the matvec, from the published column
+      // v over [max(c', vs), n) for the matvec, from the published column
 #pragma unroll 8
-      for (int i = cs - v0 + tid; i < n - v0; i += kThreads)
-        vsh[i] = vof(v0 + i, __ldcg(p.a + v0 + i));
+      for (int i = max(cs, vs) - vs + tid; i < n - vs; i += kThreads)
+        vsh[i] = v_of(vs + i, __ldcg(p.a + vs + i), c, vscale, degen);
     }
     __syncthreads();
     // one pass over the slab's Y[:, :j]: Y V[c + 1, :j] (the next column's
@@ -460,7 +480,10 @@ __global__ void __launch_bounds__(kThreads, 1) hess_panel_kernel(Panel p) {
     if (j + 1 < nb)
       for (int rr = tid; rr < nr; rr += kThreads)
         acol[rr] = p.A[(size_t)(r0 + rr) * p.lda + c + 1];
-    const int s2 = max(cs, pin0), s3 = max(cs, gend);
+    // the row's stretches: [cs, s1) streamed with v from L2, [s1, gend)
+    // streamed with v staged, [s2, n) resident (vs <= gend: the plan)
+    const int s1 = min(max(cs, vs), gend), s2 = max(cs, gend);
+    const PublishedV vg{p.a, c, vscale, degen};
     for (int rr = warp; rr < nr; rr += kWarps) {
       const int r = r0 + rr;
       double u = 0.0;
@@ -469,15 +492,15 @@ __global__ void __launch_bounds__(kThreads, 1) hess_panel_kernel(Panel p) {
 #pragma unroll
         for (int q = 0; q < gemv_row::kLoads; ++q) acc[q] = 0.0;
         const double* arow = p.A + (size_t)r * p.lda;
-        if (cs < pin0)
-          gemv_row::row_dot_acc<kVec>(acc, arow + cs, vsh + (cs - v0), pin0 - cs, lane,
-                                      gemv_row::StreamM(), gemv_row::SharedX());
-        if (s2 < gend)
-          gemv_row::row_dot_acc<kVec>(acc, arow + s2, vsh + (s2 - v0), gend - s2, lane,
-                                      gemv_row::KeepM{keep}, gemv_row::SharedX());
-        if (s3 < n)
-          gemv_row::row_dot_acc<true>(acc, sA + rr * ws + (s3 - gend), vsh + (s3 - v0), n - s3,
-                                      lane, gemv_row::SharedM(), gemv_row::SharedX());
+        if (cs < s1)
+          gemv_row::row_dot_acc<kVec>(acc, arow + cs, p.a + cs, s1 - cs, lane,
+                                      gemv_row::StreamM(), vg);
+        if (s1 < gend)
+          gemv_row::row_dot_acc<kVec>(acc, arow + s1, vsh + (s1 - vs), gend - s1, lane,
+                                      gemv_row::StreamM(), gemv_row::Shared());
+        if (s2 < n)
+          gemv_row::row_dot_acc<true>(acc, sA + rr * ws + (s2 - gend), vsh + (s2 - vs), n - s2,
+                                      lane, gemv_row::Shared(), gemv_row::Shared());
         u = gemv_row::fold(acc);
       }
       if (lane == 0) p.Y[(size_t)r * nb + j] = ycol[rr] = tau * (u - y_s[rr]);
@@ -504,7 +527,7 @@ cudaError_t auto_grid(int n, int nb, int t0, int* grid) {
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   const int rpb = (n - t0 + sms - 1) / sms;
-  e = occupancy<true>(sizeof(double) * fixed_doubles(n, nb, t0, rpb), &occ);
+  e = occupancy<true>(sizeof(double) * fixed_doubles(0, nb, rpb), &occ);
   if (e != cudaSuccess) return e;
   *grid = occ >= 1 ? sms : 0;
   return *grid > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
@@ -550,13 +573,14 @@ extern "C" int hess_panel_grid(int n, int nb, int t0, void* grid, void* work, vo
 // k..k+nb-1 with t0 <= k, k + nb <= n; V, T, Y, P zeroed by the caller;
 // work of hess_panel_grid's doubles for that grid and its counters,
 // zeroed.  The plan (ops/gpu_hess.py:panel_plan): res_cols columns [n -
-// res_cols, n) of each slab resident in shared memory, pin_cols columns
-// left of them kept in L2, smem_bytes of shared memory a block.  A grid
-// larger than the card holds at once fails
-// (cudaErrorCooperativeLaunchTooLarge), as does a plan that does not fit.
+// res_cols, n) of each slab resident in shared memory, v staged from
+// entry vs (even, from k + 1 rounded down to even up to n - res_cols),
+// smem_bytes of shared memory a block.  A grid larger than the card holds
+// at once fails (cudaErrorCooperativeLaunchTooLarge), as does a plan that
+// does not fit.
 extern "C" int hess_panel(const void* A, long long lda, int n, int k, int nb, int t0, int lim,
                           void* V, void* T, void* Y, void* P, void* work, long long work_len,
-                          void* sync, int grid, int res_cols, int pin_cols, int smem_bytes,
+                          void* sync, int grid, int res_cols, int vs, int smem_bytes,
                           void* stream) {
   if (nb <= 0 || t0 < 0 || t0 > k || k + nb > n) return static_cast<int>(cudaErrorInvalidValue);
   if (grid <= 0) {
@@ -569,11 +593,12 @@ extern "C" int hess_panel(const void* A, long long lda, int n, int k, int nb, in
   const int ng = (grid + kGroup - 1) / kGroup;
   const int rpb = (n - t0 + grid - 1) / grid;
   const int cs0 = (k + 1) & ~1;
-  const int gend = n - res_cols, pin0 = gend - pin_cols;
+  const int gend = n - res_cols;
   const int ws = res_cols + (res_cols & 1);
-  const long long need = sizeof(double) * (fixed_doubles(n, nb, t0, rpb) + (long long)rpb * ws);
+  const long long need = sizeof(double) * (fixed_doubles(n - vs, nb, rpb) + (long long)rpb * ws);
   if (work_len < work_doubles(n, nb, grid) || ng > kMaxGroups || grid > kMaxGrid || grid > 32 * kNormPer ||
-      res_cols < 0 || pin_cols < 0 || (gend & 1) || (pin0 & 1) || pin0 < cs0 ||
+      res_cols < 0 || (res_cols > 0 && (gend & 1)) || (vs & 1) || vs < cs0 || vs > gend ||
+      gend < cs0 ||
       smem_bytes < need)
     return static_cast<int>(cudaErrorInvalidValue);
   Panel p;
@@ -585,9 +610,8 @@ extern "C" int hess_panel(const void* A, long long lda, int n, int k, int nb, in
   p.t0 = t0;
   p.lim = lim;
   p.rpb = rpb;
-  p.v0 = t0 & ~1;
+  p.vs = vs;
   p.gend = gend;
-  p.pin0 = pin0;
   p.ws = ws;
   p.V = static_cast<double*>(V);
   p.T = static_cast<double*>(T);

@@ -13,9 +13,9 @@ H1 (``kernels/csrc/hess_panel.cu``) runs the JAX package's panel loop
 (``starneig_tpu/ops/hessenberg.py:_panel``, one ``fori_loop`` a panel) as
 one cooperative launch.  :func:`panel` is its wrapper, for CUDA tensors
 only; ``ops/hessenberg.py:_panel`` calls it on the card and the plain
-twin ``panel_factor`` on the CPU.  :func:`panel_plan` decides where a
-launch keeps the frozen matrix its matvecs read (shared memory, L2 under
-the evict-last policy, or streamed); it needs no card.
+twin ``panel_factor`` on the CPU.  :func:`panel_plan` splits a launch's
+shared memory between the reflector its matvecs read and the columns of
+the frozen matrix it keeps there (the rest streamed); it needs no card.
 """
 
 from __future__ import annotations
@@ -59,73 +59,67 @@ def gemv(M, x, trans: bool = False):
 # the shared memory one block may have on an H100 (bytes,
 # cudaDevAttrMaxSharedMemoryPerBlockOptin); the wrapper reads the card's
 H100_SMEM = 232448
-# the L2 bytes an H1 launch lets the columns it keeps and the panel's own
-# V, Y and Z rows (read again every column) fill together: about half of
-# the H100's 50 MB L2, the rest for the streamed columns' passage.  The
-# kept columns get what the panel's arrays leave (nothing at n = 4000's
-# first panel: keeping columns there evicted V, Y and Z and slowed the
-# panel, PERF.md)
-L2_PIN_BYTES = 24 << 20
 
 
 class PanelPlan(NamedTuple):
-    """Where an H1 launch keeps the frozen A[t0:, cs0:] its matvecs read
-    (cs0 = k + 1 rounded down to even): columns [gend, n) of each slab in
-    the block's shared memory, [pin0, gend) in L2 under the evict-last
-    policy, [cs0, pin0) streamed from HBM every column."""
+    """Where an H1 launch keeps what its matvecs read (cs0 = k + 1 rounded
+    down to even): v[vs:n) staged in shared memory (v[cs0:vs) read from L2),
+    columns [gend, n) of each slab's A[t0:, cs0:] in the block's shared
+    memory, [cs0, gend) streamed from HBM every column."""
     grid: int
     rpb: int
     cs0: int
+    vs: int
     res_cols: int
-    pin_cols: int
     gend: int
-    pin0: int
     smem_bytes: int
     resident_bytes: int
-    pinned_bytes: int
     streamed_bytes: int
 
 
-def _fixed_doubles(n: int, nb: int, t0: int, rpb: int) -> int:
+def _fixed_doubles(nv: int, nb: int, rpb: int) -> int:
     """hess_panel.cu's fixed_doubles: the shared doubles before the
-    resident columns (v's staged entries, six slab vectors, three
+    resident columns (nv staged entries of v, six slab vectors, three
     nb-vectors and the column's scalars)."""
-    vlen = (n - (t0 & ~1) + 1) & ~1
-    return (vlen + 6 * rpb + 3 * nb + 8 + 1) & ~1
+    return (((nv + 1) & ~1) + 6 * rpb + 3 * nb + 8 + 1) & ~1
 
 
 def panel_plan(n: int, k: int, nb: int, t0: int = 0, grid: int = 132,
-               smem_budget: int = H100_SMEM, l2_bytes: int = L2_PIN_BYTES) -> PanelPlan:
-    """The layout of an H1 launch on ``grid`` blocks: as many of each
-    slab's right-most columns in shared memory as ``smem_budget`` bytes a
-    block leave beside the fixed scratch, then the columns left of them
-    kept in L2 as far as ``l2_bytes`` less the panel's V, Y and Z rows
-    (3 (n - t0) nb doubles) allow, the rest streamed.  Column bounds are
-    even (the rows are read in 16-byte pairs).  Needs no card."""
+               smem_budget: int = H100_SMEM) -> PanelPlan:
+    """The layout of an H1 launch on ``grid`` blocks within ``smem_budget``
+    bytes of shared memory a block: v over [cs0, n) staged where it fits
+    beside the fixed scratch, and as many of each slab's right-most columns
+    as the rest holds; where it does not fit, only v's right-most entries,
+    no resident columns, and v's others read from L2.  Column bounds and
+    vs are even (rows and v are read in 16-byte pairs).  Needs no card."""
     rows = n - t0
     rpb = -(-rows // grid)
     cs0 = (k + 1) & ~1
     span = n - cs0
-    fixed = 8 * _fixed_doubles(n, nb, t0, rpb)
     per_col = 8 * max(rpb, 1)
 
-    def smem(w):
-        return fixed + per_col * (w + (w & 1))
-    w = max(0, min(span, (smem_budget - fixed) // per_col))
-    if (n - w) & 1:
-        w = w - 1 if w > 0 else 1
-    while w > 0 and smem(w) > smem_budget:
-        w -= 2
-    if smem(max(w, 0)) > smem_budget or (n - w) & 1 or w < 0:
-        raise ValueError(f"panel_plan: {smem_budget} bytes of shared memory hold no plan "
-                         f"(n={n}, nb={nb}, t0={t0}, grid={grid})")
+    def smem(vs, w):
+        return 8 * _fixed_doubles(n - vs, nb, rpb) + per_col * (w + (w & 1))
+    vs, w = cs0, 0
+    if smem(cs0, 0) <= smem_budget:
+        w = max(0, min(span, (smem_budget - smem(cs0, 0)) // per_col))
+        if w > 0 and (n - w) & 1:
+            w -= 1
+        while w > 0 and smem(cs0, w) > smem_budget:
+            w -= 2
+        w = max(w, 0)
+    else:
+        # only v's right-most entries, as many as the scratch leaves room for
+        vs = max(cs0, n - max(0, smem_budget // 8 - _fixed_doubles(0, nb, rpb)))
+        vs += vs & 1
+        while vs < n and smem(vs, 0) > smem_budget:
+            vs += 2
+        if vs >= n:
+            raise ValueError(f"panel_plan: {smem_budget} bytes of shared memory hold no plan "
+                             f"(n={n}, nb={nb}, t0={t0}, grid={grid})")
     gend = n - w
-    keep = max(0, l2_bytes - 8 * 3 * rows * nb)
-    pin = min(gend - cs0, keep // (8 * rows)) if rows else 0
-    pin -= pin & 1
-    pin0 = gend - pin
-    return PanelPlan(grid, rpb, cs0, w, pin, gend, pin0, smem(w), 8 * rows * w, 8 * rows * pin,
-                     8 * rows * (pin0 - cs0))
+    return PanelPlan(grid, rpb, cs0, vs, w, gend, smem(vs, w), 8 * rows * w,
+                     8 * rows * (gend - cs0))
 
 
 def panel_grid(n: int, nb: int, t0: int = 0, grid: int = 0):
@@ -141,14 +135,13 @@ def panel_grid(n: int, nb: int, t0: int = 0, grid: int = 0):
     return g.value, work.value, nsync.value, smem.value
 
 
-def panel(A, k: int, nb: int, t0: int = 0, end=None, grid: int = 0, smem_budget=None,
-          l2_bytes: int = L2_PIN_BYTES):
+def panel(A, k: int, nb: int, t0: int = 0, end=None, grid: int = 0, smem_budget=None):
     """``ops.hessenberg._panel`` on the card: (V, T, Y, P) of columns
     k..k+nb-1 of A (float64 CUDA, n x n, unit column stride; unchanged) in
     one cooperative launch of H1, on the layout of :func:`panel_plan`.
     ``grid`` (blocks) overrides the SM count, one the card cannot hold at
-    once raises; ``smem_budget`` (bytes a block, at most the card's) and
-    ``l2_bytes`` cap the shared-memory and L2 parts of the plan."""
+    once raises; ``smem_budget`` (bytes a block, at most the card's) caps
+    the plan."""
     n = A.shape[0]
     if not (A.is_cuda and A.dtype == torch.float64 and A.dim() == 2
             and A.shape[1] == n and A.stride(1) == 1):
@@ -159,8 +152,7 @@ def panel(A, k: int, nb: int, t0: int = 0, end=None, grid: int = 0, smem_budget=
     V, Y, P = (A.new_zeros((n, nb)) for _ in range(3))
     T = A.new_zeros((nb, nb))
     g, nwork, nsync, smax = panel_grid(n, nb, t0, grid)
-    plan = panel_plan(n, k, nb, t0, g, smax if smem_budget is None else min(smem_budget, smax),
-                      l2_bytes)
+    plan = panel_plan(n, k, nb, t0, g, smax if smem_budget is None else min(smem_budget, smax))
     work = A.new_empty(nwork)
     sync = torch.zeros(nsync, dtype=torch.int32, device=A.device)
     lib = kernels.lib()
@@ -168,5 +160,5 @@ def panel(A, k: int, nb: int, t0: int = 0, end=None, grid: int = 0, smem_budget=
     kernels.check(lib.hess_panel(
         A.data_ptr(), A.stride(0), n, k, nb, t0, lim, V.data_ptr(), T.data_ptr(),
         Y.data_ptr(), P.data_ptr(), work.data_ptr(), nwork, sync.data_ptr(), g,
-        plan.res_cols, plan.pin_cols, plan.smem_bytes, kernels.stream_ptr(A)), "hess_panel")
+        plan.res_cols, plan.vs, plan.smem_bytes, kernels.stream_ptr(A)), "hess_panel")
     return V, T, Y, P

@@ -13,6 +13,7 @@ import torch
 
 from starneig_tpu.config import HessenbergConf as JConf
 from starneig_tpu.ops import hessenberg as jhess
+from starneig_tpu_torch.config import HessenbergConf
 from starneig_tpu_torch.convert import conf_from_jax, from_numpy, to_numpy
 from starneig_tpu_torch.ops import hessenberg as thess
 
@@ -137,50 +138,69 @@ PLAN_CASES = [(4000, 0, 288, 0), (4000, 2016, 288, 2016), (10000, 0, 464, 0),
 @pytest.mark.parametrize("n,k,nb,t0", PLAN_CASES)
 def test_panel_plan(n, k, nb, t0):
     """Each slab's resident columns, v and the scratch fit in 227 KB; the
-    resident, kept and streamed columns cover A[t0:, cs0:] exactly once,
-    at even column bounds; the kept part within the L2 budget."""
+    resident and streamed columns cover A[t0:, cs0:] exactly once, at even
+    column bounds; all of v from cs0 is staged at these sizes."""
     gh = thess.gpu_hess
     plan = gh.panel_plan(n, k, nb, t0, 132)
     rows = n - t0
     assert plan.rpb * 132 >= rows
     assert plan.smem_bytes <= gh.H100_SMEM == 227 * 1024
     ws = plan.res_cols + (plan.res_cols & 1)
-    assert plan.smem_bytes == 8 * (gh._fixed_doubles(n, nb, t0, plan.rpb) + plan.rpb * ws)
-    assert plan.cs0 == (k + 1) & ~1
-    assert plan.cs0 <= plan.pin0 <= plan.gend <= n
-    assert plan.gend % 2 == 0 and plan.pin0 % 2 == 0
-    assert plan.gend == n - plan.res_cols and plan.pin0 == plan.gend - plan.pin_cols
-    parts = (plan.resident_bytes, plan.pinned_bytes, plan.streamed_bytes)
+    assert plan.smem_bytes == 8 * (gh._fixed_doubles(n - plan.vs, nb, plan.rpb) + plan.rpb * ws)
+    assert plan.cs0 == (k + 1) & ~1 == plan.vs
+    assert plan.cs0 <= plan.gend <= n and plan.gend % 2 == 0
+    assert plan.gend == n - plan.res_cols
+    parts = (plan.resident_bytes, plan.streamed_bytes)
     assert min(parts) >= 0 and sum(parts) == 8 * rows * (n - plan.cs0)
-    assert plan.streamed_bytes == 8 * rows * (plan.pin0 - plan.cs0)
-    assert plan.pinned_bytes + 8 * 3 * rows * nb <= max(gh.L2_PIN_BYTES, 8 * 3 * rows * nb)
+    assert plan.streamed_bytes == 8 * rows * (plan.gend - plan.cs0)
     assert plan.res_cols > 0
 
 
-@pytest.mark.parametrize("n,k,t0", [(4000, 2016, 2016), (4000, 2304, 2016), (2100, 0, 0),
+@pytest.mark.parametrize("n,k,t0", [(4000, 2160, 2160), (4000, 2448, 2016), (1848, 0, 0),
                                     (1000, 0, 0), (300, 8, 0)])
 def test_panel_plan_on_chip(n, k, t0):
-    """Below n - t0 of about 2,100 rows (nb = 288) the whole trailing block
-    stays on the chip (shared memory, and L2 beside the panel's V, Y and Z
-    rows): nothing is streamed; above it, some is."""
-    plan = thess.gpu_hess.panel_plan(n, k, 288, t0, 132)
-    assert plan.streamed_bytes == 0
-    assert plan.resident_bytes + plan.pinned_bytes == 8 * (n - t0) * (n - plan.cs0)
-    assert thess.gpu_hess.panel_plan(4000, 1760, 288, 1760, 132).streamed_bytes > 0
+    """Up to n - cs0 of about 1,850 columns (nb = 288, 132 blocks) the
+    whole trailing block stays in shared memory beside v: nothing is
+    streamed; above it, some is."""
+    gh = thess.gpu_hess
+    plan = gh.panel_plan(n, k, 288, t0, 132)
+    assert plan.streamed_bytes == 0 and plan.gend == plan.cs0
+    assert plan.resident_bytes == 8 * (n - t0) * (n - plan.cs0)
+    assert gh.panel_plan(4000, 2016, 288, 2016, 132).streamed_bytes > 0
+    assert gh.panel_plan(1850, 0, 288, 0, 132).streamed_bytes > 0
 
 
 def test_panel_plan_caps():
-    """A small shared-memory budget and L2 share push the plan's columns to
-    L2 and then to the stream; a budget that holds not even the scratch is
-    refused."""
+    """A small shared-memory budget pushes the plan's columns to the
+    stream, and a smaller one v's left entries to L2; a budget that holds
+    not even the scratch is refused."""
     gh = thess.gpu_hess
     full = gh.panel_plan(1000, 0, 288, 0, 132)
-    assert full.streamed_bytes == 0 and full.pin_cols == 0 and full.res_cols == 1000
-    small = gh.panel_plan(1000, 0, 288, 0, 132, smem_budget=40_000, l2_bytes=8 << 20)
-    assert 0 < small.res_cols < 1000 and 0 < small.pin_cols and small.streamed_bytes > 0
+    assert full.streamed_bytes == 0 and full.res_cols == 1000 and full.vs == 0
+    small = gh.panel_plan(1000, 0, 288, 0, 132, smem_budget=40_000)
+    assert 0 < small.res_cols < 1000 and small.streamed_bytes > 0 and small.vs == 0
     assert small.smem_bytes <= 40_000
-    odd = gh.panel_plan(999, 0, 24, 0, 132, smem_budget=30_000, l2_bytes=1 << 19)
+    odd = gh.panel_plan(999, 0, 24, 0, 132, smem_budget=30_000)
     assert odd.gend % 2 == 0 and odd.smem_bytes <= 30_000
-    assert odd.resident_bytes + odd.pinned_bytes + odd.streamed_bytes == 8 * 999 * 999
+    assert odd.resident_bytes + odd.streamed_bytes == 8 * 999 * 999
+    part = gh.panel_plan(1000, 0, 288, 0, 132, smem_budget=12_000)
+    assert part.res_cols == 0 and part.gend == 1000 and 0 < part.vs < 1000
+    assert part.smem_bytes <= 12_000 and part.streamed_bytes == 8 * 1000 * 1000
     with pytest.raises(ValueError, match="panel_plan"):
-        gh.panel_plan(4000, 0, 288, 0, 132, smem_budget=20_000)
+        gh.panel_plan(4000, 0, 288, 0, 132, smem_budget=3_000)
+
+
+@pytest.mark.parametrize("n", [30000, 40000])
+def test_panel_plan_large_n(n):
+    """Past n of about 27,000 all of v no longer fits a block's shared
+    memory beside the scratch: the plan stages v's right-most entries
+    (v's others come from L2), keeps no columns and still fits, at the
+    auto panel width of hessenberg's first panel."""
+    gh = thess.gpu_hess
+    nb = HessenbergConf().resolve(n).panel_width
+    plan = gh.panel_plan(n, 0, nb, 0, 132)
+    assert plan.smem_bytes <= gh.H100_SMEM
+    assert plan.res_cols == 0 and plan.gend == n and plan.streamed_bytes == 8 * n * n
+    assert 0 < plan.vs < n and plan.vs % 2 == 0
+    # the staged entries fill what the scratch leaves, to a pair
+    assert gh.H100_SMEM - plan.smem_bytes < 16

@@ -392,7 +392,7 @@ def test_hess_panel(cuda, n, k, nb, t0, end):
     it (panel_plan)."""
     grid = gpu_hess.panel_grid(n, nb, t0)[0]
     plan = gpu_hess.panel_plan(n, k, nb, t0, grid, gpu_hess.panel_grid(n, nb, t0)[3])
-    assert (plan.streamed_bytes > 0) == (n == 3000 and t0 == 0)
+    assert (plan.streamed_bytes > 0) == (n == 3000) and plan.vs == plan.cs0
     A = torch.as_tensor(np.random.default_rng(n + k + nb).standard_normal((n, n)), device=cuda)
     n0 = kernels.LAUNCHES["hess_panel"]
     got = gpu_hess.panel(A, k, nb, t0, end)
@@ -405,21 +405,44 @@ def test_hess_panel(cuda, n, k, nb, t0, end):
         assert bool((tau[end - 1 - k:] == 0).all())
 
 
-@pytest.mark.parametrize("n,k,nb,t0,smem,l2", [(1000, 0, 288, 0, 40_000, 8 << 20),
-                                               (999, 0, 24, 0, 30_000, 1 << 20),
-                                               (1000, 400, 288, 384, 30_000, 0)])
-def test_hess_panel_streamed(cuda, n, k, nb, t0, smem, l2):
-    """The shared-memory budget (and L2 share) forced small, so that every
-    stretch of the matvec's rows runs at a small n: resident, kept in L2
-    and streamed (none kept where l2 = 0); an odd n."""
+@pytest.mark.parametrize("n,k,nb,t0,smem", [(1000, 0, 288, 0, 40_000), (999, 0, 24, 0, 30_000),
+                                             (1000, 400, 288, 384, 30_000),
+                                             (1000, 0, 288, 0, 12_000), (999, 0, 24, 0, 4_000),
+                                             (1000, 400, 288, 384, 10_000)])
+def test_hess_panel_streamed(cuda, n, k, nb, t0, smem):
+    """The shared-memory budget forced small, so that every stretch of the
+    matvec's rows runs at a small n: resident and streamed columns with v
+    staged from cs0, and at the smaller budgets (as past n of about 27,000
+    at the card's) no resident columns and v staged only from vs, its left
+    entries read from L2; an odd n."""
     grid = gpu_hess.panel_grid(n, nb, t0)[0]
-    plan = gpu_hess.panel_plan(n, k, nb, t0, grid, smem, l2)
-    assert plan.res_cols > 0 and plan.streamed_bytes > 0 and (plan.pin_cols > 0) == (l2 > 0)
+    plan = gpu_hess.panel_plan(n, k, nb, t0, grid, smem)
+    assert plan.streamed_bytes > 0
+    if smem >= 30_000:
+        assert plan.res_cols > 0 and plan.vs == plan.cs0
+    else:
+        assert plan.res_cols == 0 and plan.cs0 < plan.vs < n
     A = torch.as_tensor(np.random.default_rng(n + nb).standard_normal((n, n)), device=cuda)
-    got = gpu_hess.panel(A, k, nb, t0, smem_budget=smem, l2_bytes=l2)
+    got = gpu_hess.panel(A, k, nb, t0, smem_budget=smem)
     _h1_check(A, got, k, nb, t0, None)
-    again = gpu_hess.panel(A, k, nb, t0, smem_budget=smem, l2_bytes=l2)
+    again = gpu_hess.panel(A, k, nb, t0, smem_budget=smem)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_hess_panel_large_n(cuda):
+    """H1 at n = 28,000 (6.3 GB), hessenberg's first panel at the auto
+    width: past the size where all of v fits a block's shared memory, so
+    the card's own budget stages v's right-most entries only."""
+    from starneig_tpu_torch.config import HessenbergConf
+    n = 28000
+    nb = HessenbergConf().resolve(n).panel_width
+    grid, _work, _sync, smem_max = gpu_hess.panel_grid(n, nb)
+    plan = gpu_hess.panel_plan(n, 0, nb, 0, grid, smem_max)
+    assert plan.res_cols == 0 and 0 < plan.vs < n
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    A = torch.randn((n, n), generator=gen, dtype=torch.float64, device=cuda)
+    got = gpu_hess.panel(A, 0, nb)
+    _h1_check(A, got, 0, nb, 0, None)
 
 
 def test_hess_panel_overlap_is_noop(cuda):
