@@ -8,8 +8,8 @@
     python3 chip_ab.py hops NAME=path/to/train_hops_NAME.cu [...]
     python3 chip_ab.py recondense NAME=path/to/recondense_NAME.cu [...]
     python3 chip_ab.py mainpath [--n N] ROOT [ROOT ...]
-    python3 chip_ab.py clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase|panel|backsolve]
-        [--skip-cur] [NAME=PATH ...]
+    python3 chip_ab.py clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase|panel|backsolve|
+        backsolvegep] [--skip-cur] [NAME=PATH ...]
     python3 chip_ab.py qzinf
     python3 chip_ab.py bitwise [--n N] [--device cpu|cuda] ROOT [ROOT ...]
     python3 chip_ab.py ht [--n N] ROOT [ROOT ...]
@@ -98,11 +98,12 @@ one: every block's thread 0, a column by phase, the mean over the
 blocks and, for the barriers and reductions, the least and the most
 (the least: the sync's own cost, paid by the block that arrives last).
 ``clock backsolve`` runs E1 on the n=4000 chain's
-leading block (made here): block 0's first warp (the longest chain), a
-solved row by phase, and the serial chain (the cycles a row of the phases
-on it).  Both take the older designs (H1's with three grid.sync a column,
-E1's row by row; a NAME=PATH to such a source) as well as the ones that
-ship.
+leading block (made here), ``clock backsolvegep`` E2 on the GEP n=2000
+chain's (``backsolvegep``'s input): block 0's first warp (the longest
+chain), a solved row by phase, and the serial chain (the cycles a row of
+the phases on it).  They take the older designs (H1's with three
+grid.sync a column, E1's and E2's row by row; a NAME=PATH to such a
+source, beside its own headers) as well as the ones that ship.
 
 qzinf: why G2 (``qz_window.cu``) and its plain twin may end an
 infinite-eigenvalue chase at different steps.  On ``chip_smoke.py``'s w=84
@@ -2335,7 +2336,7 @@ PANEL_GRID_SYNC_SIG = [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _I,
 # near dot with its shuffle sum, the guarded solve with the writes; the
 # chain's end and the block barrier; slot 30 the solved rows
 BACKSOLVE_EDITS = [
-    ('#include "eig_solve.cuh"\n', '#include "eig_solve.cuh"\n' + CLK_MACROS),
+    ('#include "eig_blocked.cuh"\n', '#include "eig_blocked.cuh"\n' + CLK_MACROS),
     ("eig_backsolve_kernel(Solve p) {", "eig_backsolve_kernel(Solve p SN_CLK_KPARAM) {"),
     ("  bool close = false;\n", "  bool close = false;\n  SN_CLK_DECL\n"),
     ("      xni[i] = pair ? xi[r0 + i] : 0.0;\n    }\n",
@@ -2364,7 +2365,6 @@ BACKSOLVE_EDITS = [
 BACKSOLVE_NAMES = {0: "staging", 1: "far product", 2: "barrier, slices' sum",
                    8: "solve steps ahead", 9: "barrier", 3: "row start", 4: "near dot",
                    5: "guarded solve's rest, writes", 6: "chain end", 7: "block barrier"}
-BACKSOLVE_CHAIN = (3, 4, 5)                # the near chain: a solved row's own steps
 
 
 def _clock_report(label, names, c, per, ms, hz_total):
@@ -2455,66 +2455,157 @@ BACKSOLVE_ROW_EDITS = [
 ]
 BACKSOLVE_ROW_NAMES = {0: "row start", 1: "staging (two block barriers)", 2: "dot",
                         3: "shuffle sum", 4: "guarded solve, writes"}
-BACKSOLVE_ROW_CHAIN = (0, 1, 2, 3, 4)     # every phase of a row is on its chain
 
 
-def clock_backsolve(specs) -> bool:
-    """clock backsolve [NAME=PATH ...]: where E1 spends its cycles on the
-    n=4000 chain's leading block (chip_ab backsolve's input, made here):
-    the longest chain's warp (block 0's first), a solved row by phase; the
-    serial chain is its rows times the cycles a row of the phases on it."""
+# E2 as it ships (E1's row blocks on the pencil): the first warp of block 0
+# (the eigenvalue with the largest pos, the longest chain), summed over its
+# row blocks: the staging of S's and T's near tiles, the far products FS
+# and FT with the combination into F, the barrier with the slices' sum,
+# the solve steps ahead (prep) and their barrier; per solved row the row's
+# start, the near dots with the combination and the shuffle sum, the
+# guarded solve's rest (fin) with the rescale and the writes; the chain's
+# end and the block barrier; slot 30 the solved rows
+BACKSOLVEGEP_EDITS = [
+    ('#include "eig_blocked.cuh"\n', '#include "eig_blocked.cuh"\n' + CLK_MACROS),
+    ("eig_backsolve_gep_kernel(SolveGep p) {", "eig_backsolve_gep_kernel(SolveGep p SN_CLK_KPARAM) {"),
+    ("  bool close = false;\n", "  bool close = false;\n  SN_CLK_DECL\n"),
+    ("      xni[i] = pair ? xi[r0 + i] : 0.0;\n    }\n",
+     "      xni[i] = pair ? xi[r0 + i] : 0.0;\n    }\n    SN_CLK(0)\n"),
+    ("8 * mt + fm] = f_i;\n        }\n    }\n",
+     "8 * mt + fm] = f_i;\n        }\n    }\n    SN_CLK(1)\n"),
+    ("      sF[idx] = s;\n    }\n", "      sF[idx] = s;\n    }\n    SN_CLK(2)\n"),
+    ("pre + i * kPre, close);\n    __syncthreads();\n",
+     "pre + i * kPre, close);\n    SN_CLK(8)\n    __syncthreads();\n    SN_CLK(9)\n"),
+    ("      double s1r = 0.0, s1i = 0.0, t1r = 0.0, t1i = 0.0;\n",
+     "      SN_CLK(3)\n      double s1r = 0.0, s1i = 0.0, t1r = 0.0, t1i = 0.0;\n"),
+    ("      double v1r, v1i, v2r = 0.0, v2i = 0.0;\n",
+     "      SN_CLK(4)\n      double v1r, v1i, v2r = 0.0, v2i = 0.0;\n"),
+    ("      __syncwarp();\n    }\n    __syncthreads();  // x[r0:r1]",
+     "      __syncwarp();\n      SN_CLK(5)\n      SN_CLK_ADD(30, 1)\n    }\n    SN_CLK(6)\n"
+     "    __syncthreads();  // x[r0:r1]"),
+    ("    r1 = r0;\n  }\n", "    SN_CLK(7)\n    r1 = r0;\n  }\n"
+     "  if (blockIdx.x == 0 && tid == 0) { SN_CLK_OUT(0, 0, 32) }\n"),
+    ("static_cast<cudaStream_t>(stream)>>>(\n      p);",
+     "static_cast<cudaStream_t>(stream)>>>(\n      p SN_CLK_ARG);"),
+    ('extern "C" int eig_backsolve_gep(', 'extern "C" int eig_backsolve_gep_clk('),
+    ("void* xr, void* xi, void* close, void* stream) {",
+     "void* xr, void* xi, void* close SN_CLK_PARAM, void* stream) {"),
+]
+BACKSOLVEGEP_NAMES = {0: "staging", 1: "far products, combine", 2: "barrier, slices' sum",
+                      8: "prep (solve steps ahead)", 9: "barrier", 3: "row start",
+                      4: "near dot, combine, shuffle sum", 5: "fin, rescale, writes",
+                      6: "chain end", 7: "block barrier"}
+
+# E2's earlier row-by-row design (a warp an eigenvalue, S's and T's rows
+# staged a row): the first warp of block 0, a solved row: the row's start,
+# the staging of S's and T's rows between two block barriers, the warp's
+# dots forming M on the fly, the shuffle sums, the guarded solve (all of
+# it) with the rescale and the writes; slot 30 the solved rows
+BACKSOLVEGEP_ROW_EDITS = [
+    ('#include "eig_solve.cuh"\n', '#include "eig_solve.cuh"\n' + CLK_MACROS),
+    ("eig_backsolve_gep_kernel(SolveGep p) {", "eig_backsolve_gep_kernel(SolveGep p SN_CLK_KPARAM) {"),
+    ("  bool close = false;\n", "  bool close = false;\n  SN_CLK_DECL\n"),
+    ("    double a2 = 0.0, b2 = 0.0, c2 = 0.0, d2 = 0.0;\n",
+     "    double a2 = 0.0, b2 = 0.0, c2 = 0.0, d2 = 0.0;\n    SN_CLK(0)\n"),
+    ("      __syncthreads();\n      if (in) {\n", "      __syncthreads();\n      SN_CLK(1)\n      if (in) {\n"),
+    ("    if (!in) continue;\n", "    SN_CLK(2)\n    if (!in) continue;\n"),
+    ("    const double rhs_r = -(a1 - b1), rhs_i = -(c1 + d1);\n",
+     "    SN_CLK(3)\n    const double rhs_r = -(a1 - b1), rhs_i = -(c1 + d1);\n"),
+    ("    __syncwarp();\n  }\n  if (live && lane == 0) p.close[e] = close ? 1 : 0;\n",
+     "    __syncwarp();\n    SN_CLK(4)\n    SN_CLK_ADD(30, 1)\n  }\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) { SN_CLK_OUT(0, 0, 32) }\n"
+     "  if (live && lane == 0) p.close[e] = close ? 1 : 0;\n"),
+    ("eig_backsolve_gep_kernel<<<blocks, kG * 32, 0, static_cast<cudaStream_t>(stream)>>>(p);",
+     "eig_backsolve_gep_kernel<<<blocks, kG * 32, 0, static_cast<cudaStream_t>(stream)>>>(p SN_CLK_ARG);"),
+    ('extern "C" int eig_backsolve_gep(', 'extern "C" int eig_backsolve_gep_clk('),
+    ("void* xr, void* xi, void* close, void* stream) {",
+     "void* xr, void* xi, void* close SN_CLK_PARAM, void* stream) {"),
+]
+BACKSOLVEGEP_ROW_NAMES = {0: "row start", 1: "staging (two block barriers)",
+                          2: "dots (M formed on the fly)", 3: "shuffle sums",
+                          4: "guarded solve, rescale, writes"}
+
+# by entry: (the current design's edits and phase names, the row-by-row
+# design's, the mark of a row-by-row source, the chain's size, the function
+# that saves the chain)
+CLOCK_BACKSOLVE = {
+    "eig_backsolve": (BACKSOLVE_EDITS, BACKSOLVE_NAMES, BACKSOLVE_ROW_EDITS,
+                      BACKSOLVE_ROW_NAMES, "kChunk = 2048", 4000, backsolve_inputs),
+    "eig_backsolve_gep": (BACKSOLVEGEP_EDITS, BACKSOLVEGEP_NAMES, BACKSOLVEGEP_ROW_EDITS,
+                          BACKSOLVEGEP_ROW_NAMES, "kChunk = 1024", 2000, backsolvegep_inputs),
+}
+
+
+def clock_backsolve(specs, entry: str = "eig_backsolve") -> bool:
+    """clock backsolve|backsolvegep [NAME=PATH ...]: where E1 (E2) spends
+    its cycles on the n=4000 (GEP n=2000) chain's leading block (chip_ab
+    backsolve's (backsolvegep's) input, made here): the longest chain's
+    warp (block 0's first), a solved row by phase; the serial chain is its
+    rows times the cycles a row of the phases on it."""
     from starneig_tpu_torch.ops import eigenvectors as ev
     from starneig_tpu_torch.ops.gpu_eig import _host_arrays
+    edits, names, row_edits, row_names, row_mark, n_chain, save = CLOCK_BACKSOLVE[entry]
+    gep = entry == "eig_backsolve_gep"
     dev = torch.device("cuda:0")
-    path = kernels.BUILD_DIR / "backsolve_chain.pt"
+    path = kernels.BUILD_DIR / f"{entry}_chain.pt"
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    backsolve_inputs(4000, path)
+    save(n_chain, path)
     d = torch.load(path)
     S = d["S"].to(dev).contiguous()
     n, m = S.shape[0], d["m"]
-    pos, pair, lr, li = (list(x) for x in zip(*ev._selected_blocks(S, np.arange(n) < m)))
-    lam_r, lam_i = (torch.tensor(v, dtype=S.dtype, device=dev) for v in (lr, li))
-    kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs(S, lam_r, lam_i, pos, pair)
+    lead = np.arange(n) < m
+    if gep:
+        T = d["T"].to(dev).contiguous()
+        pos, pair, ar, ai, bt = (list(x) for x in zip(*ev._selected_blocks_gep(S, T, lead)))
+        vals = [torch.tensor(v, dtype=S.dtype, device=dev) for v in (ar, ai, bt)]
+        kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs_gep(S, T, *vals, pos, pair)
+        mats = [S.data_ptr(), T.data_ptr(), n]
+    else:
+        pos, pair, lr, li = (list(x) for x in zip(*ev._selected_blocks(S, lead)))
+        vals = [torch.tensor(v, dtype=S.dtype, device=dev) for v in (lr, li)]
+        kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs(S, *vals, pos, pair)
+        mats = [S.data_ptr(), n]
     order, pos_d, pair_d, kind_d = _host_arrays(np.asarray(pos), pair, kind, dev)
-    for name, p in _clock_versions("eig_backsolve", specs):
-        fn, older = clock_build_src(name, "eig_backsolve", Path(p), BACKSOLVE_EDITS,
-                                   BACKSOLVE_ROW_EDITS, "kChunk = 2048")
-        names = BACKSOLVE_ROW_NAMES if older else BACKSOLVE_NAMES
+    for name, p in _clock_versions(entry, specs):
+        fn, older = clock_build_src(name, entry, Path(p), edits, row_edits, row_mark)
+        phases = row_names if older else names
+        chain_slots = tuple(row_names) if older else (3, 4, 5)
         ctr = torch.zeros(32, dtype=torch.int64, device=dev)
 
         def run(fn=fn, ctr=ctr):
             xk, xik = xr.clone(), xi.clone()
             close = torch.zeros(len(pos), dtype=torch.int32, device=dev)
             ctr.zero_()
-            kernels.check(fn(S.data_ptr(), n, lam_r.data_ptr(), lam_i.data_ptr(),
-                             smin.data_ptr(), pos_d.data_ptr(), pair_d.data_ptr(),
-                             kind_d.data_ptr(), order.data_ptr(), len(pos), float(omega),
-                             float(smlnum), xk.data_ptr(), xik.data_ptr(), close.data_ptr(),
-                             ctr.data_ptr(), kernels.stream_ptr(S)), "eig_backsolve_clk")
+            kernels.check(fn(*mats, *(v.data_ptr() for v in vals), smin.data_ptr(),
+                             pos_d.data_ptr(), pair_d.data_ptr(), kind_d.data_ptr(),
+                             order.data_ptr(), len(pos), float(omega), float(smlnum),
+                             xk.data_ptr(), xik.data_ptr(), close.data_ptr(), ctr.data_ptr(),
+                             kernels.stream_ptr(S)), f"{entry}_clk")
         run()
         ms = cuda_ms(run, 3)
         c = ctr.cpu().tolist()
         rows = max(c[30], 1)
-        chain = sum(c[i] for i in (BACKSOLVE_ROW_CHAIN if older else BACKSOLVE_CHAIN))
-        print(f"backsolve n={n} m={len(pos)} {name}{' (row-by-row design)' if older else ''}: "
+        chain = sum(c[i] for i in chain_slots)
+        print(f"{entry} n={n} m={len(pos)} {name}{' (row-by-row design)' if older else ''}: "
               f"{ms:.3f} ms; block 0's first warp: {rows} solved rows, {c[31] / rows:.0f} "
               f"cycles a row ({c[31] / (ms * 1e6):.3f} GHz over the call); cycles a row: "
-              + ", ".join(f"{k} {c[i] / rows:.0f}" for i, k in names.items())
+              + ", ".join(f"{k} {c[i] / rows:.0f}" for i, k in phases.items())
               + f"; serial chain {chain / rows:.0f} cycles a row, {chain / 1.98e6:.3f} ms "
               "at 1.98 GHz", flush=True)
     return True
 
 
 def ab_clock(args) -> bool:
-    """clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase|panel|backsolve]
-    [--skip-cur] [NAME=PATH ...]"""
+    """clock [deflate|hops|recondense|qz|qzsweep|htwin|infchase|panel|backsolve|
+    backsolvegep] [--skip-cur] [NAME=PATH ...]"""
     kind = args[0] if args and "=" not in args[0] else "deflate"
     rest = args[1:] if args and "=" not in args[0] else args
     return {"deflate": clock_deflate, "hops": clock_hops,
             "recondense": clock_recondense, "qz": clock_qz,
             "qzsweep": clock_qzsweep, "htwin": clock_htwin,
             "infchase": clock_infchase, "panel": clock_panel,
-            "backsolve": clock_backsolve}[kind](rest)
+            "backsolve": clock_backsolve,
+            "backsolvegep": lambda specs: clock_backsolve(specs, "eig_backsolve_gep")}[kind](rest)
 
 
 # G2's infinite-eigenvalue decisions, printed in a copy: T-diagonal

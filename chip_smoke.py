@@ -103,8 +103,9 @@ Phases (any failure raises; the exit code is then nonzero):
  6b. E2 (the GEP eigenvector backsolve, one launch) on phase 6's
      selection against the plain row loop on the card: the normalized
      vectors within 1e-12, the close flags equal, two launches
-     bit-equal, E2's eigenvector residual below EVEC_BOUND; E2's row in
-     the kernel table is this run;
+     bit-equal, E2's eigenvector residual below EVEC_BOUND; logs the top
+     group's row blocks and E2's time against its bound and its serial
+     chain; E2's row in the kernel table is this run;
   7. GEP n=512 infinite-rich: api.gep.schur on tests/test_qz_driver.py's
      HT pencil with 51 exact T-diagonal zeros, under that test's gates (G5
      launched); then its infinite eigenvalues (|beta| <= 1e-12 max|beta|)
@@ -213,6 +214,9 @@ INF_STEP_CYCLES = 611
 # n=4000 chain's leading block, chip_ab.py clock backsolve, PERF.md section
 # 6); its solve steps x these over SM_HZ is its serial chain
 E1_STEP_CYCLES = 2475
+# E2's the same on the GEP n=2000 chain's leading block (chip_ab.py clock
+# backsolvegep, PERF.md section 6)
+E2_STEP_CYCLES = 2100
 
 REPLACES = {
     "hess_gemv": "starneig_tpu/ops/pallas_hess.py:45",
@@ -1383,9 +1387,9 @@ def e1_work(S, pos, is_pair, kind):
     return 8 * (rows + vec), flops
 
 
-def e1_chain_steps(pos, kind):
-    """E1's longest chain: the solve steps (1x1 rows and 2x2 blocks) below
-    the highest selected block."""
+def chain_steps(pos, kind):
+    """E1's or E2's longest chain: the solve steps (1x1 rows and 2x2
+    blocks) below the highest selected block."""
     top = int(max(pos))
     return int(sum(1 for k in range(top) if kind[k] != 2))
 
@@ -1421,7 +1425,7 @@ def phase_backsolve(dev, main_res):
     X = Q3 @ ev._columns(*gk, pair)
     evec = eigenvector_residual(A, S2, X, m)
     bms, by = bound(*e1_work(S2, pos, pair, kind))
-    steps = e1_chain_steps(pos, kind)
+    steps = chain_steps(pos, kind)
     chain = steps * E1_STEP_CYCLES / SM_HZ * 1e3
     log(f"  5b E1 n={n}: {len(pos)} eigenvalues ({sum(pair)} pairs) in "
         f"{(len(pos) + 7) // 8} blocks; max abs err {err:.2e} against the plain loop, close "
@@ -2432,6 +2436,7 @@ def phase_backsolve_gep(dev, A_np, B_np, S2, T2, Z2, m):
     import torch
     from starneig_tpu_torch.ops import eigenvectors as ev
     from starneig_tpu_torch.ops import gpu_eig
+    from starneig_tpu_torch.testing import backsolve_blocked as bb
     from starneig_tpu_torch.testing import hooks
     n = S2.shape[0]
     lead = np.arange(n) < m
@@ -2457,11 +2462,16 @@ def phase_backsolve_gep(dev, A_np, B_np, S2, T2, Z2, m):
     X = Z2 @ ev._columns(*gk, pair)
     evec = hooks.eigenvector_residual_gep(A_np, B_np, S2, T2, X, lead)
     bms, by = bound(*e2_work(S2, pos, pair, kind))
+    steps = chain_steps(pos, kind)
+    chain = steps * E2_STEP_CYCLES / SM_HZ * 1e3
+    row_blocks = len(bb.row_blocks(max(pos), kind))
     log(f"  6b E2 n={n}: {len(pos)} eigenvalues ({sum(pair)} pairs), rows < {max(pos)} "
-        f"in {(len(pos) + 7) // 8} blocks; max abs err {err:.2e} against the plain loop, "
+        f"in {(len(pos) + 7) // 8} blocks, the top group's {row_blocks} row blocks of "
+        f"{bb.NB}; max abs err {err:.2e} against the plain loop, "
         f"close flags equal {torch.equal(ck, close_p)} ({int(ck.sum())} set), two launches "
-        f"bit-for-bit equal: {same}; worst residual {evec:.2e}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms, bound {bms:.4f} ms ({by})")
+        f"bit-for-bit equal: {same}; worst residual {evec:.2e}; kernel {ms:.3f} ms, "
+        f"{ms / bms:.0f} x the bound {bms:.4f} ms ({by}), serial chain {chain:.3f} ms "
+        f"({steps} solve steps x {E2_STEP_CYCLES} cycles); plain {plain_ms:.1f} ms")
     check(err <= 1e-12, f"E2 disagrees with the plain loop by {err}")
     check(torch.equal(ck, close_p), "E2's close flags differ from the plain loop's")
     check(same, "E2: two launches differ")
@@ -2470,8 +2480,9 @@ def phase_backsolve_gep(dev, A_np, B_np, S2, T2, Z2, m):
     check(evec < EVEC_BOUND, f"E2 eigenvector residual {evec}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, detail=dict(m=len(pos), pairs=sum(pair), rows=max(pos),
-                                             residual=evec, bit_equal=same,
-                                             close=int(ck.sum())))
+                                             row_blocks=row_blocks, residual=evec,
+                                             bit_equal=same, close=int(ck.sum()),
+                                             chain_steps=steps, serial_chain_ms=chain))
 
 
 def phase_gep_inf(dev):

@@ -58,18 +58,11 @@
 // order than the twin's matmul.
 #include <cuda_runtime.h>
 
-#include "eig_solve.cuh"
+#include "eig_blocked.cuh"
 
 namespace {
 
-constexpr int kG = 8;              // eigenvalues a block, a warp each
-constexpr int kThreads = kG * 32;
-constexpr int kNB = 64;            // rows a row block
-constexpr int kMT = kNB / 8;       //   its 8-row DMMA tiles
-constexpr int kVecs = 2 * kG;      // the group's vectors: Re and Im of each
-constexpr int kLdN = kNB + 1;      // row stride of the near tile
 constexpr int kSteps = 2;          // k-steps of 4 columns a warp has in flight
-constexpr unsigned kFull = 0xffffffffu;
 
 // shared memory (doubles): the near tile, each warp's near x (Re, Im), F,
 // the warps' slices of F, each warp's solve steps computed ahead; then the
@@ -88,14 +81,6 @@ struct Solve {
   double *xr, *xi;
   int* close;
 };
-
-// d = a b + d on the tensor cores: A 8 x 4 (a = A[lane / 4][lane % 4]), B
-// 4 x 8 (b = B[lane % 4][lane / 4]), D 8 x 8 (d[i] = D[lane / 4][2 (lane % 4) + i])
-__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
-               : "+d"(d[0]), "+d"(d[1])
-               : "d"(a), "d"(b));
-}
 
 // What the guarded solve of a 1x1 row k (two false) or of a 2x2 block's
 // rows k, k + 1 takes from S and lambda alone, computed ahead of the chain
@@ -230,8 +215,7 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_kernel(Solve p) {
   }
 
   for (int r1 = top; r1 > 0;) {
-    int r0 = max(0, r1 - kNB);
-    if (r0 > 0 && p.kind[r0] == 2) ++r0;  // keep a 2x2 block whole
+    const int r0 = row_block_start(p.kind, r1);
     const int nr = r1 - r0;
     // stage the row block: S's near tile, the kinds, each warp's near x
     for (int i = warp; i < nr; i += kG)

@@ -3,7 +3,8 @@
 // Device twins of ops/eigenvectors.py:_cdiv and _rescale, every operation
 // rounded on its own (no fused multiply-adds), as the twins' elementwise
 // torch ops round each one: a guard's decision then equals the twin's bit
-// for bit.  They run on every lane of a warp over the same registers.
+// for bit.  They run on one lane for a row computed ahead of the chain, or
+// on every lane of a warp over the same registers on the chain.
 #pragma once
 
 #include "common.cuh"
@@ -13,9 +14,10 @@ DEVI double rsub(double a, double b) { return __dsub_rn(a, b); }
 DEVI double rmul(double a, double b) { return __dmul_rn(a, b); }
 DEVI double rdiv(double a, double b) { return __ddiv_rn(a, b); }
 
-// ops/eigenvectors.py:_cdiv's denominator part: (br + i bi) lifted by
-// guard where below it, then Smith's ratio r and denominator den of the
-// branch big (|br| >= |bi|); the numerator's part is cdiv_fin
+// ops/eigenvectors.py:_cdiv ((ar + i ai) / (br + i bi), Smith's algorithm)
+// in two parts.  cdiv_den: (br + i bi) lifted by guard where below it,
+// then Smith's ratio r and denominator den of the branch big (|br| >=
+// |bi|); cdiv_fin: the numerator's part
 struct CdivDen {
   bool big;
   double r, den;
@@ -47,19 +49,8 @@ DEVI void cdiv_fin(double ar, double ai, const CdivDen& d, double& xr, double& x
   }
 }
 
-// ops/eigenvectors.py:_cdiv: (ar + i ai) / (br + i bi), Smith's algorithm,
-// a denominator below guard lifted by guard
-DEVI void cdiv(double ar, double ai, double br, double bi, double guard, double& xr,
-               double& xi) {
-  cdiv_fin(ar, ai, cdiv_den(br, bi, guard), xr, xi);
-}
-
-// fac <= 1 that keeps num fac / den below omega (the twin's _rescale);
-// rescale_lim takes lim = den omega, rounded, computed ahead
+// fac <= 1 that keeps num fac / den below omega (the twin's _rescale),
+// from lim = den omega, rounded, computed ahead
 DEVI double rescale_lim(double num, double lim, double smlnum) {
   return num > lim ? rdiv(lim, dmax(num, smlnum)) : 1.0;
-}
-
-DEVI double rescale(double num, double den, double omega, double smlnum) {
-  return rescale_lim(num, rmul(den, omega), smlnum);
 }

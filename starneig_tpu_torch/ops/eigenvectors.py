@@ -350,6 +350,58 @@ def _backsolve_inputs_gep(S, T, ar, ai, bt, pos, is_pair):
     return _row_kinds(sub), smin, omega, smlnum, xr, xi
 
 
+def _solve_row_gep(S, T, k: int, two: bool, ar, ai, bt, smin, omega, smlnum, do,
+                   rhs_r, rhs_i, rhs2_r=None, rhs2_i=None):
+    """The guarded solve of row k (a 1x1 row), or of rows k, k+1 (``two``:
+    a 2x2 block), of M = beta S - alpha T, for every eigenvalue at once, on
+    the right-hand sides rhs = -(the row's sum), with the robust.h
+    protections (perturb a near-singular diagonal or determinant, scale
+    before a growing division).  Returns (fac, w1r, w1i, w2r, w2i, near):
+    the scale the vectors take before the new entries join them (1 where
+    not ``do``), x[k] (and x[k+1], None for a 1x1 row), and the close
+    flags."""
+
+    def mentry(i, j):
+        return bt * S[i, j] - ar * T[i, j], -ai * T[i, j]
+
+    if not two:
+        # 1x1 row: x[k] = rhs / M[k, k], protected
+        d_r, d_i = mentry(k, k)
+        dabs = d_r.abs() + d_i.abs()
+        near = do & (dabs < smin)
+        d_r = torch.where(near, smin, d_r)
+        d_i = torch.where(near, 0.0, d_i)
+        dabs = torch.maximum(dabs, smin)
+        fac = _rescale(do, rhs_r.abs() + rhs_i.abs(), dabs, omega, smlnum)
+        vr, vi = _cdiv(rhs_r * fac, rhs_i * fac, d_r, d_i, smlnum)
+        return fac, vr, vi, None, None, near
+    # 2x2 block rows (k, k+1): the complex 2x2 system (M[k+1, k] stays a
+    # formula although T[k+1, k] = 0)
+    k1 = k + 1
+    a11r, a11i = mentry(k, k)
+    a12r, a12i = mentry(k, k1)
+    a21r, a21i = mentry(k1, k)
+    a22r, a22i = mentry(k1, k1)
+    detr = a11r * a22r - a11i * a22i - (a12r * a21r - a12i * a21i)
+    deti = a11r * a22i + a11i * a22r - (a12r * a21i + a12i * a21r)
+    detabs = detr.abs() + deti.abs()
+    blkscale = a11r.abs() + a11i.abs() + a12r.abs() + a12i.abs() \
+        + a21r.abs() + a21i.abs() + a22r.abs() + a22i.abs() + smin
+    near2 = do & (detabs < smin * blkscale)
+    detr = torch.where(near2, smin * blkscale, detr)
+    deti = torch.where(near2, 0.0, deti)
+    detabs = torch.maximum(detabs, smin * blkscale)
+    n1r = a22r * rhs_r - a22i * rhs_i - (a12r * rhs2_r - a12i * rhs2_i)
+    n1i = a22r * rhs_i + a22i * rhs_r - (a12r * rhs2_i + a12i * rhs2_r)
+    n2r = a11r * rhs2_r - a11i * rhs2_i - (a21r * rhs_r - a21i * rhs_i)
+    n2i = a11r * rhs2_i + a11i * rhs2_r - (a21r * rhs_i + a21i * rhs_r)
+    nmax = torch.maximum(n1r.abs() + n1i.abs(), n2r.abs() + n2i.abs())
+    fac = _rescale(do, nmax, detabs, omega, smlnum)
+    w1r, w1i = _cdiv(n1r * fac, n1i * fac, detr, deti, smlnum)
+    w2r, w2i = _cdiv(n2r * fac, n2i * fac, detr, deti, smlnum)
+    return fac, w1r, w1i, w2r, w2i, near2
+
+
 def _backsolve_rows_gep(S, T, ar, ai, bt, pos, is_pair, kind, smin, omega, smlnum,
                         xr, xi):
     """The row loop of :func:`_backsolve_all_gep`, in place on (xr, xi):
@@ -374,65 +426,25 @@ def _backsolve_rows_gep(S, T, ar, ai, bt, pos, is_pair, kind, smin, omega, smlnu
         return (-((mkr * xr_).sum(1) - (mki * xi_).sum(1)),
                 -((mkr * xi_).sum(1) + (mki * xr_).sum(1)))
 
-    def mentry(k, j):
-        return bt * S[k, j] - ar * T[k, j], -ai * T[k, j]
-
     # rows at or below the lowest block start are in no vector's range
     for k in range(min(max(pos) - 1, n - 2), -1, -1):
         if kind[k] == 2:
             continue        # rows of a 2x2 block are solved at its first row
         in_range = k < pos_t
+        two = kind[k] == 1
         rhs_r, rhs_i = rhs(k)
-        if kind[k] == 0:
-            # 1x1 row, with the robust.h protections (perturb a
-            # near-singular diagonal, scale before a growing division)
-            do_1 = in_range
-            d_r, d_i = mentry(k, k)
-            dabs = d_r.abs() + d_i.abs()
-            near = do_1 & (dabs < smin)
-            d_r = torch.where(near, smin, d_r)
-            d_i = torch.where(near, 0.0, d_i)
-            dabs = torch.maximum(dabs, smin)
-            close |= near
-            fac = _rescale(do_1, rhs_r.abs() + rhs_i.abs(), dabs, omega, smlnum)
-            xr *= fac[:, None]
-            xi *= fac[:, None]
-            vr, vi = _cdiv(rhs_r * fac, rhs_i * fac, d_r, d_i, smlnum)
-            xr[:, k] = torch.where(do_1, vr, xr[:, k])
-            xi[:, k] = torch.where(do_1, vi, xi[:, k])
-            continue
-        # 2x2 block rows (k, k+1): the complex 2x2 system
-        do_2 = in_range
-        k1 = k + 1
-        rhs2_r, rhs2_i = rhs(k1)
-        a11r, a11i = mentry(k, k)
-        a12r, a12i = mentry(k, k1)
-        a21r, a21i = mentry(k1, k)
-        a22r, a22i = mentry(k1, k1)
-        detr = a11r * a22r - a11i * a22i - (a12r * a21r - a12i * a21i)
-        deti = a11r * a22i + a11i * a22r - (a12r * a21i + a12i * a21r)
-        detabs = detr.abs() + deti.abs()
-        blkscale = a11r.abs() + a11i.abs() + a12r.abs() + a12i.abs() \
-            + a21r.abs() + a21i.abs() + a22r.abs() + a22i.abs() + smin
-        near2 = do_2 & (detabs < smin * blkscale)
-        detr = torch.where(near2, smin * blkscale, detr)
-        deti = torch.where(near2, 0.0, deti)
-        detabs = torch.maximum(detabs, smin * blkscale)
-        close |= near2
-        n1r = a22r * rhs_r - a22i * rhs_i - (a12r * rhs2_r - a12i * rhs2_i)
-        n1i = a22r * rhs_i + a22i * rhs_r - (a12r * rhs2_i + a12i * rhs2_r)
-        n2r = a11r * rhs2_r - a11i * rhs2_i - (a21r * rhs_r - a21i * rhs_i)
-        n2i = a11r * rhs2_i + a11i * rhs2_r - (a21r * rhs_i + a21i * rhs_r)
-        nmax = torch.maximum(n1r.abs() + n1i.abs(), n2r.abs() + n2i.abs())
-        fac = _rescale(do_2, nmax, detabs, omega, smlnum)
+        rhs2_r, rhs2_i = rhs(k + 1) if two else (None, None)
+        fac, w1r, w1i, w2r, w2i, near = _solve_row_gep(
+            S, T, k, two, ar, ai, bt, smin, omega, smlnum, in_range, rhs_r, rhs_i,
+            rhs2_r, rhs2_i)
+        close |= near
         xr *= fac[:, None]
         xi *= fac[:, None]
-        w1r, w1i = _cdiv(n1r * fac, n1i * fac, detr, deti, smlnum)
-        w2r, w2i = _cdiv(n2r * fac, n2i * fac, detr, deti, smlnum)
-        xr[:, k] = torch.where(do_2, w1r, xr[:, k])
-        xi[:, k] = torch.where(do_2, w1i, xi[:, k])
-        xr[:, k1] = torch.where(do_2, w2r, xr[:, k1])
-        xi[:, k1] = torch.where(do_2, w2i, xi[:, k1])
+        xr[:, k] = torch.where(in_range, w1r, xr[:, k])
+        xi[:, k] = torch.where(in_range, w1i, xi[:, k])
+        if two:
+            xr[:, k + 1] = torch.where(in_range, w2r, xr[:, k + 1])
+            xi[:, k + 1] = torch.where(in_range, w2i, xi[:, k + 1])
     return close
 
 

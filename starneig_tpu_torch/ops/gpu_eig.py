@@ -2,15 +2,16 @@
 
 Kernel E1 (``kernels/csrc/eig_backsolve.cu``) runs the JAX package's row
 loop ``starneig_tpu/ops/eigenvectors.py:_backsolve_all`` (a ``fori_loop``
-vmapped over the selected eigenvalues) on the card: a block per group of
-eigenvalues sorted by their block's position, a warp each.
+vmapped over the selected eigenvalues) on the card in LAPACK dtrevc3's
+blocked form: a block per group of eigenvalues sorted by their block's
+position, a warp each, rows in blocks of 64.
 :func:`backsolve` is its wrapper, for CUDA tensors only;
 ``ops/eigenvectors.py:_backsolve_all`` calls it on the card and its plain
 twin ``_backsolve_rows`` on the CPU.  Both take the same arguments.
 
 Kernel E2 (``kernels/csrc/eig_backsolve_gep.cu``) does the same for the
 pencil's row loop ``_backsolve_all_gep`` on (beta S - alpha T) x = 0, in
-E1's layout: :func:`backsolve_gep`, called by
+E1's blocked form: :func:`backsolve_gep`, called by
 ``ops/eigenvectors.py:_backsolve_all_gep`` on the card; its plain twin
 ``_backsolve_rows_gep`` (the GEP row loop) runs on the CPU.
 """

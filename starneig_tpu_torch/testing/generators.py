@@ -254,17 +254,13 @@ def _to_hessenberg(A: np.ndarray) -> np.ndarray:
     return scipy.linalg.hessenberg(A)
 
 
-def known_spectrum_pencil(n: int, complex_ratio: float = 0.5,
-                          zero_ratio: float = 0.0, inf_ratio: float = 0.0,
-                          seed: int = 0, dtype=np.float64):
-    """Pencil (A, B) with a planted generalized spectrum.
-
-    Builds a generalized Schur pair (S, T): S quasi-triangular, T upper
-    triangular with zero diagonal entries planting infinite eigenvalues;
-    scrambles it with random orthogonal Q0, Z0: A = Q0 S Z0^T,
-    B = Q0 T Z0^T.  Returns (A, B, alpha, beta): the eigenvalues are
-    alpha/beta, beta == 0 for an infinite one.
-    """
+def schur_pencil(n: int, complex_ratio: float = 0.5, zero_ratio: float = 0.0,
+                 inf_ratio: float = 0.0, seed: int = 0, dtype=np.float64):
+    """The generalized Schur pair (S, T) that :func:`known_spectrum_pencil`
+    scrambles: S quasi-triangular (standardized 2x2 blocks for the complex
+    pairs), T upper triangular with zero diagonal entries planting infinite
+    eigenvalues.  Returns (S, T, alpha, beta): the eigenvalues are
+    alpha/beta, beta == 0 for an infinite one."""
     rng = _rng(seed)
     S = np.zeros((n, n), dtype)
     T = np.zeros((n, n), dtype)
@@ -313,6 +309,20 @@ def known_spectrum_pencil(n: int, complex_ratio: float = 0.5,
         if S[i + 1, i] != 0:
             Tnoise[i, i + 1] = 0.0
     T = T + Tnoise.astype(dtype)
+    return S, T, alpha, beta
+
+
+def known_spectrum_pencil(n: int, complex_ratio: float = 0.5,
+                          zero_ratio: float = 0.0, inf_ratio: float = 0.0,
+                          seed: int = 0, dtype=np.float64):
+    """Pencil (A, B) with a planted generalized spectrum.
+
+    Builds a generalized Schur pair (S, T) (:func:`schur_pencil`) and
+    scrambles it with random orthogonal Q0, Z0: A = Q0 S Z0^T,
+    B = Q0 T Z0^T.  Returns (A, B, alpha, beta): the eigenvalues are
+    alpha/beta, beta == 0 for an infinite one.
+    """
+    S, T, alpha, beta = schur_pencil(n, complex_ratio, zero_ratio, inf_ratio, seed, dtype)
     Q0 = random_orthogonal(n, seed + 1, dtype)
     Z0 = random_orthogonal(n, seed + 2, dtype)
     A = Q0 @ S @ Z0.T

@@ -599,3 +599,58 @@ def test_eig_backsolve_gep(cuda, case):
     if case == "n1000":
         assert hooks.eigenvector_residual_gep(A, B, S, T, X, sel) < 1e-10
 
+
+def _e2_against_twin(S, T, sel, cuda):
+    """E2 on the pencil (S, T) (numpy, copied to the card) for the selected
+    eigenvalues against the plain row loop on the card: two launches
+    bit-equal, the close flags equal, the normalized vectors within 1e-12
+    (the sums run in another order).  Returns (pos, pair, bt, kind)."""
+    S, T = (torch.as_tensor(M, device=cuda) for M in (S, T))
+    pos, pair, ar, ai, bt = (list(x) for x in zip(*ev._selected_blocks_gep(S, T, sel)))
+    ar, ai, bt = (torch.tensor(v, dtype=S.dtype, device=cuda) for v in (ar, ai, bt))
+    kind, smin, omega, smlnum, xr, xi = ev._backsolve_inputs_gep(S, T, ar, ai, bt, pos, pair)
+    n0 = kernels.LAUNCHES["eig_backsolve_gep"]
+    runs = []
+    for _ in range(2):
+        xrk, xik = xr.clone(), xi.clone()
+        runs.append((xrk, xik, gpu_eig.backsolve_gep(S, T, ar, ai, bt, pos, pair, kind, smin,
+                                                     omega, smlnum, xrk, xik)))
+    assert kernels.LAUNCHES["eig_backsolve_gep"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    cp = ev._backsolve_rows_gep(S, T, ar, ai, bt, pos, pair, kind, smin, omega, smlnum, xr, xi)
+    xrk, xik, ck = runs[0]
+    assert torch.equal(ck, cp)
+    for g, w in zip(ev._normalize(xrk, xik), ev._normalize(xr, xi)):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-12
+    return pos, pair, bt, kind
+
+
+def test_eig_backsolve_gep_block_edges(cuda):
+    """E2 where a group's rows span at least 9 of the kernel's row blocks
+    (64 rows), 2x2 blocks sit at block edges (the boundary moves a row) and
+    infinite eigenvalues are among those selected: a generalized Schur form
+    built directly (generators.schur_pencil, n = 700, 30% pairs, 10%
+    infinite), every eigenvalue selected, against the plain row loop."""
+    from starneig_tpu_torch.testing import backsolve_blocked as bb
+    S, T, _alpha, _beta = generators.schur_pencil(700, 0.3, 0.0, 0.1, seed=700)
+    pos, pair, bt, kind = _e2_against_twin(S, T, np.ones(700, bool), cuda)
+    order = np.argsort(-np.asarray(pos), kind="stable")
+    tops = [max(pos[i] for i in order[g:g + bb.GROUP]) for g in range(0, len(pos), bb.GROUP)]
+    blocks = [blk for top in tops for blk in bb.row_blocks(top, kind)]
+    assert max(len(bb.row_blocks(top, kind)) for top in tops) >= 9
+    assert any(r0 > 0 and kind[r0 - 1] == 2 for r0, _r1 in blocks)   # a moved boundary
+    assert sum(pair) > 100 and bool((bt == 0).any())                  # pairs, infinities
+
+
+def test_eig_backsolve_gep_large_n(cuda):
+    """E2 at n = 6,000, where its shared memory is the same as at any n:
+    the eigenvalues of generators.schur_pencil's last 12 rows (10, 3 of
+    them pairs), a chain over 6,000 rows in 95 row blocks, against the
+    plain row loop."""
+    n = 6000
+    S, T, _alpha, _beta = generators.schur_pencil(n, 0.3, 0.0, 0.1, seed=n)
+    sel = np.arange(n) >= n - 12
+    pos, pair, _bt, _kind = _e2_against_twin(S, T, sel, cuda)
+    assert min(pos) >= n - 13 and sum(pair) > 0     # a pair may start a row above
+
