@@ -18,6 +18,7 @@
     python3 chip_ab.py panel [--n N] ROOT [ROOT ...]
     python3 chip_ab.py backsolve [--n N] ROOT [ROOT ...]
     python3 chip_ab.py backsolvegep [--n N] ROOT [ROOT ...]
+    python3 chip_ab.py regimes [--n N] [--out PATH]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -158,7 +159,7 @@ schur, select Re > 0, reorder_schur), saved once, then each ROOT's
 ``api.sep.eigenvectors`` of its leading block in a process of its own:
 three runs timed to a synchronize after a warm-up, the launches, a run
 under ``torch.profiler`` (device totals, idle share), the worst
-eigenvector residual (``chip_smoke.eigenvector_residual``) and the SHA-256
+eigenvector residual (this checkout's ``hooks.eigenvector_residual_sep``) and the SHA-256
 of X.
 
 backsolvegep: the same for the GEP chain: the size-N (default 2000)
@@ -170,6 +171,12 @@ change, change, parent): the times, launches, device totals and idle
 share as for backsolve, the worst eigenvector residual
 (``testing.hooks.eigenvector_residual_gep``) and the SHA-256 of X.
 
+regimes: this checkout's size-N (default 5000, the acceptance tier's)
+SEP and GEP chains on the card, each phase under ``torch.profiler``:
+every kernel's launches, device total and the bound of its launches
+where their counts follow from the arguments, and one launch a kernel at
+its largest regime timed alone beside its bound (``regimes`` below).
+
 Prints the card's name and power limit first; exits nonzero if a check
 fails.  Needs a CUDA card and nvcc (bitwise on the CPU needs neither).
 """
@@ -179,6 +186,7 @@ from __future__ import annotations
 import ctypes
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1013,6 +1021,18 @@ def backsolvegep_inputs(n: int, path: Path):
                     Q=Q2.cpu(), Z=Z2.cpu(), m=int(m)), path)
 
 
+def _this_checkouts_hooks():
+    """This checkout's ``testing/hooks.py``, whatever package a worker runs
+    (its checks measure every ROOT alike)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_ab_hooks", Path(__file__).resolve().parent / "starneig_tpu_torch" / "testing" /
+        "hooks.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def backsolve_one(mode: str, root: str, path: str) -> None:
     """In a fresh process: api.sep.eigenvectors (mode backsolve) or
     api.gep.eigenvectors (backsolvegep) of the package under root on the
@@ -1026,14 +1046,14 @@ def backsolve_one(mode: str, root: str, path: str) -> None:
     m, n = d["m"], S.shape[0]
     lead = np.arange(n) < m
     if mode == "backsolve":
-        from chip_smoke import eigenvector_residual
         A = d["A"].to("cuda")
+        hooks_here = _this_checkouts_hooks()
 
         def call():
             return sep.eigenvectors(S, Q, lead)
 
         def residual(X):
-            return eigenvector_residual(A, S, X, m)
+            return hooks_here.eigenvector_residual_sep(A, S, X, m)
     else:
         from starneig_tpu_torch.testing import hooks
         T, Z = d["T"].to("cuda"), d["Z"].to("cuda")
@@ -2812,13 +2832,355 @@ def ab_qzinf(_args) -> bool:
     return ok
 
 
+def _twin_b2(conn, Hn, Zn, m, th, ilo, max_total_iter):
+    """In a child process: B2's plain twin on a window, its chase steps
+    (each sweep over [l, i] runs i - l); sends (steps, wall ms)."""
+    from starneig_tpu_torch.ops import small_schur
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    with tally(small_schur, "_sweep", lambda Hp, Zp, l, i, *a: i - l) as steps:
+        small_schur._small_schur_plain(torch.from_numpy(Hn), torch.from_numpy(Zn), m, th,
+                                       ilo, max_total_iter)
+    conn.send((steps[0], (time.perf_counter() - t0) * 1e3))
+    conn.close()
+
+
+def _twin_b4(conn, Tn, Vn, s, w, th):
+    """In a child process: B4's plain twin on a window, the flops of its
+    swaps (chip_smoke.phase_deflate's count); sends (flops, swaps, wall ms)."""
+    from starneig_tpu_torch.ops import schur
+    torch.set_num_threads(1)
+    WA = Tn.shape[0]
+    t0 = time.perf_counter()
+    with tally(schur, "swap_adjacent", lambda T4, p, q: (2 * (p + q) - 1) * (p + q) *
+               (2 * WA + p + q)) as flops, tally(schur, "swap_adjacent",
+                                                 lambda *a: 1) as swaps:
+        schur._aed_deflate(torch.from_numpy(Tn), torch.from_numpy(Vn), s, w, th)
+    conn.send((flops[0], swaps[0], (time.perf_counter() - t0) * 1e3))
+    conn.close()
+
+
+def _twin_g4(conn, Sn, Tn, Qn, Zn, s, w, th):
+    """In a child process: G4's plain twin on a window, the flops of its
+    swaps (chip_smoke.phase_aed_deflate_gep's count); sends (flops, swaps,
+    wall ms)."""
+    from starneig_tpu_torch.ops import qz_driver
+    torch.set_num_threads(1)
+    WA = Sn.shape[0]
+    t0 = time.perf_counter()
+    with tally(qz_driver, "swap_adjacent_gep", lambda A4, B4, p, q: (
+            2 * (p + q) - 1) * (p + q) * (4 * WA + 2 * (p + q))) as flops, \
+            tally(qz_driver, "swap_adjacent_gep", lambda *a: 1) as swaps:
+        qz_driver._aed_deflate_gep(*(torch.from_numpy(x) for x in (Sn, Tn, Qn, Zn)),
+                                   s, w, th)
+    conn.send((flops[0], swaps[0], (time.perf_counter() - t0) * 1e3))
+    conn.close()
+
+
+# the kernels of the n=5000 paths: label -> (wrapper module, wrapper,
+# LAUNCHES key, the profiler's kernel-name keys, the argument that sets the
+# regime: "B" for B3, "W" for the bubbles' window, else the window's rows)
+REGIME_KERNELS = {
+    "H1": ("gpu_hess", "panel", "hess_panel", ("hess_panel_kernel",), None),
+    "B2": ("gpu_schur", "francis", "francis", ("francis_kernel",), "rows"),
+    "B3": ("gpu_schur", "train_hops", "train_hops", ("train_hops_kernel",), "B"),
+    "B4": ("gpu_schur", "aed_deflate", "aed_deflate", ("aed_deflate_kernel",), "rows"),
+    "B5": ("gpu_schur", "aed_recondense", "recondense", ("recondense_kernel",), "rows"),
+    "bubble": ("gpu_reorder", "window_bubble", "reorder_bubble",
+               ("reorder_bubble_kernel",), "W"),
+    "E1": ("gpu_eig", "backsolve", "eig_backsolve", ("eig_backsolve_kernel",), None),
+    "G1": ("gpu_gep", "ht_cascade", "ht_cascade",
+           ("ht_lgen_kernel", "ht_lpass_kernel", "ht_rchain_kernel", "ht_rpass_kernel",
+            "ht_sliver_kernel"), None),
+    "G1w": ("gpu_gep", "ht_recondense", "ht_recondense",
+            ("ht_win_chain_kernel", "ht_win_replay_kernel"), "rows"),
+    "G2": ("gpu_gep", "qz_window", "qz_window", ("qz_window_kernel",), "rows"),
+    "G3": ("gpu_gep", "qz_sweep", "qz_sweep", ("qz_sweep_kernel",), None),
+    "G4": ("gpu_gep", "aed_deflate_gep", "aed_deflate_gep", ("aed_deflate_gep_kernel",),
+           "rows"),
+    "G5": ("gpu_gep", "inf_chase", "inf_chase", ("inf_chase_kernel",), None),
+    "G6": ("gpu_reorder", "window_bubble_gep", "reorder_bubble_gep",
+           ("reorder_bubble_gep_kernel",), "W"),
+    "E2": ("gpu_eig", "backsolve_gep", "eig_backsolve_gep", ("eig_backsolve_gep_kernel",),
+           None),
+}
+
+
+def _copy_args(args):
+    """Copies of a call's arguments: the drivers go on to change the host
+    arrays they passed (a bubble's selection is a view of the pass's)."""
+    import copy
+    return [a.clone() if torch.is_tensor(a) else copy.deepcopy(a) for a in args]
+
+
+# the bubbles' swap counts: the index of nswaps in their wrappers' outputs
+SWAPS_OUT = {"bubble": 5, "G6": 7}
+
+
+def _regime_size(key, args):
+    if key == "B":
+        return int(args[6])
+    return int(args[0].shape[1 if key == "W" else 0])
+
+
+def _analytic_bound(label, args, out):
+    """(bytes, flops) of one launch where they follow from its arguments
+    and outputs (chip_smoke's counts), else None (the twin counts them)."""
+    from chip_smoke import recondense_flops, ht_window_flops
+    if label == "B3":
+        W, _sh, gidx, lr, ir, s0, B, HOP = args
+        G, WC = W.shape[0], W.shape[1]
+        active = sum(lr[g] <= lr[g] + s0[g] + t - 3 * b <= ir[g] - 2
+                     for g in range(G) for t in range(HOP) for b in range(B))
+        return 8 * 3 * G * WC * WC, active * 14 * 3 * WC
+    if label == "B5":
+        WA = args[0].shape[0]
+        return 8 * 4 * WA * WA, recondense_flops(WA, int(args[3]))
+    if label == "G1w":
+        WA = args[0].shape[0]
+        return 8 * 8 * WA * WA, ht_window_flops(WA, int(args[5]))
+    if label == "bubble":
+        G, W = args[0].shape[0], args[0].shape[1]
+        return 8 * 3 * G * W * W, int(np.sum(out[SWAPS_OUT[label]])) * 6 * (2 * W + 2)
+    if label == "G6":
+        G, W = args[0].shape[0], args[0].shape[1]
+        return (8 * 6 * G * W * W,
+                int(np.sum(out[SWAPS_OUT[label]])) * 32 * (4 * (W + 4) + 2 * W))
+    return None
+
+
+class RegimeRecorder:
+    """Wrap the kernel wrappers of REGIME_KERNELS: each call's analytic
+    bound is summed, and one call a kernel is kept (its arguments copied)
+    to be timed alone later: the first at its largest regime, for
+    a bubble the one with the most swaps at the widest W."""
+
+    def __init__(self):
+        import importlib
+        self.mods = {m: importlib.import_module(f"starneig_tpu_torch.ops.{m}")
+                     for m, *_ in REGIME_KERNELS.values()}
+        self.orig, self.kept, self.sizes, self.rank = {}, {}, {}, {}
+        self.bound = {}
+
+    def __enter__(self):
+        for label, (m, fn, _k, _p, key) in REGIME_KERNELS.items():
+            orig = getattr(self.mods[m], fn)
+            self.orig[label] = orig
+            setattr(self.mods[m], fn, self._wrap(label, orig, key))
+        return self
+
+    def __exit__(self, *exc):
+        for label, (m, fn, *_r) in REGIME_KERNELS.items():
+            setattr(self.mods[m], fn, self.orig[label])
+
+    def _wrap(self, label, orig, key):
+        import inspect
+        sig = inspect.signature(orig)
+
+        def call(*args, **kw):
+            # every argument by position, defaults filled in
+            ba = sig.bind(*args, **kw)
+            ba.apply_defaults()
+            args, kw = tuple(ba.arguments.values()), {}
+            size = None if key is None else _regime_size(key, args)
+            copy = _copy_args(args) \
+                if size is not None and size >= self.sizes.get(label, -1) else None
+            out = orig(*args, **kw)
+            # a bubble's launch with the most swaps at the widest W; else
+            # the first launch at the largest regime
+            rank = (size, int(np.sum(out[SWAPS_OUT[label]])) if label in SWAPS_OUT else 0)
+            if copy is not None and rank > self.rank.get(label, (-1, -1)):
+                self.sizes[label], self.rank[label] = size, rank
+                self.kept[label] = (copy, dict(kw))
+            b = _analytic_bound(label, args, out)
+            if b is not None:
+                tot = self.bound.setdefault(label, [0, 0])
+                tot[0] += b[0]
+                tot[1] += b[1]
+            return out
+        return call
+
+    def timed_alone(self, label):
+        """CUDA-event ms of one launch on the kept arguments (copied a call)."""
+        args, kw = self.kept[label]
+        fn = self.orig[label]
+        return cuda_ms(lambda: fn(*_copy_args(args), **kw), 3)
+
+
+def _profile_phase(fn):
+    """(fn()'s result, its wall ms, {kernel name: (device ms, calls)})."""
+    from chip_smoke import profiled_kernels
+    out, prof, ms = profiled_kernels(fn)
+    return out, ms, prof
+
+
+def regimes(args) -> bool:
+    """[--n N] [--out PATH]: the size-N SEP chain (random_dense(N, seed=0): hessenberg,
+    schur, select Re > 0, reorder_schur, eigenvectors) and GEP chain
+    (known_spectrum_pencil(N, 0.3, 0.1, seed=0): HT, QZ, select of finite
+    Re > 0, reorder_schur, eigenvectors) on the card, each phase under
+    torch.profiler: every kernel's launches (kernels.LAUNCHES), device total
+    and calls, the bound of its launches where their counts follow from the
+    arguments (B3, B5, the bubbles, G1's window mode; chip_smoke's counts),
+    and its largest regime (B2, B4, B5, G1's window mode, G2 and G4 at the
+    largest window, B3 at the largest B, the bubbles at the widest W) timed
+    alone by CUDA events beside its bound (B2's, B4's, G2's and G4's
+    operations counted by their plain twins on the host in child
+    processes, as chip_smoke counts them).  Prints one REGIMES JSON line,
+    and writes it to PATH too if given."""
+    import json
+    from chip_smoke import (bound, e1_work, e2_work, ht_cascade_flops, qz_plain_job,
+                            start_child)
+    from starneig_tpu_torch.api import gep, sep
+    from starneig_tpu_torch.ops import eigenvectors as ev
+    from starneig_tpu_torch.testing.generators import known_spectrum_pencil, random_dense
+    opts = dict(zip(args[::2], args[1::2]))
+    n, out_path = int(opts.get("--n", 5000)), opts.get("--out")
+    dev = torch.device("cuda")
+    kernels.lib()
+    rec = RegimeRecorder()
+    phases, launches, prof_all = {}, {}, {}
+
+    def phase(name, fn):
+        kernels.reset_launches()
+        out, ms, prof = _profile_phase(fn)
+        phases[name] = ms
+        launches[name] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        prof_all[name] = prof
+        return out
+    with rec:
+        A = torch.as_tensor(random_dense(n, seed=0), device=dev)
+        H, Q = phase("sep_hessenberg", lambda: sep.hessenberg(A))
+        stats = {}
+        S, Q, er, ei, info = phase("sep_schur", lambda: sep.schur(H, Q, stats=stats))
+        sel = sep.select(S, lambda lam: lam.real > 0)
+        S2, Q2, m, rinfo = phase("sep_reorder", lambda: sep.reorder_schur(S, Q, sel))
+        X, xinfo = phase("sep_eigenvectors",
+                         lambda: sep.eigenvectors(S2, Q2, np.arange(n) < m))
+        sep_geo = {k: stats.get(k) for k in ("WA", "NS", "B", "WC", "TMAX", "rounds")}
+        e1_in = (S2, m)
+        del H, X
+        Ag, Bg, _al, _be = known_spectrum_pencil(n, complex_ratio=0.3, inf_ratio=0.1,
+                                                 seed=0)
+        Ag, Bg = (torch.as_tensor(x, device=dev) for x in (Ag, Bg))
+        Hg, Tg, Qg, Zg = phase("gep_ht", lambda: gep.hessenberg_triangular(Ag, Bg))
+        gstats = {}
+        Sg, Tg, Qg, Zg, *_ev, ginfo = phase("gep_qz", lambda: gep.schur(Hg, Tg, Qg, Zg,
+                                                                        stats=gstats))
+        del Hg
+        gsel = gep.select(Sg, Tg, lambda a, b: b != 0 and (a / b).real > 0)
+        Sg2, Tg2, Qg2, Zg2, gm, grinfo = phase(
+            "gep_reorder", lambda: gep.reorder_schur(Sg, Tg, Qg, Zg, gsel))
+        phase("gep_eigenvectors",
+              lambda: gep.eigenvectors(Sg2, Tg2, Qg2, Zg2, np.arange(n) < gm))
+        gep_geo = {k: gstats.get(k) for k in ("WA", "NS", "B", "WC", "TMAX", "rounds",
+                                              "inf_rounds", "recondense_calls")}
+    # the twins of the kept windows on the host, while the card times them
+    kids = {}
+    if "B2" in rec.kept:
+        Hk, Zk, *rest = rec.kept["B2"][0]
+        kids["B2"] = start_child(_twin_b2, Hk.cpu().numpy(), Zk.cpu().numpy(), *rest)
+    if "B4" in rec.kept:
+        Tk, Vk, sk, wk, thk = rec.kept["B4"][0]
+        kids["B4"] = start_child(_twin_b4, Tk.cpu().numpy(), Vk.cpu().numpy(), sk, wk, thk)
+    if "G2" in rec.kept:
+        Hk, Tk, _Qk, _Zk, mk, thh, tht, *_r = rec.kept["G2"][0]
+        kids["G2"] = start_child(qz_plain_job, Hk[:mk, :mk].cpu().numpy(),
+                                 Tk[:mk, :mk].cpu().numpy(), thh, tht)
+    if "G4" in rec.kept:
+        x = rec.kept["G4"][0]
+        kids["G4"] = start_child(_twin_g4, *(t.cpu().numpy() for t in x[:4]), *x[4:])
+    report = dict(n=n, device=torch.cuda.get_device_name(0), sep_geometry=sep_geo,
+                  gep_geometry=gep_geo, info=dict(sep=int(info), sep_reorder=int(rinfo),
+                                                  gep=int(ginfo), gep_reorder=int(grinfo),
+                                                  sep_eigenvectors=int(xinfo)),
+                  phase_ms=phases, launches=launches, kernels={})
+    for label, (_m, _fn, lkey, pkeys, _key) in REGIME_KERNELS.items():
+        row = dict(launches=sum(v.get(lkey, 0) for v in launches.values()))
+        dev_ms, calls = 0.0, 0
+        for prof in prof_all.values():
+            for name, (ms, cnt) in prof.items():
+                if any(k in name for k in pkeys):
+                    dev_ms, calls = dev_ms + ms, calls + cnt
+        row.update(device_ms=dev_ms, kernel_calls=calls)
+        if label in rec.bound:
+            row["path_bound_ms"], row["path_bound_by"] = bound(*rec.bound[label])
+        if label in rec.kept:
+            row["regime"] = rec.sizes[label]
+            row["alone_ms"] = rec.timed_alone(label)
+            b = _analytic_bound(label, rec.kept[label][0], None) \
+                if label in ("B3", "B5", "G1w") else None
+            if b is not None:
+                row["alone_bound_ms"], row["alone_bound_by"] = bound(*b)
+        report["kernels"][label] = row
+    # the bubbles' kept launches: their swaps from a fresh launch's output
+    for label, idx in SWAPS_OUT.items():
+        if label in rec.kept:
+            args_, kw = rec.kept[label]
+            out = rec.orig[label](*_copy_args(args_), **kw)
+            b = _analytic_bound(label, args_, out)
+            report["kernels"][label].update(swaps=int(np.sum(out[idx])))
+            report["kernels"][label]["alone_bound_ms"], \
+                report["kernels"][label]["alone_bound_by"] = bound(*b)
+    # G1 at n: chip_smoke's bound of the whole cascade
+    report["kernels"]["G1"]["path_bound_ms"], report["kernels"]["G1"]["path_bound_by"] = \
+        bound(8 * 8 * n * n, ht_cascade_flops(n))
+    # E1 and E2: chip_smoke's bounds on this run's selections
+    S2c = e1_in[0]
+    lead = np.arange(n) < e1_in[1]
+    pos, pair, lr, li = (list(v) for v in zip(*ev._selected_blocks(S2c, lead)))
+    lam_r, lam_i = (torch.tensor(v, dtype=S2c.dtype, device=dev) for v in (lr, li))
+    kind = ev._backsolve_inputs(S2c, lam_r, lam_i, pos, pair)[0]
+    report["kernels"]["E1"]["path_bound_ms"], report["kernels"]["E1"]["path_bound_by"] = \
+        bound(*e1_work(S2c, pos, pair, kind))
+    lead = np.arange(n) < gm
+    Sgc, Tgc = Sg2.contiguous(), Tg2.contiguous()
+    pos, pair, ar_, ai_, bt_ = (list(v) for v in zip(*ev._selected_blocks_gep(Sgc, Tgc,
+                                                                              lead)))
+    ar_, ai_, bt_ = (torch.tensor(v, dtype=Sgc.dtype, device=dev) for v in (ar_, ai_, bt_))
+    kind = ev._backsolve_inputs_gep(Sgc, Tgc, ar_, ai_, bt_, pos, pair)[0]
+    report["kernels"]["E2"]["path_bound_ms"], report["kernels"]["E2"]["path_bound_by"] = \
+        bound(*e2_work(Sgc, pos, pair, kind))
+    for label, (proc, recv) in kids.items():
+        ok = recv.poll(900)
+        got = recv.recv() if ok else None
+        proc.join(5)
+        if proc.is_alive():
+            proc.kill()
+        row = report["kernels"][label]
+        if got is None:
+            row["alone_bound_ms"] = "not measured (the twin did not finish)"
+            continue
+        w = rec.sizes[label]
+        if label == "B2":
+            steps, pms = got
+            b = (8 * 4 * w * w, steps * 14 * (2 * w + 7))
+            row.update(twin_steps=steps, plain_ms=pms)
+        elif label == "G2":
+            steps, nflops, tinfo, pms = got
+            b = (8 * 8 * w * w, nflops)
+            row.update(twin_steps=steps, plain_ms=pms, twin_info=tinfo)
+        else:
+            nflops, nsw, pms = got
+            b = (8 * (4 if label == "B4" else 8) * w * w, nflops)
+            row.update(twin_swaps=nsw, plain_ms=pms)
+        row["alone_bound_ms"], row["alone_bound_by"] = bound(*b)
+    line = json.dumps(report, default=str)
+    if out_path:
+        Path(out_path).write_text(line + "\n")
+    print("REGIMES " + line, flush=True)
+    return all(v == 0 for k, v in report["info"].items() if k != "sep_reorder"
+               and k != "gep_reorder")
+
+
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
          "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep,
          "htwin": ab_htwin, "infchase": ab_infchase, "panel": ab_panel,
          "backsolve": ab_backsolve,
-         "backsolvegep": lambda args: ab_backsolve(args, "backsolvegep")}
+         "backsolvegep": lambda args: ab_backsolve(args, "backsolvegep"),
+         "regimes": regimes}
 # the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
 PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),
             "bitwise": lambda root, n, device: bitwise_one(root, int(n), device),

@@ -1126,37 +1126,13 @@ def solve(A):
 
 
 def gates(A, S, Q):
-    import torch
-    n = A.shape[0]
-    res = float(torch.linalg.norm(Q @ S @ Q.T - A) / torch.linalg.norm(A)) / U
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    orth = float(torch.linalg.norm(Q @ Q.T - eye)) / n ** 0.5 / U
-    return res, orth
+    """(residual, orthogonality) in units of u, computed on S's device."""
+    from starneig_tpu_torch.testing import hooks
+    return hooks.sep_gates(A, S, Q)[:2]
 
 
 def positive_real(lam):
     return lam.real > 0
-
-
-def eigenvector_residual(A, S, X, m):
-    """Worst ||A x - lambda x|| / (||A||_F ||x||) over the eigenvectors X of
-    the leading m x m block of S (a real column per real eigenvalue, a
-    (Re, Im) column pair per complex pair)."""
-    import torch
-    from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
-    er, ei = extract_eigenvalues(S[:m, :m])
-    first = ei > 0                       # the pair's (Re, Im) columns start here
-    keep = first | (ei == 0)
-    c = torch.arange(m, device=A.device)
-    partner = torch.where(first, c + 1, c).clamp_max(m - 1)
-    AX = A @ X
-    Xi = torch.where(first, X[:, partner], 0.0)
-    AXi = torch.where(first, AX[:, partner], 0.0)
-    Rr = AX - (er * X - ei * Xi)
-    Ri = AXi - (er * Xi + ei * X)
-    rn = torch.sqrt((Rr * Rr + Ri * Ri).sum(0))
-    xn = torch.sqrt((X * X + Xi * Xi).sum(0))
-    return float((rn / (torch.linalg.norm(A) * xn))[keep].max())
 
 
 def phase_reduce(dev):
@@ -1164,6 +1140,7 @@ def phase_reduce(dev):
     import numpy as np
     from starneig_tpu_torch.api import sep
     from starneig_tpu_torch.convert import from_numpy
+    from starneig_tpu_torch.testing import hooks
     from starneig_tpu_torch.testing.hooks import schur_form_error
     A_np = np.random.default_rng(42).standard_normal((200, 200))
     Sg, Qg, _er, _ei, mg, infog = sep.reduce(from_numpy(A_np, dev), positive_real)
@@ -1172,7 +1149,7 @@ def phase_reduce(dev):
     na = np.linalg.norm(A_np)
     d = float(np.abs(block_eigs(Sg, mg) - block_eigs(Sc, mc)).max()) / na \
         if mg == mc else np.inf
-    lead_ok = bool((block_eigs(Sg, mg).real > 0).all())
+    lead_ok, _rest = hooks.selected_leading(Sg, mg, positive_real)
     res, orth = gates(from_numpy(A_np, dev), Sg, Qg)
     form = schur_form_error(Sg)
     want = int((np.linalg.eigvals(A_np).real > 0).sum())
@@ -1235,6 +1212,7 @@ def phase_main(dev):
     from starneig_tpu_torch.config import HessenbergConf
     from starneig_tpu_torch.convert import from_numpy, to_numpy
     from starneig_tpu_torch.errors import Error
+    from starneig_tpu_torch.testing import hooks
     from starneig_tpu_torch.testing.hooks import eigenvalue_error, schur_form_error
 
     # small input against numpy and against the port's CPU (plain) path
@@ -1304,8 +1282,8 @@ def phase_main(dev):
     er2, ei2 = sep.eigenvalues(S2)
     after = to_numpy(er2) + 1j * to_numpy(ei2)
     moved = eigenvalue_error(after, before) * U
-    lead_ok = bool((after[:m].real > 0).all())
-    evec = eigenvector_residual(A, S2, X, m)
+    lead_ok, _rest = hooks.selected_leading(S2, m, positive_real)
+    evec = hooks.eigenvector_residual_sep(A, S2, X, m)
     log(f"  n={n} reorder: info {int(rinfo)} selected {int(sel.sum())} rows, "
         f"leading block {m} rows, reorder_ms {reorder_ms:.1f} (select_ms "
         f"{select_ms:.1f}), stats {rstats}, residual_u {res2:.1f} "
@@ -1403,6 +1381,7 @@ def phase_backsolve(dev, main_res):
     import torch
     from starneig_tpu_torch.ops import eigenvectors as ev
     from starneig_tpu_torch.ops import gpu_eig
+    from starneig_tpu_torch.testing import hooks
     A, S2, Q3, m = main_res["chain"]
     n = S2.shape[0]
     pos, pair, lr, li = (list(x) for x in zip(*ev._selected_blocks(S2, np.arange(n) < m)))
@@ -1423,7 +1402,7 @@ def phase_backsolve(dev, main_res):
     gk, gp = ev._normalize(xk, xik), ev._normalize(xr, xi)
     err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
     X = Q3 @ ev._columns(*gk, pair)
-    evec = eigenvector_residual(A, S2, X, m)
+    evec = hooks.eigenvector_residual_sep(A, S2, X, m)
     bms, by = bound(*e1_work(S2, pos, pair, kind))
     steps = chain_steps(pos, kind)
     chain = steps * E1_STEP_CYCLES / SM_HZ * 1e3
@@ -2196,10 +2175,8 @@ def gep_gates(A, B, S, T, Q, Z, bt):
     S and T, count of |beta| <= 1e-12 max|beta|)."""
     import numpy as np
     from starneig_tpu_torch.testing import hooks
-    ra, rb = hooks.residual_gep(A, B, S, T, Q, Z)
     bt = bt.cpu().numpy()
-    return (ra, rb, hooks.orthogonality(Q), hooks.orthogonality(Z),
-            hooks.schur_structure_error(S), hooks.triangular_structure_error(T),
+    return (*hooks.gep_gates(A, B, S, T, Q, Z),
             int((np.abs(bt) <= 1e-12 * np.abs(bt).max()).sum()))
 
 
@@ -2375,10 +2352,7 @@ def gep_chain(A_np, B_np, A, B, S, T, Q, Z, ar, ai, bt):
     ar2, ai2, bt2 = (x.cpu().numpy() for x in gep.eigenvalues(S2, T2))
     before = (ar.cpu().numpy() + 1j * ai.cpu().numpy(), bt.cpu().numpy())
     kept = hooks.chordal_eigenvalue_error(ar2, ai2, bt2, *before) * U
-    lead_ok = all(finite_right_half(complex(a, b), c)
-                  for a, b, c in zip(ar2[:m], ai2[:m], bt2[:m]))
-    rest = sum(finite_right_half(complex(a, b), c)
-               for a, b, c in zip(ar2[m:], ai2[m:], bt2[m:]))
+    lead_ok, rest = hooks.selected_leading(S2, m, finite_right_half, T=T2)
     evec = hooks.eigenvector_residual_gep(A_np, B_np, S2, T2, X, lead)
     log(f"  GEP n={n} reorder: info {int(rinfo)}, selected {int(sel.sum())} rows, leading "
         f"block {m} rows ({rest} selected rows left below), reorder_ms {reorder_ms:.1f} "
@@ -2674,7 +2648,8 @@ def phase_dm_sep(dev, main_res):
     after = er2 + 1j * ei2
     moved = hooks.eigenvalue_error(after, spec) * U
     vs_sm = hooks.eigenvalue_error(spec, main_res["spectrum"]) * U
-    evec = eigenvector_residual(A, from_numpy(r["S2"], dev), from_numpy(r["X"], dev), m)
+    evec = hooks.eigenvector_residual_sep(A, from_numpy(r["S2"], dev),
+                                          from_numpy(r["X"], dev), m)
     ms = {k: cnt[0][k] for k in ("hessenberg_ms", "schur_ms", "select_ms",
                                  "reorder_ms", "eigenvectors_ms")}
     comm = {c["rank"]: {stage: dm_comm(stats) for stage, stats in c["stats"].items()}

@@ -206,16 +206,47 @@ def sep_chain(A, predicate: str = "positive_real"):
                                     X=tuple(X.data.shape), X_spec=X.spec))
 
 
-def sep_reduce(A, predicate: str = "positive_real"):
-    """api.sep_dm.reduce of the whole matrix A."""
-    from starneig_tpu_torch.api import sep_dm
+@contextlib.contextmanager
+def staged(module, names, mesh, ms: dict):
+    """Time the stages that ``module``'s functions ``names`` run inside a
+    call of another of its functions (``api.sep_dm.reduce`` calls its
+    ``hessenberg``, ``schur``, ... as module globals): each stage ends as
+    :func:`_stage` ends one, and ``ms[name + "_ms"]`` is its time from
+    the end of the stage before it (the first from entering the block)."""
+    orig = {k: getattr(module, k) for k in names}
+    last = [time.perf_counter()]
 
-    stats = {}
-    Sd, Qd, er, ei, nsel, info = sep_dm.reduce(A, PREDICATES[predicate],
-                                               stats=stats)
+    def wrap(name, fn):
+        def timed_stage(*a, **kw):
+            out = fn(*a, **kw)
+            t = _stage(mesh)
+            ms[f"{name}_ms"] = (t - last[0]) * 1e3
+            last[0] = t
+            return out
+        return timed_stage
+    for k, fn in orig.items():
+        setattr(module, k, wrap(k, fn))
+    try:
+        yield ms
+    finally:
+        for k, fn in orig.items():
+            setattr(module, k, fn)
+
+
+def sep_reduce(A, predicate: str = "positive_real"):
+    """api.sep_dm.reduce of the whole matrix A, its stages' times in
+    ``<stage>_ms`` (:func:`staged`)."""
+    from starneig_tpu_torch.api import sep_dm
+    from starneig_tpu_torch.node import default_mesh
+
+    mesh = default_mesh()
+    stats, ms = {}, {}
+    with staged(sep_dm, ("hessenberg", "schur", "select", "reorder_schur"), mesh, ms):
+        Sd, Qd, er, ei, nsel, info = sep_dm.reduce(A, PREDICATES[predicate],
+                                                   mesh=mesh, stats=stats)
     result = dict(S=Sd.to_array(), Q=Qd.to_array(), er=er.cpu().numpy(),
                   ei=ei.cpu().numpy(), nsel=int(nsel), info=int(info))
-    return result, dict(stats=stats, shards=dict(S=tuple(Sd.data.shape)))
+    return result, dict(ms, stats=stats, shards=dict(S=tuple(Sd.data.shape)))
 
 
 def gep_reduce(A, B, predicate: str = "finite_right_half"):

@@ -14,6 +14,7 @@ the port's own, stricter structure check on a tensor.
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
@@ -255,3 +256,92 @@ def schur_form_error(S) -> float:
              torch.minimum(sub[:-1].abs(), sub[1:].abs()),
              (d[:-1] - d[1:]).abs()[blk], z)
     return float(torch.cat(parts).max())
+
+
+def _tensor(x, device=None):
+    t = torch.as_tensor(x)
+    return t if device is None else t.to(device)
+
+
+def _orthogonality_t(V) -> float:
+    """:func:`orthogonality` of a tensor, computed on its device."""
+    n = V.shape[0]
+    eye = torch.eye(n, dtype=V.dtype, device=V.device)
+    return float(torch.linalg.norm(V @ V.T - eye)) / math.sqrt(n) / _u(np.float64)
+
+
+def eigenvector_residual_sep(A, S, X, m) -> float:
+    """Worst ||A x - lambda x|| / (||A||_F ||x||) over the eigenvectors X
+    (n, m) of the leading m x m block of the real Schur form S of A, in
+    LAPACK-style real storage: a column per real eigenvalue, a (Re, Im)
+    column pair per complex pair, for the eigenvalue with positive
+    imaginary part.  Computed in torch on S's device (numpy arrays become
+    CPU tensors)."""
+    from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
+    S = _tensor(S)
+    A, X = _tensor(A, S.device), _tensor(X, S.device)
+    er, ei = extract_eigenvalues(S[:m, :m])
+    first = ei > 0                       # the pair's (Re, Im) columns start here
+    keep = first | (ei == 0)
+    c = torch.arange(m, device=S.device)
+    partner = torch.where(first, c + 1, c).clamp_max(m - 1)
+    AX = A @ X
+    Xi = torch.where(first, X[:, partner], 0.0)
+    AXi = torch.where(first, AX[:, partner], 0.0)
+    Rr = AX - (er * X - ei * Xi)
+    Ri = AXi - (er * Xi + ei * X)
+    rn = torch.sqrt((Rr * Rr + Ri * Ri).sum(0))
+    xn = torch.sqrt((X * X + Xi * Xi).sum(0))
+    return float((rn / (torch.linalg.norm(A) * xn))[keep].max())
+
+
+def selected_leading(S, m, predicate, T=None):
+    """(lead_ok, rest) after a reordering: whether every eigenvalue of the
+    leading m x m block of S (of the pencil (S, T) if T is given)
+    satisfies ``predicate``, and how many rows below m hold an eigenvalue
+    that does.  The predicate takes what ``api.sep.select`` (a complex
+    lambda) or ``api.gep.select`` (alpha, beta) passes it; a 2x2 block is
+    judged as a whole, as the selection does."""
+    from starneig_tpu_torch.api import gep, sep
+    S = _tensor(S)
+    sel = sep.select(S, predicate) if T is None else \
+        gep.select(S, _tensor(T, S.device), predicate)
+    return bool(sel[:m].all()), int(sel[m:].sum())
+
+
+def sep_gates(A, S, Q):
+    """(residual ||Q S Q^T - A||_F / ||A||_F, orthogonality ||Q Q^T -
+    I||_F / sqrt(n), both in units of u; :func:`schur_form_error` of S),
+    computed in torch on S's device: the SEP gates of a card run, where
+    the n^3 products are the card's."""
+    S = _tensor(S)
+    A, Q = _tensor(A, S.device), _tensor(Q, S.device)
+    res = float(torch.linalg.norm(Q @ S @ Q.T - A) / torch.linalg.norm(A)) / _u(np.float64)
+    return res, _orthogonality_t(Q), schur_form_error(S)
+
+
+def gep_gates(A, B, S, T, Q, Z):
+    """(residual of A, residual of B, orthogonality of Q, of Z, in units
+    of u; :func:`schur_structure_error` of S, :func:`triangular_structure_error`
+    of T), the residuals and orthogonalities computed in torch on S's
+    device (:func:`residual_gep`'s and :func:`orthogonality`'s formulas)."""
+    S = _tensor(S)
+    A, B, T, Q, Z = (_tensor(x, S.device) for x in (A, B, T, Q, Z))
+
+    def rel(M, R):
+        return float(torch.linalg.norm(Q @ M @ Z.T - R) / torch.linalg.norm(R)) / \
+            _u(np.float64)
+    return (rel(S, A), rel(T, B), _orthogonality_t(Q), _orthogonality_t(Z),
+            schur_structure_error(S), triangular_structure_error(T))
+
+
+def timed(fn):
+    """(fn(), its wall time in ms), the card's queue drained before the
+    start and after the end (``torch.cuda.synchronize``) where a card is
+    in use: a phase's time as a caller sees it."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3

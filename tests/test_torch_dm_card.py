@@ -50,22 +50,14 @@ def test_sep_dm_chain_two_ranks(cuda):
         assert hooks.schur_form_error(torch.as_tensor(S)) == 0.0
     m = r["m"]
     assert m == r["selected"] == int((r["er"] > 0).sum())
-    er2, ei2 = (t.numpy() for t in sep.eigenvalues(r["S2"], device="cpu"))
-    assert (er2[:m] > 0).all()
+    lead_ok, rest = hooks.selected_leading(r["S2"], m, lambda lam: lam.real > 0)
+    assert lead_ok and rest == 0
     _S, _Q, er, ei, info = sep.schur(*sep.hessenberg(A, device=cuda), device=cuda)
     single = er.cpu().numpy() + 1j * ei.cpu().numpy()
     assert hooks.eigenvalue_error(r["er"] + 1j * r["ei"], single) * U < 1e-10
     X = r["X"]
     assert X.shape == (n, m)
-    lam = er2[:m] + 1j * ei2[:m]
-    j = 0
-    while j < m:
-        pair = ei2[j] != 0
-        x = X[:, j] + 1j * X[:, j + 1] if pair else X[:, j]
-        lj = er2[j] + 1j * abs(ei2[j]) if pair else lam[j]
-        res = np.linalg.norm(A @ x - lj * x) / (np.linalg.norm(A) * np.linalg.norm(x))
-        assert res < 1e-10, (j, res)
-        j += 2 if pair else 1
+    assert hooks.eigenvector_residual_sep(A, r["S2"], X, m) < 1e-10
     NP = cnt[0]["stats"]["schur"]["NP"]
     for c in cnt:
         assert c["backend"] == "gloo" and c["device"] == str(cuda)
