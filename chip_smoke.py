@@ -133,16 +133,29 @@ Phases (any failure raises; the exit code is then nonzero):
      leading block, the spectrum kept, the eigenvector residuals, H and Q
      against phase 5's (DM_HESS_TOL), the ranks' V/T hashes equal, the
      spectrum against phase 5's (1e-10 max|lambda| after matching), the
-     rounds within 2 of phase 5's, each rank's Schur shard (NP, NP/2) and
-     the launches (zeroed in each rank before the job, read after it:
-     rank 0 launched B1-B5 and the bubble, rank 1 B1 alone); prints each
-     stage's time, each rank's B1 launches and each rank's collectives
-     (calls, bytes, seconds) by stage.  10b: on 4 ranks,
+     rounds within 2 of phase 5's, each rank's padded Schur shard (the
+     columns dm_core.pad_cuts gives it) and output shards (n, n/2), the
+     sharded stages (schur, select, reorder_schur) with no
+     DistrMatrix.full call, each rank's peak device memory below its
+     shards plus 2 n^2 float64 and no message above one panel of S and
+     one of Q (dm_stage_checks), and the launches (zeroed in each rank
+     before the job, read after it: rank 0 launched B1-B5 and the bubble,
+     rank 1 B1 alone); prints each stage's time, each rank's B1 launches,
+     peak memory and collectives (calls, bytes, seconds, largest message)
+     by stage.  10b: on 4 ranks,
      api.sep_dm.reduce at n=1200 and api.gep_dm.reduce of
      known_spectrum_pencil(512, 0.3, 0.1, seed 0) (finite, Re(alpha/beta)
      > 0), then api.gep_dm.eigenvectors of its leading block, under the
      gates of phases 5 and 6, with the same launch rule (rank 0 launches
-     E2).
+     E2).  10c: phase 6's pencil (n=2000) on 2 ranks through
+     api.gep_dm.hessenberg_triangular (rank 0), schur and reorder_schur
+     (column shards; G1's window mode and G2-G6 on rank 0), select and
+     eigenvectors of the leading block (rank 0), each stage timed to a
+     barrier, under phase 6's gates, the spectrum within 1e-10 chordal of
+     phase 6's, the rounds within 2 of phase 6's, the window kernels
+     launched by rank 0 alone, and dm_stage_checks with one panel of each
+     of the pencil's four matrices.  10a and 10c run in one spawn of 2
+     ranks (testing.dm.sequence), one start-up for both.
  11. tools and examples: phase 5's stages at n=512 with the sanity checks
      on and each stage in a trace span, the trace dumped and parsed; then
      the three examples (python -m starneig_tpu_torch.examples.<name>)
@@ -2271,8 +2284,8 @@ def phase_gep(dev):
         inf_ms[0] += t
         return out_
 
-    def timed_sweep(*a):
-        sweep_ms[0] += timed(lambda: orig_sweep(*a))[1]
+    def timed_sweep(*a, **kw):
+        sweep_ms[0] += timed(lambda: orig_sweep(*a, **kw))[1]
     qz_driver.inf_chase, qz_driver._qz_sweep = timed_chase, timed_sweep
     try:
         _, prof, _ms = profiled_kernels(lambda: gep.schur(H, T, Q, Z))
@@ -2307,7 +2320,9 @@ def phase_gep(dev):
     chain, state = gep_chain(A_np, B_np, A, B, S, Tt, Qo, Zo, ar, ai, bt)
     log("== 6b. E2 on the GEP path's selection against its plain loop")
     e2 = phase_backsolve_gep(dev, A_np, B_np, *state)
-    return dict(info=int(info), ht_ms=ht_ms, ht_first_ms=ht_first_ms, qz_ms=qz_ms,
+    spectrum = tuple(x.cpu().numpy() for x in (ar, ai, bt))
+    return dict(info=int(info), spectrum=spectrum, ht_ms=ht_ms, ht_first_ms=ht_first_ms,
+                qz_ms=qz_ms,
                 ht_kernel_ms=ht_kernel_ms, ht_calls=ht_calls,
                 ht_kernel_launches=ht_kernel_launches,
                 ht_us_a_step=ht_kernel_ms / steps * 1e3,
@@ -2559,15 +2574,21 @@ def phase_cli():
 # ---------------------------------------------------------------------------
 # DM: the distributed-memory layer in gloo ranks that share the card
 # ---------------------------------------------------------------------------
-# ranks of phase 10a (n = MAIN_N) and of 10b (DM_N4, the GEP pencil DM_GEP_N)
+# ranks of phase 10a (n = MAIN_N) and 10c (phase 6's pencil, n = DM_GEP2_N),
+# and of 10b (DM_N4, the GEP pencil DM_GEP_N)
 DM_RANKS_A, DM_RANKS_B = 2, 4
 DM_N4, DM_GEP_N = 1200, 512
+DM_GEP2_N = GEP_N
 DM_TIMEOUT_S = 600.0
 # what each rank of a DM run may launch: the owner (rank 0) all of them,
 # every rank B1 in the sharded Hessenberg reduction (panel_factor, not H1);
 # 10a's chain ends in the eigenvectors (E1)
 DM_SEP_KERNELS = ("hess_gemv",) + SCHUR_KERNELS[1:] + ("reorder_bubble",)
 DM_SHARED_KERNELS = ("hess_gemv",)
+# the sharded stages of 10a and 10c: no DistrMatrix.full, each rank's peak
+# device memory below its shards plus DM_MEM_WHOLE whole n x n float64
+# matrices, no message past one panel of each matrix (dm_stage_checks)
+DM_MEM_WHOLE = 2
 DM_GEP_KERNELS = ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
                   "reorder_bubble_gep")
 # 10a's H and Q against phase 5's: the DM reduction sums the panel matvec,
@@ -2602,6 +2623,42 @@ def dm_launch_check(label, cnt, kernels_, shared=()):
               f"{label}: rank {rank} launched kernels {c['launches']}")
 
 
+def dm_stage_checks(label, cnt, n, stages, mats, panel):
+    """Each sharded stage of a DM chain (``testing.dm._run_stage``'s
+    records): no ``DistrMatrix.full`` call, each rank's peak device memory
+    (beyond what it held when the stage began) below its shard bytes plus
+    DM_MEM_WHOLE whole n x n float64 matrices, and no message larger than
+    ``mats`` panels of NP x ``panel`` float64 plus O(NP) vectors (the
+    owner's status and selections), NP the stage's padded width (n for
+    the reorderings).  Returns {stage: [(peak, shard bytes, bound, calls,
+    bytes, largest message) a rank]}."""
+    out = {}
+    for stage in stages:
+        rows = []
+        for c in cnt:
+            rec = c["stages"][stage]
+            st = rec["stats"]
+            NP = st.get("NP", n)
+            limit = rec["shard_bytes"] + DM_MEM_WHOLE * 8 * n * n
+            big = 8 * (mats * NP * panel + 8 * NP)
+            calls, nbytes, _s = dm_comm(st)
+            rows.append((rec["peak_bytes"], rec["shard_bytes"], limit, calls, nbytes,
+                         st.get("collective_max_bytes", 0)))
+            check(rec["full_calls"] == 0,
+                  f"{label} {stage}: rank {c['rank']} called DistrMatrix.full")
+            check(rec["peak_bytes"] is not None and rec["peak_bytes"] < limit,
+                  f"{label} {stage}: rank {c['rank']} peaked at {rec['peak_bytes']} "
+                  f"bytes, above its shards {rec['shard_bytes']} + {DM_MEM_WHOLE} n^2 "
+                  f"float64 ({limit})")
+            check(st.get("collective_max_bytes", 0) <= big,
+                  f"{label} {stage}: rank {c['rank']} sent a message of "
+                  f"{st.get('collective_max_bytes')} bytes, above {big}")
+        out[stage] = rows
+        log(f"  {label} {stage}: by rank (peak bytes, shard bytes, bound, collectives, "
+            f"bytes, largest message) {rows}")
+    return out
+
+
 def dm_sep_gates(label, A, S, Q, info):
     """Phase 5's gates on a gathered SEP result (numpy S, Q; A a tensor on
     the device): info, residual and orthogonality < 500 u, standardized
@@ -2619,10 +2676,39 @@ def dm_sep_gates(label, A, S, Q, info):
     return res, orth
 
 
-def phase_dm_sep(dev, main_res):
+def phase_dm_two(dev, main_res, gep_res):
+    """10a and 10c in one spawn of DM_RANKS_A gloo ranks sharing the card
+    (``testing.dm.sequence``: one start-up for both): (10a's report,
+    10c's report)."""
+    import numpy as np
+    from starneig_tpu_torch.testing.dm import run_ranks
+    from starneig_tpu_torch.testing.generators import known_spectrum_pencil
+    A_np = np.random.default_rng(0).standard_normal((MAIN_N, MAIN_N))
+    GA, GB, _alpha, _beta = known_spectrum_pencil(DM_GEP2_N, complex_ratio=0.3,
+                                                  inf_ratio=0.1, seed=0)
+    t0 = time.perf_counter()
+    (ra, rc), cnt_all = run_ranks(
+        "starneig_tpu_torch.testing.dm:sequence", DM_RANKS_A,
+        ([("sep_chain", (A_np, "positive_real")),
+          ("gep_chain", (GA, GB, "finite_right_half"))],),
+        device=str(dev), timeout_s=DM_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    outer = ("rank", "startup_s", "teardown_s", "backend", "device")
+    cnt_a, cnt_c = ([dict(c["steps"][i], **{k: c[k] for k in outer}) for c in cnt_all]
+                    for i in range(2))
+    log(f"  10a+10c on {DM_RANKS_A} ranks: wall {wall:.1f} s, of it start-up "
+        f"{[round(c['startup_s'], 1) for c in cnt_all]} s, the two jobs "
+        f"{[[round(s['wall_s'], 1) for s in c['steps']] for c in cnt_all]} s, teardown "
+        f"{cnt_all[0]['teardown_s']:.1f} s")
+    return (dict(phase_dm_sep(dev, main_res, A_np, ra, cnt_a), wall_a_c=wall),
+            phase_dm_gep(dev, gep_res, GA, GB, rc, cnt_c))
+
+
+def phase_dm_sep(dev, main_res, A_np, r, cnt):
     """10a: api.sep_dm at n=MAIN_N on DM_RANKS_A gloo ranks sharing the
-    card, on phase 5's input: hessenberg (column shards, B1 on every
-    rank), schur (column shards), select (Re > 0), reorder_schur (column
+    card, on phase 5's input A_np (``sep_chain``'s result r and every
+    rank's counters cnt): hessenberg (column shards, B1 on every rank),
+    schur (column shards), select (Re > 0), reorder_schur (column
     shards), eigenvectors of the leading block (rank 0), each stage timed
     to a barrier; gated as phase 5, its H and Q and its spectrum against
     phase 5's, the ranks' V/T hashes equal."""
@@ -2630,13 +2716,8 @@ def phase_dm_sep(dev, main_res):
     from starneig_tpu_torch.api import sep
     from starneig_tpu_torch.convert import from_numpy
     from starneig_tpu_torch.testing import hooks
-    from starneig_tpu_torch.testing.dm import run_ranks
     n = MAIN_N
-    A_np = np.random.default_rng(0).standard_normal((n, n))
-    t0 = time.perf_counter()
-    r, cnt = run_ranks("starneig_tpu_torch.testing.dm:sep_chain", DM_RANKS_A,
-                       (A_np, "positive_real"), device=str(dev), timeout_s=DM_TIMEOUT_S)
-    wall = time.perf_counter() - t0
+    wall = cnt[0]["wall_s"]
     A = from_numpy(A_np, dev)
     st = cnt[0]["stats"]["schur"]
     NP = st["NP"]
@@ -2655,6 +2736,7 @@ def phase_dm_sep(dev, main_res):
     comm = {c["rank"]: {stage: dm_comm(stats) for stage, stats in c["stats"].items()}
             for c in cnt}
     shards = [c["stats"]["schur"]["shard_shape"] for c in cnt]
+    cuts = st["cuts"]
     Hs, Qs = main_res["hess"]
     na = float(np.linalg.norm(A_np))
     dH = float(np.abs(r["H"] - Hs).max()) / na
@@ -2662,7 +2744,7 @@ def phase_dm_sep(dev, main_res):
     below = float(np.abs(np.tril(r["H"], -2)).max())
     hashes = [c["stats"]["hessenberg"].get("vt_sha256") for c in cnt]
     hess_b1 = [c["launches"]["hess_gemv"] for c in cnt]
-    hess_peak = [c["stats"]["hessenberg"].get("peak_bytes") for c in cnt]
+    hess_peak = [c["stages"]["hessenberg"]["peak_bytes"] for c in cnt]
     log(f"  10a n={n} Hessenberg on column shards {[c['shards']['H'] for c in cnt]}: "
         f"B1 launches by rank {hess_b1}; H vs phase 5 {dH:.2e} ||A||_F, Q vs phase 5 "
         f"{dQ:.2e}, below the subdiagonal {below}; V/T SHA-256 by rank "
@@ -2674,9 +2756,7 @@ def phase_dm_sep(dev, main_res):
         f"{main_res['stats'].get('rounds')}), Schur shards {shards} of NP={NP}; selected "
         f"{r['selected']}, leading block {m}, spectrum moved {moved:.2e}; spectrum vs "
         f"phase 5 {vs_sm:.2e} max|lambda|; eigenvectors: info {r['xinfo']}, "
-        f"{r['X'].shape}, worst residual {evec:.2e}; wall {wall:.1f} s (start-up "
-        f"{[round(c['startup_s'], 1) for c in cnt]} s, job {cnt[0]['wall_s']:.1f} s, "
-        f"teardown {cnt[0]['teardown_s']:.1f} s)")
+        f"{r['X'].shape}, worst residual {evec:.2e}; job {wall:.1f} s")
     for c in cnt:
         log(f"  10a rank {c['rank']}: launches {dm_launches([c])[0]}; collectives by stage "
             f"(calls, bytes, s): {comm[c['rank']]}")
@@ -2689,7 +2769,12 @@ def phase_dm_sep(dev, main_res):
     check(vs_sm < 1e-10, f"10a: spectrum differs from phase 5's by {vs_sm} max|lambda|")
     check(r["xinfo"] == 0 and r["X"].shape == (n, m), f"10a eigenvectors: {r['xinfo']}")
     check(evec < EVEC_BOUND, f"10a eigenvector residual {evec}")
-    check(all(sh == (NP, NP // DM_RANKS_A) for sh in shards), f"10a: Schur shards {shards}")
+    check(all(sh == (NP, cuts[r + 1] - cuts[r]) for r, sh in enumerate(shards)),
+          f"10a: padded Schur shards {shards} do not follow the cuts {cuts}")
+    check(all(c["shards"]["S"] == c["shards"]["S2"] == (n, n // DM_RANKS_A) for c in cnt),
+          "10a: S not in column shards after Schur and reordering")
+    panel = max(st["WA"], st["WC"], cnt[0]["stats"]["reorder"]["W"])
+    mem = dm_stage_checks("10a", cnt, n, ("schur", "select", "reorder"), 2, panel)
     check(all(c["stats"]["schur"]["all_reduce"] > 0 for c in cnt),
           "10a: no collective in schur_dm")
     check(len(set(hashes)) == 1 and hashes[0] is not None,
@@ -2705,7 +2790,7 @@ def phase_dm_sep(dev, main_res):
     dm_launch_check("10a", cnt, DM_SEP_KERNELS + ("eig_backsolve",), DM_SHARED_KERNELS)
     return dict(ms=ms, wall_s=wall, startup_s=[c["startup_s"] for c in cnt],
                 hess=dict(h_vs_phase5=dH, q_vs_phase5=dQ, b1_launches=hess_b1,
-                          peak_bytes=hess_peak,
+                          peak_bytes=hess_peak, cuts=cuts, stages=mem,
                           comm=[dm_comm(c["stats"]["hessenberg"]) for c in cnt],
                           vt_sha256_equal=len(set(hashes)) == 1),
                 job_s=cnt[0]["wall_s"], teardown_s=cnt[0]["teardown_s"],
@@ -2792,6 +2877,78 @@ def phase_dm_four(dev):
                 gep=dict(job_s=cntg[0]["wall_s"], residual_a_u=ra, residual_b_u=rb, orth_q_u=oq,
                          orth_z_u=oz, lead=mg, eigvec_residual=evec_g,
                          comm=[dm_comm(c["stats"]) for c in cntg]))
+
+
+def phase_dm_gep(dev, gep_res, A_np, B_np, r, cnt):
+    """10c: api.gep_dm at n=DM_GEP2_N on DM_RANKS_A gloo ranks sharing the
+    card, on phase 6's pencil (A_np, B_np; ``gep_chain``'s result r and
+    every rank's counters cnt): hessenberg_triangular (rank 0), schur and
+    reorder_schur on column shards (G1's window mode and G2-G6 on rank 0,
+    the strips and panels on every rank), select from the diagonals,
+    eigenvectors of the leading block (rank 0), each stage timed to a
+    barrier; under phase 6's gates, its spectrum within 1e-10 chordal of
+    phase 6's and its rounds within 2, the window kernels launched by rank
+    0 alone, and the sharded stages' memory, gathers and messages as
+    dm_stage_checks holds them."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.errors import Error
+    from starneig_tpu_torch.testing import hooks
+    n = DM_GEP2_N
+    wall = cnt[0]["wall_s"]
+    ms = {k: v for k, v in cnt[0].items() if k.endswith("_ms")}
+    st = cnt[0]["stats"]["schur"]
+    gates = {}
+    for stage, bt in (("schur", r["bt"]), ("reorder", r["bt"])):
+        M = r[stage]
+        gates[stage] = gep_gates(A_np, B_np, M["S"], M["T"], M["Q"], M["Z"],
+                                 torch.as_tensor(bt))
+    ar6, ai6, bt6 = gep_res["spectrum"]
+    vs6 = hooks.chordal_eigenvalue_error(r["ar"], r["ai"], r["bt"], ar6 + 1j * ai6, bt6) * U
+    m = r["m"]
+    lead_ok, rest = hooks.selected_leading(r["reorder"]["S"], m, finite_right_half,
+                                           T=r["reorder"]["T"])
+    evec = hooks.eigenvector_residual_gep(A_np, B_np, r["reorder"]["S"], r["reorder"]["T"],
+                                          r["X"], np.arange(n) < m)
+    cuts = st["cuts"]
+    shards = [c["stats"]["schur"]["shard_shape"] for c in cnt]
+    log(f"  10c GEP n={n} on {DM_RANKS_A} ranks ({cnt[0]['backend']}): {ms}; rounds "
+        f"{r['rounds']} (phase 6: {gep_res['rounds']}); spectrum vs phase 6 {vs6:.2e} "
+        f"(chordal); gates (res A, res B, orth Q, orth Z, structure S, T, zero betas) "
+        f"{gates}; selected {r['selected']}, leading block {m} ({rest} selected rows "
+        f"below); eigenvectors info {r['xinfo']} {r['X'].shape}, worst residual "
+        f"{evec:.2e}; padded QZ shards {shards} (cuts {cuts}), output shards "
+        f"{[c['shards'] for c in cnt]}; job {wall:.1f} s")
+    for c in cnt:
+        log(f"  10c rank {c['rank']}: launches {dm_launches([c])[0]}; collectives by stage "
+            f"(calls, bytes, s): { {k: dm_comm(v) for k, v in c['stats'].items()} }")
+    check(r["info"] == 0, f"10c: QZ info {r['info']}")
+    check(r["rinfo"] in (Error.SUCCESS, Error.PARTIAL_REORDERING), f"10c: reorder info {r['rinfo']}")
+    for stage, (ra, rb, oq, oz, fs, ft, _z) in gates.items():
+        check(max(ra, rb, oq, oz) < GATE_U, f"10c {stage} gates: {ra} {rb} {oq} {oz}")
+        check(fs == 0.0 and ft == 0.0, f"10c {stage} structure {fs} {ft}")
+    check(vs6 < 1e-10, f"10c: spectrum {vs6} (chordal) from phase 6's")
+    check(abs(r["rounds"] - gep_res["rounds"]) <= 2,
+          f"10c: {r['rounds']} rounds, phase 6 {gep_res['rounds']}")
+    check(lead_ok and (rest == 0 or r["rinfo"] == Error.PARTIAL_REORDERING),
+          f"10c: leading block not the selection ({lead_ok}, {rest} left)")
+    if r["rinfo"] == Error.SUCCESS:
+        check(m == r["selected"], f"10c: leading block {m}, selected {r['selected']}")
+    check(r["xinfo"] in (Error.SUCCESS, Error.CLOSE_EIGENVALUES) and r["X"].shape == (n, m),
+          f"10c eigenvectors: info {r['xinfo']}, {r['X'].shape}")
+    check(evec < EVEC_BOUND, f"10c eigenvector residual {evec}")
+    check(all(sh == (st["NP"], cuts[k + 1] - cuts[k]) for k, sh in enumerate(shards)),
+          f"10c: padded QZ shards {shards} do not follow the cuts {cuts}")
+    check(all(c["shards"]["schur"] == c["shards"]["reorder"] == (n, n // DM_RANKS_A)
+              for c in cnt), "10c: the pencil not in column shards after QZ and reordering")
+    mem = dm_stage_checks("10c", cnt, n, ("schur", "select", "reorder"), 4,
+                          max(st["WA"], st["WC"], cnt[0]["stats"]["reorder"]["W"]))
+    dm_launch_check("10c", cnt, DM_GEP_KERNELS + ("inf_chase", "eig_backsolve_gep"))
+    return dict(ms=ms, job_s=wall, rounds=r["rounds"],
+                spectrum_vs_phase6=vs6, gates=gates, lead=m, eigvec_residual=evec,
+                cuts=cuts, shards=shards, stages=mem,
+                comm=[{k: dm_comm(v) for k, v in c["stats"].items()} for c in cnt],
+                launches=[c["launches"] for c in cnt])
 
 
 # ---------------------------------------------------------------------------
@@ -2964,7 +3121,8 @@ def main() -> int:
                         SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
         log("== 10. DM: gloo ranks sharing the card")
         t_dm = time.perf_counter()
-        dm = dict(a=phase_dm_sep(dev, main_res), b=phase_dm_four(dev))
+        dm_a, dm_c = phase_dm_two(dev, main_res, gep_res)
+        dm = dict(a=dm_a, b=phase_dm_four(dev), c=dm_c)
         dm["wall_s"] = time.perf_counter() - t_dm
         log(f"  phase 10: {dm['wall_s']:.1f} s")
         log("== 11. tools and examples")
@@ -2989,7 +3147,8 @@ def main() -> int:
             dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70,
                  main={k: v for k, v in main_res.items()
                        if k not in ("spectrum", "hess", "chain")},
-                 gep=gep_res, gep_inf=gep_inf, cli=cli, dm=dm, tools=tools,
+                 gep={k: v for k, v in gep_res.items() if k != "spectrum"},
+                 gep_inf=gep_inf, cli=cli, dm=dm, tools=tools,
                  torch=torch.__version__,
                  cuda=torch.version.cuda),
             indent=1, default=str))

@@ -34,7 +34,7 @@ from starneig_tpu_torch.ops import eigenvectors as _evec
 from starneig_tpu_torch.ops import hess_triangular as _ht
 from starneig_tpu_torch.ops import qz as _qz
 from starneig_tpu_torch.ops import reorder as _reorder
-from starneig_tpu_torch.ops.eigvals import extract_eigenvalues_gen
+from starneig_tpu_torch.ops.eigvals import extract_eigenvalues_gen, schur_diagonals
 
 
 def hessenberg_triangular(A, B, Q=None, Z=None, device=None):
@@ -115,10 +115,14 @@ def select(S, T, predicate: Callable[[complex, float], bool]) -> np.ndarray:
     receives (alpha: complex, beta: float), beta == 0 meaning infinite; a
     2x2 block is selected atomically.  Returns an (n,) bool numpy array."""
     ar, ai, bt = extract_eigenvalues_gen(S, T.to(S.device))
-    z = S.new_zeros(1)
-    ar, ai, bt, sub = torch.stack([
-        ar, ai, bt, torch.cat([torch.diagonal(S, -1), z])]).cpu().numpy()
-    n = S.shape[0]
+    return select_from_eigenvalues(ar, ai, bt, schur_diagonals(S)[1], predicate)
+
+
+def select_from_eigenvalues(ar, ai, bt, sub, predicate) -> np.ndarray:
+    """:func:`select` from the eigenvalues and S's subdiagonal (last entry
+    0), as the DM layer gathers them."""
+    ar, ai, bt, sub = torch.stack([ar, ai, bt, sub]).cpu().numpy()
+    n = ar.shape[0]
     sel = np.zeros(n, bool)
     i = 0
     while i < n:

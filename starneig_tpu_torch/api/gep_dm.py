@@ -3,30 +3,46 @@ starneig/gep_dm.h:100-514).
 
 Counterpart of ``starneig_tpu/api/gep_dm.py``.  The JAX package places
 the pencil with a NamedSharding and lets XLA's SPMD partitioner split the
-single-process programs; eager PyTorch has no such partitioner, so each
-entry point here gathers its matrices, rank 0 runs the ``api.gep`` entry
-point on its device (kernels G1-G6 on the card), and every rank takes its
-shard of the outputs.  Every function is collective, and takes
-``device=None`` and ``stats=None`` as ``api.sep_dm``'s do.  Includes
-distributed generalized eigenvectors (declared but unimplemented in the
-reference, gep_dm.h).
+single-process programs; eager PyTorch has no such partitioner, so the
+stages here run the port's drivers on column shards
+(``parallel/dm_gep.py``):
+
+  * ``schur`` (QZ) and ``reorder_schur`` take and give column shards; the
+    window kernels (G1's window mode, G2-G6) launch on rank 0, every rank
+    applies the window transforms to its own columns; ``select`` and the
+    eigenvalues come from the gathered diagonals.  A column-sharded input
+    stays as it is, a row-sharded, replicated or whole one is moved to
+    column shards first (``DistrMatrix.full`` for a row-sharded one) and
+    the results come back under the input's spec.
+  * ``hessenberg_triangular`` and ``eigenvectors`` still gather their
+    matrices: rank 0 runs the ``api.gep`` entry point on its device (G1's
+    cascade, E2 on the card) and every rank takes its shard of the
+    outputs.
+  * ``reduce`` chains them: HT on rank 0, then QZ, select and reordering
+    on the shards.
+
+Every function is collective, and takes ``device=None`` and
+``stats=None`` as ``api.sep_dm``'s do.  Includes distributed generalized
+eigenvectors (declared but unimplemented in the reference, gep_dm.h).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from starneig_tpu_torch.api import gep as _gep
-from starneig_tpu_torch.api.sep_dm import _mesh_spec, _whole, _wrap, _wrap_flex
-from starneig_tpu_torch.parallel.distr import DistrMatrix, owner_call
+from starneig_tpu_torch.api.sep_dm import (_cols, _from_cols, _mesh_spec,
+                                           _whole, _wrap, _wrap_flex)
+from starneig_tpu_torch.errors import Error
+from starneig_tpu_torch.parallel import dm_gep
+from starneig_tpu_torch.parallel.distr import owner_call
 
 
 def hessenberg_triangular(A, B, mesh=None, device=None,
                           stats: Optional[dict] = None):
     """Distributed HT reduction (gep_dm.h:100-160; the reference outsources
-    this to the bundled ScaLAPACK pdgghrd): (H, T, Q, Z)."""
+    this to the bundled ScaLAPACK pdgghrd): (H, T, Q, Z), gathered and
+    reduced on rank 0."""
     m, spec = _mesh_spec(A, mesh, device)
     Af, Bf = (_whole(M, m, stats) for M in (A, B))
     outs = owner_call(m, lambda: _gep.hessenberg_triangular(Af, Bf, device=m.device),
@@ -36,32 +52,35 @@ def hessenberg_triangular(A, B, mesh=None, device=None,
 
 def schur(H, T, Q=None, Z=None, mesh=None, conf=None, device=None,
           stats: Optional[dict] = None):
-    """Distributed QZ (gep_dm.h:162-240): (S, T, Q, Z, alpha_r, alpha_i,
-    beta, info)."""
+    """Distributed QZ (gep_dm.h:162-240) on column shards
+    (:func:`~starneig_tpu_torch.parallel.dm_gep.qz_dm`): (S, T, Q, Z,
+    alpha_r, alpha_i, beta, info), the matrices under H's spec."""
     m, spec = _mesh_spec(H, mesh, device)
-    Hf, Tf, Qf, Zf = (_whole(M, m, stats) for M in (H, T, Q, Z))
-    S, Tt, Qo, Zo, ar, ai, bt, info = owner_call(
-        m, lambda: _gep.schur(Hf, Tf, Qf, Zf, conf=conf, device=m.device),
-        stats=stats)
-    return (*(_wrap(M, m, spec) for M in (S, Tt, Qo, Zo)), ar, ai, bt, info)
+    locs = [_cols(M, m, stats) for M in (H, T, Q, Z)]
+    n = locs[0].shape[0]
+    *mats, ar, ai, bt, info = dm_gep.qz_dm(*locs, mesh=m, conf=conf, stats=stats)
+    return (*(_from_cols(M, m, spec, (n, n), stats) for M in mats), ar, ai, bt,
+            info)
 
 
 def reorder_schur(S, T, Q, Z, select, mesh=None, conf=None, device=None,
                   stats: Optional[dict] = None):
-    """Distributed generalized reordering (gep_dm.h:242-330): (S, T, Q, Z,
-    num_selected, info)."""
+    """Distributed generalized reordering (gep_dm.h:242-330) on column
+    shards (:func:`~starneig_tpu_torch.parallel.dm_gep.reorder_gep_dm`):
+    (S, T, Q, Z, num_selected, info), the matrices under S's spec."""
     m, spec = _mesh_spec(S, mesh, device)
-    Sf, Tf, Qf, Zf = (_whole(M, m, stats) for M in (S, T, Q, Z))
-    So, To, Qo, Zo, nsel, info = owner_call(
-        m, lambda: _gep.reorder_schur(Sf, Tf, Qf, Zf, select, conf=conf,
-                                      device=m.device), stats=stats)
-    return (*(_wrap(M, m, spec) for M in (So, To, Qo, Zo)), nsel, info)
+    locs = [_cols(M, m, stats) for M in (S, T, Q, Z)]
+    n = locs[0].shape[0]
+    *mats, nsel, info = dm_gep.reorder_gep_dm(*locs, select, mesh=m, conf=conf,
+                                              stats=stats)
+    return (*(_from_cols(M, m, spec, (n, n), stats) for M in mats), nsel, info)
 
 
 def eigenvectors(S, T, Q, Z, select, mesh=None, conf=None, device=None,
                  stats: Optional[dict] = None):
     """Distributed generalized eigenvectors, unimplemented in the reference
-    (gep_dm.h): (X, info), X sharded by ``_wrap_flex``'s rule."""
+    (gep_dm.h): the pencil gathered, rank 0 runs ``api.gep.eigenvectors``;
+    (X, info), X sharded by ``_wrap_flex``'s rule."""
     m, _spec = _mesh_spec(S, mesh, device)
     Sf, Tf, Qf, Zf = (_whole(M, m, stats) for M in (S, T, Q, Z))
     X, info = owner_call(
@@ -70,22 +89,37 @@ def eigenvectors(S, T, Q, Z, select, mesh=None, conf=None, device=None,
     return _wrap_flex(X, m), info
 
 
-def select(S, T, predicate, stats: Optional[dict] = None):
+def eigenvalues(S, T, mesh=None, device=None, stats: Optional[dict] = None):
+    """(alpha_r, alpha_i, beta) of a distributed or whole generalized Schur
+    form, on every rank, from the gathered diagonals."""
+    m, _spec = _mesh_spec(S, mesh, device)
+    return dm_gep.eigenvalues_gep_dm(_cols(S, m, stats), _cols(T, m, stats), m,
+                                     stats)
+
+
+def select(S, T, predicate, mesh=None, device=None,
+           stats: Optional[dict] = None):
     """Distributed generalized Select: the selection bitmap of a
-    distributed or whole Schur pair (gathered: a collective)."""
-    S, T = (M.full(stats) if isinstance(M, DistrMatrix) else M for M in (S, T))
-    return _gep.select(torch.as_tensor(S, dtype=torch.float64),
-                       torch.as_tensor(T, dtype=torch.float64), predicate)
+    distributed or whole Schur pair, on every rank, from the gathered
+    diagonals (``api.gep.select``'s rule)."""
+    m, _spec = _mesh_spec(S, mesh, device)
+    return dm_gep.select_gep_dm(_cols(S, m, stats), _cols(T, m, stats),
+                                predicate, m, stats)
 
 
 def reduce(A, B, predicate=None, mesh=None, device=None,
-           stats: Optional[dict] = None, **confs):
-    """Distributed full GEP chain (mpi/combined.c): rank 0 runs
-    ``api.gep.reduce``.  Returns (S, T, Q, Z, alpha_r, alpha_i, beta,
-    num_selected, info)."""
-    m, spec = _mesh_spec(A, mesh, device)
-    Af, Bf = (_whole(M, m, stats) for M in (A, B))
-    S, T, Q, Z, ar, ai, bt, nsel, info = owner_call(
-        m, lambda: _gep.reduce(Af, Bf, predicate=predicate, device=m.device,
-                               **confs), stats=stats)
-    return (*(_wrap(M, m, spec) for M in (S, T, Q, Z)), ar, ai, bt, nsel, info)
+           stats: Optional[dict] = None, schur_conf=None, reorder_conf=None):
+    """Distributed full GEP chain (mpi/combined.c): HT on rank 0, then QZ,
+    select and reordering on column shards.  Returns (S, T, Q, Z, alpha_r,
+    alpha_i, beta, num_selected, info), the matrices under A's spec."""
+    m, _spec = _mesh_spec(A, mesh, device)
+    H, T, Q, Z = hessenberg_triangular(A, B, mesh=m, stats=stats)
+    S, T, Q, Z, ar, ai, bt, info = schur(H, T, Q, Z, conf=schur_conf,
+                                         stats=stats)
+    nsel = 0
+    if info == Error.SUCCESS and predicate is not None:
+        sel = select(S, T, predicate, stats=stats)
+        S, T, Q, Z, nsel, info = reorder_schur(S, T, Q, Z, sel,
+                                               conf=reorder_conf, stats=stats)
+        ar, ai, bt = eigenvalues(S, T, stats=stats)
+    return S, T, Q, Z, ar, ai, bt, nsel, info

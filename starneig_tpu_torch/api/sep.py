@@ -43,7 +43,7 @@ from starneig_tpu_torch.ops import eigenvectors as _evec
 from starneig_tpu_torch.ops import hessenberg as _hess
 from starneig_tpu_torch.ops import reorder as _reorder
 from starneig_tpu_torch.ops import schur as _schur
-from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
+from starneig_tpu_torch.ops.eigvals import extract_eigenvalues, schur_diagonals
 
 
 def _device(device) -> torch.device:
@@ -123,11 +123,14 @@ def select(S, predicate: Callable[[complex], bool]) -> np.ndarray:
     2x2 complex-pair block is selected atomically.  Returns an (n,) bool
     numpy array.
     """
-    n = S.shape[0]
-    z = S.new_zeros(1)
-    d, sub, sup = torch.stack([
-        torch.diagonal(S), torch.cat([torch.diagonal(S, -1), z]),
-        torch.cat([torch.diagonal(S, 1), z])]).cpu().numpy()
+    d, sub, sup = torch.stack(schur_diagonals(S)).cpu().numpy()
+    return select_from_diagonals(d, sub, sup, predicate)
+
+
+def select_from_diagonals(d, sub, sup, predicate) -> np.ndarray:
+    """:func:`select` from S's three diagonals on the host (numpy arrays,
+    the off-diagonals' last entry 0), as the DM layer gathers them."""
+    n = d.shape[0]
     sel = np.zeros(n, bool)
     i = 0
     while i < n:

@@ -8,19 +8,22 @@ or with the same whole matrix, which each rank then shards by columns.
 
   * ``hessenberg`` runs the panel loop on column shards
     (:func:`starneig_tpu_torch.parallel.dm_hess.hessenberg_dm`: every rank
-    launches B1 on its own columns; a column-sharded A is never gathered,
-    a row-sharded one is moved to column shards and the result back to
-    rows), ``schur`` the
-    Schur driver (:func:`starneig_tpu_torch.parallel.dm_core.schur_dm`)
-    and ``reorder_schur`` the window grid
-    (:func:`~starneig_tpu_torch.parallel.dm_core.reorder_dm`).
+    launches B1 on its own columns), ``schur`` the Schur driver
+    (:func:`starneig_tpu_torch.parallel.dm_core.schur_dm`) and
+    ``reorder_schur`` the window grid
+    (:func:`~starneig_tpu_torch.parallel.dm_core.reorder_dm`), each with
+    column shards in and column shards out; ``select`` and the
+    eigenvalues come from the gathered diagonals.  None of them gathers a
+    whole matrix: a column-sharded input stays as it is, a row-sharded,
+    replicated or whole one is moved to column shards first
+    (``DistrMatrix.full`` for a row-sharded one, counted in ``stats``) and
+    the result comes back under the input's spec.
   * ``eigenvectors`` runs on the shards in the JAX package only because
-    XLA's SPMD partitioner splits the single-process program.  Here the
-    matrices are gathered, rank 0 runs ``api.sep.eigenvectors`` on its
+    XLA's SPMD partitioner splits the single-process program.  Here it
+    still gathers S and Q: rank 0 runs ``api.sep.eigenvectors`` on its
     device (the kernels launch there), and every rank takes its shard of
-    the output.
-  * ``eigenvectors`` is declared but unimplemented in the reference
-    (sep_dm.h:232-238); it is implemented here.
+    the output.  It is declared but unimplemented in the reference
+    (sep_dm.h:232-238).
 
 Every function takes ``device=None`` (the device of the mesh made when
 none is given: the node's, else the card; ``RuntimeError`` without one
@@ -127,14 +130,18 @@ def schur(H, Q=None, mesh=None, conf=None, device=None,
     """Distributed Schur reduction (sep_dm.h:132-196): the port's driver
     on column shards (:func:`~starneig_tpu_torch.parallel.dm_core.schur_dm`).
 
-    Returns (S, Q, eig_real, eig_imag, info); the eigenvalues are whole
-    tensors on every rank."""
+    Returns (S, Q, eig_real, eig_imag, info), S and Q under H's spec
+    (column shards for a whole H); the eigenvalues are whole tensors on
+    every rank."""
     from starneig_tpu_torch.parallel.dm_core import schur_dm
 
     mesh, spec = _mesh_spec(H, mesh, device)
-    S, Qo, er, ei, info = schur_dm(_whole(H, mesh, stats), Q=_whole(Q, mesh, stats),
-                                   mesh=mesh, conf=conf, stats=stats)
-    return _wrap(S, mesh, spec), _wrap(Qo, mesh, spec), er, ei, info
+    H_loc = _cols(H, mesh, stats)
+    n = H_loc.shape[0]
+    S, Qo, er, ei, info = schur_dm(H_loc, _cols(Q, mesh, stats), mesh=mesh,
+                                   conf=conf, stats=stats)
+    return (_from_cols(S, mesh, spec, (n, n), stats),
+            _from_cols(Qo, mesh, spec, (n, n), stats), er, ei, info)
 
 
 def reorder_schur(S, Q, select, mesh=None, conf=None, device=None,
@@ -143,19 +150,23 @@ def reorder_schur(S, Q, select, mesh=None, conf=None, device=None,
     grid on column shards
     (:func:`~starneig_tpu_torch.parallel.dm_core.reorder_dm`).
 
-    Returns (S, Q, num_selected, info)."""
+    Returns (S, Q, num_selected, info), S and Q under S's spec."""
     from starneig_tpu_torch.parallel.dm_core import reorder_dm
 
     mesh, spec = _mesh_spec(S, mesh, device)
-    So, Qo, m, info = reorder_dm(_whole(S, mesh, stats), _whole(Q, mesh, stats),
-                                 select, mesh=mesh, conf=conf, stats=stats)
-    return _wrap(So, mesh, spec), _wrap(Qo, mesh, spec), m, info
+    S_loc = _cols(S, mesh, stats)
+    n = S_loc.shape[0]
+    So, Qo, m, info = reorder_dm(S_loc, _cols(Q, mesh, stats), select,
+                                 mesh=mesh, conf=conf, stats=stats)
+    return (_from_cols(So, mesh, spec, (n, n), stats),
+            _from_cols(Qo, mesh, spec, (n, n), stats), m, info)
 
 
 def eigenvectors(S, Q, select, mesh=None, conf=None, device=None,
                  stats: Optional[dict] = None):
     """Distributed eigenvectors, unimplemented in the reference
-    (sep_dm.h:232-238): rank 0 runs ``api.sep.eigenvectors``.
+    (sep_dm.h:232-238): S and Q gathered, rank 0 runs
+    ``api.sep.eigenvectors``.
 
     Returns (X, info), X sharded by ``_wrap_flex``'s rule."""
     mesh, _spec = _mesh_spec(S, mesh, device)
@@ -166,13 +177,32 @@ def eigenvectors(S, Q, select, mesh=None, conf=None, device=None,
     return _wrap_flex(X, mesh), info
 
 
-def select(S, predicate: Callable[[complex], bool],
+def _diagonals(S, mesh, stats):
+    """S's three diagonals on every rank, from its column shards."""
+    from starneig_tpu_torch.parallel.dm_core import shard_diagonals
+    return shard_diagonals((_cols(S, mesh, stats),), mesh, stats)[0]
+
+
+def eigenvalues(S, mesh=None, device=None, stats: Optional[dict] = None):
+    """(eig_real, eig_imag) of a distributed or whole real Schur form, on
+    every rank: rank 0 computes them from the gathered diagonals."""
+    from starneig_tpu_torch.ops.eigvals import eigenvalues_from_diagonals
+
+    mesh, _spec = _mesh_spec(S, mesh, device)
+    return owner_call(mesh, eigenvalues_from_diagonals,
+                      *_diagonals(S, mesh, stats), stats=stats)
+
+
+def select(S, predicate: Callable[[complex], bool], mesh=None, device=None,
            stats: Optional[dict] = None):
     """Distributed Select (sep_dm.h): the selection bitmap of a
-    DistrMatrix (gathered: a collective) or a whole matrix."""
-    if isinstance(S, DistrMatrix):
-        S = S.full(stats)
-    return _sep.select(torch.as_tensor(S, dtype=torch.float64), predicate)
+    DistrMatrix or a whole matrix, on every rank: rank 0 walks the blocks
+    of the gathered diagonals (``api.sep.select``'s rule)."""
+    mesh, _spec = _mesh_spec(S, mesh, device)
+    d = _diagonals(S, mesh, stats)
+    return owner_call(
+        mesh, lambda: _sep.select_from_diagonals(*d.cpu().numpy(), predicate),
+        stats=stats)
 
 
 def reduce(A, predicate: Optional[Callable[[complex], bool]] = None,
@@ -191,5 +221,5 @@ def reduce(A, predicate: Optional[Callable[[complex], bool]] = None,
         sel = select(Sd, predicate, stats=stats)
         Sd, Qd, nsel, info = reorder_schur(Sd, Qd, sel, conf=reorder_conf,
                                            stats=stats)
-        er, ei = _sep.eigenvalues(Sd.full(stats), device=mesh.device)
+        er, ei = eigenvalues(Sd, stats=stats)
     return Sd, Qd, er, ei, nsel, info

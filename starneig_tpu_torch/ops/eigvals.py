@@ -3,6 +3,9 @@
 Port of ``starneig_tpu/ops/eigvals.py:extract_eigenvalues``: one
 vectorized pass over the diagonal that computes both the 1x1 and the 2x2
 hypothesis at every position and selects by block-membership masks.
+Both read only the diagonals (:func:`schur_diagonals`), so the DM layer
+gathers those and calls :func:`eigenvalues_from_diagonals` and
+:func:`eigenvalues_gen_from_diagonals` on them.
 """
 
 from __future__ import annotations
@@ -18,11 +21,24 @@ def extract_eigenvalues(S):
     2x2 diagonal blocks with a nonzero subdiagonal give conjugate pairs at
     their two positions.
     """
+    return eigenvalues_from_diagonals(*schur_diagonals(S))
+
+
+def schur_diagonals(S):
+    """(diagonal, subdiagonal, superdiagonal) of S, each of length n (the
+    last entry of the off-diagonals 0): all that the eigenvalues, the
+    selection and the standardization read."""
     z1 = S.new_zeros(1)
-    f1 = torch.zeros(1, dtype=torch.bool, device=S.device)
-    d = torch.diagonal(S)
-    sub = torch.cat([torch.diagonal(S, -1), z1])
-    sup = torch.cat([torch.diagonal(S, 1), z1])
+    return (torch.diagonal(S), torch.cat([torch.diagonal(S, -1), z1]),
+            torch.cat([torch.diagonal(S, 1), z1]))
+
+
+def eigenvalues_from_diagonals(d, sub, sup):
+    """:func:`extract_eigenvalues` from S's three diagonals
+    (:func:`schur_diagonals`), so that a column-sharded S needs only
+    them gathered."""
+    z1 = d.new_zeros(1)
+    f1 = torch.zeros(1, dtype=torch.bool, device=d.device)
     is_start = sub != 0
     prev_start = torch.cat([f1, is_start[:-1]])
     is_start = is_start & ~prev_start
@@ -51,13 +67,16 @@ def extract_eigenvalues_gen(S, T):
     S subdiagonal, T upper triangular) gives the eigenvalues of
     S2 adj(T2) with beta = det(T2) at both positions.
     """
-    z1 = S.new_zeros(1)
-    f1 = torch.zeros(1, dtype=torch.bool, device=S.device)
-    ds = torch.diagonal(S)
-    dt = torch.diagonal(T)
-    sub = torch.cat([torch.diagonal(S, -1), z1])
-    sup = torch.cat([torch.diagonal(S, 1), z1])
-    tsup = torch.cat([torch.diagonal(T, 1), z1])
+    ds, sub, sup = schur_diagonals(S)
+    dt, _tsub, tsup = schur_diagonals(T)
+    return eigenvalues_gen_from_diagonals(ds, sub, sup, dt, tsup)
+
+
+def eigenvalues_gen_from_diagonals(ds, sub, sup, dt, tsup):
+    """:func:`extract_eigenvalues_gen` from S's three diagonals and T's
+    diagonal and superdiagonal (:func:`schur_diagonals`)."""
+    z1 = ds.new_zeros(1)
+    f1 = torch.zeros(1, dtype=torch.bool, device=ds.device)
     is_start = sub != 0
     prev_start = torch.cat([f1, is_start[:-1]])
     is_start = is_start & ~prev_start

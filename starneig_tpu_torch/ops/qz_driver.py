@@ -40,7 +40,7 @@ from starneig_tpu_torch.ops import primitives as prim
 from starneig_tpu_torch.ops.eigvals import extract_eigenvalues_gen
 from starneig_tpu_torch.ops.hess_triangular import cascade_step, rot_cols, rot_rows
 from starneig_tpu_torch.ops.qz import ULP, _first_col_qz, small_qz, std_gep_2x2
-from starneig_tpu_torch.ops.schur import DenseExtent, _pack_shifts
+from starneig_tpu_torch.ops.schur import DenseExtent, _pack_shifts, block_starts
 from starneig_tpu_torch.ops.swaps_gep import swap_adjacent_gep
 
 
@@ -175,30 +175,29 @@ def aed_recondense_gep(Sw, Tw, Qw, Zw, s: float, kbot: int):
 # ---------------------------------------------------------------------------
 
 def _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Sw, Tw, m: int,
-                      gp: int, spike: bool, beta):
+                      gp: int, spike: bool, beta, ext=DenseExtent):
     """Apply the window transforms (Qw, Zw) at padded offset gp to full
     rows and columns, plant the window's active m x m block and, for an
-    AED window, the condensed spike column; in place."""
+    AED window, the condensed spike column; in place, through ``ext``
+    (the four panels' columns in one pencil operation)."""
     W = Qw.shape[0]
     for M in (Spad, Tpad):
-        M[gp:gp + W] = Qw.T @ M[gp:gp + W]
-        M[:, gp:gp + W] = M[:, gp:gp + W] @ Zw
-    Spad[gp:gp + m, gp:gp + m] = Sw[:m, :m]
-    Tpad[gp:gp + m, gp:gp + m] = Tw[:m, :m]
+        ext.mul_rows(M, gp, W, Qw)
+    ext.mul_cols_pencil((Spad, Tpad, Qpad, Zpad), gp, W, (Zw, Zw, Qw, Zw))
+    ext.set_block(Spad, Sw[:m, :m], gp, gp)
+    ext.set_block(Tpad, Tw[:m, :m], gp, gp)
     if spike:
-        Spad[gp:gp + W, gp - 1] = 0.0
-        Spad[gp, gp - 1] = beta
-    Qpad[:, gp:gp + W] = Qpad[:, gp:gp + W] @ Qw
-    Zpad[:, gp:gp + W] = Zpad[:, gp:gp + W] @ Zw
+        col = Spad.new_zeros((W, 1))
+        col[0, 0] = beta
+        ext.set_block(Spad, col, gp, gp - 1)
 
 
-def _masked_window_pair(Spad, Tpad, gp: int, m: int, W: int):
+def _masked_window_pair(Spad, Tpad, gp: int, m: int, W: int, ext=DenseExtent):
     """(W, W) copies of the pencil's window at padded offset gp, zero
     outside the active m x m block."""
     Sw = Spad.new_zeros((W, W))
     Tw = Spad.new_zeros((W, W))
-    Sw[:m, :m] = Spad[gp:gp + m, gp:gp + m]
-    Tw[:m, :m] = Tpad[gp:gp + m, gp:gp + m]
+    Sw[:m, :m], Tw[:m, :m] = ext.get_blocks((Spad, Tpad), gp, gp, m, m)
     return Sw, Tw
 
 
@@ -251,16 +250,19 @@ def inf_chase(Hw, Tw, jrel: int, mrel: int, lrel: int):
     return _inf_chase_kernel(Hw, Tw, jrel, mrel, lrel)
 
 
-def _deflate_inf_bottom(Spad, Tpad, Zpad, i: int):
+def _deflate_inf_bottom(Spad, Tpad, Zpad, i: int, ext=DenseExtent):
     """Right rotation deflating the infinite eigenvalue at padded row i (the
-    segment bottom): zeroes S[i, i-1] and plants T[i, i] = 0; in place."""
-    c, s, _ = prim.givens(Spad[i, i], Spad[i, i - 1])
-    rot_cols(Spad, i, c, -s)
-    Spad[i, i - 1] = 0.0
-    rot_cols(Tpad, i, c, -s)
-    Tpad[i, i - 1] = 0.0
-    Tpad[i, i] = 0.0
-    rot_cols(Zpad, i, c, -s)
+    segment bottom): zeroes S[i, i-1] and plants T[i, i] = 0; in place,
+    through ``ext`` (the rotation is the window math of a 1 x 2 block)."""
+    (blk,) = ext.get_blocks((Spad,), i, i - 1, 1, 2)
+    c, s, _ = ext.window(lambda b: prim.givens(b[0, 1], b[0, 0]), blk)
+    c, s = c.reshape(1), -s.reshape(1)
+    ext.rot_col_pairs([(M, c, s) for M in (Spad, Tpad, Zpad)],
+                      torch.tensor([i - 1], device=Spad.device))
+    at = lambda k: torch.tensor([k], device=Spad.device)  # noqa: E731
+    ext.set_entries(Spad, at(i), at(i - 1), 0.0)
+    ext.set_entries(Tpad, at(i), at(i - 1), 0.0)
+    ext.set_entries(Tpad, at(i), at(i), 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -342,85 +344,79 @@ def qz_train_hop(Sw, Tw, sh, l_rel: int, ihi_rel: int, s0: int, B: int,
 
 
 def _qz_sweep(Spad, Tpad, Qpad, Zpad, l: int, ihi: int, sh, B: int,
-              hop=qz_train_hop):
+              hop=qz_train_hop, ext=DenseExtent):
     """Chase one B-bulge train across the padded segment [l, ihi), in place:
     hops of 3B steps, each in the (6B+4)-row window that holds every bulge
-    of the hop; the kernel (or its twin) runs the hop at window width and
-    the off-window strips and Q, Z take the window transforms by GEMMs.
-    The same steps as the JAX package's full-width ``_qz_sweep_batch``.
-    ``hop`` runs one hop on the window views (which it must not modify):
-    :func:`qz_train_hop`, or a caller's wrapper of it."""
+    of the hop; the kernel (or its twin) runs the hop at window width
+    (``ext.window``) and the off-window strips and Q, Z take the window
+    transforms by GEMMs: the window's rows right of it, the rows above it
+    in its columns (``ext``'s ranged products).  The same steps as the JAX
+    package's full-width ``_qz_sweep_batch``.  ``hop`` runs one hop on
+    copies of the window pair: :func:`qz_train_hop`, or a caller's
+    wrapper of it."""
     WC, HOP = 6 * B + 4, 3 * B
     steps = (ihi - l) - 2 + 3 * (B - 1) + 1
     for s0 in range(0, steps, HOP):
         ws = l + s0 - 3 * (B - 1) - 1
         we = ws + WC
-        Sw2, Tw2, Qw, Zw = hop(Spad[ws:we, ws:we], Tpad[ws:we, ws:we],
-                               sh, l - ws, ihi - ws, s0, B, HOP)
-        for M, M2 in ((Spad, Sw2), (Tpad, Tw2)):
-            M[ws:we, we:] = Qw.T @ M[ws:we, we:]
-            M[:ws, ws:we] = M[:ws, ws:we] @ Zw
-            M[ws:we, ws:we] = M2
-        Qpad[:, ws:we] = Qpad[:, ws:we] @ Qw
-        Zpad[:, ws:we] = Zpad[:, ws:we] @ Zw
+        Sw, Tw = ext.get_blocks((Spad, Tpad), ws, ws, WC, WC)
+        Sw2, Tw2, Qw, Zw = ext.window(
+            lambda S, T: hop(S, T, sh, l - ws, ihi - ws, s0, B, HOP), Sw, Tw)
+        for M in (Spad, Tpad):
+            ext.mul_rows(M, ws, WC, Qw, j0=we)
+        ext.mul_cols_pencil((Spad, Tpad, Qpad, Zpad), ws, WC, (Zw, Zw, Qw, Zw),
+                            i1s=(ws, ws, None, None))
+        ext.set_block(Spad, Sw2, ws, ws)
+        ext.set_block(Tpad, Tw2, ws, ws)
 
 
 # ---------------------------------------------------------------------------
 # final standardization
 # ---------------------------------------------------------------------------
 
+def _block_rotations_gep(dS, dT):
+    """(k, cl, sl, cr, sr, a00, a01, a10, a11, b00, b01, b11): the first
+    rows k of the 2x2 S-blocks of a generalized Schur form whose S and T
+    have the diagonals dS and dT (each (3, n), ``schur_diagonals``), each
+    block's left and right rotations (dlagv2) and its standardized
+    entries."""
+    def blk(d, sub, sup):
+        last = d[-1:]
+        return (d, torch.cat([sup[:-1], last]), torch.cat([sub[:-1], last]),
+                torch.cat([d[1:], last]))
+
+    out = std_gep_2x2(*blk(*dS), *blk(*dT))
+    a00, a01, a10, a11, b00, b01, _b10, b11, cl, sl, cr, sr = out
+    k = torch.nonzero(block_starts(dS[1])).flatten()
+    return (k, *(x[k] for x in (cl, sl, cr, sr, a00, a01, a10, a11, b00, b01,
+                                b11)))
+
+
+def standardize_blocks_gep_(S, T, Q, Z, p: int, n: int, ext=DenseExtent):
+    """Standardize every 2x2 S-block of the generalized Schur form
+    (S, T)[p:p+n, p:p+n] (dlagv2 for each; real pairs split exactly), in
+    place, with Q's and Z's columns p..; every access through ``ext`` as
+    in ``ops/schur.py:standardize_blocks_``."""
+    dS, dT = ext.diagonals((S, T), p, n)
+    k, cl, sl, cr, sr, *ents = ext.window(_block_rotations_gep, dS, dT)
+    if k.numel() == 0:
+        return
+    r = k + p
+    ext.rot_row_pairs([(S, cl, sl), (T, cl, sl)], r)
+    ext.rot_col_pairs([(S, cr, sr), (T, cr, sr), (Q, cl, sl), (Z, cr, sr)], r)
+    a00, a01, a10, a11, b00, b01, b11 = ents
+    for M, vals in ((S, (a00, a01, a10, a11)), (T, (b00, b01, 0.0, b11))):
+        for (di, dj), v in zip(((0, 0), (0, 1), (1, 0), (1, 1)), vals):
+            ext.set_entries(M, r + di, r + dj, v)
+
+
 def standardize_blocks_gep(S, T, Q, Z):
     """Standardize every 2x2 S-block of a generalized Schur form at once
-    (dlagv2 for each; real pairs split exactly).  Returns new (S, T, Q, Z)."""
-    n = S.shape[0]
-    z1 = S.new_zeros(1)
-    f1 = torch.zeros(1, dtype=torch.bool, device=S.device)
-    sub = torch.cat([torch.diagonal(S, -1), z1])
-    is_start = sub != 0
-    prev = torch.cat([f1, is_start[:-1]])
-    is_start = is_start & ~prev
-    is_second = torch.cat([f1, is_start[:-1]])
-
-    def blk(M):
-        nx = torch.cat([torch.diagonal(M)[1:], torch.diagonal(M)[-1:]])
-        up = torch.cat([torch.diagonal(M, 1), torch.diagonal(M)[-1:]])
-        lo = torch.cat([torch.diagonal(M, -1), torch.diagonal(M)[-1:]])
-        return torch.diagonal(M), up, lo, nx
-
-    a00, a01, a10, a11, b00, b01, _b10, b11, cl, sl, cr, sr = std_gep_2x2(
-        *blk(S), *blk(T))
-    cl = torch.where(is_start, cl, 1.0)
-    sl = torch.where(is_start, sl, 0.0)
-    cr = torch.where(is_start, cr, 1.0)
-    sr = torch.where(is_start, sr, 0.0)
-    cl_r, sl_r, cr_r, sr_r = (torch.roll(x, 1) for x in (cl, sl, cr, sr))
-    st, sc = is_start[:, None], is_second[:, None]
-
-    def lrot_all(M):
-        Md, Mu = torch.roll(M, -1, 0), torch.roll(M, 1, 0)
-        return torch.where(st, cl[:, None] * M + sl[:, None] * Md,
-                           torch.where(sc, -sl_r[:, None] * Mu + cl_r[:, None] * M, M))
-
-    def rrot_all(M, c, s, c_r, s_r):
-        Md, Mu = torch.roll(M, -1, 1), torch.roll(M, 1, 1)
-        return torch.where(st.T, c * M + s * Md,
-                           torch.where(sc.T, -s_r * Mu + c_r * M, M))
-
-    S1 = rrot_all(lrot_all(S), cr, sr, cr_r, sr_r)
-    T1 = rrot_all(lrot_all(T), cr, sr, cr_r, sr_r)
-    Q1 = rrot_all(Q, cl, sl, cl_r, sl_r)
-    Z1 = rrot_all(Z, cr, sr, cr_r, sr_r)
-
-    r = torch.arange(n, device=S.device)
-    S1[r, r] = torch.where(is_start, a00, torch.where(
-        is_second, torch.roll(a11, 1), torch.diagonal(S1)))
-    S1[r[:-1], r[1:]] = torch.where(is_start[:-1], a01[:-1], torch.diagonal(S1, 1))
-    S1[r[1:], r[:-1]] = torch.where(is_start[:-1], a10[:-1], torch.diagonal(S1, -1))
-    T1[r, r] = torch.where(is_start, b00, torch.where(
-        is_second, torch.roll(b11, 1), torch.diagonal(T1)))
-    T1[r[:-1], r[1:]] = torch.where(is_start[:-1], b01[:-1], torch.diagonal(T1, 1))
-    T1[r[1:], r[:-1]] = torch.where(is_start[:-1], 0.0, torch.diagonal(T1, -1))
-    return S1, T1, Q1, Z1
+    (:func:`standardize_blocks_gep_` on copies).  Returns new (S, T, Q,
+    Z)."""
+    S, T, Q, Z = (M.clone() for M in (S, T, Q, Z))
+    standardize_blocks_gep_(S, T, Q, Z, 0, S.shape[0])
+    return S, T, Q, Z
 
 
 # ---------------------------------------------------------------------------
@@ -447,18 +443,22 @@ class _Geometry:
 
 
 def _qz_round(Spad, Tpad, Qpad, Zpad, n: int, ihi: int, thresh: float,
-              thresh_t: float, eyeW, g: _Geometry, stats: dict):
+              thresh_t: float, eyeW, g: _Geometry, stats: dict,
+              ext=DenseExtent):
     """One QZ round, in place: deflation scan and peel, then EITHER the
     windowed push of the bottom-most infinite eigenvalue of the segment OR
-    an AED round.  Returns (shifts (TMAX, B, 4), status) with status the
+    an AED round.  Every access to the padded buffers goes through
+    ``ext``, and the window math (G5's chases, the deflating rotation;
+    G2, G4, the status read and G1's window mode) runs inside
+    ``ext.window``.  Returns (shifts (TMAX, B, 4), status) with status the
     host ints (new_ihi, l, ntr, sfail, nd, npairs, w, do_inf)."""
     P, WA, B, TMAX = g.P, g.WA, g.B, g.TMAX
     dev, dtype = Spad.device, Spad.dtype
     zshifts = Spad.new_zeros((TMAX, B, 4))
 
     # -- negligible-subdiagonal zeroing, T's diagonal (read 1) --
-    sub_t = DenseExtent.zero_negligible(Spad, P, n, ihi, thresh)
-    tdiag_t = torch.diagonal(Tpad[P:P + n, P:P + n]).abs()
+    sub_t = ext.zero_negligible(Spad, P, n, ihi, thresh)
+    tdiag_t = ext.diagonals((Tpad,), P, n)[0, 0].abs()
     sub, tdiag = torch.stack([sub_t, tdiag_t]).cpu().numpy()
     while ihi > 0:
         if ihi == 1 or sub[max(ihi - 2, 0)] == 0.0:
@@ -480,37 +480,43 @@ def _qz_round(Spad, Tpad, Qpad, Zpad, n: int, ihi: int, thresh: float,
         while p < ihi - 1:
             a0 = max(p - 1, l)
             m = min(g.INFW, ihi - a0)
-            Hw, Tw = _masked_window_pair(Spad, Tpad, P + a0, m, g.INFW)
+            Hw, Tw = _masked_window_pair(Spad, Tpad, P + a0, m, g.INFW, ext)
             lrel = p - a0 if p == l else -1
-            Hw, Tw, Qw, Zw = inf_chase(Hw, Tw, p - a0, m, lrel)
+            Hw, Tw, Qw, Zw = ext.window(
+                lambda H, T: inf_chase(H, T, p - a0, m, lrel), Hw, Tw)
             _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Hw, Tw, m,
-                              P + a0, False, None)
+                              P + a0, False, None, ext)
             stats["inf_chase_calls"] += 1
             p = a0 + m - 1
-        _deflate_inf_bottom(Spad, Tpad, Zpad, P + ihi - 1)
+        _deflate_inf_bottom(Spad, Tpad, Zpad, P + ihi - 1, ext)
         return zshifts, (ihi - 1, l, 0, False, 1, 0, 0, True)
 
     seg = ihi - l
     w = min(WA, seg)
     kwtop = ihi - w
     gk = P + kwtop
-    Sw, Tw = _masked_window_pair(Spad, Tpad, gk, w, WA)
+    Sw, Tw = _masked_window_pair(Spad, Tpad, gk, w, WA, ext)
     if w < WA:
         r = torch.arange(w, WA, device=dev)
         Tw[r, r] = 1.0
     s_spike = float(sub[kwtop - 1]) if kwtop >= 1 else 0.0
 
-    Sw, Tw, Qw, Zw, sinfo = small_qz(Sw, Tw, eyeW, eyeW, w, thresh, thresh_t)
-    Sw, Tw, Qw, Zw, kbot_t, _dfail, _steps = aed_deflate_gep(
-        Sw, Tw, Qw, Zw, s_spike, w, thresh)
-    ar_w, ai_w, bt_w = extract_eigenvalues_gen(Sw, Tw)
-    safe_bt = torch.where(bt_w.abs() < 1e-12,
-                          torch.where(bt_w < 0, -1e-12, 1e-12), bt_w)
+    def window_math(Sw, Tw):
+        Sw, Tw, Qw, Zw, sinfo = small_qz(Sw, Tw, eyeW, eyeW, w, thresh,
+                                         thresh_t)
+        Sw, Tw, Qw, Zw, kbot_t, _dfail, _steps = aed_deflate_gep(
+            Sw, Tw, Qw, Zw, s_spike, w, thresh)
+        ar_w, ai_w, bt_w = extract_eigenvalues_gen(Sw, Tw)
+        safe_bt = torch.where(bt_w.abs() < 1e-12,
+                              torch.where(bt_w < 0, -1e-12, 1e-12), bt_w)
+        # -- the round's status read (read 2) --
+        head = torch.stack([sinfo, kbot_t]).to(dtype)
+        status = torch.cat([head, ar_w / safe_bt, ai_w / safe_bt,
+                            torch.diagonal(Sw, -1)]).cpu().numpy()
+        return (*aed_recondense_gep(Sw, Tw, Qw, Zw, s_spike, int(status[1])),
+                status)
 
-    # -- the round's status read (read 2) --
-    head = torch.stack([sinfo, kbot_t]).to(dtype)
-    status = torch.cat([head, ar_w / safe_bt, ai_w / safe_bt,
-                        torch.diagonal(Sw, -1)]).cpu().numpy()
+    Sw, Tw, Qw, Zw, beta, status = ext.window(window_math, Sw, Tw)
     sfail = bool(status[0] != 0)
     kbot = int(status[1])
     er, ei, tsub = np.split(status[2:], [WA, 2 * WA])
@@ -518,18 +524,18 @@ def _qz_round(Spad, Tpad, Qpad, Zpad, n: int, ihi: int, thresh: float,
     shifts_h, npairs = _pack_shifts(er, ei, tsub, kbot, g.NS, B, TMAX)
     shifts = torch.from_numpy(shifts_h).to(dev)
 
-    Sw, Tw, Qw, Zw, beta = aed_recondense_gep(Sw, Tw, Qw, Zw, s_spike, kbot)
     stats["recondense_calls"] += 1
     if kbot == 0:
         beta = Spad.new_zeros(())
-    _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Sw, Tw, w, gk, True, beta)
+    _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Sw, Tw, w, gk, True, beta,
+                      ext)
     new_ihi = ihi - nd
 
     if npairs == 0:
         # exceptional fallback when the window gave no usable pair
         r0 = P + new_ihi - 1
         c0 = P + max(new_ihi - 1, 0)
-        d0, t0 = Spad[r0, c0], Tpad[r0, c0]
+        d0, t0 = (x[0, 0] for x in ext.get_blocks((Spad, Tpad), r0, c0, 1, 1))
         big = t0.abs() > 1e-12
         lam = torch.where(big, d0 / torch.where(big, t0, 1.0), d0)
         shifts = torch.stack([lam * 1.01, 0 * lam, lam * 0.99, 0 * lam]
@@ -543,15 +549,19 @@ def _qz_round(Spad, Tpad, Qpad, Zpad, n: int, ihi: int, thresh: float,
 
 
 def _qz_iter(Spad, Tpad, Qpad, Zpad, n: int, thresh: float, thresh_t: float,
-             g: _Geometry, stats: dict):
+             g: _Geometry, stats: dict, ext=DenseExtent):
     """The multishift-QZ iteration: a host loop over rounds, each AED round
-    followed by its trains, one after another.  Returns (ihi, fail)."""
+    followed by its trains, one after another.  ``ext`` carries every
+    access to the padded buffers: ``DenseExtent`` for whole buffers, a
+    sharded extent (``parallel/dm_core.py``) for column shards of them.
+    Returns (ihi, fail)."""
     eyeW = torch.eye(g.WA, dtype=Spad.dtype, device=Spad.device)
     ihi, it_seg, last_ihi, fail, rounds = n, 0, n, 0, 0
     log = stats["qz_log"]
     while ihi > 0 and fail == 0 and rounds < 2 * n + 10:
         shifts, (new_ihi, l, ntr, _sf, nd, _np, w, do_inf) = _qz_round(
-            Spad, Tpad, Qpad, Zpad, n, ihi, thresh, thresh_t, eyeW, g, stats)
+            Spad, Tpad, Qpad, Zpad, n, ihi, thresh, thresh_t, eyeW, g, stats,
+            ext)
         log.append((w, w - nd, ntr, do_inf))
         it_seg = (0 if new_ihi != last_ihi else it_seg) + 1
         # a non-converged AED window is not fatal (dlaqr3 semantics); only
@@ -560,7 +570,7 @@ def _qz_iter(Spad, Tpad, Qpad, Zpad, n: int, thresh: float, thresh_t: float,
         if ntr > 0 and fail == 0:
             for t in range(ntr):
                 _qz_sweep(Spad, Tpad, Qpad, Zpad, g.P + l, g.P + new_ihi,
-                          shifts[min(t, g.TMAX - 1)], g.B)
+                          shifts[min(t, g.TMAX - 1)], g.B, ext=ext)
         if fail == 0:
             ihi = new_ihi
         last_ihi = new_ihi

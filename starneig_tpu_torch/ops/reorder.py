@@ -45,6 +45,7 @@ import torch
 from starneig_tpu_torch.config import ReorderConf
 from starneig_tpu_torch.errors import Error
 from starneig_tpu_torch.ops import gpu_reorder
+from starneig_tpu_torch.ops.schur import DenseExtent
 from starneig_tpu_torch.ops.swaps import swap_adjacent
 from starneig_tpu_torch.ops.swaps_gep import swap_adjacent_gep
 
@@ -477,17 +478,16 @@ def window_bubble_gep_batch(Sws, Tws, sels, dst0s, dst_limits, wlims,
             np.stack(sel), np.asarray(dst), np.asarray(nfail), np.asarray(nsw))
 
 
-def _apply_window_gep(S, T, Q, Z, Sw, Tw, Qw, Zw, ws: int):
+def _apply_window_gep(S, T, Q, Z, Sw, Tw, Qw, Zw, ws: int, ext=DenseExtent):
     """S <- diag(I, Qw, I)^T S diag(I, Zw, I), likewise T, with the windows
-    planted; Q <- Q diag(I, Qw, I), Z <- Z diag(I, Zw, I); in place."""
+    planted; Q <- Q diag(I, Qw, I), Z <- Z diag(I, Zw, I); in place,
+    through ``ext``."""
     W = Sw.shape[0]
     for M in (S, T):
-        M[ws:ws + W] = Qw.T @ M[ws:ws + W]
-        M[:, ws:ws + W] = M[:, ws:ws + W] @ Zw
-    S[ws:ws + W, ws:ws + W] = Sw
-    T[ws:ws + W, ws:ws + W] = Tw
-    Q[:, ws:ws + W] = Q[:, ws:ws + W] @ Qw
-    Z[:, ws:ws + W] = Z[:, ws:ws + W] @ Zw
+        ext.mul_rows(M, ws, W, Qw)
+    ext.mul_cols_pencil((S, T, Q, Z), ws, W, (Zw, Zw, Qw, Zw))
+    ext.set_block(S, Sw, ws, ws)
+    ext.set_block(T, Tw, ws, ws)
 
 
 def reorder_schur_gep(S, T, Q, Z, select, conf: Optional[ReorderConf] = None,
@@ -510,12 +510,31 @@ def reorder_schur_gep(S, T, Q, Z, select, conf: Optional[ReorderConf] = None,
       Error.SUCCESS or PARTIAL_REORDERING.
     """
     S, T, Q, Z = (M.clone() for M in (S, T, Q, Z))
+    m, info = reorder_gep_(S, T, Q, Z, select, conf=conf, stats=stats)
+    return S, T, Q, Z, m, info
+
+
+def reorder_gep_(S, T, Q, Z, select, conf: Optional[ReorderConf] = None,
+                 stats: Optional[dict] = None, ext=DenseExtent):
+    """The window chain of :func:`reorder_schur_gep` in place on (S, T, Q,
+    Z), every access through ``ext``: each window pair is read with one
+    pencil gather, G6 runs in ``ext.window`` (the owner's, on a sharded
+    extent, with the window's subdiagonal that it reports for the host's
+    plan), and the window transforms go through ``ext``.  ``stats``, if a
+    dict, receives the window size ``W`` and the counts.  Returns
+    (num_selected, info)."""
     n = S.shape[0]
-    subdiag = _subdiag(S)
+
+    def host_subdiag():
+        return ext.diagonals((S,), 0, n)[0, 1].cpu().numpy()
+
+    subdiag = host_subdiag()
     sel = _align_select(subdiag, _as_host_bool(select))
     rconf, W = _resolve_window(n, sel, conf)
     cap = W if W >= n else max(2, min(rconf.values_per_chain, W // 2))
     total_fail = 0
+    if stats is not None:
+        stats["W"] = W
 
     while True:
         m = _prefix_len(subdiag, sel)
@@ -530,20 +549,26 @@ def reorder_schur_gep(S, T, Q, Z, select, conf: Optional[ReorderConf] = None,
         while True:
             wlo = 1 if (ws > 0 and subdiag[ws - 1] != 0) else 0
             wlim = W - 1 if (ws + W < n and subdiag[ws + W - 1] != 0) else W
-            host = {}
-            Sw2, Tw2, Qw, Zw, sel_w2, dst, nfail, nsw = window_bubble_gep_batch(
-                S[ws:ws + W, ws:ws + W][None], T[ws:ws + W, ws:ws + W][None],
-                sel[None, ws:ws + W], [wlo], [min(wlo + cap, W)], [wlim], host=host)
+
+            def bubble(Sw, Tw, ws=ws, wlo=wlo, wlim=wlim):
+                host = {}
+                out = window_bubble_gep_batch(
+                    Sw[None], Tw[None], sel[None, ws:ws + W], [wlo],
+                    [min(wlo + cap, W)], [wlim], host=host)
+                return (*out, host["subdiag"])
+
+            Sw2, Tw2, Qw, Zw, sel_w2, dst, nfail, nsw, hsub = ext.window(
+                bubble, *ext.get_blocks((S, T), ws, ws, W, W))
             total_fail += int(nfail[0])
             _count(stats, windows=1, swaps=nsw[0], failed_swaps=nfail[0])
-            _apply_window_gep(S, T, Q, Z, Sw2[0], Tw2[0], Qw[0], Zw[0], ws)
+            _apply_window_gep(S, T, Q, Z, Sw2[0], Tw2[0], Qw[0], Zw[0], ws, ext)
             sel[ws:ws + W] = sel_w2[0]
-            subdiag[ws:ws + W - 1] = host["subdiag"][0]
+            subdiag[ws:ws + W - 1] = hsub[0]
             if ws <= m:
                 break
             carried = int(dst[0]) - wlo
             ws = max(m, ws + wlo + carried - W)
 
-    m = _prefix_len(_subdiag(S), sel)
+    m = _prefix_len(host_subdiag(), sel)
     info = Error.PARTIAL_REORDERING if total_fail else Error.SUCCESS
-    return S, T, Q, Z, m, info
+    return m, info

@@ -37,7 +37,7 @@ from starneig_tpu_torch.config import SchurConf, DeflationCriterion
 from starneig_tpu_torch.errors import Error
 from starneig_tpu_torch.ops import gpu_schur
 from starneig_tpu_torch.ops import primitives as prim
-from starneig_tpu_torch.ops.eigvals import extract_eigenvalues
+from starneig_tpu_torch.ops.eigvals import extract_eigenvalues, schur_diagonals
 from starneig_tpu_torch.ops.small_schur import small_schur
 from starneig_tpu_torch.ops.swaps import swap_adjacent
 
@@ -52,18 +52,23 @@ class DenseExtent:
 
     Offsets are host ints; every operation is tensor indexing plus, for
     the window transforms, ``torch.matmul`` (the large GEMMs that the JAX
-    package left to XLA).
+    package left to XLA).  The pencil operations (``get_blocks``,
+    ``mul_cols_pencil``, ``diagonals``, the rotation pairs) take several
+    matrices at once, so that a sharded extent gathers what they read in
+    one collective.
     """
 
     @staticmethod
-    def mul_rows(S, i0: int, h: int, Qw):
-        """S[i0:i0+h, :] = Qw^T S[i0:i0+h, :]."""
-        S[i0:i0 + h] = Qw.T @ S[i0:i0 + h]
+    def mul_rows(S, i0: int, h: int, Qw, j0: int = 0):
+        """S[i0:i0+h, j0:] = Qw^T S[i0:i0+h, j0:]."""
+        S[i0:i0 + h, j0:] = Qw.T @ S[i0:i0 + h, j0:]
 
     @staticmethod
-    def mul_cols(S, j0: int, w: int, Qw):
-        """S[:, j0:j0+w] = S[:, j0:j0+w] Qw."""
-        S[:, j0:j0 + w] = S[:, j0:j0 + w] @ Qw
+    def mul_cols_pencil(Ms, j0: int, w: int, Xs, i1s=None):
+        """M[:i1, j0:j0+w] = M[:i1, j0:j0+w] X for each M, X, i1 of Ms,
+        Xs, i1s (i1 None: every row; i1s None: every row of each)."""
+        for M, X, i1 in zip(Ms, Xs, i1s or [None] * len(Ms)):
+            M[:i1, j0:j0 + w] = M[:i1, j0:j0 + w] @ X
 
     @staticmethod
     def get_block(S, i0: int, j0: int, h: int, w: int):
@@ -71,9 +76,22 @@ class DenseExtent:
         return S[i0:i0 + h, j0:j0 + w].clone()
 
     @staticmethod
+    def get_blocks(Ms, i0: int, j0: int, h: int, w: int):
+        """[M[i0:i0+h, j0:j0+w] for each M of Ms]: views, which the caller
+        reads and does not write (a sharded extent returns gathered
+        copies)."""
+        return [M[i0:i0 + h, j0:j0 + w] for M in Ms]
+
+    @staticmethod
     def set_block(S, M, i0: int, j0: int):
         """S[i0:i0+h, j0:j0+w] = M for M of shape (h, w)."""
         S[i0:i0 + M.shape[0], j0:j0 + M.shape[1]] = M
+
+    @staticmethod
+    def set_entries(S, rows, cols, vals):
+        """S[rows[k], cols[k]] = vals[k] (index tensors; vals a tensor or
+        a float)."""
+        S[rows, cols] = vals
 
     @staticmethod
     def get_diag_blocks(S, ws, w: int):
@@ -92,10 +110,39 @@ class DenseExtent:
             S[s:s + w] = Qws[g].T @ S[s:s + w]
 
     @staticmethod
-    def mul_cols_batch(S, ws, w: int, Qws):
-        """S[:, ws_g:ws_g+w] = cols Qws[g] for disjoint windows."""
+    def mul_cols_batch(Ms, ws, w: int, Qws):
+        """M[:, ws_g:ws_g+w] = cols Qws[g] for disjoint windows, for each M
+        of Ms."""
         for g, s in enumerate(ws):
-            S[:, s:s + w] = S[:, s:s + w] @ Qws[g]
+            for M in Ms:
+                M[:, s:s + w] = M[:, s:s + w] @ Qws[g]
+
+    @staticmethod
+    def diagonals(Ms, p: int, n: int):
+        """(len(Ms), 3, n): the diagonal, the subdiagonal and the
+        superdiagonal (last entries 0) of each block M[p:p+n, p:p+n]."""
+        return torch.stack([torch.stack(schur_diagonals(M[p:p + n, p:p + n]))
+                            for M in Ms])
+
+    @staticmethod
+    def rot_row_pairs(items, rows):
+        """Rows (r, r+1) <- (c r0 + s r1, -s r0 + c r1) for each r of the
+        index tensor rows (disjoint pairs), for each (M, c, s) of items
+        (c, s tensors of one entry a pair); in place."""
+        for M, c, s in items:
+            x0, x1 = M[rows], M[rows + 1]
+            M[rows] = c[:, None] * x0 + s[:, None] * x1
+            M[rows + 1] = -s[:, None] * x0 + c[:, None] * x1
+
+    @staticmethod
+    def rot_col_pairs(items, cols):
+        """Columns (j, j+1) <- (c c0 + s c1, -s c0 + c c1) for each j of
+        the index tensor cols (disjoint pairs), for each (M, c, s) of
+        items; in place."""
+        for M, c, s in items:
+            x0, x1 = M[:, cols], M[:, cols + 1]
+            M[:, cols] = c * x0 + s * x1
+            M[:, cols + 1] = -s * x0 + c * x1
 
     @staticmethod
     def zero_negligible(Spad, P: int, n: int, ihi: int, thresh: float):
@@ -127,54 +174,51 @@ def negligible_zeroed(d, sub, ihi: int, thresh: float):
     return torch.where(neg, 0.0, sub)
 
 
-def standardize_blocks(S, Q):
-    """Standardize every 2x2 diagonal block of a quasi-triangular S.
-
-    All blocks are disjoint, so their rotations apply at once through
-    shifted-row/column arithmetic.  Returns new (S, Q).
-    """
-    n = S.shape[0]
-    z1 = S.new_zeros(1)
-    f1 = torch.zeros(1, dtype=torch.bool, device=S.device)
-    d = torch.diagonal(S)
-    sub = torch.cat([torch.diagonal(S, -1), z1])
-    sup = torch.cat([torch.diagonal(S, 1), z1])
+def block_starts(sub):
+    """The first rows of the 2x2 diagonal blocks of a quasi-triangular
+    matrix with subdiagonal ``sub`` (last entry 0): a boolean mask."""
+    f1 = torch.zeros(1, dtype=torch.bool, device=sub.device)
     is_start = sub != 0
-    prev = torch.cat([f1, is_start[:-1]])
-    is_start = is_start & ~prev
-    is_second = torch.cat([f1, is_start[:-1]])
+    return is_start & ~torch.cat([f1, is_start[:-1]])
 
-    d_next = torch.cat([d[1:], z1])
+
+def _block_rotations(d, sub, sup):
+    """(k, cs, sn, aa, bb, cc, dd): the first rows k of the 2x2 blocks of
+    a quasi-triangular matrix with these diagonals, each block's rotation
+    and its standardized entries."""
+    d_next = torch.cat([d[1:], d.new_zeros(1)])
     aa, bb, cc, dd, _r1, _i1, _r2, _i2, cs, sn = prim.standardize_2x2(
         d, sup, sub, d_next)
-    cs = torch.where(is_start, cs, 1.0)
-    sn = torch.where(is_start, sn, 0.0)
-    cs_r = torch.roll(cs, 1)
-    sn_r = torch.roll(sn, 1)
-    st, sc = is_start[:, None], is_second[:, None]
+    k = torch.nonzero(block_starts(sub)).flatten()
+    return k, cs[k], sn[k], aa[k], bb[k], cc[k], dd[k]
 
-    S_dn = torch.roll(S, -1, 0)
-    S_up = torch.roll(S, 1, 0)
-    S1 = torch.where(st, cs[:, None] * S + sn[:, None] * S_dn,
-                     torch.where(sc, -sn_r[:, None] * S_up + cs_r[:, None] * S, S))
-    C_dn = torch.roll(S1, -1, 1)
-    C_up = torch.roll(S1, 1, 1)
-    S2 = torch.where(st.T, cs * S1 + sn * C_dn,
-                     torch.where(sc.T, -sn_r * C_up + cs_r * S1, S1))
-    r = torch.arange(n, device=S.device)
-    diag_new = torch.where(is_start, aa,
-                           torch.where(is_second, torch.roll(dd, 1),
-                                       torch.diagonal(S2)))
-    S2[r, r] = diag_new
-    sup_new = torch.where(is_start[:-1], bb[:-1], torch.diagonal(S2, 1))
-    S2[r[:-1], r[1:]] = sup_new
-    sub_new = torch.where(is_start[:-1], cc[:-1], torch.diagonal(S2, -1))
-    S2[r[1:], r[:-1]] = sub_new
 
-    Qd = torch.roll(Q, -1, 1)
-    Qu = torch.roll(Q, 1, 1)
-    Q2 = torch.where(st.T, cs * Q + sn * Qd,
-                     torch.where(sc.T, -sn_r * Qu + cs_r * Q, Q))
+def standardize_blocks_(S, Q, p: int, n: int, ext=DenseExtent):
+    """Standardize every 2x2 diagonal block of the quasi-triangular block
+    S[p:p+n, p:p+n], in place, and rotate Q's columns p.. with it.
+
+    The blocks are disjoint, so each rotation touches its own row pair and
+    column pair.  Every access goes through ``ext``: the diagonals are
+    read (gathered on a sharded extent), the rotations come from
+    ``ext.window`` (the owner's on a sharded extent), and the row and
+    column pairs and the blocks' entries are written where they lie.
+    """
+    k, cs, sn, aa, bb, cc, dd = ext.window(_block_rotations,
+                                           *ext.diagonals((S,), p, n)[0])
+    if k.numel() == 0:
+        return
+    r = k + p
+    ext.rot_row_pairs([(S, cs, sn)], r)
+    ext.rot_col_pairs([(S, cs, sn), (Q, cs, sn)], r)
+    for di, dj, v in ((0, 0, aa), (0, 1, bb), (1, 0, cc), (1, 1, dd)):
+        ext.set_entries(S, r + di, r + dj, v)
+
+
+def standardize_blocks(S, Q):
+    """Standardize every 2x2 diagonal block of a quasi-triangular S
+    (:func:`standardize_blocks_` on copies).  Returns new (S, Q)."""
+    S2, Q2 = S.clone(), Q.clone()
+    standardize_blocks_(S2, Q2, 0, S.shape[0])
     return S2, Q2
 
 
@@ -416,9 +460,8 @@ def _sweep_wave(Spad, Qpad, l: int, ihi: int, shifts, ntr: int, G: int,
                                  [ihi - x for x in ws], s0, B=B, HOP=HOP),
             Wnds)
         ext.mul_rows_batch(Spad, ws, WC, Qw)
-        ext.mul_cols_batch(Spad, ws, WC, Qw)
+        ext.mul_cols_batch((Spad, Qpad), ws, WC, Qw)
         ext.set_diag_blocks(Spad, Wnd2, ws)
-        ext.mul_cols_batch(Qpad, ws, WC, Qw)
 
 
 # ---------------------------------------------------------------------------
@@ -531,12 +574,11 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
     # active block): rows, then columns, then the exact window plant and
     # the spike column (beta on top, zeros below)
     ext.mul_rows(Spad, gk, WA, Vw)
-    ext.mul_cols(Spad, gk, WA, Vw)
+    ext.mul_cols_pencil((Spad, Qpad), gk, WA, (Vw, Vw))
     ext.set_block(Spad, Tw[:w, :w], gk, gk)
     spike = Spad.new_zeros((WA, 1))
     spike[0, 0] = beta
     ext.set_block(Spad, spike, gk, gk - 1)
-    ext.mul_cols(Qpad, gk, WA, Vw)
 
     new_ihi = ihi - nd
     if npairs == 0:
@@ -608,12 +650,15 @@ def aed_geometry(n: int, conf):
     return WA, NS, B, WC, TMAX, P
 
 
-def _resolve_threshold(H, conf) -> float:
-    """Deflation threshold (norm-stable default: u ||H||_F)."""
+def _resolve_threshold(H, conf, norm: Optional[float] = None) -> float:
+    """Deflation threshold (norm-stable default: u ||H||_F; ``norm``, if
+    given, is ||H||_F, as a caller holding only a shard of H gathers
+    it)."""
     finfo = torch.finfo(H.dtype)
     tiny = finfo.tiny
     if conf.left_threshold == DeflationCriterion.NORM_STABLE:
-        thresh = finfo.eps / 2 * float(torch.linalg.norm(H))
+        thresh = finfo.eps / 2 * (float(torch.linalg.norm(H)) if norm is None
+                                  else norm)
     elif conf.left_threshold == DeflationCriterion.LAPACK:
         thresh = tiny
     else:

@@ -2,9 +2,11 @@
 sharded matrices (``starneig_tpu/parallel`` in the JAX package).
 
 One process is one rank (``node.node_init`` over ``torch.distributed``);
-a :class:`DistrMatrix` holds this rank's shard.  ``dm_core`` runs the
-Schur driver and the reordering on column shards; ``block_cyclic``
-converts to and from ScaLAPACK's 2D-block-cyclic layout.
+a :class:`DistrMatrix` holds this rank's shard.  ``dm_hess`` runs the
+Hessenberg reduction, ``dm_core`` the Schur driver and the reordering and
+``dm_gep`` the QZ driver and the generalized reordering, each with column
+shards in and out; ``block_cyclic`` converts to and from ScaLAPACK's
+2D-block-cyclic layout.
 """
 
 from starneig_tpu_torch.parallel.distr import (

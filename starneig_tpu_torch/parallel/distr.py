@@ -10,8 +10,9 @@ matrix (``"replicated"``).  Shard d of an m-wide dimension is the d-th
 range of ``numpy.array_split(range(m), world_size)``.
 
 Every collective of the port goes through :func:`all_reduce` (a sum) and
-:func:`broadcast`, which count their calls, bytes and seconds per rank
-into a ``stats`` dict when given one.  Under gloo a CUDA tensor is staged
+:func:`broadcast`, which count their calls, bytes, largest message
+(``collective_max_bytes``) and seconds per rank into a ``stats`` dict
+when given one.  Under gloo a CUDA tensor is staged
 through the host by gloo itself; the data and every kernel stay on the
 card.  :func:`owner_call` runs a function on rank 0 and hands its outputs
 to the other ranks: the one place where work is owned rather than shared.
@@ -86,8 +87,10 @@ def _collective(op, t, mesh: Mesh, stats: Optional[dict], **kw):
     if stats is not None:
         name = op.__name__
         stats[name] = stats.get(name, 0) + 1
-        stats["collective_bytes"] = stats.get("collective_bytes", 0) \
-            + t.numel() * t.element_size()
+        nbytes = t.numel() * t.element_size()
+        stats["collective_bytes"] = stats.get("collective_bytes", 0) + nbytes
+        stats["collective_max_bytes"] = max(
+            stats.get("collective_max_bytes", 0), nbytes)
         stats["collective_s"] = stats.get("collective_s", 0.0) \
             + time.perf_counter() - t0
     return t

@@ -28,6 +28,7 @@ import shutil
 import tempfile
 import time
 import traceback
+from typing import Optional
 
 import numpy as np
 
@@ -155,44 +156,83 @@ def _stage(mesh):
     return time.perf_counter()
 
 
+def _out_bytes(outs):
+    """Bytes of this rank's shards among a stage's outputs (DistrMatrix)."""
+    from starneig_tpu_torch.parallel.distr import DistrMatrix
+    return sum(8 * M.data.numel() for M in outs if isinstance(M, DistrMatrix))
+
+
+def _warm(mesh):
+    """One small product on the card first: cuBLAS takes its workspace
+    (32 MiB on an H100) from the caching allocator on a process's first
+    product, which would otherwise count in the peak memory of the first
+    stage that multiplies (a rank that ran nothing before it)."""
+    import torch
+    if mesh.device.type == "cuda":
+        x = torch.ones((8, 8), dtype=torch.float64, device=mesh.device)
+        x @ x
+        torch.cuda.synchronize(mesh.device)
+
+
+def _run_stage(name, fn, mesh, rec: dict):
+    """Run one stage ``fn(stats)`` with its own stats dict, ended as
+    :func:`_stage` ends one; ``rec[name]``: its stats, its calls of
+    ``DistrMatrix.full``, its this-rank shard bytes (the padded working
+    shards and the output shards) and, on a card, its peak device memory
+    beyond what was allocated when it began (``peak_bytes``).  Returns
+    fn's outputs."""
+    import torch
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(mesh.device)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        base = torch.cuda.memory_allocated(mesh.device)
+    st = {}
+    with counting_full() as calls:
+        out = fn(st)
+    _stage(mesh)
+    outs = out if isinstance(out, tuple) else (out,)
+    rec[name] = dict(stats=st, full_calls=calls[0],
+                     shard_bytes=st.get("work_bytes", 0) + _out_bytes(outs),
+                     peak_bytes=(torch.cuda.max_memory_allocated(mesh.device)
+                                 - base) if cuda else None)
+    return out
+
+
 def sep_chain(A, predicate: str = "positive_real"):
     """api.sep_dm: hessenberg -> schur -> select -> reorder_schur ->
     eigenvectors of the leading selected block, each stage ended by a
     barrier and timed (``<stage>_ms``), each with its own collective
-    counts (``stats``; on a card the Hessenberg stage's peak device
-    memory beyond its input, ``peak_bytes``).  Result: H and Q after the
-    reduction (``H``, ``QH``), S and Q after Schur and after reordering,
-    X, the eigenvalues and the info codes."""
-    import torch
+    counts, calls of ``DistrMatrix.full``, shard bytes and (on a card)
+    peak device memory (``stages``, :func:`_run_stage`).  Result: H and Q
+    after the reduction (``H``, ``QH``), S and Q after Schur and after
+    reordering, X, the eigenvalues and the info codes, gathered after the
+    stages."""
     from starneig_tpu_torch.api import sep_dm
     from starneig_tpu_torch.node import default_mesh
     from starneig_tpu_torch.parallel import distr_matrix_from_array
 
     mesh = default_mesh()
     n = A.shape[0]
-    stats = {k: {} for k in ("hessenberg", "schur", "select", "reorder",
-                             "eigenvectors")}
+    rec = {}
+    _warm(mesh)
     Ad = distr_matrix_from_array(A, mesh)
-    cuda = mesh.device.type == "cuda"
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(mesh.device)
-        base = torch.cuda.memory_allocated(mesh.device)
     t0 = _stage(mesh)
-    Hd, QHd = sep_dm.hessenberg(Ad, stats=stats["hessenberg"])
-    t1 = _stage(mesh)
-    if cuda:
-        # device memory the stage held at its peak beyond its input shard
-        stats["hessenberg"]["peak_bytes"] = \
-            torch.cuda.max_memory_allocated(mesh.device) - base
-    Sd, Qd, er, ei, info = sep_dm.schur(Hd, QHd, stats=stats["schur"])
-    t2 = _stage(mesh)
-    sel = sep_dm.select(Sd, PREDICATES[predicate], stats=stats["select"])
-    t3 = _stage(mesh)
-    S2d, Q2d, m, rinfo = sep_dm.reorder_schur(Sd, Qd, sel, stats=stats["reorder"])
-    t4 = _stage(mesh)
-    X, xinfo = sep_dm.eigenvectors(S2d, Q2d, np.arange(n) < m,
-                                   stats=stats["eigenvectors"])
-    t5 = _stage(mesh)
+    Hd, QHd = _run_stage("hessenberg", lambda st: sep_dm.hessenberg(Ad, stats=st),
+                         mesh, rec)
+    t1 = time.perf_counter()
+    Sd, Qd, er, ei, info = _run_stage(
+        "schur", lambda st: sep_dm.schur(Hd, QHd, stats=st), mesh, rec)
+    t2 = time.perf_counter()
+    sel = _run_stage("select", lambda st: sep_dm.select(
+        Sd, PREDICATES[predicate], stats=st), mesh, rec)
+    t3 = time.perf_counter()
+    S2d, Q2d, m, rinfo = _run_stage(
+        "reorder", lambda st: sep_dm.reorder_schur(Sd, Qd, sel, stats=st), mesh, rec)
+    t4 = time.perf_counter()
+    X, xinfo = _run_stage("eigenvectors", lambda st: sep_dm.eigenvectors(
+        S2d, Q2d, np.arange(n) < m, stats=st), mesh, rec)
+    t5 = time.perf_counter()
     ms = dict(hessenberg_ms=(t1 - t0) * 1e3, schur_ms=(t2 - t1) * 1e3,
               select_ms=(t3 - t2) * 1e3, reorder_ms=(t4 - t3) * 1e3,
               eigenvectors_ms=(t5 - t4) * 1e3)
@@ -201,24 +241,81 @@ def sep_chain(A, predicate: str = "positive_real"):
                   info=int(info), selected=int(sel.sum()), S2=S2d.to_array(),
                   Q2=Q2d.to_array(), m=int(m), rinfo=int(rinfo),
                   X=X.to_array(), xinfo=int(xinfo))
-    return result, dict(ms, stats=stats,
+    return result, dict(ms, stats={k: v["stats"] for k, v in rec.items()},
+                        stages=rec,
                         shards=dict(H=tuple(Hd.data.shape), S=tuple(Sd.data.shape),
+                                    S2=tuple(S2d.data.shape),
                                     X=tuple(X.data.shape), X_spec=X.spec))
 
 
+def gep_chain(A, B, predicate: str = "finite_right_half"):
+    """api.gep_dm: hessenberg_triangular -> schur -> select ->
+    reorder_schur -> eigenvectors of the leading selected block, each
+    stage ended by a barrier, timed (``<stage>_ms``) and recorded as in
+    :func:`sep_chain` (``stages``).  Result: the pencil after each of HT,
+    Schur and reordering (gathered after the stages), the eigenvalues,
+    the leading block, X and the info codes, and the Schur stage's
+    rounds."""
+    from starneig_tpu_torch.api import gep_dm
+    from starneig_tpu_torch.node import default_mesh
+    from starneig_tpu_torch.parallel import distr_matrix_from_array
+
+    mesh = default_mesh()
+    n = A.shape[0]
+    _warm(mesh)
+    rec, ts = {}, [_stage(mesh)]
+    Ad, Bd = (distr_matrix_from_array(M, mesh) for M in (A, B))
+    ht = _run_stage("hessenberg_triangular",
+                    lambda st: gep_dm.hessenberg_triangular(Ad, Bd, stats=st),
+                    mesh, rec)
+    ts.append(time.perf_counter())
+    *sch, ar, ai, bt, info = _run_stage(
+        "schur", lambda st: gep_dm.schur(*ht, stats=st), mesh, rec)
+    ts.append(time.perf_counter())
+    sel = _run_stage("select", lambda st: gep_dm.select(
+        *sch[:2], PREDICATES[predicate], stats=st), mesh, rec)
+    ts.append(time.perf_counter())
+    *reo, m, rinfo = _run_stage(
+        "reorder", lambda st: gep_dm.reorder_schur(*sch, sel, stats=st), mesh, rec)
+    ts.append(time.perf_counter())
+    X, xinfo = _run_stage("eigenvectors", lambda st: gep_dm.eigenvectors(
+        *reo, np.arange(n) < m, stats=st), mesh, rec)
+    ts.append(time.perf_counter())
+    names = ("hessenberg_triangular", "schur", "select", "reorder", "eigenvectors")
+    ms = {f"{k}_ms": (b - a) * 1e3 for k, a, b in zip(names, ts, ts[1:])}
+    gather = lambda ms_: {k: M.to_array() for k, M in zip("STQZ", ms_)}  # noqa: E731
+    result = dict(ht=gather(ht), schur=gather(sch), reorder=gather(reo),
+                  ar=ar.cpu().numpy(), ai=ai.cpu().numpy(), bt=bt.cpu().numpy(),
+                  info=int(info), selected=int(sel.sum()), m=int(m),
+                  rinfo=int(rinfo), X=X.to_array(), xinfo=int(xinfo),
+                  rounds=rec["schur"]["stats"].get("rounds"))
+    return result, dict(ms, stats={k: v["stats"] for k, v in rec.items()},
+                        stages=rec,
+                        shards={k: tuple(v[0].data.shape) for k, v in
+                                (("ht", ht), ("schur", sch), ("reorder", reo))})
+
+
 @contextlib.contextmanager
-def staged(module, names, mesh, ms: dict):
+def staged(module, names, mesh, ms: dict, rec: Optional[dict] = None):
     """Time the stages that ``module``'s functions ``names`` run inside a
     call of another of its functions (``api.sep_dm.reduce`` calls its
     ``hessenberg``, ``schur``, ... as module globals): each stage ends as
     :func:`_stage` ends one, and ``ms[name + "_ms"]`` is its time from
-    the end of the stage before it (the first from entering the block)."""
+    the end of the stage before it (the first from entering the block).
+    With ``rec`` a dict, each stage is recorded as :func:`_run_stage`
+    records one (with its own stats dict in place of the caller's), its
+    outputs in ``rec[name]["out"]``."""
     orig = {k: getattr(module, k) for k in names}
     last = [time.perf_counter()]
 
     def wrap(name, fn):
         def timed_stage(*a, **kw):
-            out = fn(*a, **kw)
+            if rec is None:
+                out = fn(*a, **kw)
+            else:
+                out = _run_stage(name, lambda st: fn(*a, **dict(kw, stats=st)),
+                                 mesh, rec)
+                rec[name]["out"] = out
             t = _stage(mesh)
             ms[f"{name}_ms"] = (t - last[0]) * 1e3
             last[0] = t
@@ -282,19 +379,6 @@ def sequence(steps):
     return results, {"steps": counters}
 
 
-def apply_extent_op(ext, S, Q, op: str, kw: dict):
-    """Apply one extent op (``DenseExtent`` or a sharded extent) in place
-    on the padded buffers S, Q (or their shards), with numpy arguments.
-    ``op`` names the method; a ``_q`` suffix applies it to Q.  Returns the
-    op's value (None for the in-place ops)."""
-    import torch
-    M = Q if op.endswith("_q") else S
-    name = op.removesuffix("_q")
-    kw = {k: torch.as_tensor(v, device=S.device) if isinstance(v, np.ndarray)
-          and v.dtype == np.float64 else v for k, v in kw.items()}
-    return getattr(ext, name)(M, **kw)
-
-
 @contextlib.contextmanager
 def counting_full():
     """Count the calls of ``DistrMatrix.full`` (a gather) in the block:
@@ -330,9 +414,11 @@ def suite(arrays: dict):
     * ``hess_spec``: sep_dm.hessenberg of ``HA`` as a DistrMatrix under
       each spec, with the gathered H and Q, their specs and shard shapes;
     * ``schur``, ``reorder``: sep_dm.schur of (H, Q) and
-      sep_dm.reorder_schur of (S, Qs, sel);
-    * ``reduce``: sep_dm.reduce of ``A96`` (Re > 0), then sep_dm.eigenvectors
-      of the leading block; ``reduce_rows``: sep_dm.reduce of ``A96``
+      sep_dm.reorder_schur of (S, Qs, sel), each with its stats and its
+      calls of ``DistrMatrix.full``;
+    * ``reduce``: sep_dm.reduce of ``A96`` (Re > 0), with its stats and
+      calls of ``DistrMatrix.full``, then sep_dm.eigenvectors of the
+      leading block; ``reduce_rows``: sep_dm.reduce of ``A96``
       sharded by rows, with the specs and shard shapes of S and Q;
     * ``gep``: gep_dm.reduce of (``GA``, ``GB``) (finite, Re > 0).
     """
@@ -342,7 +428,7 @@ def suite(arrays: dict):
     from starneig_tpu_torch.errors import Error
     from starneig_tpu_torch.node import default_mesh, get_node
     from starneig_tpu_torch.parallel import distr
-    from starneig_tpu_torch.parallel.dm_core import make_sharded_extent
+    from starneig_tpu_torch.parallel.dm_core import ShardedExtent, split_cuts
 
     mesh = default_mesh()
     res, cnt = {}, {}
@@ -358,16 +444,16 @@ def suite(arrays: dict):
     cnt["distr_shards"] = {k: v[1] for k, v in d.items()}
 
     stats = {}
-    ext = make_sharded_extent(mesh, stats)
     Spad, Qpad = (torch.as_tensor(arrays[k]) for k in ("Spad", "Qpad"))
+    ext = ShardedExtent(mesh, stats, split_cuts(Spad.shape[1], mesh.size))
     out = []
     for op, kw in arrays["ext_cases"]:
         S = distr.shard_of(Spad, mesh, "cols")
         Q = distr.shard_of(Qpad, mesh, "cols")
-        val = apply_extent_op(ext, S, Q, op, kw)
+        val = apply_extent_op(ext, dict(S=S, Q=Q), op, kw)
         full = [distr.DistrMatrix(M, mesh, "cols", tuple(F.shape)).to_array()
                 for M, F in ((S, Spad), (Q, Qpad))]
-        out.append((*full, None if val is None else val.numpy()))
+        out.append((*full, val))
     res["extent"] = out
     cnt["extent_stats"] = dict(stats)
 
@@ -407,19 +493,28 @@ def suite(arrays: dict):
         cnt["hess_spec"][spec] = (tuple(Hd.data.shape), tuple(QHd.data.shape))
 
     st = {}
-    Sd, Qd, er, ei, info = sep_dm.schur(arrays["H"], arrays["Q"], stats=st)
+    with counting_full() as calls:
+        Sd, Qd, er, ei, info = sep_dm.schur(arrays["H"], arrays["Q"], stats=st)
     res["schur"] = dict(S=Sd.to_array(), Q=Qd.to_array(), er=er.numpy(),
                         ei=ei.numpy(), info=int(info))
     cnt["schur_stats"] = {k: v for k, v in st.items() if k != "aed_log"}
+    cnt["schur_full_calls"] = calls[0]
 
     st = {}
-    S2d, Q2d, m, rinfo = sep_dm.reorder_schur(arrays["S"], arrays["Qs"],
-                                              arrays["sel"], stats=st)
+    with counting_full() as calls:
+        S2d, Q2d, m, rinfo = sep_dm.reorder_schur(arrays["S"], arrays["Qs"],
+                                                  arrays["sel"], stats=st)
     res["reorder"] = dict(S=S2d.to_array(), Q=Q2d.to_array(), m=int(m),
                           info=int(rinfo))
     cnt["reorder_stats"] = st
+    cnt["reorder_full_calls"] = calls[0]
 
-    Sd, Qd, er, ei, nsel, info = sep_dm.reduce(arrays["A96"], positive_real)
+    st = {}
+    with counting_full() as calls:
+        Sd, Qd, er, ei, nsel, info = sep_dm.reduce(arrays["A96"], positive_real,
+                                                   stats=st)
+    cnt["reduce_stats"] = {k: v for k, v in st.items() if k != "aed_log"}
+    cnt["reduce_full_calls"] = calls[0]
     X, xinfo = sep_dm.eigenvectors(Sd, Qd, np.arange(Sd.shape[0]) < nsel)
     res["reduce"] = dict(S=Sd.to_array(), Q=Qd.to_array(), er=er.numpy(),
                          ei=ei.numpy(), nsel=int(nsel), info=int(info),
@@ -439,4 +534,105 @@ def suite(arrays: dict):
     res["gep"] = dict(zip("STQZ", (M.to_array() for M in mats)), ar=ar.numpy(),
                       ai=ai.numpy(), bt=bt.numpy(), nsel=int(nsel),
                       info=int(info))
+    return res, cnt
+
+
+def _resolve(bufs: dict, x, device):
+    """A pencil op's argument: a buffer name -> the buffer, a sequence of
+    names -> the buffers, an (name, c, s) item list -> the items, float64
+    arrays -> tensors, int arrays -> index tensors."""
+    import torch
+    if isinstance(x, str) and x in bufs:
+        return bufs[x]
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=device)
+    if isinstance(x, (list, tuple)) and x and all(isinstance(v, str) for v in x):
+        return [bufs[v] for v in x]
+    if isinstance(x, list) and x and isinstance(x[0], tuple):
+        return [(bufs[M], *(torch.as_tensor(v, device=device) for v in cs))
+                for M, *cs in x]
+    if isinstance(x, (list, tuple)) and x and isinstance(x[0], np.ndarray):
+        return [torch.as_tensor(v, device=device) for v in x]
+    return x
+
+
+def apply_extent_op(ext, bufs: dict, op: str, kw: dict):
+    """Apply one extent op (``DenseExtent`` or a sharded extent) in place
+    on the named buffers ``bufs`` (their shards for a sharded extent);
+    ``kw`` names buffers by their keys.  Returns the op's value as numpy
+    (a list of arrays for a list), None for the in-place ops."""
+    dev = next(iter(bufs.values())).device
+    val = getattr(ext, op)(**{k: _resolve(bufs, v, dev) for k, v in kw.items()})
+    if val is None:
+        return None
+    if isinstance(val, list):
+        return [v.cpu().numpy() for v in val]
+    return val.cpu().numpy()
+
+
+def gep_suite(arrays: dict):
+    """The CPU job of ``tests/test_torch_dm_gep.py``: one spawn serves it.
+
+    * ``extent``: each (op, kwargs) of ``ext_cases`` applied by the sharded
+      extent (cuts ``dm_core.pad_cuts(N_inner, P)``, ``wmax``) to column shards of the
+      padded buffers ``bufs``, with the gathered buffers and the value after
+      each;
+    * ``gep``: gep_dm.reduce of (``GA``, ``GB``) (finite, Re > 0), each
+      stage recorded (:func:`staged`: stats, ``DistrMatrix.full`` calls)
+      with its outputs gathered after it: the HT form, the Schur
+      form with its eigenvalues, info and rounds, the selection, the
+      reordered form with its leading block and info, and reduce's own
+      eigenvalues.
+    """
+    import torch
+    from starneig_tpu_torch.api import gep_dm
+    from starneig_tpu_torch.node import default_mesh
+    from starneig_tpu_torch.parallel import distr
+    from starneig_tpu_torch.parallel.dm_core import ShardedExtent, pad_cuts
+
+    mesh = default_mesh()
+    res, cnt = {}, {}
+    cuts = pad_cuts(arrays["n_inner"], arrays["P"], mesh.size)
+    a, b = cuts[mesh.rank], cuts[mesh.rank + 1]
+    stats = {}
+    ext = ShardedExtent(mesh, stats, cuts, wmax=arrays["wmax"])
+    out = []
+    for op, kw in arrays["ext_cases"]:
+        bufs = {k: torch.as_tensor(v)[:, a:b].clone() for k, v in arrays["bufs"].items()}
+        val = apply_extent_op(ext, bufs, op, kw)
+        full = {}
+        for k, M in bufs.items():
+            F = M.new_zeros(arrays["bufs"][k].shape)
+            F[:, a:b] = M
+            full[k] = distr.all_reduce(F, mesh).numpy()
+        out.append((full, val))
+    res["extent"] = out
+    cnt["extent_stats"] = dict(stats)
+    cnt["cuts"] = cuts
+
+    rec = {}
+    with staged(gep_dm, ("hessenberg_triangular", "schur", "select", "reorder_schur",
+                         "eigenvalues"), mesh, {}, rec), counting_full() as calls:
+        *mats, ar, ai, bt, nsel, info = gep_dm.reduce(
+            arrays["GA"], arrays["GB"], predicate=finite_right_half)
+    gather = lambda ms: {k: M.to_array() for k, M in zip("STQZ", ms)}  # noqa: E731
+    sch = rec["schur"]["out"]
+    reo = rec["reorder_schur"]["out"]
+    res["gep"] = dict(
+        ht=gather(rec["hessenberg_triangular"]["out"]),
+        schur=dict(gather(sch[:4]), ar=sch[4].numpy(), ai=sch[5].numpy(),
+                   bt=sch[6].numpy(), info=int(sch[7]),
+                   rounds=rec["schur"]["stats"].get("rounds")),
+        sel=rec["select"]["out"],
+        reorder=dict(gather(reo[:4]), m=int(reo[4]), info=int(reo[5])),
+        final=dict(gather(mats), ar=ar.numpy(), ai=ai.numpy(), bt=bt.numpy(),
+                   nsel=int(nsel), info=int(info)))
+    cnt["gep_stages"] = {
+        k: dict(full_calls=v["full_calls"],
+                stats={s_: x for s_, x in v["stats"].items() if s_ != "qz_log"},
+                shards=[tuple(M.data.shape) for M in v["out"]
+                        if isinstance(M, distr.DistrMatrix)]
+                if isinstance(v["out"], tuple) else [])
+        for k, v in rec.items()}
+    cnt["gep_full_calls"] = calls[0]
     return res, cnt

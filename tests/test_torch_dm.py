@@ -16,6 +16,9 @@ numpy arrays made from seeds.  Tolerances:
   * eigenvectors: residual ||A x - lambda x|| / (||A||_F ||x||) < 1e-10;
   * pencils: both residuals and orthogonalities < 500 u, exact structure,
     the spectrum within 1e-10 max|lambda| of JAX's;
+  * the sharded stages (``schur``, ``reorder_schur``, ``reduce``): no call
+    of ``DistrMatrix.full``, no message above one panel of S and one of Q
+    (2 x NP x max(WA, WC, W) float64, plus O(NP) vectors);
   * the sharded Hessenberg reduction (n=96, panel width 20, so that
     panels straddle the shard edges at 48 and at 24, 48, 72): H within
     1e-11 ||A||_F and Q within 1e-11 of JAX's ``sep_dm.hessenberg`` and
@@ -93,20 +96,25 @@ def _extent_inputs():
         Spad[P_EXT + k + 1, P_EXT + k] = 1e-19
     cases = []
     for j0 in J0S:
-        cases += [("get_block", dict(i0=3, j0=j0, h=5, w=W_EXT)),
-                  ("set_block", dict(M=rng.standard_normal((5, W_EXT)), i0=3, j0=j0)),
-                  ("mul_rows", dict(i0=j0, h=W_EXT, Qw=_orth(rng, W_EXT))),
-                  ("mul_cols", dict(j0=j0, w=W_EXT, Qw=_orth(rng, W_EXT))),
-                  ("mul_cols_q", dict(j0=j0, w=W_EXT, Qw=_orth(rng, W_EXT)))]
+        cases += [("get_block", dict(S="S", i0=3, j0=j0, h=5, w=W_EXT)),
+                  ("set_block", dict(S="S", M=rng.standard_normal((5, W_EXT)), i0=3,
+                                     j0=j0)),
+                  ("mul_rows", dict(S="S", i0=j0, h=W_EXT, Qw=_orth(rng, W_EXT))),
+                  ("mul_cols_pencil", dict(Ms=("S",), j0=j0, w=W_EXT,
+                                           Xs=[_orth(rng, W_EXT)])),
+                  ("mul_cols_pencil", dict(Ms=("Q",), j0=j0, w=W_EXT,
+                                           Xs=[_orth(rng, W_EXT)]))]
     G = len(DIAG_WS)
     Qws = np.stack([_orth(rng, W_EXT) for _ in range(G)])
-    cases += [("get_diag_blocks", dict(ws=list(DIAG_WS), w=W_EXT)),
-              ("set_diag_blocks", dict(Ms=rng.standard_normal((G, W_EXT, W_EXT)),
+    cases += [("get_diag_blocks", dict(S="S", ws=list(DIAG_WS), w=W_EXT)),
+              ("set_diag_blocks", dict(S="S", Ms=rng.standard_normal((G, W_EXT, W_EXT)),
                                        ws=list(DIAG_WS))),
-              ("mul_rows_batch", dict(ws=list(DIAG_WS), w=W_EXT, Qws=Qws)),
-              ("mul_cols_batch", dict(ws=list(DIAG_WS), w=W_EXT, Qws=Qws)),
-              ("mul_cols_batch_q", dict(ws=list(DIAG_WS), w=W_EXT, Qws=Qws)),
-              ("zero_negligible", dict(P=P_EXT, n=N_EXT, ihi=30, thresh=1e-15))]
+              ("mul_rows_batch", dict(S="S", ws=list(DIAG_WS), w=W_EXT, Qws=Qws)),
+              ("mul_cols_batch", dict(Ms=("S",), ws=list(DIAG_WS), w=W_EXT, Qws=Qws)),
+              ("mul_cols_batch", dict(Ms=("S", "Q"), ws=list(DIAG_WS), w=W_EXT,
+                                      Qws=Qws)),
+              ("zero_negligible", dict(Spad="S", P=P_EXT, n=N_EXT, ihi=30,
+                                       thresh=1e-15))]
     return Spad, Qpad, cases
 
 
@@ -200,14 +208,14 @@ def test_extent_ops(ranks, ref):
     assert len(res["extent"]) == len(ref["cases"])
     for (op, kw), (S, Q, val) in zip(ref["cases"], res["extent"]):
         Sd, Qd = torch.tensor(ref["Spad"]), torch.tensor(ref["Qpad"])
-        dval = apply_extent_op(DenseExtent, Sd, Qd, op, kw)
+        dval = apply_extent_op(DenseExtent, dict(S=Sd, Q=Qd), op, kw)
         tol = 0.0 if op.startswith(("get_", "set_", "zero_")) \
             else 1e-14 * np.abs(ref["Spad"]).max()
         for got, want, what in ((S, Sd.numpy(), "S"), (Q, Qd.numpy(), "Q")):
             err = np.abs(got - want).max()
             assert err <= tol, (op, kw.get("j0"), what, err)
         if dval is not None:
-            err = np.abs(val - dval.numpy()).max()
+            err = np.abs(val - dval).max()
             assert err <= tol, (op, kw.get("j0"), err)
     assert all(c["extent_stats"]["all_reduce"] > 0 for c in cnt)
 
@@ -313,7 +321,8 @@ def test_schur_dm(ranks, ref):
     for c in cnt:
         st = c["schur_stats"]
         assert st["path"] == "aed" and st["all_reduce"] > 0 and st["broadcast"] > 0
-        assert st["shard_shape"] == (st["NP"], st["NP"] // nd)
+        r = c["rank"]
+        assert st["shard_shape"] == (st["NP"], st["cuts"][r + 1] - st["cuts"][r])
 
 
 def test_reorder_dm(ranks, ref):
@@ -330,6 +339,29 @@ def test_reorder_dm(ranks, ref):
     assert hooks.schur_form_error(torch.as_tensor(r["S"])) == 0.0
     for c in cnt:
         assert c["reorder_stats"]["windows"] > 0 and c["reorder_stats"]["all_reduce"] > 0
+
+
+def test_sep_dm_stages_gather_nothing(ranks):
+    """sep_dm.schur, reorder_schur and reduce (whole inputs, so the chain
+    never needs one) call no DistrMatrix.full, and no message is larger
+    than one panel of S and one of Q: 2 x NP x max(WA, WC, W) float64,
+    plus O(NP) vectors in the owner's hand-outs (the status, the
+    windows' selections); the padded shards follow dm_core.pad_cuts, the
+    output shards numpy.array_split."""
+    nd, _res, cnt = ranks
+    for c in cnt:
+        r = c["rank"]
+        assert (c["schur_full_calls"], c["reorder_full_calls"],
+                c["reduce_full_calls"]) == (0, 0, 0)
+        st, ro, red = c["schur_stats"], c["reorder_stats"], c["reduce_stats"]
+        NP, W = st["NP"], ro["W"]
+        assert st["cuts"][0] == 0 and st["cuts"][-1] == NP
+        assert [b - a for a, b in zip(st["cuts"], st["cuts"][1:])][r] == \
+            st["shard_shape"][1]
+        bound = 8 * (2 * NP * max(st["WA"], st["WC"], W) + 8 * NP)
+        for stats in (st, ro, red):
+            assert 0 < stats["collective_max_bytes"] <= bound, (stats, bound)
+        assert c["reduce_shards"]["S"] == (N, len(np.array_split(np.arange(N), nd)[r]))
 
 
 def _eigvec_residual(A, S, X, m):
@@ -509,7 +541,7 @@ def test_schur_iter_routes_through_ext(ref):
     assert torch.equal(S, torch.tensor(ref["schur_sm"]["S"]))
     assert torch.equal(Qf, torch.tensor(ref["schur_sm"]["Q"]))
     calls = counting.calls
-    for op in ("zero_negligible", "get_block", "set_block", "mul_rows", "mul_cols",
+    for op in ("zero_negligible", "get_block", "set_block", "mul_rows", "mul_cols_pencil",
                "window", "get_diag_blocks", "set_diag_blocks", "mul_rows_batch",
                "mul_cols_batch"):
         assert calls.get(op, 0) > 0, (op, calls)

@@ -14,7 +14,17 @@ block exactly the eigenvalues with Re > 0, eigenvector residuals < 1e-10),
 to the single-process ``sep.schur`` on the card (spectrum within 1e-10
 max|lambda|), and to the owner rule: rank 0 launched every kernel of the
 path, rank 1 only B1 (on its own columns in the sharded Hessenberg
-reduction), and both ranks held the same V and T in every panel.
+reduction), and both ranks held the same V and T in every panel.  Each
+padded Schur shard holds the columns ``dm_core.pad_cuts`` gives its rank.
+
+``gep_dm`` at n=1,200 on 2 ranks (``known_spectrum_pencil(1200, 0.3, 0.1,
+seed 0)``): hessenberg_triangular (rank 0), schur and reorder_schur on
+column shards, select, eigenvectors (rank 0), held to the same gates, to
+the single-process ``gep.schur`` on the card (spectrum within 1e-10
+chordal, rounds within 2), to the owner rule (rank 0 launched every
+kernel, rank 1 none), and with no ``DistrMatrix.full`` call in a sharded
+stage and each rank's peak memory there below its shards plus two whole
+n x n float64 matrices.
 """
 
 import numpy as np
@@ -58,10 +68,10 @@ def test_sep_dm_chain_two_ranks(cuda):
     X = r["X"]
     assert X.shape == (n, m)
     assert hooks.eigenvector_residual_sep(A, r["S2"], X, m) < 1e-10
-    NP = cnt[0]["stats"]["schur"]["NP"]
-    for c in cnt:
+    NP, cuts = cnt[0]["stats"]["schur"]["NP"], cnt[0]["stats"]["schur"]["cuts"]
+    for r, c in enumerate(cnt):
         assert c["backend"] == "gloo" and c["device"] == str(cuda)
-        assert c["stats"]["schur"]["shard_shape"] == (NP, NP // 2)
+        assert c["stats"]["schur"]["shard_shape"] == (NP, cuts[r + 1] - cuts[r])
     for k in ("hess_gemv", "francis", "train_hops", "aed_deflate", "recondense",
               "reorder_bubble"):
         assert cnt[0]["launches"][k] > 0, k
@@ -69,3 +79,39 @@ def test_sep_dm_chain_two_ranks(cuda):
     assert not any(v for k, v in cnt[1]["launches"].items() if k != "hess_gemv"), \
         cnt[1]["launches"]
     assert len({c["stats"]["hessenberg"]["vt_sha256"] for c in cnt}) == 1
+
+
+def test_gep_dm_chain_two_ranks(cuda):
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.testing.dm import finite_right_half
+    from starneig_tpu_torch.testing.generators import known_spectrum_pencil
+    n = 1200
+    A, B, _a, _b = known_spectrum_pencil(n, complex_ratio=0.3, inf_ratio=0.1, seed=0)
+    torch.cuda.empty_cache()
+    r, cnt = run_ranks("starneig_tpu_torch.testing.dm:gep_chain", 2,
+                       (A, B, "finite_right_half"), device=str(cuda), timeout_s=900)
+    assert r["info"] == 0 and r["rinfo"] == 0
+    for stage in ("schur", "reorder"):
+        M = r[stage]
+        ra, rb, oq, oz, fs, ft = hooks.gep_gates(A, B, M["S"], M["T"], M["Q"], M["Z"])
+        assert max(ra, rb, oq, oz) < GATE and fs == 0.0 and ft == 0.0, (stage, ra, rb)
+    lead_ok, rest = hooks.selected_leading(r["reorder"]["S"], r["m"], finite_right_half,
+                                           T=r["reorder"]["T"])
+    assert lead_ok and rest == 0 and r["m"] == r["selected"]
+    assert hooks.eigenvector_residual_gep(A, B, r["reorder"]["S"], r["reorder"]["T"],
+                                          r["X"], np.arange(n) < r["m"]) < 1e-10
+    st = {}
+    out = gep.schur(*gep.hessenberg_triangular(A, B, device=cuda), stats=st, device=cuda)
+    sm = [x.cpu().numpy() for x in out[4:7]]
+    assert hooks.chordal_eigenvalue_error(r["ar"], r["ai"], r["bt"], sm[0] + 1j * sm[1],
+                                          sm[2]) * U < 1e-10
+    assert abs(r["rounds"] - st["rounds"]) <= 2, (r["rounds"], st["rounds"])
+    for k in ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
+              "inf_chase", "reorder_bubble_gep", "eig_backsolve_gep"):
+        assert cnt[0]["launches"][k] > 0, k
+    assert not any(cnt[1]["launches"].values()), cnt[1]["launches"]
+    for c in cnt:
+        for stage in ("schur", "select", "reorder"):
+            rec = c["stages"][stage]
+            assert rec["full_calls"] == 0, stage
+            assert rec["peak_bytes"] < rec["shard_bytes"] + 2 * 8 * n * n, (stage, rec)
