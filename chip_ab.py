@@ -1637,6 +1637,8 @@ def clock_build_src(name: str, entry: str, path: Path, edits, one_block_edits,
         raise RuntimeError(f"nvcc failed on the instrumented {path}:\n{r.stderr[-3000:]}")
     fn = getattr(ctypes.CDLL(str(so)), f"{entry}_clk")
     sig = kernels._SIGNATURES[entry]
+    if entry in ("eig_backsolve", "eig_backsolve_gep"):
+        sig = sig[:-4] + sig[-1:]      # the instrumented entry takes no shard arguments
     fn.argtypes = sig[:-1] + [_P, _P]
     fn.restype = ctypes.c_int
     return fn, one_block
@@ -2379,8 +2381,10 @@ BACKSOLVE_EDITS = [
     ("<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);",
      "<<<blocks, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p SN_CLK_ARG);"),
     ('extern "C" int eig_backsolve(', 'extern "C" int eig_backsolve_clk('),
-    ("double smlnum, void* xr, void* xi, void* close, void* stream) {",
-     "double smlnum, void* xr, void* xi, void* close SN_CLK_PARAM, void* stream) {"),
+    ("double smlnum, void* xr, void* xi, void* close, const void* f0r,\n"
+     "                             const void* f0i, void* scale, void* stream) {",
+     "double smlnum, void* xr, void* xi, void* close SN_CLK_PARAM, void* stream) {\n"
+     "  const void* f0r = nullptr;\n  const void* f0i = nullptr;\n  void* scale = nullptr;"),
 ]
 BACKSOLVE_NAMES = {0: "staging", 1: "far product", 2: "barrier, slices' sum",
                    8: "solve steps ahead", 9: "barrier", 3: "row start", 4: "near dot",
@@ -2508,8 +2512,10 @@ BACKSOLVEGEP_EDITS = [
     ("static_cast<cudaStream_t>(stream)>>>(\n      p);",
      "static_cast<cudaStream_t>(stream)>>>(\n      p SN_CLK_ARG);"),
     ('extern "C" int eig_backsolve_gep(', 'extern "C" int eig_backsolve_gep_clk('),
-    ("void* xr, void* xi, void* close, void* stream) {",
-     "void* xr, void* xi, void* close SN_CLK_PARAM, void* stream) {"),
+    ("void* xr, void* xi, void* close, const void* f0r,\n"
+     "                                 const void* f0i, void* scale, void* stream) {",
+     "void* xr, void* xi, void* close SN_CLK_PARAM, void* stream) {\n"
+     "  const void* f0r = nullptr;\n  const void* f0i = nullptr;\n  void* scale = nullptr;"),
 ]
 BACKSOLVEGEP_NAMES = {0: "staging", 1: "far products, combine", 2: "barrier, slices' sum",
                       8: "prep (solve steps ahead)", 9: "barrier", 3: "row start",
@@ -2926,7 +2932,19 @@ def _regime_size(key, args):
 def _analytic_bound(label, args, out):
     """(bytes, flops) of one launch where they follow from its arguments
     and outputs (chip_smoke's counts), else None (the twin counts them)."""
-    from chip_smoke import recondense_flops, ht_window_flops
+    from chip_smoke import (h1_work, inf_chase_flops, qz_hop_flops, recondense_flops,
+                            ht_window_flops)
+    if label == "G3":
+        Sw, _Tw, _sh, lr, ir, s0, B, HOP = args
+        WC = Sw.shape[0]
+        return 8 * 6 * WC * WC, qz_hop_flops(WC, B, HOP, lr, ir, s0)
+    if label == "G5":
+        Hw, _Tw, jrel, mrel, lrel = args
+        Wb = Hw.shape[0]
+        return 8 * 6 * Wb * Wb, inf_chase_flops(Wb, jrel, mrel, lrel)
+    if label == "H1":
+        A, k, nb, t0 = args[:4]
+        return h1_work(A.shape[0], nb, k, t0)
     if label == "B3":
         W, _sh, gidx, lr, ir, s0, B, HOP = args
         G, WC = W.shape[0], W.shape[1]
@@ -3021,7 +3039,8 @@ def regimes(args) -> bool:
     Re > 0, reorder_schur, eigenvectors) on the card, each phase under
     torch.profiler: every kernel's launches (kernels.LAUNCHES), device total
     and calls, the bound of its launches where their counts follow from the
-    arguments (B3, B5, the bubbles, G1's window mode; chip_smoke's counts),
+    arguments (H1, B3, B5, the bubbles, G1's window mode, G3, G5;
+    chip_smoke's counts),
     and its largest regime (B2, B4, B5, G1's window mode, G2 and G4 at the
     largest window, B3 at the largest B, the bubbles at the widest W) timed
     alone by CUDA events beside its bound (B2's, B4's, G2's and G4's

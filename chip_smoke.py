@@ -35,7 +35,10 @@ Phases (any failure raises; the exit code is then nonzero):
      kernels against their plain twins (run on CPU copies of the inputs):
      G1 (blocked) at n=192 against the unblocked plain cascade, its
      generation kernel and its sliver kernel against their plain twins on
-     the first block of n=2000, and G1 in window mode (the GEP AED
+     the first block of n=2000, its shard mode (the DM cascade's steps on
+     two column shards of cascade 0 at n=2000, the carried column handed
+     across the cut: ht_shard_check) against its plain twin and the whole
+     pencil's cascade, and G1 in window mode (the GEP AED
      recondense, a chain and a replay launch, its own launch count) at
      WA=84, 162 and 322 at kbot 0, 1, 2, 3, 10 (elementwise against the
      plain twin), WA-4 and WA (by contract), at WA=802 and 1000 by
@@ -81,7 +84,11 @@ Phases (any failure raises; the exit code is then nonzero):
  5b. E1 (the eigenvector backsolve, one launch) on phase 5's selection
      against the plain row loop on the card: the normalized vectors within
      1e-12, the close flags equal, E1's eigenvector residual below
-     EVEC_BOUND; E1's row in the kernel table is this run;
+     EVEC_BOUND; then E1's shard mode (the rows above a cut, the far sums
+     of the entries past it given, each vector's scalings out) against the
+     plain loop in the same mode, within 1e-12, the close flags and the
+     scalings equal (backsolve_shard_check); E1's row in the kernel table
+     is this run;
   6. GEP path: known_spectrum_pencil(2000, complex_ratio=0.3, inf_ratio=0.1,
      seed=0) through api.gep.hessenberg_triangular and api.gep.schur, gated
      on info, residuals and orthogonality < 500 u and exact structure,
@@ -103,9 +110,10 @@ Phases (any failure raises; the exit code is then nonzero):
  6b. E2 (the GEP eigenvector backsolve, one launch) on phase 6's
      selection against the plain row loop on the card: the normalized
      vectors within 1e-12, the close flags equal, two launches
-     bit-equal, E2's eigenvector residual below EVEC_BOUND; logs the top
-     group's row blocks and E2's time against its bound and its serial
-     chain; E2's row in the kernel table is this run;
+     bit-equal, E2's eigenvector residual below EVEC_BOUND, and E2's
+     shard mode as E1's; logs the top group's row blocks and E2's time
+     against its bound and its serial chain; E2's row in the kernel table
+     is this run;
   7. GEP n=512 infinite-rich: api.gep.schur on tests/test_qz_driver.py's
      HT pencil with 51 exact T-diagonal zeros, under that test's gates (G5
      launched); then its infinite eigenvalues (|beta| <= 1e-12 max|beta|)
@@ -123,11 +131,12 @@ Phases (any failure raises; the exit code is then nonzero):
      tests/test_torch_gep_ht.py::test_ht_one_ulp; the path is held to its
      gates instead.)
  10. DM: the distributed interface in gloo ranks that share the card
-     (starneig_tpu_torch.testing.dm.run_ranks; rank 0 owns the window math
-     and the eigenvectors).  10a: phase 5's n=4000 input on 2 ranks
-     through api.sep_dm.hessenberg (column shards, B1 on every rank),
-     schur (column shards), select (Re(lambda) > 0), reorder_schur
-     (column shards) and eigenvectors of the leading block, each stage
+     (starneig_tpu_torch.testing.dm.run_ranks; rank 0 owns the window
+     math; every stage takes and gives column shards).  10a: phase 5's
+     n=4000 input on 2 ranks through api.sep_dm.hessenberg (B1 on every
+     rank), schur, select (Re(lambda) > 0), reorder_schur and eigenvectors
+     of the leading block (E1 on each rank that solves rows of a selected
+     vector), each stage
      timed to a barrier, gated on info, residual and orthogonality < 500
      u and the standardized Schur form before and after reordering, the
      leading block, the spectrum kept, the eigenvector residuals, H and Q
@@ -135,27 +144,35 @@ Phases (any failure raises; the exit code is then nonzero):
      spectrum against phase 5's (1e-10 max|lambda| after matching), the
      rounds within 2 of phase 5's, each rank's padded Schur shard (the
      columns dm_core.pad_cuts gives it) and output shards (n, n/2), the
-     sharded stages (schur, select, reorder_schur) with no
+     sharded stages (schur, select, reorder_schur, eigenvectors) with no
      DistrMatrix.full call, each rank's peak device memory below its
      shards plus 2 n^2 float64 and no message above one panel of S and
      one of Q (dm_stage_checks), and the launches (zeroed in each rank
      before the job, read after it: rank 0 launched B1-B5 and the bubble,
-     rank 1 B1 alone); prints each stage's time, each rank's B1 launches,
-     peak memory and collectives (calls, bytes, seconds, largest message)
-     by stage.  10b: on 4 ranks,
+     rank 1 B1, and E1 once on each rank that solved rows of a selected
+     vector); prints each stage's time, each rank's B1 launches, peak
+     memory and collectives (calls, bytes, seconds, largest message) by
+     stage.  10b: on 4 ranks,
      api.sep_dm.reduce at n=1200 and api.gep_dm.reduce of
      known_spectrum_pencil(512, 0.3, 0.1, seed 0) (finite, Re(alpha/beta)
      > 0), then api.gep_dm.eigenvectors of its leading block, under the
-     gates of phases 5 and 6, with the same launch rule (rank 0 launches
-     E2).  10c: phase 6's pencil (n=2000) on 2 ranks through
-     api.gep_dm.hessenberg_triangular (rank 0), schur and reorder_schur
-     (column shards; G1's window mode and G2-G6 on rank 0), select and
-     eigenvectors of the leading block (rank 0), each stage timed to a
-     barrier, under phase 6's gates, the spectrum within 1e-10 chordal of
-     phase 6's, the rounds within 2 of phase 6's, the window kernels
-     launched by rank 0 alone, and dm_stage_checks with one panel of each
-     of the pencil's four matrices.  10a and 10c run in one spawn of 2
-     ranks (testing.dm.sequence), one start-up for both.
+     gates of phases 5 and 6, with the same launch rule (every rank
+     launches G1 on its columns, E2 where it solves rows).  10c: phase
+     6's pencil (n=2000) on 2 ranks through api.gep_dm.hessenberg_triangular
+     (B's QR in panels, G1's cascade on every rank's columns), schur and
+     reorder_schur (G1's window mode and G2-G6 on rank 0), select and
+     eigenvectors of the leading block (E2 on each rank that solves
+     rows), each stage timed to a barrier, under phase 6's gates and the
+     HT gates, the spectrum within 1e-10 chordal of the single-process QZ
+     of its own HT form and the rounds within 2 of it (this pencil's B is
+     singular: its HT and spectrum move under rounding by far more, so
+     phase 6's are only logged beside them), the window kernels launched
+     by rank 0 alone, and dm_stage_checks with one panel of each of the
+     pencil's four matrices over all five stages.  10d: the HT on shards
+     of a regular Gaussian pencil (n=2000) against the single-process
+     api.gep.hessenberg_triangular on the card, H, T, Q, Z within
+     DM_HESS_TOL, every rank launching G1.  10a, 10c and 10d run in one
+     spawn of 2 ranks (testing.dm.sequence), one start-up for all.
  11. tools and examples: phase 5's stages at n=512 with the sanity checks
      on and each stage in a trace span, the trace dumped and parsed; then
      the three examples (python -m starneig_tpu_torch.examples.<name>)
@@ -1385,6 +1402,50 @@ def chain_steps(pos, kind):
     return int(sum(1 for k in range(top) if kind[k] != 2))
 
 
+def backsolve_shard_check(label, run, twin, mats, vals, pos, pair, kind, smin, omega,
+                          smlnum, x0r, x0i, xk, xik, far):
+    """E1's or E2's shard mode (``parallel/dm_eig.py``'s arguments) on the
+    rows [0, c) of a solve whose vectors' entries from c on are the whole
+    solve's (xk, xik; c about half the highest block, moved off a 2x2
+    block's second row): the far sums F of those entries with the rows < c
+    (``far``), the blocks at or past c clamped to c.  The kernel (``run``)
+    against its plain twin (``twin``) on the card: each vector joined to
+    its entries past c times its product of scalings and normalized,
+    within 1e-12; the close flags and the scalings equal.  Returns (the
+    error, the error against the whole solve, the cut, the vectors
+    crossing it)."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops import eigenvectors as ev
+    c = int(max(pos)) // 2
+    c += int(kind[c] == 2)
+    m = len(pos)
+    posc = np.minimum(np.asarray(pos), c)
+    f0 = far([M[:c, c:] for M in mats], xk[:, c:], xik[:, c:]).contiguous()
+    blocks = [M[:c, :c].contiguous() for M in mats]
+    outs = []
+    for fn in (run, twin):
+        xr, xi = x0r[:, :c].clone(), x0i[:, :c].clone()
+        sc = xr.new_empty(m)
+        close = fn(*blocks, *vals, posc, pair, kind[:c], smin, omega, smlnum, xr, xi,
+                   f0r=f0[0], f0i=f0[1], scale=sc)
+        joined = [torch.cat([x, sc[:, None] * y[:, c:]], 1) for x, y in ((xr, xk), (xi, xik))]
+        outs.append((ev._normalize(*joined), close, sc))
+    (gk, ck, sk), (gp, cp, sp) = outs
+    err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    whole = max(float((a - b).abs().max()) for a, b in zip(gk, ev._normalize(xk, xik)))
+    crossing = int((np.asarray(pos) >= c).sum())
+    log(f"  {label} shard mode, rows < {c} ({crossing} of {m} vectors with entries past "
+        f"the cut): max abs err {err:.2e} against the plain loop, {whole:.2e} against the "
+        f"whole solve; close flags equal {torch.equal(ck, cp)}, scalings equal "
+        f"{torch.equal(sk, sp)} (least {float(sk.min()):.3g})")
+    check(err <= 1e-12, f"{label} shard mode disagrees with the plain loop by {err}")
+    check(torch.equal(ck, cp), f"{label} shard mode: close flags differ")
+    check(bool(torch.allclose(sk, sp, rtol=1e-12, atol=0.0)),
+          f"{label} shard mode: scalings differ")
+    return dict(max_abs_err=err, vs_whole=whole, cut=c, crossing=crossing)
+
+
 def phase_backsolve(dev, main_res):
     """5b: E1 on phase 5's n=4000 selection (the eigenvalues of the leading
     block after reordering) against the plain row loop on the card: the
@@ -1416,6 +1477,11 @@ def phase_backsolve(dev, main_res):
     err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
     X = Q3 @ ev._columns(*gk, pair)
     evec = hooks.eigenvector_residual_sep(A, S2, X, m)
+    x0r, x0i = ev._backsolve_inputs(S2, lam_r, lam_i, pos, pair)[-2:]
+    shard = backsolve_shard_check(
+        "5b E1", gpu_eig.backsolve, ev._backsolve_rows, [S2], (lam_r, lam_i), pos, pair,
+        kind, smin, omega, smlnum, x0r, x0i, xk, xik,
+        lambda ups, yr, yi: torch.stack((yr @ ups[0].T, yi @ ups[0].T)))
     bms, by = bound(*e1_work(S2, pos, pair, kind))
     steps = chain_steps(pos, kind)
     chain = steps * E1_STEP_CYCLES / SM_HZ * 1e3
@@ -1432,7 +1498,8 @@ def phase_backsolve(dev, main_res):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=None, detail=dict(m=len(pos), pairs=sum(pair), residual=evec,
                                              bit_equal=same, close=int(ck.sum()),
-                                             chain_steps=steps, serial_chain_ms=chain))
+                                             chain_steps=steps, serial_chain_ms=chain,
+                                             shard=shard))
 
 
 # ---------------------------------------------------------------------------
@@ -1534,6 +1601,57 @@ def finish_ht_plain(handle, g1, deadline_s):
               bound_by=d["bound_by"])
 
 
+def ht_shard_check(inp, c):
+    """G1's shard mode (``gpu_gep.ht_generate_shard``) on cascade 0 of
+    G1's input split at column c, the steps ordered as
+    ``parallel/dm_ht.py`` orders them on two ranks: the left rotations on
+    the left shard, the left pass on both, the right chain and pass on the
+    right shard, its first column carried into the left shard's extra
+    column, the chain and pass there from the cut, the column handed back.
+    Held to the plain twin ``_ht_step`` in the same order (on CPU copies)
+    and, both shards joined, to the whole pencil's cascade 0
+    (``gpu_gep.ht_generate``), each within 1e-11 max|M|: the same rotations
+    in the same order, the chain's dot split at the cut."""
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.hess_triangular import _ht_step
+    A, B = inp[0], inp[1]
+    n = A.shape[0]
+
+    def split(step, Am, Bm, rot):
+        Al, Bl = (M.new_zeros((n, c + 1)) for M in (Am, Bm))
+        Al[:, :c], Bl[:, :c] = Am[:, :c], Bm[:, :c]
+        Ar, Br = Am[:, c:].contiguous(), Bm[:, c:].contiguous()
+        step(Al, Bl, rot, 0, c, 1)
+        step(Al, Bl, rot, 0, c, 2)
+        step(Ar, Br, rot, c, n, 2)
+        step(Ar, Br, rot, c, n, 4)
+        Al[1:, c], Bl[1:c + 1, c] = Ar[1:, 0], Br[1:c + 1, 0]
+        step(Al, Bl, rot, 0, c, 4)
+        Ar[1:, 0], Br[1:c + 1, 0] = Al[1:, c], Bl[1:c + 1, c]
+        return torch.cat([Al[:, :c], Ar], 1), torch.cat([Bl[:, :c], Br], 1), rot
+
+    work = A.new_empty(n)
+
+    def kstep(Am, Bm, rot, lo, hi, steps):
+        gpu_gep.ht_generate_shard(Am, Bm, rot, work[:Am.shape[1]], n, lo, hi, 0, 0, steps)
+
+    def pstep(Am, Bm, rot, lo, hi, steps):
+        _ht_step(Am, Bm, rot, n, lo, hi, 0, 0, steps)
+    rot0 = A.new_zeros((n - 2, 4))
+    got = split(kstep, A, B, rot0.clone())
+    plain, plain_ms = host_ms(lambda: split(pstep, *_cpu(A, B, rot0)))
+    Aw, Bw, rw = A.clone(), B.clone(), rot0.clone()
+    gpu_gep.ht_generate(Aw, Bw, rw, 0, 1)
+    err = max(_rel(p, g) for g, p in zip(got, plain))
+    whole = max(_rel(w.cpu(), g) for g, w in zip(got, (Aw, Bw, rw)))
+    log(f"  G1 n={n} shard mode, cascade 0 split at column {c}: max err {err:.2e} max|M| "
+        f"against the plain twin (plain {plain_ms:.1f} ms), {whole:.2e} against the whole "
+        "pencil's cascade")
+    check(err <= 1e-11 and whole <= 1e-11, f"G1 shard mode: twin {err}, whole {whole}")
+    return dict(cut=c, max_abs_err=err, vs_whole=whole, plain_ms=plain_ms)
+
+
 def phase_ht_cascade(dev, inp2000):
     import numpy as np
     import torch
@@ -1580,6 +1698,9 @@ def phase_ht_cascade(dev, inp2000):
         f"{sl_err:.2e} (plain {sl_plain_ms:.1f} ms)")
     check(gen_err <= 1e-11 and sl_err <= 1e-13, f"G1 n={n}: generation {gen_err}, "
           f"slivers {sl_err}")
+    # the shard mode (the DM cascade's steps on a column shard) against its
+    # plain twin, and the two shards together against the whole pencil
+    shard = ht_shard_check(inp2000, n // 2)
     # full mode at the GEP path's n; its plain twin runs in the child process
     out, ms = timed(lambda: gpu_gep.ht_cascade(*inp2000))
     Ag, Bg, rg = inp2000[0].clone(), inp2000[1].clone(), rot0.clone()
@@ -1594,7 +1715,7 @@ def phase_ht_cascade(dev, inp2000):
                                  us_a_step=ms / steps * 1e3, generation_ms=gen_ms,
                                  far_ms=ms - gen_ms, generation_err=gen_err,
                                  generation_plain_ms=gen_plain_ms, sliver_err=sl_err,
-                                 sliver_plain_ms=sl_plain_ms)
+                                 sliver_plain_ms=sl_plain_ms, shard=shard)
     # the n=192 numbers stand until phase 9 replaces them with n=2000's
     d192 = detail["full n=192"]
     return dict(max_abs_err=err, ms=d192["ms"], plain_ms=plain_ms, bound_ms=d192["bound_ms"],
@@ -2193,6 +2314,17 @@ def gep_gates(A, B, S, T, Q, Z, bt):
             int((np.abs(bt) <= 1e-12 * np.abs(bt).max()).sum()))
 
 
+def gep_ht_gates(A_np, B_np, ht):
+    """The HT gates of a gathered (H, T, Q, Z) (``ht``'s "S", "T", "Q", "Z"):
+    the residuals and orthogonalities in units of u, the largest entry
+    below H's subdiagonal and below T's diagonal (both must be 0)."""
+    import numpy as np
+    from starneig_tpu_torch.testing import hooks
+    ra, rb = hooks.residual_gep(A_np, B_np, ht["S"], ht["T"], ht["Q"], ht["Z"])
+    return (ra, rb, hooks.orthogonality(ht["Q"]), hooks.orthogonality(ht["Z"]),
+            float(np.abs(np.tril(ht["S"], -2)).max()), float(np.abs(np.tril(ht["T"], -1)).max()))
+
+
 def profiled_kernels(fn):
     """Run fn() under torch.profiler; return (its result, {kernel name:
     (device ms, calls)} for the device events, longest first, and fn()'s
@@ -2322,7 +2454,7 @@ def phase_gep(dev):
     e2 = phase_backsolve_gep(dev, A_np, B_np, *state)
     spectrum = tuple(x.cpu().numpy() for x in (ar, ai, bt))
     return dict(info=int(info), spectrum=spectrum, ht_ms=ht_ms, ht_first_ms=ht_first_ms,
-                qz_ms=qz_ms,
+                qz_ms=qz_ms, ht=tuple(M.cpu().numpy() for M in (H, T, Q, Z)),
                 ht_kernel_ms=ht_kernel_ms, ht_calls=ht_calls,
                 ht_kernel_launches=ht_kernel_launches,
                 ht_us_a_step=ht_kernel_ms / steps * 1e3,
@@ -2450,6 +2582,15 @@ def phase_backsolve_gep(dev, A_np, B_np, S2, T2, Z2, m):
     err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
     X = Z2 @ ev._columns(*gk, pair)
     evec = hooks.eigenvector_residual_gep(A_np, B_np, S2, T2, X, lead)
+    x0r, x0i = ev._backsolve_inputs_gep(S2, T2, ar, ai, bt, pos, pair)[-2:]
+
+    def far(ups, yr, yi):
+        a_r, a_i, b_ = ar[:, None], ai[:, None], bt[:, None]
+        sr, si, tr, ti = (y @ M.T for M in ups for y in (yr, yi))
+        return torch.stack((b_ * sr - a_r * tr + a_i * ti, b_ * si - a_r * ti - a_i * tr))
+    shard = backsolve_shard_check(
+        "6b E2", gpu_eig.backsolve_gep, ev._backsolve_rows_gep, [S2, T2], (ar, ai, bt), pos,
+        pair, kind, smin, omega, smlnum, x0r, x0i, xk, xik, far)
     bms, by = bound(*e2_work(S2, pos, pair, kind))
     steps = chain_steps(pos, kind)
     chain = steps * E2_STEP_CYCLES / SM_HZ * 1e3
@@ -2471,7 +2612,8 @@ def phase_backsolve_gep(dev, A_np, B_np, S2, T2, Z2, m):
                 library_ms=None, detail=dict(m=len(pos), pairs=sum(pair), rows=max(pos),
                                              row_blocks=row_blocks, residual=evec,
                                              bit_equal=same, close=int(ck.sum()),
-                                             chain_steps=steps, serial_chain_ms=chain))
+                                             chain_steps=steps, serial_chain_ms=chain,
+                                             shard=shard))
 
 
 def phase_gep_inf(dev):
@@ -2581,8 +2723,9 @@ DM_N4, DM_GEP_N = 1200, 512
 DM_GEP2_N = GEP_N
 DM_TIMEOUT_S = 600.0
 # what each rank of a DM run may launch: the owner (rank 0) all of them,
-# every rank B1 in the sharded Hessenberg reduction (panel_factor, not H1);
-# 10a's chain ends in the eigenvectors (E1)
+# every rank B1 in the sharded Hessenberg reduction (panel_factor, not H1)
+# and G1 in the sharded HT; E1 and E2 each rank that solves rows of a
+# selected vector (dm_launch_check)
 DM_SEP_KERNELS = ("hess_gemv",) + SCHUR_KERNELS[1:] + ("reorder_bubble",)
 DM_SHARED_KERNELS = ("hess_gemv",)
 # the sharded stages of 10a and 10c: no DistrMatrix.full, each rank's peak
@@ -2611,16 +2754,34 @@ def dm_launches(cnt):
     return [{k: v for k, v in c["launches"].items() if v} for c in cnt]
 
 
-def dm_launch_check(label, cnt, kernels_, shared=()):
+def dm_launch_check(label, cnt, kernels_, shared=(), eig=None, solved=()):
     """The owner (rank 0) launched each kernel of the path; every other
-    rank launched each kernel of ``shared`` and no other."""
+    rank launched each kernel of ``shared`` and no other but ``eig``, the
+    eigenvector backsolve, which each rank that solved rows of a selected
+    vector (``solved[rank]``, from the stage's ``eig_vectors``) launched
+    once, and no other rank."""
     for k in kernels_:
-        check(cnt[0]["launches"][k] > 0, f"{label}: the owner did not launch {k}")
+        if k != eig:
+            check(cnt[0]["launches"][k] > 0, f"{label}: the owner did not launch {k}")
     for rank, c in enumerate(cnt[1:], 1):
         check(all(c["launches"][k] > 0 for k in shared),
               f"{label}: rank {rank} did not launch {shared}: {c['launches']}")
-        check(not any(v for k, v in c["launches"].items() if k not in shared),
+        check(not any(v for k, v in c["launches"].items() if k not in shared and k != eig),
               f"{label}: rank {rank} launched kernels {c['launches']}")
+    if eig is not None:
+        check(any(solved), f"{label}: no rank solved rows of a selected vector")
+        for rank, c in enumerate(cnt):
+            want = 1 if solved[rank] else 0
+            check(c["launches"][eig] == want,
+                  f"{label}: rank {rank} launched {eig} {c['launches'][eig]} times, "
+                  f"solving rows: {solved[rank]}")
+
+
+def dm_solved(cnt, stage=None):
+    """Each rank's count of selected vectors it solved rows of (the
+    eigenvector stage's ``eig_vectors``)."""
+    return [(c["stages"][stage]["stats"] if stage else c["stats"]).get("eig_vectors", 0)
+            for c in cnt]
 
 
 def dm_stage_checks(label, cnt, n, stages, mats, panel):
@@ -2681,36 +2842,80 @@ def phase_dm_two(dev, main_res, gep_res):
     (``testing.dm.sequence``: one start-up for both): (10a's report,
     10c's report)."""
     import numpy as np
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.convert import from_numpy
     from starneig_tpu_torch.testing.dm import run_ranks
     from starneig_tpu_torch.testing.generators import known_spectrum_pencil
     A_np = np.random.default_rng(0).standard_normal((MAIN_N, MAIN_N))
     GA, GB, _alpha, _beta = known_spectrum_pencil(DM_GEP2_N, complex_ratio=0.3,
                                                   inf_ratio=0.1, seed=0)
+    # the regular pencil of 10d and its single-process HT on the card
+    rng = np.random.default_rng(DM_GEP2_N + 1)
+    RA, RB = rng.standard_normal((DM_GEP2_N,) * 2), rng.standard_normal((DM_GEP2_N,) * 2)
+    ref = [M.cpu().numpy() for M in gep.hessenberg_triangular(from_numpy(RA, dev),
+                                                              from_numpy(RB, dev))]
     t0 = time.perf_counter()
-    (ra, rc), cnt_all = run_ranks(
+    (ra, rc, rh), cnt_all = run_ranks(
         "starneig_tpu_torch.testing.dm:sequence", DM_RANKS_A,
         ([("sep_chain", (A_np, "positive_real")),
-          ("gep_chain", (GA, GB, "finite_right_half"))],),
+          ("gep_chain", (GA, GB, "finite_right_half")),
+          ("ht_stage", (RA, RB))],),
         device=str(dev), timeout_s=DM_TIMEOUT_S)
     wall = time.perf_counter() - t0
     outer = ("rank", "startup_s", "teardown_s", "backend", "device")
-    cnt_a, cnt_c = ([dict(c["steps"][i], **{k: c[k] for k in outer}) for c in cnt_all]
-                    for i in range(2))
+    cnt_a, cnt_c, cnt_h = ([dict(c["steps"][i], **{k: c[k] for k in outer}) for c in cnt_all]
+                           for i in range(3))
     log(f"  10a+10c on {DM_RANKS_A} ranks: wall {wall:.1f} s, of it start-up "
         f"{[round(c['startup_s'], 1) for c in cnt_all]} s, the two jobs "
         f"{[[round(s['wall_s'], 1) for s in c['steps']] for c in cnt_all]} s, teardown "
         f"{cnt_all[0]['teardown_s']:.1f} s")
     return (dict(phase_dm_sep(dev, main_res, A_np, ra, cnt_a), wall_a_c=wall),
-            phase_dm_gep(dev, gep_res, GA, GB, rc, cnt_c))
+            phase_dm_gep(dev, gep_res, GA, GB, rc, cnt_c),
+            phase_dm_ht(RA, RB, ref, rh, cnt_h))
+
+
+def phase_dm_ht(A_np, B_np, ref, r, cnt):
+    """10d: api.gep_dm.hessenberg_triangular of a regular pencil (A, B
+    Gaussian, n=DM_GEP2_N) on DM_RANKS_A ranks against the single-process
+    api.gep.hessenberg_triangular on the card (``ref``): H, T, Q, Z within
+    DM_HESS_TOL (H and T relative to ||A||_F and ||B||_F, Q and Z
+    absolute: the chain's weighted dot split at the cut and B's QR in
+    panels sum in other orders, so they agree to rounding), the HT gates,
+    every rank's G1 launches, and dm_stage_checks (a sliver window's panel
+    of each of the four matrices)."""
+    import numpy as np
+    from starneig_tpu_torch.ops import hess_triangular as tht
+    n = A_np.shape[0]
+    scale = (np.linalg.norm(A_np), np.linalg.norm(B_np), 1.0, 1.0)
+    d = [float(np.abs(r[k] - M).max()) / sc for k, M, sc in zip("HTQZ", ref, scale)]
+    gates = gep_ht_gates(A_np, B_np, dict(zip("STQZ", (r[k] for k in "HTQZ"))))
+    st = [c["stats"]["hessenberg_triangular"] for c in cnt]
+    log(f"  10d HT n={n} on {DM_RANKS_A} ranks (regular pencil): "
+        f"{cnt[0]['hessenberg_triangular_ms']:.1f} ms; H, T, Q, Z against the "
+        f"single-process HT {['%.2e' % x for x in d]}; gates {gates}; G1 launches by rank "
+        f"{[c['launches']['ht_cascade'] for c in cnt]}; cascade messages by rank "
+        f"{[x.get('ht_messages') for x in st]}")
+    check(max(d) < DM_HESS_TOL, f"10d: the HT on shards differs from the single-process "
+          f"HT by {d}")
+    check(max(gates[:4]) < GATE_U and gates[4] == 0.0 and gates[5] == 0.0,
+          f"10d HT gates {gates}")
+    mem = dm_stage_checks("10d", cnt, n, ("hessenberg_triangular",), 4,
+                          tht.sliver_len(tht.NB) + tht.NB)
+    check(all(c["launches"]["ht_cascade"] > 0 for c in cnt),
+          f"10d: a rank launched no G1: {[c['launches'] for c in cnt]}")
+    check(not any(v for c in cnt for k, v in c["launches"].items() if k != "ht_cascade"),
+          f"10d: a kernel other than G1 ran: {[c['launches'] for c in cnt]}")
+    return dict(ms=cnt[0]["hessenberg_triangular_ms"], vs_single=d, gates=gates, stages=mem,
+                comm=[dm_comm(x) for x in st], launches=[c["launches"] for c in cnt])
 
 
 def phase_dm_sep(dev, main_res, A_np, r, cnt):
     """10a: api.sep_dm at n=MAIN_N on DM_RANKS_A gloo ranks sharing the
     card, on phase 5's input A_np (``sep_chain``'s result r and every
-    rank's counters cnt): hessenberg (column shards, B1 on every rank),
-    schur (column shards), select (Re > 0), reorder_schur (column
-    shards), eigenvectors of the leading block (rank 0), each stage timed
-    to a barrier; gated as phase 5, its H and Q and its spectrum against
+    rank's counters cnt): hessenberg (B1 on every rank), schur, select
+    (Re > 0), reorder_schur and eigenvectors of the leading block (E1 on
+    each rank that solves rows), every stage on column shards and timed to
+    a barrier; gated as phase 5, its H and Q and its spectrum against
     phase 5's, the ranks' V/T hashes equal."""
     import numpy as np
     from starneig_tpu_torch.api import sep
@@ -2774,7 +2979,8 @@ def phase_dm_sep(dev, main_res, A_np, r, cnt):
     check(all(c["shards"]["S"] == c["shards"]["S2"] == (n, n // DM_RANKS_A) for c in cnt),
           "10a: S not in column shards after Schur and reordering")
     panel = max(st["WA"], st["WC"], cnt[0]["stats"]["reorder"]["W"])
-    mem = dm_stage_checks("10a", cnt, n, ("schur", "select", "reorder"), 2, panel)
+    mem = dm_stage_checks("10a", cnt, n, ("schur", "select", "reorder", "eigenvectors"), 2,
+                          panel)
     check(all(c["stats"]["schur"]["all_reduce"] > 0 for c in cnt),
           "10a: no collective in schur_dm")
     check(len(set(hashes)) == 1 and hashes[0] is not None,
@@ -2787,7 +2993,12 @@ def phase_dm_sep(dev, main_res, A_np, r, cnt):
           "10a: the Hessenberg stage broadcast (an owner's hand-out)")
     rounds5 = main_res["stats"].get("rounds")
     check(abs(st["rounds"] - rounds5) <= 2, f"10a: {st['rounds']} rounds, phase 5 {rounds5}")
-    dm_launch_check("10a", cnt, DM_SEP_KERNELS + ("eig_backsolve",), DM_SHARED_KERNELS)
+    solved = dm_solved(cnt, "eigenvectors")
+    log(f"  10a eigenvectors on column shards: vectors solved by rank {solved}, rows by "
+        f"rank {[c['stages']['eigenvectors']['stats']['eig_rows'] for c in cnt]}, E1 "
+        f"launches by rank {[c['launches']['eig_backsolve'] for c in cnt]}")
+    dm_launch_check("10a", cnt, DM_SEP_KERNELS + ("eig_backsolve",), DM_SHARED_KERNELS,
+                    eig="eig_backsolve", solved=solved)
     return dict(ms=ms, wall_s=wall, startup_s=[c["startup_s"] for c in cnt],
                 hess=dict(h_vs_phase5=dH, q_vs_phase5=dQ, b1_launches=hess_b1,
                           peak_bytes=hess_peak, cuts=cuts, stages=mem,
@@ -2798,7 +3009,7 @@ def phase_dm_sep(dev, main_res, A_np, r, cnt):
                 residual_u=res, orthogonality_u=orth, reorder_residual_u=res2,
                 reorder_orthogonality_u=orth2, lead=m, spectrum_vs_phase5=vs_sm,
                 eig_moved=moved, worst_eigvec_residual=evec, comm=comm,
-                launches=[c["launches"] for c in cnt])
+                eig_solved=solved, launches=[c["launches"] for c in cnt])
 
 
 def phase_dm_four(dev):
@@ -2869,7 +3080,8 @@ def phase_dm_four(dev):
           and np.isfinite(g["X"]).all(),
           f"10b GEP eigenvectors: info {g['xinfo']}, {g['X'].shape}")
     check(evec_g < EVEC_BOUND, f"10b GEP eigenvector residual {evec_g}")
-    dm_launch_check("10b gep", cntg, DM_GEP_KERNELS + ("eig_backsolve_gep",))
+    dm_launch_check("10b gep", cntg, DM_GEP_KERNELS + ("eig_backsolve_gep",), ("ht_cascade",),
+                    eig="eig_backsolve_gep", solved=dm_solved(cntg))
     return dict(wall_s=wall, startup_s=[c["startup_s"] for c in cnt_all],
                 teardown_s=cnt_all[0]["teardown_s"],
                 sep=dict(job_s=cnt[0]["wall_s"], residual_u=res, orthogonality_u=orth,
@@ -2882,16 +3094,19 @@ def phase_dm_four(dev):
 def phase_dm_gep(dev, gep_res, A_np, B_np, r, cnt):
     """10c: api.gep_dm at n=DM_GEP2_N on DM_RANKS_A gloo ranks sharing the
     card, on phase 6's pencil (A_np, B_np; ``gep_chain``'s result r and
-    every rank's counters cnt): hessenberg_triangular (rank 0), schur and
-    reorder_schur on column shards (G1's window mode and G2-G6 on rank 0,
-    the strips and panels on every rank), select from the diagonals,
-    eigenvectors of the leading block (rank 0), each stage timed to a
-    barrier; under phase 6's gates, its spectrum within 1e-10 chordal of
-    phase 6's and its rounds within 2, the window kernels launched by rank
-    0 alone, and the sharded stages' memory, gathers and messages as
-    dm_stage_checks holds them."""
+    every rank's counters cnt): hessenberg_triangular, schur and
+    reorder_schur on column shards (G1's cascade on every rank; G1's window
+    mode and G2-G6 on rank 0, the strips and panels on every rank), select
+    from the diagonals, eigenvectors of the leading block (E2 on each rank
+    that solves rows), each stage timed to a barrier; under phase 6's
+    gates and the HT gates, its spectrum within 1e-10 chordal of the
+    single-process QZ of its own HT form and its rounds within 2 of it,
+    the window kernels launched by rank 0 alone, and every stage's memory,
+    gathers and messages as dm_stage_checks holds them."""
     import numpy as np
     import torch
+    from starneig_tpu_torch.api import gep
+    from starneig_tpu_torch.convert import from_numpy
     from starneig_tpu_torch.errors import Error
     from starneig_tpu_torch.testing import hooks
     n = DM_GEP2_N
@@ -2905,6 +3120,14 @@ def phase_dm_gep(dev, gep_res, A_np, B_np, r, cnt):
                                  torch.as_tensor(bt))
     ar6, ai6, bt6 = gep_res["spectrum"]
     vs6 = hooks.chordal_eigenvalue_error(r["ar"], r["ai"], r["bt"], ar6 + 1j * ai6, bt6) * U
+    # the single-process QZ of the chain's own HT form: the HT on shards
+    # agrees with phase 6's to rounding, and this pencil's B is singular,
+    # where the spectrum moves by far more than 1e-10 under rounding
+    st_own = {}
+    own = gep.schur(*(from_numpy(r["ht"][k], dev) for k in "STQZ"), stats=st_own)
+    ar_o, ai_o, bt_o = (x.cpu().numpy() for x in own[4:7])
+    vs_own = hooks.chordal_eigenvalue_error(r["ar"], r["ai"], r["bt"], ar_o + 1j * ai_o,
+                                            bt_o) * U
     m = r["m"]
     lead_ok, rest = hooks.selected_leading(r["reorder"]["S"], m, finite_right_half,
                                            T=r["reorder"]["T"])
@@ -2913,7 +3136,8 @@ def phase_dm_gep(dev, gep_res, A_np, B_np, r, cnt):
     cuts = st["cuts"]
     shards = [c["stats"]["schur"]["shard_shape"] for c in cnt]
     log(f"  10c GEP n={n} on {DM_RANKS_A} ranks ({cnt[0]['backend']}): {ms}; rounds "
-        f"{r['rounds']} (phase 6: {gep_res['rounds']}); spectrum vs phase 6 {vs6:.2e} "
+        f"{r['rounds']} (the single-process QZ of its HT form: {st_own['rounds']}, phase 6: "
+        f"{gep_res['rounds']}); spectrum vs that QZ {vs_own:.2e}, vs phase 6 {vs6:.2e} "
         f"(chordal); gates (res A, res B, orth Q, orth Z, structure S, T, zero betas) "
         f"{gates}; selected {r['selected']}, leading block {m} ({rest} selected rows "
         f"below); eigenvectors info {r['xinfo']} {r['X'].shape}, worst residual "
@@ -2927,9 +3151,10 @@ def phase_dm_gep(dev, gep_res, A_np, B_np, r, cnt):
     for stage, (ra, rb, oq, oz, fs, ft, _z) in gates.items():
         check(max(ra, rb, oq, oz) < GATE_U, f"10c {stage} gates: {ra} {rb} {oq} {oz}")
         check(fs == 0.0 and ft == 0.0, f"10c {stage} structure {fs} {ft}")
-    check(vs6 < 1e-10, f"10c: spectrum {vs6} (chordal) from phase 6's")
-    check(abs(r["rounds"] - gep_res["rounds"]) <= 2,
-          f"10c: {r['rounds']} rounds, phase 6 {gep_res['rounds']}")
+    check(vs_own < 1e-10, f"10c: spectrum {vs_own} (chordal) from the single-process QZ of "
+          "its HT form")
+    check(int(own[7]) == 0 and abs(r["rounds"] - st_own["rounds"]) <= 2,
+          f"10c: {r['rounds']} rounds, the single-process QZ of its HT form {st_own['rounds']}")
     check(lead_ok and (rest == 0 or r["rinfo"] == Error.PARTIAL_REORDERING),
           f"10c: leading block not the selection ({lead_ok}, {rest} left)")
     if r["rinfo"] == Error.SUCCESS:
@@ -2941,12 +3166,32 @@ def phase_dm_gep(dev, gep_res, A_np, B_np, r, cnt):
           f"10c: padded QZ shards {shards} do not follow the cuts {cuts}")
     check(all(c["shards"]["schur"] == c["shards"]["reorder"] == (n, n // DM_RANKS_A)
               for c in cnt), "10c: the pencil not in column shards after QZ and reordering")
-    mem = dm_stage_checks("10c", cnt, n, ("schur", "select", "reorder"), 4,
+    mem = dm_stage_checks("10c", cnt, n, ("hessenberg_triangular", "schur", "select", "reorder",
+                                          "eigenvectors"), 4,
                           max(st["WA"], st["WC"], cnt[0]["stats"]["reorder"]["W"]))
-    dm_launch_check("10c", cnt, DM_GEP_KERNELS + ("inf_chase", "eig_backsolve_gep"))
+    solved = dm_solved(cnt, "eigenvectors")
+    log(f"  10c eigenvectors on column shards: vectors solved by rank {solved}, rows by "
+        f"rank {[c['stages']['eigenvectors']['stats']['eig_rows'] for c in cnt]}, E2 "
+        f"launches by rank {[c['launches']['eig_backsolve_gep'] for c in cnt]}; HT: G1 "
+        f"launches by rank {[c['launches']['ht_cascade'] for c in cnt]}, cascade messages "
+        f"by rank {[c['stats']['hessenberg_triangular'].get('ht_messages') for c in cnt]}")
+    ht6 = gep_res["ht"]
+    d6 = [float(np.abs(r["ht"][k] - M).max()) / max(float(np.abs(M).max()), 1e-300)
+          for k, M in zip("STQZ", ht6)]
+    ht_gates = gep_ht_gates(A_np, B_np, r["ht"])
+    log(f"  10c HT on column shards: gates (res A, res B, orth Q, orth Z, below the "
+        f"subdiagonal of H, below the diagonal of T) {ht_gates}; against phase 6's "
+        f"single-process HT (B singular: not held elementwise, see the regular pencil) "
+        f"max|dM|/max|M| H, T, Q, Z {['%.2e' % x for x in d6]}")
+    check(max(ht_gates[:4]) < GATE_U and ht_gates[4] == 0.0 and ht_gates[5] == 0.0,
+          f"10c HT gates {ht_gates}")
+    dm_launch_check("10c", cnt, DM_GEP_KERNELS + ("inf_chase", "eig_backsolve_gep"),
+                    ("ht_cascade",), eig="eig_backsolve_gep", solved=solved)
     return dict(ms=ms, job_s=wall, rounds=r["rounds"],
-                spectrum_vs_phase6=vs6, gates=gates, lead=m, eigvec_residual=evec,
-                cuts=cuts, shards=shards, stages=mem,
+                spectrum_vs_phase6=vs6, spectrum_vs_own_qz=vs_own, gates=gates, lead=m,
+                eigvec_residual=evec,
+                cuts=cuts, shards=shards, stages=mem, ht_gates=ht_gates, ht_vs_phase6=d6,
+                eig_solved=solved,
                 comm=[{k: dm_comm(v) for k, v in c["stats"].items()} for c in cnt],
                 launches=[c["launches"] for c in cnt])
 
@@ -3121,8 +3366,8 @@ def main() -> int:
                         SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
         log("== 10. DM: gloo ranks sharing the card")
         t_dm = time.perf_counter()
-        dm_a, dm_c = phase_dm_two(dev, main_res, gep_res)
-        dm = dict(a=dm_a, b=phase_dm_four(dev), c=dm_c)
+        dm_a, dm_c, dm_d = phase_dm_two(dev, main_res, gep_res)
+        dm = dict(a=dm_a, b=phase_dm_four(dev), c=dm_c, d=dm_d)
         dm["wall_s"] = time.perf_counter() - t_dm
         log(f"  phase 10: {dm['wall_s']:.1f} s")
         log("== 11. tools and examples")
@@ -3147,7 +3392,7 @@ def main() -> int:
             dict(card=smi, build_s=build_s, kernels=results, n1200_b70=b70,
                  main={k: v for k, v in main_res.items()
                        if k not in ("spectrum", "hess", "chain")},
-                 gep={k: v for k, v in gep_res.items() if k != "spectrum"},
+                 gep={k: v for k, v in gep_res.items() if k not in ("spectrum", "ht")},
                  gep_inf=gep_inf, cli=cli, dm=dm, tools=tools,
                  torch=torch.__version__,
                  cuda=torch.version.cuda),

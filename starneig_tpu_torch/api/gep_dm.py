@@ -7,19 +7,23 @@ single-process programs; eager PyTorch has no such partitioner, so the
 stages here run the port's drivers on column shards
 (``parallel/dm_gep.py``):
 
-  * ``schur`` (QZ) and ``reorder_schur`` take and give column shards; the
-    window kernels (G1's window mode, G2-G6) launch on rank 0, every rank
-    applies the window transforms to its own columns; ``select`` and the
-    eigenvalues come from the gathered diagonals.  A column-sharded input
-    stays as it is, a row-sharded, replicated or whole one is moved to
-    column shards first (``DistrMatrix.full`` for a row-sharded one) and
-    the results come back under the input's spec.
-  * ``hessenberg_triangular`` and ``eigenvectors`` still gather their
-    matrices: rank 0 runs the ``api.gep`` entry point on its device (G1's
-    cascade, E2 on the card) and every rank takes its shard of the
-    outputs.
-  * ``reduce`` chains them: HT on rank 0, then QZ, select and reordering
-    on the shards.
+  * ``hessenberg_triangular`` (``parallel/dm_ht.py``): B's QR as a
+    blocked Householder QR on the shards, then G1's blocked cascade with
+    every rank launching it on its own columns, the right chain handed
+    across each cut and the deferred products applied as column panels;
+  * ``schur`` (QZ) and ``reorder_schur``: the window kernels (G1's window
+    mode, G2-G6) launch on rank 0, every rank applies the window
+    transforms to its own columns; ``select`` and the eigenvalues come
+    from the gathered diagonals;
+  * ``eigenvectors`` (``parallel/dm_eig.py``): the backsolve as a
+    right-to-left pipeline over the shards, each rank launching E2 on the
+    rows of its columns, X = Z Y summed in column blocks;
+  * ``reduce`` chains HT, QZ, select and reordering, all on the shards.
+
+Every entry point takes and gives column shards: a column-sharded input
+stays as it is, a row-sharded, replicated or whole one is moved to column
+shards first (``DistrMatrix.full`` for a row-sharded one) and the results
+come back under the input's spec.
 
 Every function is collective, and takes ``device=None`` and
 ``stats=None`` as ``api.sep_dm``'s do.  Includes distributed generalized
@@ -30,24 +34,25 @@ from __future__ import annotations
 
 from typing import Optional
 
-from starneig_tpu_torch.api import gep as _gep
-from starneig_tpu_torch.api.sep_dm import (_cols, _from_cols, _mesh_spec,
-                                           _whole, _wrap, _wrap_flex)
+from starneig_tpu_torch.api.sep_dm import _cols, _from_cols, _mesh_spec
 from starneig_tpu_torch.errors import Error
 from starneig_tpu_torch.parallel import dm_gep
-from starneig_tpu_torch.parallel.distr import owner_call
+from starneig_tpu_torch.parallel.distr import DistrMatrix
 
 
 def hessenberg_triangular(A, B, mesh=None, device=None,
                           stats: Optional[dict] = None):
     """Distributed HT reduction (gep_dm.h:100-160; the reference outsources
-    this to the bundled ScaLAPACK pdgghrd): (H, T, Q, Z), gathered and
-    reduced on rank 0."""
+    this to the bundled ScaLAPACK pdgghrd) on column shards
+    (:func:`~starneig_tpu_torch.parallel.dm_ht.hessenberg_triangular_dm`):
+    (H, T, Q, Z), the matrices under A's spec."""
+    from starneig_tpu_torch.parallel.dm_ht import hessenberg_triangular_dm
+
     m, spec = _mesh_spec(A, mesh, device)
-    Af, Bf = (_whole(M, m, stats) for M in (A, B))
-    outs = owner_call(m, lambda: _gep.hessenberg_triangular(Af, Bf, device=m.device),
-                      stats=stats)
-    return tuple(_wrap(M, m, spec) for M in outs)
+    A_loc, B_loc = _cols(A, m, stats), _cols(B, m, stats)
+    n = A_loc.shape[0]
+    outs = hessenberg_triangular_dm(A_loc, B_loc, m, stats=stats)
+    return tuple(_from_cols(M, m, spec, (n, n), stats) for M in outs)
 
 
 def schur(H, T, Q=None, Z=None, mesh=None, conf=None, device=None,
@@ -79,14 +84,16 @@ def reorder_schur(S, T, Q, Z, select, mesh=None, conf=None, device=None,
 def eigenvectors(S, T, Q, Z, select, mesh=None, conf=None, device=None,
                  stats: Optional[dict] = None):
     """Distributed generalized eigenvectors, unimplemented in the reference
-    (gep_dm.h): the pencil gathered, rank 0 runs ``api.gep.eigenvectors``;
-    (X, info), X sharded by ``_wrap_flex``'s rule."""
+    (gep_dm.h), on column shards
+    (:func:`~starneig_tpu_torch.parallel.dm_eig.eigenvectors_gep_dm`: each
+    rank runs E2 on its rows; Q is not used: X = Z Y); (X, info), X a
+    DistrMatrix sharded by ``dm_eig.flex_spec``'s rule."""
+    from starneig_tpu_torch.parallel.dm_eig import eigenvectors_gep_dm
+
     m, _spec = _mesh_spec(S, mesh, device)
-    Sf, Tf, Qf, Zf = (_whole(M, m, stats) for M in (S, T, Q, Z))
-    X, info = owner_call(
-        m, lambda: _gep.eigenvectors(Sf, Tf, Qf, Zf, select, conf=conf,
-                                     device=m.device), stats=stats)
-    return _wrap_flex(X, m), info
+    X, spec, shape, info = eigenvectors_gep_dm(
+        _cols(S, m, stats), _cols(T, m, stats), _cols(Z, m, stats), select, m, stats)
+    return DistrMatrix(X, m, spec, shape), info
 
 
 def eigenvalues(S, T, mesh=None, device=None, stats: Optional[dict] = None):
@@ -109,8 +116,8 @@ def select(S, T, predicate, mesh=None, device=None,
 
 def reduce(A, B, predicate=None, mesh=None, device=None,
            stats: Optional[dict] = None, schur_conf=None, reorder_conf=None):
-    """Distributed full GEP chain (mpi/combined.c): HT on rank 0, then QZ,
-    select and reordering on column shards.  Returns (S, T, Q, Z, alpha_r,
+    """Distributed full GEP chain (mpi/combined.c): HT, QZ, select and
+    reordering, all on column shards.  Returns (S, T, Q, Z, alpha_r,
     alpha_i, beta, num_selected, info), the matrices under A's spec."""
     m, _spec = _mesh_spec(A, mesh, device)
     H, T, Q, Z = hessenberg_triangular(A, B, mesh=m, stats=stats)

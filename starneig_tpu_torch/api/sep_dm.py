@@ -18,12 +18,14 @@ or with the same whole matrix, which each rank then shards by columns.
     replicated or whole one is moved to column shards first
     (``DistrMatrix.full`` for a row-sharded one, counted in ``stats``) and
     the result comes back under the input's spec.
-  * ``eigenvectors`` runs on the shards in the JAX package only because
-    XLA's SPMD partitioner splits the single-process program.  Here it
-    still gathers S and Q: rank 0 runs ``api.sep.eigenvectors`` on its
-    device (the kernels launch there), and every rank takes its shard of
-    the output.  It is declared but unimplemented in the reference
-    (sep_dm.h:232-238).
+  * ``eigenvectors`` (declared but unimplemented in the reference,
+    sep_dm.h:232-238; in the JAX package XLA's SPMD partitioner splits the
+    single-process program) runs the backsolve as a right-to-left pipeline
+    over the column shards
+    (:func:`starneig_tpu_torch.parallel.dm_eig.eigenvectors_sep_dm`: each
+    rank launches E1 on the rows of its columns, the far sums handed to
+    the left), and X = Q Y comes back sharded by columns where its width
+    allows (``dm_eig.flex_spec``).
 
 Every function takes ``device=None`` (the device of the mesh made when
 none is given: the node's, else the card; ``RuntimeError`` without one
@@ -68,18 +70,6 @@ def _whole(M, mesh, stats):
 def _wrap(out, mesh, spec):
     """The whole matrix out (on every rank) as this rank's DistrMatrix."""
     return DistrMatrix(shard_of(out, mesh, spec), mesh, spec, tuple(out.shape))
-
-
-def _wrap_flex(out, mesh):
-    """Wrap with the finest sharding the shape allows (cols, rows,
-    replicated)."""
-    if out.ndim == 2 and out.shape[1] % mesh.size == 0:
-        spec = "cols"
-    elif out.ndim == 2 and out.shape[0] % mesh.size == 0:
-        spec = "rows"
-    else:
-        spec = "replicated"
-    return _wrap(out, mesh, spec)
 
 
 def _cols(M, mesh, stats):
@@ -165,16 +155,21 @@ def reorder_schur(S, Q, select, mesh=None, conf=None, device=None,
 def eigenvectors(S, Q, select, mesh=None, conf=None, device=None,
                  stats: Optional[dict] = None):
     """Distributed eigenvectors, unimplemented in the reference
-    (sep_dm.h:232-238): S and Q gathered, rank 0 runs
-    ``api.sep.eigenvectors``.
+    (sep_dm.h:232-238): the backsolve as a right-to-left pipeline over
+    column shards (:func:`~starneig_tpu_torch.parallel.dm_eig.eigenvectors_sep_dm`:
+    each rank runs E1 on its rows), X = Q Y summed in column blocks.  S and
+    Q may be DistrMatrix under any spec or whole matrices; a row-sharded
+    one is moved to column shards first.  ``conf`` is accepted for parity
+    with the JAX package.
 
-    Returns (X, info), X sharded by ``_wrap_flex``'s rule."""
+    Returns (X, info), X a DistrMatrix sharded by ``dm_eig.flex_spec``'s
+    rule (columns, else rows, else replicated)."""
+    from starneig_tpu_torch.parallel.dm_eig import eigenvectors_sep_dm
+
     mesh, _spec = _mesh_spec(S, mesh, device)
-    Sf, Qf = _whole(S, mesh, stats), _whole(Q, mesh, stats)
-    X, info = owner_call(
-        mesh, lambda: _sep.eigenvectors(Sf, Qf, select, conf=conf,
-                                        device=mesh.device), stats=stats)
-    return _wrap_flex(X, mesh), info
+    X, spec, shape, info = eigenvectors_sep_dm(_cols(S, mesh, stats), _cols(Q, mesh, stats),
+                                               select, mesh, stats)
+    return DistrMatrix(X, mesh, spec, shape), info
 
 
 def _diagonals(S, mesh, stats):

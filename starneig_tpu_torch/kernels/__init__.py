@@ -50,8 +50,10 @@ _SIGNATURES = {
     "reorder_bubble": [_P, _P, _P, _P, _I, _I, _P],
     # A, B, rot, work, n, J0, J1, stream
     "ht_generate": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # rot, U, n, J0, J1, L, S, stream
-    "ht_slivers": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # A, B, rot, work, n, ld, lo, hi, j, J0, steps, rbase, stream
+    "ht_generate_shard": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
+    # rot, U, n, J0, J1, L, S, rbase, stream
+    "ht_slivers": [_P, _P, _I, _I, _I, _I, _I, _LL, _P],
     # S, T, Q, Z, Tscratch, log, WA, kbot, s, beta, stream
     "ht_recondense": [_P, _P, _P, _P, _P, _P, _I, _I, _D, _P, _I, _P],
     # Hp, Tp, Qp, Zp, w, m, thresh_h, thresh_t, info, stream
@@ -72,12 +74,13 @@ _SIGNATURES = {
     "hess_panel": [_P, _LL, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _LL, _P, _I, _I, _I, _I,
                    _P],
     # S, n, lam_r, lam_i, smin, pos, pair, kind, order, m, omega, smlnum,
-    # xr, xi, close, stream
-    "eig_backsolve": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P, _P, _P],
+    # xr, xi, close, f0r, f0i, scale, stream
+    "eig_backsolve": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P, _P, _P, _P,
+                      _P, _P],
     # S, T, n, ar, ai, bt, smin, pos, pair, kind, order, m, omega, smlnum,
-    # xr, xi, close, stream
+    # xr, xi, close, f0r, f0i, scale, stream
     "eig_backsolve_gep": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P,
-                          _P, _P],
+                          _P, _P, _P, _P, _P],
 }
 
 _lib = None

@@ -56,6 +56,12 @@
 // at most 63 entries, two a lane).  Every sum runs in an order fixed by the
 // shape, so two launches give the same bits; the sums run in another
 // order than the twin's matmul.
+// On a column shard (parallel/dm_eig.py): S is the diagonal block of the
+// rows the shard solves, a vector whose block lies past them has pos = n
+// (every row solved), f0r/f0i give each vector's far sum from the columns
+// past n, added to the row block's far product scaled by the vector's
+// product of scalings so far (dtrevc3 scales the right-hand side with the
+// vector), and scale returns that product.
 #include <cuda_runtime.h>
 
 #include "eig_blocked.cuh"
@@ -80,6 +86,8 @@ struct Solve {
   double omega, smlnum;
   double *xr, *xi;
   int* close;
+  const double *f0r, *f0i;  // null, or each vector's far sum from rows past n (m x n)
+  double* scale;            // null, or each vector's product of the scalings (m)
 };
 
 // What the guarded solve of a 1x1 row k (two false) or of a 2x2 block's
@@ -175,6 +183,7 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_kernel(Solve p) {
   double* sP = sR + kG * kVecs * kNB;     // kG x kNB x kPre: the solve steps ahead
   int* sK = reinterpret_cast<int*>(sP + kG * kNB * kPre);  // kNB: the row kinds
   __shared__ int s_top;
+  __shared__ double s_sc[kG];  // each warp's product of its scalings so far
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = p.n;
   const int slot = blockIdx.x * kG + warp;
@@ -197,6 +206,7 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_kernel(Solve p) {
   const double lr = live ? p.lam_r[e] : 0.0, li = live ? p.lam_i[e] : 0.0;
   const double smin = live ? p.smin[e] : 1.0;
   bool close = false;
+  double sc = 1.0;
   double* xnr = sX + warp * 2 * kNB;
   double* xni = xnr + kNB;
   double* fr = sF + (2 * warp) * kNB;
@@ -266,10 +276,19 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_kernel(Solve p) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) red[(8 * nt + 2 * ak + i) * kNB + 8 * mt + ar] = acc[mt][nt][i];
     }
+    if (lane == 0) s_sc[warp] = sc;
     __syncthreads();
     for (int idx = tid; idx < kVecs * kNB; idx += kThreads) {
       double s = sR[idx];
       for (int w = 1; w < kG; ++w) s += sR[w * kVecs * kNB + idx];
+      if (p.f0r != nullptr) {
+        // the far sum from rows past n, scaled with the vector so far
+        const int v = idx / kNB, i = idx % kNB, g = v >> 1, slot = blockIdx.x * kG + g;
+        if (i < nr && slot < p.m) {
+          const double* f0 = (v & 1) ? p.f0i : p.f0r;
+          s += s_sc[g] * f0[(size_t)p.order[slot] * n + r0 + i];
+        }
+      }
       sF[idx] = s;
     }
     // each warp's solve steps ahead of its chain, a lane a row
@@ -315,6 +334,7 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_kernel(Solve p) {
       if (fac != 1.0) {
         // scale the vector, and F of the rows still to come, before the
         // growing division's result joins it
+        sc = rmul(sc, fac);
         for (int l = k + 1 + lane; l < hi_e; l += 32) {
           const double vr = rmul(xr[l], fac);
           xr[l] = vr;
@@ -347,18 +367,26 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_kernel(Solve p) {
     r1 = r0;
   }
   close = __any_sync(kFull, close);
-  if (live && lane == 0) p.close[e] = close ? 1 : 0;
+  if (live && lane == 0) {
+    p.close[e] = close ? 1 : 0;
+    if (p.scale != nullptr) p.scale[e] = sc;
+  }
 }
 
 }  // namespace
 
 // x[e, :] for the m eigenvalues of S (n x n), in place; close[e] 1 where a
 // guard lifted a shifted diagonal or determinant.  order: the eigenvalues
-// sorted by pos, descending (a block takes kG consecutive ones).
+// sorted by pos, descending (a block takes kG consecutive ones); pos = n:
+// the block lies past the rows solved here (a column shard's rows of S),
+// every row is solved.  f0r, f0i (null or m x n): each vector's sum over
+// the columns past n, scaled with the vector; scale (null or m): each
+// vector's product of its scalings out.
 extern "C" int eig_backsolve(const void* S, int n, const void* lam_r, const void* lam_i,
                              const void* smin, const void* pos, const void* pair,
                              const void* kind, const void* order, int m, double omega,
-                             double smlnum, void* xr, void* xi, void* close, void* stream) {
+                             double smlnum, void* xr, void* xi, void* close, const void* f0r,
+                             const void* f0i, void* scale, void* stream) {
   if (m <= 0) return 0;
   Solve p;
   p.S = static_cast<const double*>(S);
@@ -376,6 +404,9 @@ extern "C" int eig_backsolve(const void* S, int n, const void* lam_r, const void
   p.xr = static_cast<double*>(xr);
   p.xi = static_cast<double*>(xi);
   p.close = static_cast<int*>(close);
+  p.f0r = static_cast<const double*>(f0r);
+  p.f0i = static_cast<const double*>(f0i);
+  p.scale = static_cast<double*>(scale);
   cudaError_t err = cudaFuncSetAttribute(eig_backsolve_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));

@@ -54,6 +54,12 @@
 // Shared memory is fixed (kSmemBytes, about 193 KB) at every n.  Every sum
 // runs in an order fixed by the shape, so two launches give the same bits;
 // the sums run in another order than the twin's.
+// On a column shard (parallel/dm_eig.py): S is the diagonal block of the
+// rows the shard solves, a vector whose block lies past them has pos = n
+// (every row solved), f0r/f0i give each vector's far sum from the columns
+// past n, added to the row block's far product scaled by the vector's
+// product of scalings so far (dtrevc3 scales the right-hand side with the
+// vector), and scale returns that product.
 #include <cuda_runtime.h>
 
 #include "eig_blocked.cuh"
@@ -78,6 +84,8 @@ struct SolveGep {
   double omega, smlnum;
   double *xr, *xi;
   int* close;
+  const double *f0r, *f0i;  // null, or each vector's far sum from rows past n (m x n)
+  double* scale;            // null, or each vector's product of the scalings (m)
 };
 
 // M[k, j] = bt S[k, j] - (ar + i ai) T[k, j], rounded as the twin's mentry
@@ -207,6 +215,7 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_gep_kernel(SolveGep
   double* sP = sR + kG * kVecs * kNB;     // kG x kNB x kPre: the solve steps ahead
   int* sK = reinterpret_cast<int*>(sP + kG * kNB * kPre);  // kNB: the row kinds
   __shared__ int s_top;
+  __shared__ double s_sc[kG];  // each warp's product of its scalings so far
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = p.n;
   const int slot = blockIdx.x * kG + warp;
@@ -230,6 +239,7 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_gep_kernel(SolveGep
   const double bt = live ? p.bt[e] : 0.0;
   const double smin = live ? p.smin[e] : 1.0;
   bool close = false;
+  double sc = 1.0;
   double* xnr = sX + warp * 2 * kNB;
   double* xni = xnr + kNB;
   double* fr = sF + (2 * warp) * kNB;
@@ -248,8 +258,8 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_gep_kernel(SolveGep
     const int v = 8 * nt + fm, g = v >> 1, s = blockIdx.x * kG + g;
     const bool ok = s < p.m && ((v & 1) == 0 || p.pair[p.order[s]] != 0);
     bvec[nt] = ok ? ((v & 1) ? p.xi : p.xr) + (size_t)p.order[s] * n : nullptr;
-    const int sc = blockIdx.x * kG + 4 * nt + fk;
-    const int ec = sc < p.m ? p.order[sc] : -1;
+    const int sm_ = blockIdx.x * kG + 4 * nt + fk;
+    const int ec = sm_ < p.m ? p.order[sm_] : -1;
     cbt[nt] = ec >= 0 ? p.bt[ec] : 0.0;
     car[nt] = ec >= 0 ? p.ar[ec] : 0.0;
     cai[nt] = ec >= 0 ? p.ai[ec] : 0.0;
@@ -317,10 +327,19 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_gep_kernel(SolveGep
           red[(8 * nt + 2 * fk + 1) * kNB + 8 * mt + fm] = f_i;
         }
     }
+    if (lane == 0) s_sc[warp] = sc;
     __syncthreads();
     for (int idx = tid; idx < kVecs * kNB; idx += kThreads) {
       double s = sR[idx];
       for (int w = 1; w < kG; ++w) s += sR[w * kVecs * kNB + idx];
+      if (p.f0r != nullptr) {
+        // the far sum from rows past n, scaled with the vector so far
+        const int v = idx / kNB, i = idx % kNB, g = v >> 1, slot = blockIdx.x * kG + g;
+        if (i < nr && slot < p.m) {
+          const double* f0 = (v & 1) ? p.f0i : p.f0r;
+          s += s_sc[g] * f0[(size_t)p.order[slot] * n + r0 + i];
+        }
+      }
       sF[idx] = s;
     }
     // each warp's solve steps ahead of its chain, a lane a row
@@ -375,6 +394,7 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_gep_kernel(SolveGep
       if (fac != 1.0) {
         // scale the vector, and F of the rows still to come, before the
         // growing division's result joins it
+        sc = rmul(sc, fac);
         for (int l = k + 1 + lane; l < hi_e; l += 32) {
           const double vr = rmul(xr[l], fac);
           xr[l] = vr;
@@ -406,7 +426,10 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_gep_kernel(SolveGep
     r1 = r0;
   }
   close = __any_sync(kFull, close);
-  if (live && lane == 0) p.close[e] = close ? 1 : 0;
+  if (live && lane == 0) {
+    p.close[e] = close ? 1 : 0;
+    if (p.scale != nullptr) p.scale[e] = sc;
+  }
 }
 
 }  // namespace
@@ -414,12 +437,17 @@ __global__ void __launch_bounds__(kThreads, 1) eig_backsolve_gep_kernel(SolveGep
 // x[e, :] for the m eigenvalues of the pencil (S, T) (n x n each), in
 // place; close[e] 1 where a guard lifted a shifted diagonal or
 // determinant.  order: the eigenvalues sorted by pos, descending (a block
-// takes kG consecutive ones).
+// takes kG consecutive ones); pos = n: the block lies past the rows
+// solved here (a column shard's rows of the pencil), every row is solved.
+// f0r, f0i (null or m x n): each vector's sum over the columns past n,
+// scaled with the vector; scale (null or m): each vector's product of its
+// scalings out.
 extern "C" int eig_backsolve_gep(const void* S, const void* T, int n, const void* ar,
                                  const void* ai, const void* bt, const void* smin,
                                  const void* pos, const void* pair, const void* kind,
                                  const void* order, int m, double omega, double smlnum,
-                                 void* xr, void* xi, void* close, void* stream) {
+                                 void* xr, void* xi, void* close, const void* f0r,
+                                 const void* f0i, void* scale, void* stream) {
   if (m <= 0) return 0;
   SolveGep p;
   p.S = static_cast<const double*>(S);
@@ -439,6 +467,9 @@ extern "C" int eig_backsolve_gep(const void* S, const void* T, int n, const void
   p.xr = static_cast<double*>(xr);
   p.xi = static_cast<double*>(xi);
   p.close = static_cast<int*>(close);
+  p.f0r = static_cast<const double*>(f0r);
+  p.f0i = static_cast<const double*>(f0i);
+  p.scale = static_cast<double*>(scale);
   cudaError_t err = cudaFuncSetAttribute(eig_backsolve_gep_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kSmemBytes));

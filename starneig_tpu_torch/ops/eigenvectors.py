@@ -132,31 +132,43 @@ def _solve_row(S, k: int, two: bool, lam_r, lam_i, smin, omega, smlnum, do,
 
 
 def _backsolve_rows(S, lam_r, lam_i, pos, is_pair, kind, smin, omega, smlnum,
-                    xr, xi):
+                    xr, xi, f0r=None, f0i=None, scale=None):
     """The row loop of :func:`_backsolve_all`, in place on (xr, xi): the
-    plain twin of kernel E1 (``gpu_eig.backsolve``, same arguments).
-    Returns the (m,) bool close-eigenvalues flags."""
+    plain twin of kernel E1 (``gpu_eig.backsolve``, same arguments: pos =
+    n marks a block past the rows solved; f0r, f0i the far sums from the
+    columns past n, taken with the vector's scalings; scale receives each
+    vector's product of scalings).  Returns the (m,) bool close-eigenvalues
+    flags."""
     n = S.shape[0]
     m = len(pos)
     dev = S.device
     pos_t = torch.as_tensor(np.asarray(pos, np.int64), device=dev)
     close = torch.zeros(m, dtype=torch.bool, device=dev)
-    for k in range(n - 2, -1, -1):
+    sc = torch.ones(m, dtype=S.dtype, device=dev)
+    # rows at or below the lowest block start are in no vector's range
+    for k in range(min(max(pos, default=0), n) - 1, -1, -1):
         if kind[k] == 2:
             continue        # rows of a 2x2 block are solved at its first row
         in_range = k < pos_t
         two = kind[k] == 1
-        rhs_r = -(xr[:, k + 1:] @ S[k, k + 1:])
-        rhs_i = -(xi[:, k + 1:] @ S[k, k + 1:])
+        dot_r = xr[:, k + 1:] @ S[k, k + 1:]
+        dot_i = xi[:, k + 1:] @ S[k, k + 1:]
+        if f0r is not None:
+            dot_r, dot_i = f0r[:, k] * sc + dot_r, f0i[:, k] * sc + dot_i
+        rhs_r, rhs_i = -dot_r, -dot_i
         rhs2_r = rhs2_i = None
         if two:
             k1 = min(k + 1, n - 1)
-            rhs2_r = -(xr[:, k1 + 1:] @ S[k1, k1 + 1:])
-            rhs2_i = -(xi[:, k1 + 1:] @ S[k1, k1 + 1:])
+            dot_r = xr[:, k1 + 1:] @ S[k1, k1 + 1:]
+            dot_i = xi[:, k1 + 1:] @ S[k1, k1 + 1:]
+            if f0r is not None:
+                dot_r, dot_i = f0r[:, k1] * sc + dot_r, f0i[:, k1] * sc + dot_i
+            rhs2_r, rhs2_i = -dot_r, -dot_i
         fac, w1r, w1i, w2r, w2i, near = _solve_row(
             S, k, two, lam_r, lam_i, smin, omega, smlnum, in_range, rhs_r, rhs_i,
             rhs2_r, rhs2_i)
         close |= near
+        sc *= fac
         xr *= fac[:, None]
         xi *= fac[:, None]
         xr[:, k] = torch.where(in_range, w1r, xr[:, k])
@@ -164,6 +176,8 @@ def _backsolve_rows(S, lam_r, lam_i, pos, is_pair, kind, smin, omega, smlnum,
         if two:
             xr[:, k + 1] = torch.where(in_range, w2r, xr[:, k + 1])
             xi[:, k + 1] = torch.where(in_range, w2i, xi[:, k + 1])
+    if scale is not None:
+        scale.copy_(sc)
     return close
 
 
@@ -270,17 +284,30 @@ def eigenvectors_schur(S, Q, select, conf: Optional[EigenvectorsConf] = None):
     return X, info
 
 
+def _diagonals(*Ms):
+    """The diagonal, subdiagonal and superdiagonal of each M (the last two
+    padded with 0), on the host: (len(Ms), 3, n)."""
+    z = Ms[0].new_zeros(1)
+    return torch.stack([torch.stack([torch.diagonal(M),
+                                     torch.cat([torch.diagonal(M, -1), z]),
+                                     torch.cat([torch.diagonal(M, 1), z])])
+                        for M in Ms]).cpu().numpy()
+
+
 def _selected_blocks(S, select):
     """The selected diagonal blocks of S, on the host: a list of (pos,
     is_pair, lam_r, lam_i), 2x2 blocks selected atomically (lam_i > 0)."""
-    n = S.shape[0]
+    return _selected_blocks_from_diagonals(*_diagonals(S)[0], select)
+
+
+def _selected_blocks_from_diagonals(diag, sub, sup, select):
+    """:func:`_selected_blocks` from S's three diagonals (host arrays, the
+    sub- and superdiagonal padded to n), as the DM eigenvectors gather
+    them."""
+    n = len(diag)
     if torch.is_tensor(select):
         select = select.cpu().numpy()
     select = np.asarray(select, bool)
-    diags = torch.stack([torch.diagonal(S),
-                         torch.cat([torch.diagonal(S, -1), S.new_zeros(1)]),
-                         torch.cat([torch.diagonal(S, 1), S.new_zeros(1)])])
-    diag, sub, sup = diags.cpu().numpy()
 
     # the selected blocks, on the host: (pos, is_pair, lam_r, lam_i)
     entries = []
@@ -325,29 +352,34 @@ def _backsolve_inputs_gep(S, T, ar, ai, bt, pos, is_pair):
     cols = torch.arange(m, device=dev)
     xr = S.new_zeros((m, n))
     xi = S.new_zeros((m, n))
-    # starting vector: for a pair the null vector of the singular 2x2 of
-    # M = beta S - alpha T at (p, p+1), from the row of larger magnitude
     p1 = torch.clamp_max(pos_t + 1, n - 1)
-    m11r = bt * S[pos_t, pos_t] - ar * T[pos_t, pos_t]
-    m11i = -ai * T[pos_t, pos_t]
-    m12r = bt * S[pos_t, p1] - ar * T[pos_t, p1]
-    m12i = -ai * T[pos_t, p1]
-    m21r = bt * S[p1, pos_t]
-    m21i = 0.0 * m21r
-    m22r = bt * S[p1, p1] - ar * T[p1, p1]
-    m22i = -ai * T[p1, p1]
-    row0 = m11r * m11r + m11i * m11i + m12r * m12r + m12i * m12i
-    row1 = m21r * m21r + m22r * m22r + m22i * m22i
-    use0 = row0 >= row1
-    w0r = torch.where(use0, -m12r, m22r)
-    w0i = torch.where(use0, -m12i, m22i)
-    w1r = torch.where(use0, m11r, -m21r)
-    w1i = torch.where(use0, m11i, -m21i)
+    w0r, w0i, w1r, w1i = _start_gep(ar, ai, bt, S[pos_t, pos_t], S[pos_t, p1],
+                                    S[p1, pos_t], S[p1, p1], T[pos_t, pos_t],
+                                    T[pos_t, p1], T[p1, p1])
     xr[cols, pos_t] = torch.where(pair_t, w0r, 1.0)
     xi[cols, pos_t] = torch.where(pair_t, w0i, 0.0)
     xr[cols, p1] += torch.where(pair_t, w1r, 0.0)
     xi[cols, p1] += torch.where(pair_t, w1i, 0.0)
     return _row_kinds(sub), smin, omega, smlnum, xr, xi
+
+
+def _start_gep(ar, ai, bt, s11, s12, s21, s22, t11, t12, t22):
+    """A pair's start entries (w0r, w0i, w1r, w1i) at its block (p, p+1):
+    the null vector of the singular 2x2 of M = beta S - alpha T there, from
+    the row of larger magnitude, out of the block's entries of S and T."""
+    m11r = bt * s11 - ar * t11
+    m11i = -ai * t11
+    m12r = bt * s12 - ar * t12
+    m12i = -ai * t12
+    m21r = bt * s21
+    m21i = 0.0 * m21r
+    m22r = bt * s22 - ar * t22
+    m22i = -ai * t22
+    row0 = m11r * m11r + m11i * m11i + m12r * m12r + m12i * m12i
+    row1 = m21r * m21r + m22r * m22r + m22i * m22i
+    use0 = row0 >= row1
+    return (torch.where(use0, -m12r, m22r), torch.where(use0, -m12i, m22i),
+            torch.where(use0, m11r, -m21r), torch.where(use0, m11i, -m21i))
 
 
 def _solve_row_gep(S, T, k: int, two: bool, ar, ai, bt, smin, omega, smlnum, do,
@@ -403,11 +435,12 @@ def _solve_row_gep(S, T, k: int, two: bool, ar, ai, bt, smin, omega, smlnum, do,
 
 
 def _backsolve_rows_gep(S, T, ar, ai, bt, pos, is_pair, kind, smin, omega, smlnum,
-                        xr, xi):
+                        xr, xi, f0r=None, f0i=None, scale=None):
     """The row loop of :func:`_backsolve_all_gep`, in place on (xr, xi):
     the plain twin of kernel E2 (``gpu_eig.backsolve_gep``, same
-    arguments), a host loop over the rows above the lowest selected block.
-    Returns the (m,) bool close-eigenvalues flags."""
+    arguments, the shard arguments as :func:`_backsolve_rows`'s), a host
+    loop over the rows above the lowest selected block.  Returns the (m,)
+    bool close-eigenvalues flags."""
     n = S.shape[0]
     m = len(pos)
     dev = S.device
@@ -416,18 +449,23 @@ def _backsolve_rows_gep(S, T, ar, ai, bt, pos, is_pair, kind, smin, omega, smlnu
     S, T = S[:N, :N], T[:N, :N]
     pos_t = torch.as_tensor(np.asarray(pos, np.int64), device=dev)
     close = torch.zeros(m, dtype=torch.bool, device=dev)
+    sc = torch.ones(m, dtype=S.dtype, device=dev)
     bt_, ar_, ai_ = bt[:, None], ar[:, None], ai[:, None]
 
     def rhs(k):
-        """-(M[k, k+1:] x[k+1:]) for every eigenvalue, M = beta S - alpha T."""
+        """-(M[k, k+1:] x[k+1:]) for every eigenvalue, M = beta S - alpha T
+        (plus the far sums past n, scaled with the vector)."""
         mkr = bt_ * S[k, k + 1:] - ar_ * T[k, k + 1:]
         mki = -ai_ * T[k, k + 1:]
         xr_, xi_ = xr[:, k + 1:N], xi[:, k + 1:N]
-        return (-((mkr * xr_).sum(1) - (mki * xi_).sum(1)),
-                -((mkr * xi_).sum(1) + (mki * xr_).sum(1)))
+        dot_r = (mkr * xr_).sum(1) - (mki * xi_).sum(1)
+        dot_i = (mkr * xi_).sum(1) + (mki * xr_).sum(1)
+        if f0r is not None:
+            dot_r, dot_i = f0r[:, k] * sc + dot_r, f0i[:, k] * sc + dot_i
+        return -dot_r, -dot_i
 
     # rows at or below the lowest block start are in no vector's range
-    for k in range(min(max(pos) - 1, n - 2), -1, -1):
+    for k in range(min(max(pos), n) - 1, -1, -1):
         if kind[k] == 2:
             continue        # rows of a 2x2 block are solved at its first row
         in_range = k < pos_t
@@ -438,6 +476,7 @@ def _backsolve_rows_gep(S, T, ar, ai, bt, pos, is_pair, kind, smin, omega, smlnu
             S, T, k, two, ar, ai, bt, smin, omega, smlnum, in_range, rhs_r, rhs_i,
             rhs2_r, rhs2_i)
         close |= near
+        sc *= fac
         xr *= fac[:, None]
         xi *= fac[:, None]
         xr[:, k] = torch.where(in_range, w1r, xr[:, k])
@@ -445,6 +484,8 @@ def _backsolve_rows_gep(S, T, ar, ai, bt, pos, is_pair, kind, smin, omega, smlnu
         if two:
             xr[:, k + 1] = torch.where(in_range, w2r, xr[:, k + 1])
             xi[:, k + 1] = torch.where(in_range, w2i, xi[:, k + 1])
+    if scale is not None:
+        scale.copy_(sc)
     return close
 
 
@@ -478,15 +519,18 @@ def _selected_blocks_gep(S, T, select):
     list of (pos, is_pair, alpha_r, alpha_i, beta), (alpha, beta) scaled
     to magnitude about 1, 2x2 blocks selected atomically (the pair's alpha
     that of the eigenvalue with positive imaginary part)."""
-    n = S.shape[0]
+    return _selected_blocks_gep_from_diagonals(*_diagonals(S, T), select)
+
+
+def _selected_blocks_gep_from_diagonals(dS, dT, select):
+    """:func:`_selected_blocks_gep` from the three diagonals of S and of T
+    (host (3, n) arrays, as :func:`_diagonals` gives them)."""
+    ds, sub, sup_s = dS
+    dt, _sub_t, sup_t = dT
+    n = len(ds)
     if torch.is_tensor(select):
         select = select.cpu().numpy()
     select = np.asarray(select, bool)
-    z = S.new_zeros(1)
-    ds, dt, sub, sup_s, sup_t = torch.stack([
-        torch.diagonal(S), torch.diagonal(T), torch.cat([torch.diagonal(S, -1), z]),
-        torch.cat([torch.diagonal(S, 1), z]),
-        torch.cat([torch.diagonal(T, 1), z])]).cpu().numpy()
 
     entries = []
     i = 0

@@ -15,7 +15,9 @@ that owns the plain PyTorch twin dispatches on the device:
   ---------------  -------------------  --------------------------------------
   ht_cascade       ht_cascade.cu        ops/hess_triangular.py: ht_reduce,
   (ht_generate,                         ht_blocked with _ht_generate and
-   ht_slivers)                          _ht_slivers (oracle: _ht_reduce)
+   ht_slivers;                          _ht_slivers (oracle: _ht_reduce);
+   ht_generate_                         on column shards _ht_step
+   shard)                               (parallel/dm_ht.py)
   ht_recondense    ht_recondense.cu     ops/qz_driver.py: aed_recondense_gep,
   (G1's window                          _aed_recondense_gep (stages:
    mode)                                testing/recondense.py)
@@ -74,9 +76,35 @@ def ht_generate(A, B, rot, J0: int, J1: int):
                   "ht_generate")
 
 
-def ht_slivers(rot, n: int, J0: int, J1: int, L: int):
-    """Kernel G1's sliver factors of block [J0, J1) from the log, CUDA
-    tensors only (see
+def ht_generate_shard(A, B, rot, work, n: int, lo: int, hi: int, j: int, J0: int,
+                      steps: int, base: int = 0):
+    """Kernel G1's steps of cascade j on a column shard of CUDA tensors, in
+    place: A and B (n, ld) hold the pencil's columns lo .. lo+ld-1, of
+    which lo .. hi-1 are this rank's (a column past hi is the carried
+    column of the neighbour's shard); ``steps`` a mask: 1 the left
+    rotations from A's column j into rot, 2 the left pass on the own
+    columns, 4 the right chain and pass over every column held; work:
+    (ld,) float64, the chain's weights; rot holds the log from its row
+    ``base`` (a block's first).  See
+    :func:`starneig_tpu_torch.ops.hess_triangular._ht_step` (the plain
+    twin) and ``parallel/dm_ht.py`` (the orchestration)."""
+    kernels.require_cuda_f64("ht_generate_shard", A, B, rot, work)
+    ld = A.shape[1]
+    if tuple(A.shape) != (n, ld) or B.shape != A.shape or work.numel() < ld \
+            or not lo <= hi <= lo + ld:
+        raise ValueError(f"ht_generate_shard: buffers {tuple(A.shape)}, "
+                         f"{tuple(B.shape)} do not hold the columns [{lo}, {hi})")
+    lib = kernels.lib()
+    kernels.LAUNCHES["ht_cascade"] += 1
+    kernels.check(lib.ht_generate_shard(A.data_ptr(), B.data_ptr(), rot.data_ptr(),
+                                        work.data_ptr(), n, ld, int(lo), int(hi), int(j),
+                                        int(J0), int(steps), int(base), kernels.stream_ptr(A)),
+                  "ht_generate_shard")
+
+
+def ht_slivers(rot, n: int, J0: int, J1: int, L: int, base: int = 0):
+    """Kernel G1's sliver factors of block [J0, J1) from the log (its rows
+    from ``base`` on), CUDA tensors only (see
     :func:`starneig_tpu_torch.ops.hess_triangular._ht_slivers`).  Returns
     (S, 2, w, w)."""
     from starneig_tpu_torch.ops.hess_triangular import sliver_windows
@@ -89,7 +117,7 @@ def ht_slivers(rot, n: int, J0: int, J1: int, L: int):
     lib = kernels.lib()
     kernels.LAUNCHES["ht_cascade"] += 1
     kernels.check(lib.ht_slivers(rot.data_ptr(), U.data_ptr(), n, int(J0), int(J1),
-                                 int(L), S, kernels.stream_ptr(rot)), "ht_slivers")
+                                 int(L), S, int(base), kernels.stream_ptr(rot)), "ht_slivers")
     return U
 
 

@@ -177,55 +177,83 @@ def sliver_range(n: int, J0: int, L: int, s: int, j: int):
 
 def _ht_generate(A, B, rot, J0: int, J1: int):
     """Plain twin of the generation kernel (``gpu_gep.ht_generate``):
-    cascades J0 .. J1-1 on CPU tensors, in place, logged into rot.
-
-    Cascade j: its left rotations from A's column j (rows j+1 ..), applied
-    to A's rows (columns >= j, the zeros planted) and to B's rows (columns
-    >= k-1, B turning upper Hessenberg); then bottom-up each right rotation
-    from B's row k, applied to B's rows J0+1 .. k (the fill planted 0);
-    then the right rotations to A's rows J0+1 ...  Each rotation reads the
-    values the JAX order gives it (a left rotation of cascade j touches no
-    entry its earlier right rotations read)."""
+    cascades J0 .. J1-1 on CPU tensors, in place, logged into rot: each
+    cascade's steps (:func:`_ht_step`) on the whole pencil."""
     n = A.shape[0]
+    for j in range(J0, J1):
+        _ht_step(A, B, rot, n, 0, n, j, J0, 7)
+
+
+def _ht_step(A, B, rot, n: int, lo: int, hi: int, j: int, J0: int, steps: int,
+             base: int = 0):
+    """Plain twin of ``gpu_gep.ht_generate_shard``: the steps of cascade j
+    on CPU buffers A, B (n, ld) that hold the pencil's columns lo ..
+    lo+ld-1 (the whole pencil: lo = 0, hi = ld = n), lo .. hi-1 their own,
+    in place, logged into rot.  ``steps`` a mask:
+
+      1  the left rotations from A's column j (rows j+1 ..; j own);
+      2  the left pass: A's own rows (columns >= j, the zeros planted) and
+         B's (columns >= k-1, B turning upper Hessenberg);
+      4  the right chain: bottom-up each right rotation k = lo+ld-1 ..
+         max(j+2, lo+1) from B's row k, applied to B's rows J0+1 .. k (the
+         fill planted 0); then the right rotations to A's rows J0+1 ...  On
+         a column shard the last column held may be the carried one: the
+         neighbour's first column swept by the rotations right of it.
+
+    rot holds the log from its row ``base`` (a block's first row on a
+    column shard).  Each rotation reads the values the JAX order gives it
+    (a left rotation of cascade j touches no entry its earlier right
+    rotations read)."""
+    if j + 2 > n - 1:
+        return
     R = rot.numpy()
     G = torch.empty((2, 2), dtype=A.dtype)
     g = G.numpy().reshape(-1)
-    for j in range(J0, J1):
-        off = _rot_offset(n, j)
-        ks = range(n - 1, j + 1, -1)
-        x = A[j + 1:, j].tolist()
+    off = _rot_offset(n, j) - base
+    cend = lo + A.shape[1]
+    ks = range(n - 1, j + 1, -1)
+    if steps & 1:
+        x = A[j + 1:, j - lo].tolist()
         y = x[-1]
         for t, k in enumerate(ks):
             a = x[k - j - 2]
             c, s = _givens(a, y)
             R[off + t, :2] = (c, s)
             y = c * a + s * y
+    if steps & 2:
         for t, k in enumerate(ks):
             c, s = R[off + t, :2]
             g[:] = (c, s, -s, c)
             for M, c0 in ((A, j), (B, k - 1)):
-                rows = M[k - 1:k + 1, c0:]
-                rows.copy_(G @ rows)
-            A[k, j] = 0.0
-        for t, k in enumerate(ks):
-            cr, sr = _givens(float(B[k, k]), float(B[k, k - 1]))
-            R[off + t, 2:] = (cr, sr)
+                a0 = max(c0, lo)
+                if a0 < hi:
+                    rows = M[k - 1:k + 1, a0 - lo:hi - lo]
+                    rows.copy_(G @ rows)
+            if lo <= j < hi:
+                A[k, j - lo] = 0.0
+    kmin = max(j + 2, lo + 1)
+    if steps & 4 and kmin <= min(cend - 1, n - 1):
+        kr = range(cend - 1, kmin - 1, -1)
+        for k in kr:
+            cr, sr = _givens(float(B[k, k - lo]), float(B[k, k - 1 - lo]))
+            R[off + n - 1 - k, 2:] = (cr, sr)
             g[:] = (cr, sr, -sr, cr)
-            cols = B[J0 + 1:k + 1, k - 1:k + 1]
+            cols = B[J0 + 1:k + 1, k - 1 - lo:k + 1 - lo]
             cols.copy_(cols @ G)
-            B[k, k - 1] = 0.0
-        for t, k in enumerate(ks):
-            cr, sr = R[off + t, 2:]
+            B[k, k - 1 - lo] = 0.0
+        for k in kr:
+            cr, sr = R[off + n - 1 - k, 2:]
             g[:] = (cr, sr, -sr, cr)
-            cols = A[J0 + 1:, k - 1:k + 1]
+            cols = A[J0 + 1:, k - 1 - lo:k + 1 - lo]
             cols.copy_(cols @ G)
 
 
-def _ht_slivers(rot, n: int, J0: int, J1: int, L: int):
+def _ht_slivers(rot, n: int, J0: int, J1: int, L: int, base: int = 0):
     """Plain twin of the sliver kernel (``gpu_gep.ht_slivers``): the dense
-    factors of block [J0, J1)'s slivers from the log, (S, 2, w, w) with w
-    = L + J1 - J0: [s, 0] accumulates the left rotations as Q takes them
-    (Q <- Q U), [s, 1] the right ones as Z and the rows above take them."""
+    factors of block [J0, J1)'s slivers from the log (its rows from
+    ``base`` on), (S, 2, w, w) with w = L + J1 - J0: [s, 0] accumulates the
+    left rotations as Q takes them (Q <- Q U), [s, 1] the right ones as Z
+    and the rows above take them."""
     wins = sliver_windows(n, J0, J1, L)
     w = L + J1 - J0
     U = torch.eye(w, dtype=rot.dtype).repeat(len(wins), 2, 1, 1)
@@ -234,7 +262,7 @@ def _ht_slivers(rot, n: int, J0: int, J1: int, L: int):
     g = G.numpy().reshape(-1)
     for s, (lo_nom, _lo, _hi) in enumerate(wins, 1):
         for j in range(J0, J1):
-            off = _rot_offset(n, j)
+            off = _rot_offset(n, j) - base
             kmax, kmin = sliver_range(n, J0, L, s, j)
             for k in range(kmax, kmin - 1, -1):
                 c, sn, cr, sr = R[off + n - 1 - k]
@@ -246,18 +274,20 @@ def _ht_slivers(rot, n: int, J0: int, J1: int, L: int):
     return U
 
 
-def ht_blocked(A, B, Q, Z, generate, slivers, nb: int = NB):
+def ht_blocked(A, B, Q, Z, generate, slivers, nb: int = NB, log=None):
     """The blocked reduction of (A, B), B upper triangular, with the given
     generation and sliver steps (the kernels' wrappers or their plain
     twins) over blocks of nb cascades (NB; the tests vary it); the far
-    updates are matrix products.  Returns new (A, B, Q, Z) (the zeros
-    planted)."""
+    updates are matrix products.  ``log``, if a list, receives the rotation
+    log.  Returns new (A, B, Q, Z) (the zeros planted)."""
     n = A.shape[0]
     A, B, Q, Z = (M.contiguous().clone() for M in (A, B, Q, Z))
     if n <= 2:
         return A, B, Q, Z
     L = sliver_len(nb)
     rot = A.new_zeros((_rot_offset(n, n - 2), 4))
+    if log is not None:
+        log.append(rot)
     blks = blocks(n, nb)
     for J0, J1 in blks:
         generate(A, B, rot, J0, J1)

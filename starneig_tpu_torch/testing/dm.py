@@ -295,6 +295,27 @@ def gep_chain(A, B, predicate: str = "finite_right_half"):
                                 (("ht", ht), ("schur", sch), ("reorder", reo))})
 
 
+def ht_stage(A, B):
+    """api.gep_dm.hessenberg_triangular of the column-sharded pencil (A,
+    B), recorded as :func:`gep_chain` records a stage (``stages``); the
+    result: H, T, Q, Z gathered after the stage."""
+    from starneig_tpu_torch.api import gep_dm
+    from starneig_tpu_torch.node import default_mesh
+    from starneig_tpu_torch.parallel import distr_matrix_from_array
+
+    mesh = default_mesh()
+    _warm(mesh)
+    rec = {}
+    Ad, Bd = (distr_matrix_from_array(M, mesh) for M in (A, B))
+    t0 = _stage(mesh)
+    out = _run_stage("hessenberg_triangular",
+                     lambda st: gep_dm.hessenberg_triangular(Ad, Bd, stats=st), mesh, rec)
+    ms = (time.perf_counter() - t0) * 1e3
+    return (dict(zip("HTQZ", (M.to_array() for M in out))),
+            dict(hessenberg_triangular_ms=ms, stats={k: v["stats"] for k, v in rec.items()},
+                 stages=rec))
+
+
 @contextlib.contextmanager
 def staged(module, names, mesh, ms: dict, rec: Optional[dict] = None):
     """Time the stages that ``module``'s functions ``names`` run inside a
@@ -418,7 +439,7 @@ def suite(arrays: dict):
       calls of ``DistrMatrix.full``;
     * ``reduce``: sep_dm.reduce of ``A96`` (Re > 0), with its stats and
       calls of ``DistrMatrix.full``, then sep_dm.eigenvectors of the
-      leading block; ``reduce_rows``: sep_dm.reduce of ``A96``
+      leading block, with its own; ``reduce_rows``: sep_dm.reduce of ``A96``
       sharded by rows, with the specs and shard shapes of S and Q;
     * ``gep``: gep_dm.reduce of (``GA``, ``GB``) (finite, Re > 0).
     """
@@ -515,7 +536,11 @@ def suite(arrays: dict):
                                                    stats=st)
     cnt["reduce_stats"] = {k: v for k, v in st.items() if k != "aed_log"}
     cnt["reduce_full_calls"] = calls[0]
-    X, xinfo = sep_dm.eigenvectors(Sd, Qd, np.arange(Sd.shape[0]) < nsel)
+    st = {}
+    with counting_full() as calls:
+        X, xinfo = sep_dm.eigenvectors(Sd, Qd, np.arange(Sd.shape[0]) < nsel, stats=st)
+    cnt["eigenvectors_stats"] = st
+    cnt["eigenvectors_full_calls"] = calls[0]
     res["reduce"] = dict(S=Sd.to_array(), Q=Qd.to_array(), er=er.numpy(),
                          ei=ei.numpy(), nsel=int(nsel), info=int(info),
                          X=X.to_array(), xinfo=int(xinfo))
@@ -582,7 +607,10 @@ def gep_suite(arrays: dict):
       with its outputs gathered after it: the HT form, the Schur
       form with its eigenvalues, info and rounds, the selection, the
       reordered form with its leading block and info, and reduce's own
-      eigenvalues.
+      eigenvalues; then gep_dm.schur of the given HT form ``HT``
+      (``schur_same``: the pencil gathered, eigenvalues, info, rounds) and
+      (rank 0) the single-process ``gep.schur`` of the chain's own HT form
+      (``sm_own``: eigenvalues, info, rounds).
     """
     import torch
     from starneig_tpu_torch.api import gep_dm
@@ -627,6 +655,22 @@ def gep_suite(arrays: dict):
         reorder=dict(gather(reo[:4]), m=int(reo[4]), info=int(reo[5])),
         final=dict(gather(mats), ar=ar.numpy(), ai=ai.numpy(), bt=bt.numpy(),
                    nsel=int(nsel), info=int(info)))
+    st = {}
+    same = gep_dm.schur(*(arrays["HT"][k] for k in "STQZ"), stats=st)
+    res["gep"]["schur_same"] = dict(gather(same[:4]), ar=same[4].numpy(), ai=same[5].numpy(),
+                                    bt=same[6].numpy(), info=int(same[7]),
+                                    rounds=st.get("rounds"))
+    if mesh.rank == 0:
+        # the single-process QZ of the chain's own HT form, the reference of
+        # its QZ on shards (the HT on shards agrees with the single-process
+        # one to rounding, and a pencil's spectrum may be ill-conditioned)
+        from starneig_tpu_torch.api import gep as _gep
+        st = {}
+        out = _gep.schur(*(torch.as_tensor(M) for M in res["gep"]["ht"].values()),
+                         stats=st, device=mesh.device)
+        res["gep"]["sm_own"] = dict(ar=out[4].cpu().numpy(), ai=out[5].cpu().numpy(),
+                                    bt=out[6].cpu().numpy(), info=int(out[7]),
+                                    rounds=st["rounds"])
     cnt["gep_stages"] = {
         k: dict(full_calls=v["full_calls"],
                 stats={s_: x for s_, x in v["stats"].items() if s_ != "qz_log"},
@@ -635,4 +679,60 @@ def gep_suite(arrays: dict):
                 if isinstance(v["out"], tuple) else [])
         for k, v in rec.items()}
     cnt["gep_full_calls"] = calls[0]
+    return res, cnt
+
+
+
+def shard_suite(arrays: dict):
+    """The CPU job of the DM tests of the stages that PR 20 left gathered:
+    one spawn serves them.
+
+    * ``ht``: the cascade on column shards (``dm_ht.ht_cascade_dm``) of the
+      triangularized pencil ``tri`` (A1, R, Q1, Z1), gathered after it,
+      with its rotation log (the blocks' gathered logs); then ``gep_dm.hessenberg_triangular`` of the
+      pencil (``HA``, ``HB``) as column-sharded DistrMatrix, gathered,
+      with its stats, its calls of ``DistrMatrix.full`` and its shard
+      shapes;
+    * ``eig``: for each case of ``eig_cases`` ((name, S, T or None, Q, Z,
+      selection)), ``sep_dm.eigenvectors`` (T None) or
+      ``gep_dm.eigenvectors`` of the column-sharded Schur form, X
+      gathered, with its info, spec, stats and calls of
+      ``DistrMatrix.full``.
+    """
+    import torch
+    from starneig_tpu_torch.api import gep_dm, sep_dm
+    from starneig_tpu_torch.node import default_mesh
+    from starneig_tpu_torch.parallel import distr, dm_ht
+    from starneig_tpu_torch.parallel.dm_core import gathered
+
+    mesh = default_mesh()
+    res, cnt = {}, {}
+    tri = [distr.shard_of(torch.as_tensor(M), mesh, "cols") for M in arrays["tri"]]
+    n = tri[0].shape[0]
+    st = {}
+    log = []
+    with counting_full() as calls:
+        outs = dm_ht.ht_cascade_dm(*tri, mesh, st, log=log)
+    res["cascade"] = dict(zip("ATQZ", (gathered(M, n, mesh).numpy() for M in outs)),
+                          rot=torch.cat(log).numpy())
+    cnt["cascade"] = dict(stats=st, full_calls=calls[0])
+    Ad, Bd = (distr.distr_matrix_from_array(arrays[k], mesh) for k in ("HA", "HB"))
+    st = {}
+    with counting_full() as calls:
+        ht = gep_dm.hessenberg_triangular(Ad, Bd, stats=st)
+    res["ht"] = {k: M.to_array() for k, M in zip("HTQZ", ht)}
+    cnt["ht"] = dict(stats=st, full_calls=calls[0],
+                     shards=[tuple(M.data.shape) for M in ht], specs=[M.spec for M in ht])
+    res["eig"], cnt["eig"] = {}, {}
+    for name, S, T, Q, Z, sel in arrays["eig_cases"]:
+        mats = [distr.distr_matrix_from_array(M, mesh) if M is not None else None
+                for M in (S, T, Q, Z)]
+        st = {}
+        with counting_full() as calls:
+            if T is None:
+                X, info = sep_dm.eigenvectors(mats[0], mats[2], sel, stats=st)
+            else:
+                X, info = gep_dm.eigenvectors(*mats, sel, stats=st)
+        res["eig"][name] = dict(X=X.to_array(), info=int(info), spec=X.spec)
+        cnt["eig"][name] = dict(stats=st, full_calls=calls[0], shard=tuple(X.data.shape))
     return res, cnt

@@ -16,9 +16,10 @@ numpy arrays made from seeds.  Tolerances:
   * eigenvectors: residual ||A x - lambda x|| / (||A||_F ||x||) < 1e-10;
   * pencils: both residuals and orthogonalities < 500 u, exact structure,
     the spectrum within 1e-10 max|lambda| of JAX's;
-  * the sharded stages (``schur``, ``reorder_schur``, ``reduce``): no call
-    of ``DistrMatrix.full``, no message above one panel of S and one of Q
-    (2 x NP x max(WA, WC, W) float64, plus O(NP) vectors);
+  * the sharded stages (``schur``, ``reorder_schur``, ``reduce``,
+    ``eigenvectors``): no call of ``DistrMatrix.full``, no message above
+    one panel of S and one of Q (2 x NP x max(WA, WC, W) float64, plus
+    O(NP) vectors);
   * the sharded Hessenberg reduction (n=96, panel width 20, so that
     panels straddle the shard edges at 48 and at 24, 48, 72): H within
     1e-11 ||A||_F and Q within 1e-11 of JAX's ``sep_dm.hessenberg`` and
@@ -342,24 +343,24 @@ def test_reorder_dm(ranks, ref):
 
 
 def test_sep_dm_stages_gather_nothing(ranks):
-    """sep_dm.schur, reorder_schur and reduce (whole inputs, so the chain
-    never needs one) call no DistrMatrix.full, and no message is larger
-    than one panel of S and one of Q: 2 x NP x max(WA, WC, W) float64,
-    plus O(NP) vectors in the owner's hand-outs (the status, the
-    windows' selections); the padded shards follow dm_core.pad_cuts, the
-    output shards numpy.array_split."""
+    """sep_dm.schur, reorder_schur, reduce (whole inputs, so the chain
+    never needs one) and eigenvectors (of reduce's column shards) call no
+    DistrMatrix.full, and no message is larger than one panel of S and one
+    of Q: 2 x NP x max(WA, WC, W) float64, plus O(NP) vectors in the
+    owner's hand-outs (the status, the windows' selections); the padded
+    shards follow dm_core.pad_cuts, the output shards numpy.array_split."""
     nd, _res, cnt = ranks
     for c in cnt:
         r = c["rank"]
         assert (c["schur_full_calls"], c["reorder_full_calls"],
-                c["reduce_full_calls"]) == (0, 0, 0)
+                c["reduce_full_calls"], c["eigenvectors_full_calls"]) == (0, 0, 0, 0)
         st, ro, red = c["schur_stats"], c["reorder_stats"], c["reduce_stats"]
         NP, W = st["NP"], ro["W"]
         assert st["cuts"][0] == 0 and st["cuts"][-1] == NP
         assert [b - a for a, b in zip(st["cuts"], st["cuts"][1:])][r] == \
             st["shard_shape"][1]
         bound = 8 * (2 * NP * max(st["WA"], st["WC"], W) + 8 * NP)
-        for stats in (st, ro, red):
+        for stats in (st, ro, red, c["eigenvectors_stats"]):
             assert 0 < stats["collective_max_bytes"] <= bound, (stats, bound)
         assert c["reduce_shards"]["S"] == (N, len(np.array_split(np.arange(N), nd)[r]))
 

@@ -6,23 +6,26 @@ PyTorch is installed:
 
     python -m pytest --noconftest tests/test_torch_dm_card.py
 
-``sep_dm`` at n=1,200 on 2 ranks: hessenberg, schur and reorder_schur on
-column shards, eigenvectors (rank 0), held to the
+``sep_dm`` at n=1,200 on 2 ranks: hessenberg, schur, reorder_schur and
+eigenvectors on column shards, held to the
 reference's gates (info 0, residual and orthogonality < 500 u, exact
 standardized Schur form before and after the reordering, the leading
 block exactly the eigenvalues with Re > 0, eigenvector residuals < 1e-10),
 to the single-process ``sep.schur`` on the card (spectrum within 1e-10
 max|lambda|), and to the owner rule: rank 0 launched every kernel of the
 path, rank 1 only B1 (on its own columns in the sharded Hessenberg
-reduction), and both ranks held the same V and T in every panel.  Each
-padded Schur shard holds the columns ``dm_core.pad_cuts`` gives its rank.
+reduction) and E1 where it solved rows of a selected vector (each rank
+that did launched E1 once), and both ranks held the same V and T in every
+panel.  Each padded Schur shard holds the columns ``dm_core.pad_cuts``
+gives its rank.
 
 ``gep_dm`` at n=1,200 on 2 ranks (``known_spectrum_pencil(1200, 0.3, 0.1,
-seed 0)``): hessenberg_triangular (rank 0), schur and reorder_schur on
-column shards, select, eigenvectors (rank 0), held to the same gates, to
-the single-process ``gep.schur`` on the card (spectrum within 1e-10
-chordal, rounds within 2), to the owner rule (rank 0 launched every
-kernel, rank 1 none), and with no ``DistrMatrix.full`` call in a sharded
+seed 0)``): hessenberg_triangular, schur, reorder_schur and eigenvectors
+on column shards, select from the diagonals, held to the same gates, to
+the single-process ``gep.schur`` of the chain's HT form on the card
+(spectrum within 1e-10 chordal, rounds within 2), to the owner rule (rank
+0 launched every window kernel; every rank G1 on its own columns, and E2 where it solved
+rows of a selected vector), and with no ``DistrMatrix.full`` call in any
 stage and each rank's peak memory there below its shards plus two whole
 n x n float64 matrices.
 """
@@ -76,8 +79,12 @@ def test_sep_dm_chain_two_ranks(cuda):
               "reorder_bubble"):
         assert cnt[0]["launches"][k] > 0, k
     assert cnt[1]["launches"]["hess_gemv"] > 0, cnt[1]["launches"]
-    assert not any(v for k, v in cnt[1]["launches"].items() if k != "hess_gemv"), \
-        cnt[1]["launches"]
+    assert not any(v for k, v in cnt[1]["launches"].items()
+                   if k not in ("hess_gemv", "eig_backsolve")), cnt[1]["launches"]
+    for c in cnt:
+        solved = c["stages"]["eigenvectors"]["stats"]["eig_vectors"] > 0
+        assert c["launches"]["eig_backsolve"] == int(solved), (c["rank"], c["launches"])
+        assert c["stages"]["eigenvectors"]["full_calls"] == 0
     assert len({c["stats"]["hessenberg"]["vt_sha256"] for c in cnt}) == 1
 
 
@@ -100,18 +107,26 @@ def test_gep_dm_chain_two_ranks(cuda):
     assert lead_ok and rest == 0 and r["m"] == r["selected"]
     assert hooks.eigenvector_residual_gep(A, B, r["reorder"]["S"], r["reorder"]["T"],
                                           r["X"], np.arange(n) < r["m"]) < 1e-10
+    # the single-process QZ of the chain's own HT form (the HT on shards
+    # agrees with the single-process one to rounding, and this pencil's B
+    # is singular: its spectrum moves by far more than 1e-10 under rounding)
     st = {}
-    out = gep.schur(*gep.hessenberg_triangular(A, B, device=cuda), stats=st, device=cuda)
+    out = gep.schur(*(torch.as_tensor(r["ht"][k], device=cuda) for k in "STQZ"), stats=st,
+                    device=cuda)
     sm = [x.cpu().numpy() for x in out[4:7]]
     assert hooks.chordal_eigenvalue_error(r["ar"], r["ai"], r["bt"], sm[0] + 1j * sm[1],
                                           sm[2]) * U < 1e-10
     assert abs(r["rounds"] - st["rounds"]) <= 2, (r["rounds"], st["rounds"])
     for k in ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
-              "inf_chase", "reorder_bubble_gep", "eig_backsolve_gep"):
+              "inf_chase", "reorder_bubble_gep"):
         assert cnt[0]["launches"][k] > 0, k
-    assert not any(cnt[1]["launches"].values()), cnt[1]["launches"]
+    assert cnt[1]["launches"]["ht_cascade"] > 0, cnt[1]["launches"]
+    assert not any(v for k, v in cnt[1]["launches"].items()
+                   if k not in ("ht_cascade", "eig_backsolve_gep")), cnt[1]["launches"]
     for c in cnt:
-        for stage in ("schur", "select", "reorder"):
+        solved = c["stages"]["eigenvectors"]["stats"]["eig_vectors"] > 0
+        assert c["launches"]["eig_backsolve_gep"] == int(solved), (c["rank"], c["launches"])
+        for stage in ("hessenberg_triangular", "schur", "select", "reorder", "eigenvectors"):
             rec = c["stages"][stage]
             assert rec["full_calls"] == 0, stage
             assert rec["peak_bytes"] < rec["shard_bytes"] + 2 * 8 * n * n, (stage, rec)
