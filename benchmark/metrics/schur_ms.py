@@ -1,0 +1,8 @@
+"""schur_ms: milliseconds a problem inside the `sep.schur` call, which the
+traced run ends in a synchronize."""
+
+from harness.readers import span_ms
+
+
+def read(run):
+    return span_ms(run, "sep.schur")
