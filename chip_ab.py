@@ -19,6 +19,7 @@
     python3 chip_ab.py backsolve [--n N] ROOT [ROOT ...]
     python3 chip_ab.py backsolvegep [--n N] ROOT [ROOT ...]
     python3 chip_ab.py regimes [--n N] [--out PATH]
+    python3 chip_ab.py spans CELL[,CELL ...] [--seconds S] [--seed N] [--pairs K] [--out PATH]
 
 Each extra source is another version of a kernel in ``kernels/csrc/``
 (``francis.cu`` B2, ``hess_gemv.cu`` B1, ``aed_deflate.cu`` B4,
@@ -176,6 +177,19 @@ SEP and GEP chains on the card, each phase under ``torch.profiler``:
 every kernel's launches, device total and the bound of its launches
 where their counts follow from the arguments, and one launch a kernel at
 its largest regime timed alone beside its bound (``regimes`` below).
+
+spans: each benchmark cell (``BENCHMARK.json``'s ``workloads``, run by
+``benchmark/harness/cell.py``'s traced window: a synchronize at the end
+of each step, ``torch.profiler`` over the window) in 2 K windows of S
+seconds (default 51, K 1), the program's tracer on and off in turns (on,
+off, off, on, ...; each pair on one seed), after one warm-up problem.  For each window: the time
+a problem, the device's idle share, ``kernels.LAUNCHES`` a problem beside
+the program's kernels in the device trace a problem (``kernels.kernel_names``),
+the drivers' chase steps, and, where the tracer was on, each step's idle
+time put down to the innermost program span over each part of it
+(:func:`idle_by_span`; the part under no span stays under the step's
+name) with the program's spans a problem.  One ``SPANS`` JSON line a
+window (and to ``--out``).
 
 Prints the card's name and power limit first; exits nonzero if a check
 fails.  Needs a CUDA card and nvcc (bitwise on the CPU needs neither).
@@ -3192,6 +3206,150 @@ def regimes(args) -> bool:
                and k != "gep_reorder")
 
 
+def innermost(spans):
+    """Disjoint [start, end, label] segments of the time some span covers,
+    sorted, each labelled with the innermost span there: of the spans
+    covering it, the one that started last (the shorter on a tie).  The
+    program's spans nest, as context managers on one thread do."""
+    import heapq
+    cuts = sorted({t for _n, s, e in spans for t in (s, e)})
+    order = sorted(spans, key=lambda x: (x[1], -x[2]))
+    heap, out, k = [], [], 0
+    for a, b in zip(cuts, cuts[1:]):
+        while k < len(order) and order[k][1] <= a:
+            label, s, e = order[k]
+            heapq.heappush(heap, (-s, e, label))
+            k += 1
+        while heap and heap[0][1] <= a:
+            heapq.heappop(heap)
+        if heap:
+            who = heap[0][2]
+            if out and out[-1][2] == who and out[-1][1] == a:
+                out[-1][1] = b
+            else:
+                out.append([a, b, who])
+    return out
+
+
+def _parts(segs, ends, a: int, b: int):
+    """The parts of the sorted disjoint segments (start, end, label) inside
+    [a, b), clipped; ``ends`` their ends."""
+    import bisect
+    i = bisect.bisect_right(ends, a)
+    while i < len(segs) and segs[i][0] < b:
+        s, e, label = segs[i]
+        yield max(s, a), min(e, b), label
+        i += 1
+
+
+def idle_by_span(events, spans, program_spans, window) -> dict:
+    """{step: {label: ns}}: the device's idle time inside each step span
+    (``spans``' entries other than "problem"), each part put down to the
+    innermost of ``program_spans`` over it, the rest under the step's own
+    name.  All three are (name, start_ns, end_ns) on one clock; events are
+    the device's operations, window (start_ns, end_ns).  A step's labels
+    sum to the idle time ``benchmark/harness/trace.py:reduce`` puts down to
+    it (``benchmark/`` on the path: its ``merge`` is used)."""
+    from harness.trace import merge
+    lo, hi = window
+    busy = merge([(max(s, lo), min(e, hi)) for _n, s, e in events if e > lo and s < hi])
+    idle, cur = [], lo
+    for s, e in busy + [[hi, hi]]:
+        if s > cur:
+            idle.append((cur, s, None))
+        cur = max(cur, e)
+    inner = innermost(program_spans)
+    idle_ends, inner_ends = [e for _s, e, _x in idle], [e for _s, e, _x in inner]
+    out = {}
+    for step, s, e in spans:
+        if step == "problem":
+            continue
+        acc = out.setdefault(step, {})
+        for a, b, _x in _parts(idle, idle_ends, s, e):
+            rest = b - a
+            for c, d, label in _parts(inner, inner_ends, a, b):
+                acc[label] = acc.get(label, 0) + (d - c)
+                rest -= d - c
+            if rest:
+                acc[step] = acc.get(step, 0) + rest
+    return out
+
+
+def spans_window(hcell, cell, conf, seed: int, seconds: float, dev, tracer_on: bool) -> dict:
+    """One traced window of the cell (``harness.cell.window``), the
+    program's tracer on or off: the figures ``spans`` prints."""
+    from harness import trace as htrace
+    from starneig_tpu_torch.tools import trace as ptrace
+    run = hcell.Run()
+    l0 = sum(kernels.LAUNCHES.values())
+    with htrace.DeviceTrace() as tr:
+        if tracer_on:
+            ptrace.enable_tracing()
+        _keep, spans, bounds = hcell.window(cell, conf, seed, seconds, dev, True, run)
+        ptrace.disable_tracing()
+    launches = sum(kernels.LAUNCHES.values()) - l0
+    del _keep
+    names = kernels.kernel_names()
+    nprog = sum(1 for n, _s, _e in tr.events if htrace.short_name(n).split("<")[0] in names)
+    red = htrace.reduce(tr.events, spans, bounds)
+    P = run.problems
+    row = {"cell": cell["name"], "seed": seed, "tracer": tracer_on, "problems": P,
+           "solve_ms": run.window_s / P * 1e3, "problems_ms": [d * 1e3 for d in run.durations],
+           "device_idle_pct": 100 * (1 - red["busy_s"] / red["window_s"]),
+           "launches_per_solve": launches / P, "program_kernels_per_solve": nprog / P,
+           "launches_match": launches == nprog,
+           "idle_gaps_ms_per_solve": {k: v * 1e3 / P for k, v in red["idle_gaps"]},
+           "chase_steps_per_solve": {step: sum(st.get("chase_steps", 0) for st in v) / P
+                                     for step, v in run.stats.items()
+                                     if any("chase_steps" in st for st in v)}}
+    if tracer_on:
+        prog = ptrace.events_ns()
+        counts = {}
+        for label, _s, _e in prog:
+            counts[label] = counts.get(label, 0) + 1
+        row["spans_per_solve"] = {k: v / P for k, v in sorted(counts.items())}
+        by = idle_by_span(tr.events, spans, prog, bounds)
+        row["idle_ms_per_solve"] = {step: {k: v / 1e6 / P for k, v in sorted(
+            d.items(), key=lambda kv: -kv[1])} for step, d in by.items()}
+        row["step_remainder_pct"] = {step: 100 * d.get(step, 0) / sum(d.values())
+                                     for step, d in by.items() if sum(d.values())}
+    return row
+
+
+def spans(args) -> bool:
+    """CELL[,CELL ...] [--seconds S] [--seed N] [--pairs K] [--out PATH]:
+    see the module docstring."""
+    import json
+    sys.path.insert(0, str(ROOT / "benchmark"))
+    from harness import cell as hcell, program as hprog, spec
+    from reference import generators
+    cells = args[0].split(",")
+    opt = dict(zip(args[1::2], args[2::2]))
+    seconds = float(opt.get("--seconds", 51))
+    seed = int(opt.get("--seed", 2 ** 31 + 4242))
+    pairs = int(opt.get("--pairs", 1))
+    out_path = opt.get("--out")
+    dev = torch.device("cuda")
+    hprog.build_kernels()
+    ok = True
+    for name in cells:
+        cell = spec.workload(name)
+        conf = spec.config(cell["config"])
+        warm = generators.make_inputs(conf, generators.problem_seed(seed, -1), dev)
+        hcell.solve(cell, conf, warm, dev, False, hcell.Run(), [])
+        del warm
+        order = [k % 4 in (0, 3) for k in range(2 * pairs)]
+        for k, on in enumerate(order):     # a window on and one off share a seed
+            row = spans_window(hcell, cell, conf, seed + k // 2, seconds, dev, on)
+            line = json.dumps(row)
+            print("SPANS " + line, flush=True)
+            if out_path:
+                with open(out_path, "a") as f:
+                    f.write(line + "\n")
+            ok &= row["launches_match"]
+    return ok
+
+
 MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
@@ -3199,7 +3357,7 @@ MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "htwin": ab_htwin, "infchase": ab_infchase, "panel": ab_panel,
          "backsolve": ab_backsolve,
          "backsolvegep": lambda args: ab_backsolve(args, "backsolvegep"),
-         "regimes": regimes}
+         "regimes": regimes, "spans": spans}
 # the per-ROOT workers, by mode: (root, *the mode's arguments as strings)
 PER_ROOT = {"mainpath": lambda root, n: mainpath_one(root, int(n)),
             "bitwise": lambda root, n, device: bitwise_one(root, int(n), device),

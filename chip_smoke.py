@@ -1901,8 +1901,8 @@ def phase_qz_window(dev):
         H, T = (torch.as_tensor(x, device=dev) for x in (Hn, Tn))
         eye = torch.eye(w, dtype=torch.float64, device=dev)
         th, tt = U / 2 * np.linalg.norm(Hn), U / 2 * np.linalg.norm(Tn)
-        st = {}
-        got = gpu_gep.qz_window(H, T, eye, eye, w, th, tt, stats=st)
+        *got, ksteps = gpu_gep.qz_window(H, T, eye, eye, w, th, tt, with_steps=True)
+        st = {"chase_steps": int(ksteps)}
         ck = qz_contract(Hn, Tn, got)
         if w == 322:
             # the GEP n=4000 path's AED window: by contract alone; its plain
@@ -2387,8 +2387,8 @@ def phase_gep(dev):
     log(f"  GEP n={n}: info {int(info)} ht_ms {ht_ms:.1f} (warm, outside the profiler; the "
         f"first, cold call {ht_first_ms:.1f} ms under it; G1's kernels {ht_kernel_ms:.1f} ms "
         f"device time under the profiler, {ht_kernel_ms / steps * 1e3:.3f} us a cascade step, "
-        f"the deferred products not included; {ht_calls} wrapper calls, "
-        f"{ht_kernel_launches} kernel launches; "
+        f"the deferred products not included; {ht_calls} kernels counted, "
+        f"{ht_kernel_launches} kernel launches traced; "
         f"G1's bound {ht_bound:.2f} ms, {ht_by}) "
         f"qz_ms {qz_ms:.1f}; residual A {ra:.1f}u "
         f"B {rb:.1f}u, orthogonality Q {oq:.1f}u Z {oz:.1f}u, structure S {fs} T {ft}; "

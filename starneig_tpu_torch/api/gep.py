@@ -52,7 +52,8 @@ def schur(H, T, Q=None, Z=None, conf: Optional[SchurConf] = None,
 
     Returns (S, T, Q, Z, alpha_r, alpha_i, beta, info); beta == 0 marks an
     infinite eigenvalue.  Above the small limit the multishift QZ driver
-    with AED runs; ``stats``, if a dict, receives its geometry and rounds.
+    with AED runs; ``stats``, if a dict, receives its geometry and rounds,
+    and on either path ``chase_steps``, the window QZ solves' chase steps.
     """
     dev = _device(device)
     H, T = _to(H, dev), _to(T, dev)
@@ -67,11 +68,12 @@ def schur(H, T, Q=None, Z=None, conf: Optional[SchurConf] = None,
     u = torch.finfo(torch.float64).eps / 2
     th = u * float(torch.linalg.norm(H))
     tt = u * float(torch.linalg.norm(T))
-    S, Tt, Qo, Zo, info_i = _qz.small_qz(H, T, Qm, Zm, n, th, tt)
+    S, Tt, Qo, Zo, info_i, steps = _qz.small_qz(H, T, Qm, Zm, n, th, tt, with_steps=True)
     ar, ai, bt = extract_eigenvalues_gen(S, Tt)
-    info = Error.SUCCESS if int(info_i) == 0 else Error.DID_NOT_CONVERGE
+    info_i, steps = torch.stack([info_i, steps]).tolist()
+    info = Error.SUCCESS if info_i == 0 else Error.DID_NOT_CONVERGE
     if stats is not None:
-        stats.update(path="small", rounds=0)
+        stats.update(path="small", rounds=0, chase_steps=steps)
     return S, Tt, Qo, Zo, ar, ai, bt, info
 
 

@@ -8,9 +8,11 @@ exception.  Nothing here runs at import: :func:`lib` builds (once per
 source content, cached under ``_build/``) and loads the library the first
 time a wrapper launches a kernel on a CUDA tensor.
 
-``LAUNCHES`` counts kernel launches per kernel: each wrapper adds one where
-it launches, and nowhere else, so a run can show which kernels it went
-through.
+``LAUNCHES`` counts kernel launches per kernel: each wrapper adds, where
+it calls its C entry and nowhere else, the kernels that entry launches,
+computed on the host from the call's arguments (one for most entries; G1's
+generation four a cascade, its window mode a chain and a replay), so a
+run's count equals the program's kernels in a device trace.
 """
 
 from __future__ import annotations
@@ -90,6 +92,19 @@ build_seconds = None
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kernel_names() -> frozenset:
+    """The names of the ``__global__`` functions ``csrc/`` defines: the
+    program's kernels, as a device trace names them (templates without
+    their arguments)."""
+    import re
+    names = set()
+    for p in _sources():
+        text = re.sub(r"//[^\n]*", "", p.read_text())
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(", text))
+    return frozenset(names)
 
 
 def _nvcc() -> str:

@@ -49,7 +49,8 @@
 // migrates into later decisions); rows below k+3 and columns left of k-1
 // are exactly zero there and skipped.  The deflation scan, the shifts and
 // the 2x2 standardization are whole-block phases between sweeps, and a
-// sweep's last block drains the pipeline.
+// sweep's last block drains the pipeline.  info = {0 or the failing row + 1,
+// the chase steps run}: a sweep over [l, i] is i - l steps.
 //
 // The chain itself is kept short: the chase warp's reflector
 // (chase_reflector) takes one square root and one reciprocal of
@@ -154,7 +155,7 @@ francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
   __shared__ double s_win[kBlockSteps + 4][kBlockSteps + 5];
   extern __shared__ double s_tiles[];  // a 32 x kTileLd tile per update warp
 
-  int i = m - 1, its = 0, total = 0;
+  int i = m - 1, its = 0, total = 0, steps = 0;
   bool failed = false;
 
   while (i >= ilo && !failed && total < maxiter) {
@@ -233,6 +234,7 @@ francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
     __syncthreads();
 
     // one bulge chase over the active block [l, i], in blocks of steps
+    steps += i - l;
     const int nblk = (i - l + kBlockSteps - 1) / kBlockSteps;
     if (warp == 0) {
       // ---- the chase warp ----
@@ -385,7 +387,10 @@ francis_kernel(double* __restrict__ H, double* __restrict__ Z, int w, int m,
     total += 1;
     failed = its >= kItmaxPerBlock;
   }
-  if (tid == 0) info[0] = failed ? i + 1 : 0;
+  if (tid == 0) {
+    info[0] = failed ? i + 1 : 0;
+    info[1] = steps;
+  }
 }
 
 constexpr int kTileBytes = (kThreads / 32 - 1) * 32 * kTileLd * sizeof(double);

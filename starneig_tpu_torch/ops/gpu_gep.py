@@ -61,6 +61,19 @@ def ht_cascade(A, B, Q, Z):
     return ht_blocked(A, B, Q, Z, ht_generate, ht_slivers)
 
 
+def ht_step_launches(n: int, ld: int, lo: int, hi: int, j: int, steps: int) -> int:
+    """The kernels ``ht_step`` (``ht_cascade.cu``) launches for cascade j
+    with the step mask ``steps`` on a buffer of the columns lo .. lo+ld-1
+    (lo .. hi-1 its own): the left rotations' generation, the left pass
+    where it has columns, the right chain and its pass where the chain has
+    rows; none past the last cascade (4 a cascade on a whole pencil)."""
+    if j + 2 > n - 1:
+        return 0
+    left = max(hi - max(j, lo), 0) + max(hi - max(j + 1, lo), 0) > 0
+    right = max(j + 2, lo + 1) <= min(lo + ld - 1, n - 1)
+    return (steps & 1 != 0) + (steps & 2 != 0 and left) + 2 * (steps & 4 != 0 and right)
+
+
 def ht_generate(A, B, rot, J0: int, J1: int):
     """Kernel G1's generation of cascades J0 .. J1-1 on CUDA tensors, in
     place: A's and B's rows J0+1 .. take the cascades' rotations, logged
@@ -69,7 +82,8 @@ def ht_generate(A, B, rot, J0: int, J1: int):
     kernels.require_cuda_f64("ht_generate", A, B, rot)
     work = A.new_empty(max(n, 1))
     lib = kernels.lib()
-    kernels.LAUNCHES["ht_cascade"] += 1
+    kernels.LAUNCHES["ht_cascade"] += sum(ht_step_launches(n, n, 0, n, j, 7)
+                                          for j in range(J0, J1))
     kernels.check(lib.ht_generate(A.data_ptr(), B.data_ptr(), rot.data_ptr(),
                                   work.data_ptr(), n, int(J0), int(J1),
                                   kernels.stream_ptr(A)),
@@ -95,7 +109,7 @@ def ht_generate_shard(A, B, rot, work, n: int, lo: int, hi: int, j: int, J0: int
         raise ValueError(f"ht_generate_shard: buffers {tuple(A.shape)}, "
                          f"{tuple(B.shape)} do not hold the columns [{lo}, {hi})")
     lib = kernels.lib()
-    kernels.LAUNCHES["ht_cascade"] += 1
+    kernels.LAUNCHES["ht_cascade"] += ht_step_launches(n, ld, lo, hi, j, steps)
     kernels.check(lib.ht_generate_shard(A.data_ptr(), B.data_ptr(), rot.data_ptr(),
                                         work.data_ptr(), n, ld, int(lo), int(hi), int(j),
                                         int(J0), int(steps), int(base), kernels.stream_ptr(A)),
@@ -145,7 +159,7 @@ def ht_recondense(Sw, Tw, Qw, Zw, s: float, kbot: int, smem_cap: int = 0):
     log = S.new_empty(max(2 * kbot * (kbot - 1), 1))
     kernels.require_cuda_f64("ht_recondense", S, T, Q, Z)
     lib = kernels.lib()
-    kernels.LAUNCHES["ht_recondense"] += 1
+    kernels.LAUNCHES["ht_recondense"] += 2 if kbot >= 2 else 1   # the chain, the replay
     kernels.check(lib.ht_recondense(S.data_ptr(), T.data_ptr(), Q.data_ptr(),
                                     Z.data_ptr(), t_scratch.data_ptr(), log.data_ptr(),
                                     WA, int(kbot), float(s), beta.data_ptr(),
@@ -155,11 +169,11 @@ def ht_recondense(Sw, Tw, Qw, Zw, s: float, kbot: int, smem_cap: int = 0):
 
 
 def qz_window(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0,
-              stats=None):
+              with_steps: bool = False):
     """Kernel G2: the window QZ machine on the active m x m block of CUDA
     tensors (contract of :func:`starneig_tpu_torch.ops.qz.small_qz`).
-    Returns (S, Tt, Q, Z, info); with a ``stats`` dict, also sets
-    ``stats["chase_steps"]``, the sweeps' chase steps (a device read)."""
+    Returns (S, Tt, Q, Z, info), and with ``with_steps`` also the sweeps'
+    chase steps (a 0-d int32 tensor on the card, written beside info)."""
     w = _check_square("qz_window", H, T, Q, Z)
     WP = w + 3
     Hp = H.new_zeros((WP, WP))
@@ -178,10 +192,9 @@ def qz_window(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0,
                                 Zp.data_ptr(), w, int(m), float(thresh_h),
                                 float(thresh_t), info.data_ptr(),
                                 kernels.stream_ptr(H)), "qz_window")
-    if stats is not None:
-        stats["chase_steps"] = int(info[1])
-    return (Hp[:w, :w].contiguous(), Tp[:w, :w].contiguous(),
-            Qp[:, :w].contiguous(), Zp[:, :w].contiguous(), info[0])
+    out = (Hp[:w, :w].contiguous(), Tp[:w, :w].contiguous(),
+           Qp[:, :w].contiguous(), Zp[:, :w].contiguous(), info[0])
+    return (*out, info[1]) if with_steps else out
 
 
 def qz_sweep(Sw, Tw, shifts, l_rel: int, ihi_rel: int, s0: int, B: int,

@@ -33,10 +33,11 @@ def _ints(values):
 
 
 def francis(H, Z, m: int, thresh: float = 0.0, ilo: int = 0,
-            max_total_iter: int = 0):
+            max_total_iter: int = 0, with_steps: bool = False):
     """Kernel B2: Francis double-shift QR on the active m x m block of CUDA
     tensors (contract of :func:`starneig_tpu_torch.ops.small_schur.small_schur`).
-    Returns (S, Z, info)."""
+    Returns (S, Z, info), and with ``with_steps`` also the chase steps the
+    sweeps ran (a 0-d int32 tensor on the card, written beside info)."""
     w = H.shape[0]
     if max_total_iter == 0:
         max_total_iter = 30 * w
@@ -44,14 +45,15 @@ def francis(H, Z, m: int, thresh: float = 0.0, ilo: int = 0,
     Hp[:w, :w] = H
     Zp = H.new_zeros((w, w + 2))
     Zp[:, :w] = Z
-    info = torch.zeros(1, dtype=torch.int32, device=H.device)
+    info = torch.zeros(2, dtype=torch.int32, device=H.device)
     kernels.require_cuda_f64("francis", Hp, Zp)
     lib = kernels.lib()
     kernels.LAUNCHES["francis"] += 1
     kernels.check(lib.francis(Hp.data_ptr(), Zp.data_ptr(), w, m, ilo,
                               max_total_iter, float(thresh), info.data_ptr(),
                               kernels.stream_ptr(H)), "francis")
-    return Hp[:w, :w].contiguous(), Zp[:, :w].contiguous(), info[0]
+    out = (Hp[:w, :w].contiguous(), Zp[:, :w].contiguous(), info[0])
+    return (*out, info[1]) if with_steps else out
 
 
 def train_hops(Wnds, shifts, gidx, l_rel, ihi_rel, s0, B: int, HOP: int):

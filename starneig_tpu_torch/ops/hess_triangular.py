@@ -27,6 +27,7 @@ import torch
 
 from starneig_tpu_torch.ops import gpu_gep
 from starneig_tpu_torch.ops import primitives as prim
+from starneig_tpu_torch.tools.trace import trace_span
 
 
 def rot_rows(M, i: int, c, s):
@@ -279,7 +280,9 @@ def ht_blocked(A, B, Q, Z, generate, slivers, nb: int = NB, log=None):
     generation and sliver steps (the kernels' wrappers or their plain
     twins) over blocks of nb cascades (NB; the tests vary it); the far
     updates are matrix products.  ``log``, if a list, receives the rotation
-    log.  Returns new (A, B, Q, Z) (the zeros planted)."""
+    log.  A block's generation, and then its slivers and deferred
+    products, are each a span ``ht.block`` (``tools/trace.py``).  Returns
+    new (A, B, Q, Z) (the zeros planted)."""
     n = A.shape[0]
     A, B, Q, Z = (M.contiguous().clone() for M in (A, B, Q, Z))
     if n <= 2:
@@ -290,16 +293,18 @@ def ht_blocked(A, B, Q, Z, generate, slivers, nb: int = NB, log=None):
         log.append(rot)
     blks = blocks(n, nb)
     for J0, J1 in blks:
-        generate(A, B, rot, J0, J1)
+        with trace_span("ht.block", (J0, J0, n - J0, J1 - J0)):
+            generate(A, B, rot, J0, J1)
     for J0, J1 in blks:
-        U = slivers(rot, n, J0, J1, L)
-        for s, (lo_nom, lo, hi) in enumerate(sliver_windows(n, J0, J1, L)):
-            a, b = lo - lo_nom, hi - lo_nom
-            UQ, UZ = U[s, 0, a:b, a:b], U[s, 1, a:b, a:b]
-            Q[:, lo:hi] = Q[:, lo:hi] @ UQ
-            Z[:, lo:hi] = Z[:, lo:hi] @ UZ
-            A[:J0 + 1, lo:hi] = A[:J0 + 1, lo:hi] @ UZ
-            B[:J0 + 1, lo:hi] = B[:J0 + 1, lo:hi] @ UZ
+        with trace_span("ht.block", (0, J0, n, n - J0)):
+            U = slivers(rot, n, J0, J1, L)
+            for s, (lo_nom, lo, hi) in enumerate(sliver_windows(n, J0, J1, L)):
+                a, b = lo - lo_nom, hi - lo_nom
+                UQ, UZ = U[s, 0, a:b, a:b], U[s, 1, a:b, a:b]
+                Q[:, lo:hi] = Q[:, lo:hi] @ UQ
+                Z[:, lo:hi] = Z[:, lo:hi] @ UZ
+                A[:J0 + 1, lo:hi] = A[:J0 + 1, lo:hi] @ UZ
+                B[:J0 + 1, lo:hi] = B[:J0 + 1, lo:hi] @ UZ
     return A, B, Q, Z
 
 
@@ -314,15 +319,17 @@ def ht_reduce(A, B, Q, Z):
 
 
 def triangularize_b(A, B, Q=None, Z=None):
-    """Stage 1: B = Q0 R, A <- Q0^T A, Q <- Q Q0.  Returns the cascade's
-    input (A1, R, Q1, Z1), contiguous, on A's device."""
+    """Stage 1: B = Q0 R, A <- Q0^T A, Q <- Q Q0 (the span ``ht.qr``).
+    Returns the cascade's input (A1, R, Q1, Z1), contiguous, on A's
+    device."""
     n = A.shape[0]
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    Qin = eye if Q is None else Q
-    Zin = eye.clone() if Z is None else Z.clone()
-    Q0, R = torch.linalg.qr(B)
-    return ((Q0.T @ A).contiguous(), torch.triu(R).contiguous(),
-            (Qin @ Q0).contiguous(), Zin.contiguous())
+    with trace_span("ht.qr", (0, 0, n, n)):
+        eye = torch.eye(n, dtype=A.dtype, device=A.device)
+        Qin = eye if Q is None else Q
+        Zin = eye.clone() if Z is None else Z.clone()
+        Q0, R = torch.linalg.qr(B)
+        return ((Q0.T @ A).contiguous(), torch.triu(R).contiguous(),
+                (Qin @ Q0).contiguous(), Zin.contiguous())
 
 
 def hessenberg_triangular(A, B, Q=None, Z=None):

@@ -301,7 +301,7 @@ def _deflate2(Hp, Tp, Qp, Zp, i: int):
 
 
 def _small_qz_plain(H, T, Q, Z, m: int, thresh_h: float = 0.0,
-                    thresh_t: float = 0.0):
+                    thresh_t: float = 0.0, with_steps: bool = False):
     """Plain PyTorch window QZ: the twin of kernel G2.  Same contract as
     :func:`small_qz`; the control flow runs on the host."""
     w = H.shape[0]
@@ -315,7 +315,7 @@ def _small_qz_plain(H, T, Q, Z, m: int, thresh_h: float = 0.0,
     Qp[:, :w] = Q
     Zp = H.new_zeros((w, WP))
     Zp[:, :w] = Z
-    i, its, total, failed = m - 1, 0, 0, False
+    i, its, total, failed, steps = m - 1, 0, 0, False, 0
     while i >= 0 and not failed and total < max_total_iter:
         l = _find_l(Hp, w, i, thresh_h)
         if l > 0:
@@ -331,16 +331,18 @@ def _small_qz_plain(H, T, Q, Z, m: int, thresh_h: float = 0.0,
             its = 0
         else:
             _sweep(Hp, Tp, Qp, Zp, w, l, i, its)
+            steps += i - l
             its += 1
             failed = its >= ITMAX_PER_BLOCK
         total += 1
-    info = torch.tensor(i + 1 if failed else 0, dtype=torch.int32,
-                        device=H.device)
-    return (Hp[:w, :w].clone(), Tp[:w, :w].clone(), Qp[:, :w].clone(),
-            Zp[:, :w].clone(), info)
+    i32 = dict(dtype=torch.int32, device=H.device)
+    out = (Hp[:w, :w].clone(), Tp[:w, :w].clone(), Qp[:, :w].clone(),
+           Zp[:, :w].clone(), torch.tensor(i + 1 if failed else 0, **i32))
+    return (*out, torch.tensor(steps, **i32)) if with_steps else out
 
 
-def small_qz(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0):
+def small_qz(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0,
+             with_steps: bool = False):
     """Generalized real Schur form of the active m x m pencil (H, T).
 
     Args:
@@ -352,9 +354,12 @@ def small_qz(H, T, Q, Z, m: int, thresh_h: float = 0.0, thresh_t: float = 0.0):
       (S, Tt, Q, Z, info): S quasi-triangular, Tt upper triangular with
       zero diagonal entries marking infinite eigenvalues; info a 0-d int32
       tensor, 0 on success else the failing row + 1 (stopping at the total
-      iteration cap, 40 w, is not a failure, as in the JAX machine).
+      iteration cap, 40 w, is not a failure, as in the JAX machine).  With
+      ``with_steps`` also the sweeps' chase steps (a sweep over [l, i] is
+      i - l steps), a 0-d int32 tensor on H's device.
     """
     if H.is_cuda:
         return gpu_gep.qz_window(H, T, Q, Z, m, float(thresh_h),
-                                 float(thresh_t))
-    return _small_qz_plain(H, T, Q, Z, m, float(thresh_h), float(thresh_t))
+                                 float(thresh_t), with_steps=with_steps)
+    return _small_qz_plain(H, T, Q, Z, m, float(thresh_h), float(thresh_t),
+                           with_steps)

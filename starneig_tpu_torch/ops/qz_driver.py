@@ -42,6 +42,7 @@ from starneig_tpu_torch.ops.hess_triangular import cascade_step, rot_cols, rot_r
 from starneig_tpu_torch.ops.qz import ULP, _first_col_qz, small_qz, std_gep_2x2
 from starneig_tpu_torch.ops.schur import DenseExtent, _pack_shifts, block_starts
 from starneig_tpu_torch.ops.swaps_gep import swap_adjacent_gep
+from starneig_tpu_torch.tools.trace import trace_span
 
 
 
@@ -450,132 +451,151 @@ def _qz_round(Spad, Tpad, Qpad, Zpad, n: int, ihi: int, thresh: float,
     an AED round.  Every access to the padded buffers goes through
     ``ext``, and the window math (G5's chases, the deflating rotation;
     G2, G4, the status read and G1's window mode) runs inside
-    ``ext.window``.  Returns (shifts (TMAX, B, 4), status) with status the
-    host ints (new_ihi, l, ntr, sfail, nd, npairs, w, do_inf)."""
+    ``ext.window``.  The round's host phases are the spans ``qz.scan``,
+    then ``qz.infinite`` or ``qz.window`` and ``qz.apply``
+    (``tools/trace.py``).  Returns (shifts (TMAX, B, 4), status) with
+    status the host ints (new_ihi, l, ntr, sfail, nd, npairs, w, do_inf,
+    steps), steps G2's chase steps."""
     P, WA, B, TMAX = g.P, g.WA, g.B, g.TMAX
     dev, dtype = Spad.device, Spad.dtype
     zshifts = Spad.new_zeros((TMAX, B, 4))
 
     # -- negligible-subdiagonal zeroing, T's diagonal (read 1) --
-    sub_t = ext.zero_negligible(Spad, P, n, ihi, thresh)
-    tdiag_t = ext.diagonals((Tpad,), P, n)[0, 0].abs()
-    sub, tdiag = torch.stack([sub_t, tdiag_t]).cpu().numpy()
-    while ihi > 0:
-        if ihi == 1 or sub[max(ihi - 2, 0)] == 0.0:
-            ihi -= 1
-        elif ihi == 2 or sub[max(ihi - 3, 0)] == 0.0:
-            ihi -= 2
-        else:
-            break
+    with trace_span("qz.scan"):
+        sub_t = ext.zero_negligible(Spad, P, n, ihi, thresh)
+        tdiag_t = ext.diagonals((Tpad,), P, n)[0, 0].abs()
+        sub, tdiag = torch.stack([sub_t, tdiag_t]).cpu().numpy()
+        while ihi > 0:
+            if ihi == 1 or sub[max(ihi - 2, 0)] == 0.0:
+                ihi -= 1
+            elif ihi == 2 or sub[max(ihi - 3, 0)] == 0.0:
+                ihi -= 2
+            else:
+                break
+        if ihi > 0:
+            zb = np.nonzero(sub[:ihi - 1] == 0.0)[0]
+            l = int(zb[-1]) + 1 if len(zb) else 0
+            inf = np.nonzero(tdiag[l:ihi] <= thresh_t)[0]
     if ihi <= 0:
-        return zshifts, (ihi, 0, 0, False, 0, 0, 0, False)
-    zb = np.nonzero(sub[:ihi - 1] == 0.0)[0]
-    l = int(zb[-1]) + 1 if len(zb) else 0
+        return zshifts, (ihi, 0, 0, False, 0, 0, 0, False, 0)
 
-    inf = np.nonzero(tdiag[l:ihi] <= thresh_t)[0]
     if len(inf):
         # push the bottom-most T-diagonal zero down to ihi - 1 in INFW
         # windows, then deflate the infinite eigenvalue
-        p = l + int(inf[-1])
-        while p < ihi - 1:
-            a0 = max(p - 1, l)
-            m = min(g.INFW, ihi - a0)
-            Hw, Tw = _masked_window_pair(Spad, Tpad, P + a0, m, g.INFW, ext)
-            lrel = p - a0 if p == l else -1
-            Hw, Tw, Qw, Zw = ext.window(
-                lambda H, T: inf_chase(H, T, p - a0, m, lrel), Hw, Tw)
-            _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Hw, Tw, m,
-                              P + a0, False, None, ext)
-            stats["inf_chase_calls"] += 1
-            p = a0 + m - 1
-        _deflate_inf_bottom(Spad, Tpad, Zpad, P + ihi - 1, ext)
-        return zshifts, (ihi - 1, l, 0, False, 1, 0, 0, True)
+        with trace_span("qz.infinite", (l, l, ihi - l, ihi - l)):
+            p = l + int(inf[-1])
+            while p < ihi - 1:
+                a0 = max(p - 1, l)
+                m = min(g.INFW, ihi - a0)
+                Hw, Tw = _masked_window_pair(Spad, Tpad, P + a0, m, g.INFW, ext)
+                lrel = p - a0 if p == l else -1
+                Hw, Tw, Qw, Zw = ext.window(
+                    lambda H, T: inf_chase(H, T, p - a0, m, lrel), Hw, Tw)
+                _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Hw, Tw, m,
+                                  P + a0, False, None, ext)
+                stats["inf_chase_calls"] += 1
+                p = a0 + m - 1
+            _deflate_inf_bottom(Spad, Tpad, Zpad, P + ihi - 1, ext)
+        return zshifts, (ihi - 1, l, 0, False, 1, 0, 0, True, 0)
 
     seg = ihi - l
     w = min(WA, seg)
     kwtop = ihi - w
     gk = P + kwtop
-    Sw, Tw = _masked_window_pair(Spad, Tpad, gk, w, WA, ext)
-    if w < WA:
-        r = torch.arange(w, WA, device=dev)
-        Tw[r, r] = 1.0
+    rect = (kwtop, kwtop, w, w)
     s_spike = float(sub[kwtop - 1]) if kwtop >= 1 else 0.0
 
     def window_math(Sw, Tw):
-        Sw, Tw, Qw, Zw, sinfo = small_qz(Sw, Tw, eyeW, eyeW, w, thresh,
-                                         thresh_t)
+        Sw, Tw, Qw, Zw, sinfo, steps = small_qz(Sw, Tw, eyeW, eyeW, w, thresh,
+                                                thresh_t, with_steps=True)
         Sw, Tw, Qw, Zw, kbot_t, _dfail, _steps = aed_deflate_gep(
             Sw, Tw, Qw, Zw, s_spike, w, thresh)
         ar_w, ai_w, bt_w = extract_eigenvalues_gen(Sw, Tw)
         safe_bt = torch.where(bt_w.abs() < 1e-12,
                               torch.where(bt_w < 0, -1e-12, 1e-12), bt_w)
         # -- the round's status read (read 2) --
-        head = torch.stack([sinfo, kbot_t]).to(dtype)
+        head = torch.stack([sinfo, kbot_t, steps]).to(dtype)
         status = torch.cat([head, ar_w / safe_bt, ai_w / safe_bt,
                             torch.diagonal(Sw, -1)]).cpu().numpy()
         return (*aed_recondense_gep(Sw, Tw, Qw, Zw, s_spike, int(status[1])),
                 status)
 
-    Sw, Tw, Qw, Zw, beta, status = ext.window(window_math, Sw, Tw)
-    sfail = bool(status[0] != 0)
-    kbot = int(status[1])
-    er, ei, tsub = np.split(status[2:], [WA, 2 * WA])
-    nd = w - kbot
-    shifts_h, npairs = _pack_shifts(er, ei, tsub, kbot, g.NS, B, TMAX)
-    shifts = torch.from_numpy(shifts_h).to(dev)
+    with trace_span("qz.window", rect):
+        Sw, Tw = _masked_window_pair(Spad, Tpad, gk, w, WA, ext)
+        if w < WA:
+            r = torch.arange(w, WA, device=dev)
+            Tw[r, r] = 1.0
+        Sw, Tw, Qw, Zw, beta, status = ext.window(window_math, Sw, Tw)
 
-    stats["recondense_calls"] += 1
-    if kbot == 0:
-        beta = Spad.new_zeros(())
-    _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Sw, Tw, w, gk, True, beta,
-                      ext)
-    new_ihi = ihi - nd
+    with trace_span("qz.apply", rect):
+        sfail = bool(status[0] != 0)
+        kbot = int(status[1])
+        steps = int(status[2])
+        er, ei, tsub = np.split(status[3:], [WA, 2 * WA])
+        nd = w - kbot
+        shifts_h, npairs = _pack_shifts(er, ei, tsub, kbot, g.NS, B, TMAX)
+        shifts = torch.from_numpy(shifts_h).to(dev)
 
-    if npairs == 0:
-        # exceptional fallback when the window gave no usable pair
-        r0 = P + new_ihi - 1
-        c0 = P + max(new_ihi - 1, 0)
-        d0, t0 = (x[0, 0] for x in ext.get_blocks((Spad, Tpad), r0, c0, 1, 1))
-        big = t0.abs() > 1e-12
-        lam = torch.where(big, d0 / torch.where(big, t0, 1.0), d0)
-        shifts = torch.stack([lam * 1.01, 0 * lam, lam * 0.99, 0 * lam]
-                             ).expand(TMAX, B, 4)
-        npairs = 1
+        stats["recondense_calls"] += 1
+        if kbot == 0:
+            beta = Spad.new_zeros(())
+        _apply_window_gep(Spad, Tpad, Qpad, Zpad, Qw, Zw, Sw, Tw, w, gk, True,
+                          beta, ext)
+        new_ihi = ihi - nd
+
+        if npairs == 0:
+            # exceptional fallback when the window gave no usable pair
+            r0 = P + new_ihi - 1
+            c0 = P + max(new_ihi - 1, 0)
+            d0, t0 = (x[0, 0] for x in ext.get_blocks((Spad, Tpad), r0, c0, 1, 1))
+            big = t0.abs() > 1e-12
+            lam = torch.where(big, d0 / torch.where(big, t0, 1.0), d0)
+            shifts = torch.stack([lam * 1.01, 0 * lam, lam * 0.99, 0 * lam]
+                                 ).expand(TMAX, B, 4)
+            npairs = 1
 
     skip_sweep = ((nd > 0 and 100 * nd >= g.nibble * max(w, 1))
                   or new_ihi - l <= 2 or sfail)
     ntr = 0 if skip_sweep else (npairs + B - 1) // B
-    return shifts, (new_ihi, l, ntr, sfail, nd, npairs, w, False)
+    return shifts, (new_ihi, l, ntr, sfail, nd, npairs, w, False, steps)
 
 
 def _qz_iter(Spad, Tpad, Qpad, Zpad, n: int, thresh: float, thresh_t: float,
              g: _Geometry, stats: dict, ext=DenseExtent):
     """The multishift-QZ iteration: a host loop over rounds, each AED round
-    followed by its trains, one after another.  ``ext`` carries every
-    access to the padded buffers: ``DenseExtent`` for whole buffers, a
-    sharded extent (``parallel/dm_core.py``) for column shards of them.
-    Returns (ihi, fail)."""
+    followed by its trains, one after another (a span ``qz.sweep`` each).
+    ``stats`` receives ``qz_log`` entries (w, kbot, ntr, do_inf) and
+    ``round_log`` entries (l, ihi, ntr, chase_steps), one each a round:
+    the active segment [l, ihi) the trains span and the window solve's
+    chase steps.  ``ext`` carries every access to the padded buffers:
+    ``DenseExtent`` for whole buffers, a sharded extent
+    (``parallel/dm_core.py``) for column shards of them.  Returns (ihi,
+    fail)."""
     eyeW = torch.eye(g.WA, dtype=Spad.dtype, device=Spad.device)
     ihi, it_seg, last_ihi, fail, rounds = n, 0, n, 0, 0
     log = stats["qz_log"]
+    rlog = stats.setdefault("round_log", [])
     while ihi > 0 and fail == 0 and rounds < 2 * n + 10:
-        shifts, (new_ihi, l, ntr, _sf, nd, _np, w, do_inf) = _qz_round(
+        shifts, (new_ihi, l, ntr, _sf, nd, _np, w, do_inf, steps) = _qz_round(
             Spad, Tpad, Qpad, Zpad, n, ihi, thresh, thresh_t, eyeW, g, stats,
             ext)
         log.append((w, w - nd, ntr, do_inf))
+        rlog.append((l, new_ihi, ntr, steps))
         it_seg = (0 if new_ihi != last_ihi else it_seg) + 1
         # a non-converged AED window is not fatal (dlaqr3 semantics); only
         # the per-segment iteration limit fails
         fail = int(it_seg > g.itmax)
         if ntr > 0 and fail == 0:
             for t in range(ntr):
-                _qz_sweep(Spad, Tpad, Qpad, Zpad, g.P + l, g.P + new_ihi,
-                          shifts[min(t, g.TMAX - 1)], g.B, ext=ext)
+                with trace_span("qz.sweep", (l, l, new_ihi - l, new_ihi - l)):
+                    _qz_sweep(Spad, Tpad, Qpad, Zpad, g.P + l, g.P + new_ihi,
+                              shifts[min(t, g.TMAX - 1)], g.B, ext=ext)
         if fail == 0:
             ihi = new_ihi
         last_ihi = new_ihi
         rounds += 1
     stats["rounds"] = rounds
+    stats["chase_steps"] = sum(r[3] for r in rlog)
     return ihi, fail
 
 
@@ -586,7 +606,9 @@ def qz_schur(H, T, Q=None, Z=None, conf: Optional[SchurConf] = None,
 
     Q and Z (if given) accumulate on the right.  If ``stats`` is a dict it
     receives the geometry, the round count, ``qz_log`` (the (w, kbot, ntr,
-    do_inf) of each round), the recondense calls (G1's window mode), the
+    do_inf) of each round), ``round_log`` (the (l, ihi, ntr, chase_steps)
+    of each round), ``chase_steps`` (the window solves' chase steps summed
+    over the rounds), the recondense calls (G1's window mode), the
     windowed infinite-push calls and the rounds that took that push.
 
     Returns (S, T, Q, Z, alpha_r, alpha_i, beta, info), info Error.SUCCESS

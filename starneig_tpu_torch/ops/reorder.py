@@ -48,6 +48,7 @@ from starneig_tpu_torch.ops import gpu_reorder
 from starneig_tpu_torch.ops.schur import DenseExtent
 from starneig_tpu_torch.ops.swaps import swap_adjacent
 from starneig_tpu_torch.ops.swaps_gep import swap_adjacent_gep
+from starneig_tpu_torch.tools.trace import trace_span
 
 
 # ---------------------------------------------------------------------------
@@ -520,9 +521,10 @@ def reorder_gep_(S, T, Q, Z, select, conf: Optional[ReorderConf] = None,
     Z), every access through ``ext``: each window pair is read with one
     pencil gather, G6 runs in ``ext.window`` (the owner's, on a sharded
     extent, with the window's subdiagonal that it reports for the host's
-    plan), and the window transforms go through ``ext``.  ``stats``, if a
-    dict, receives the window size ``W`` and the counts.  Returns
-    (num_selected, info)."""
+    plan), and the window transforms go through ``ext``; each window is the
+    span ``reorder.window`` (``tools/trace.py``).  ``stats``, if a dict,
+    receives the window size ``W`` and the counts.  Returns (num_selected,
+    info)."""
     n = S.shape[0]
 
     def host_subdiag():
@@ -557,13 +559,14 @@ def reorder_gep_(S, T, Q, Z, select, conf: Optional[ReorderConf] = None,
                     [min(wlo + cap, W)], [wlim], host=host)
                 return (*out, host["subdiag"])
 
-            Sw2, Tw2, Qw, Zw, sel_w2, dst, nfail, nsw, hsub = ext.window(
-                bubble, *ext.get_blocks((S, T), ws, ws, W, W))
-            total_fail += int(nfail[0])
-            _count(stats, windows=1, swaps=nsw[0], failed_swaps=nfail[0])
-            _apply_window_gep(S, T, Q, Z, Sw2[0], Tw2[0], Qw[0], Zw[0], ws, ext)
-            sel[ws:ws + W] = sel_w2[0]
-            subdiag[ws:ws + W - 1] = hsub[0]
+            with trace_span("reorder.window", (ws, ws, W, W)):
+                Sw2, Tw2, Qw, Zw, sel_w2, dst, nfail, nsw, hsub = ext.window(
+                    bubble, *ext.get_blocks((S, T), ws, ws, W, W))
+                total_fail += int(nfail[0])
+                _count(stats, windows=1, swaps=nsw[0], failed_swaps=nfail[0])
+                _apply_window_gep(S, T, Q, Z, Sw2[0], Tw2[0], Qw[0], Zw[0], ws, ext)
+                sel[ws:ws + W] = sel_w2[0]
+                subdiag[ws:ws + W - 1] = hsub[0]
             if ws <= m:
                 break
             carried = int(dst[0]) - wlo

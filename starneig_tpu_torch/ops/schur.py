@@ -13,9 +13,9 @@ decide shapes and offsets (ihi, l, the window size, kbot, the train count)
 live on the host, so every slice is a plain tensor index.  Each round reads
 the device twice: the subdiagonal after the negligible-entry scan (to place
 the window) and one status vector after the window solve and deflation
-(info, kbot, the window eigenvalues).  Nothing syncs per step: the window
-solve, the deflation, the recondense and the train hops are one kernel
-launch each on CUDA (B2, B4, B5, B3 in :mod:`starneig_tpu_torch.ops.gpu_schur`;
+(info, kbot, B2's chase steps, the window eigenvalues).  Nothing syncs per
+step: the window solve, the deflation, the recondense and the train hops
+are one kernel launch each on CUDA (B2, B4, B5, B3 in :mod:`starneig_tpu_torch.ops.gpu_schur`;
 the dispatchers :func:`aed_deflate`, :func:`aed_recondense` and
 :func:`train_hops` run the plain twins for CPU tensors), and the hop count
 of a sweep is computed on the host from the status.
@@ -40,6 +40,7 @@ from starneig_tpu_torch.ops import primitives as prim
 from starneig_tpu_torch.ops.eigvals import extract_eigenvalues, schur_diagonals
 from starneig_tpu_torch.ops.small_schur import small_schur
 from starneig_tpu_torch.ops.swaps import swap_adjacent
+from starneig_tpu_torch.tools.trace import trace_span
 
 
 def _clamp(x: int, lo: int, hi: int) -> int:
@@ -521,81 +522,90 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
     window Schur solve (B2), spike deflation with block moves (B4), shift
     extraction, recondense (B5), and the window-transform GEMMs.  Every
     access to Spad and Qpad goes through ``ext``, and the window math
-    (B2, B4, the status read, B5) runs inside ``ext.window``.  Returns
-    (shifts (TMAX, B, 4) tensor, status) with status the host ints
-    (new_ihi, l, ntr, sfail, nd, npairs, w), w the window's active size.
+    (B2, B4, the status read, B5) runs inside ``ext.window``.  The round's
+    three host phases are the spans ``schur.scan``, ``schur.window`` and
+    ``schur.apply`` (``tools/trace.py``).  Returns (shifts (TMAX, B, 4)
+    tensor, status) with status the host ints (new_ihi, l, ntr, sfail, nd,
+    npairs, w, steps), w the window's active size and steps B2's chase
+    steps.
     """
     dev, dtype = Spad.device, Spad.dtype
 
     # -- negligible-subdiagonal zeroing + converged-block peel (read 1) --
-    sub = ext.zero_negligible(Spad, P, n, ihi, thresh).cpu().numpy()
-    while ihi > 0:
-        if ihi == 1 or sub[max(ihi - 2, 0)] == 0.0:
-            ihi -= 1
-        elif ihi == 2 or sub[max(ihi - 3, 0)] == 0.0:
-            ihi -= 2
-        else:
-            break
-    zb = np.nonzero(sub[:max(ihi - 1, 0)] == 0.0)[0]
-    l = int(zb[-1]) + 1 if len(zb) and ihi > 0 else 0
+    with trace_span("schur.scan"):
+        sub = ext.zero_negligible(Spad, P, n, ihi, thresh).cpu().numpy()
+        while ihi > 0:
+            if ihi == 1 or sub[max(ihi - 2, 0)] == 0.0:
+                ihi -= 1
+            elif ihi == 2 or sub[max(ihi - 3, 0)] == 0.0:
+                ihi -= 2
+            else:
+                break
+        zb = np.nonzero(sub[:max(ihi - 1, 0)] == 0.0)[0]
+        l = int(zb[-1]) + 1 if len(zb) and ihi > 0 else 0
     if ihi <= 0:
-        return Spad.new_zeros((TMAX, B, 4)), (ihi, 0, 0, False, 0, 0, 0)
+        return Spad.new_zeros((TMAX, B, 4)), (ihi, 0, 0, False, 0, 0, 0, 0)
 
     seg = ihi - l                         # >= 2 after the peel
     w = min(WA, seg)
     kwtop = ihi - w
     gk = P + kwtop
-    win = ext.get_block(Spad, gk, gk, WA, WA)
-    win[w:] = 0.0
-    win[:, w:] = 0.0
+    rect = (kwtop, kwtop, w, w)
     # spike = the subdiagonal entering the window; 0 when kwtop == l
     s_spike = float(sub[kwtop - 1]) if kwtop >= 1 else 0.0
 
     def window_math(win):
-        Tw, Vw, sinfo = small_schur(win, eyeW, w, thresh)
+        Tw, Vw, sinfo, steps = small_schur(win, eyeW, w, thresh, with_steps=True)
         Tw, Vw, kbot_t, _dfail = aed_deflate(Tw, Vw, s_spike, w, thresh)
         er_w, ei_w = extract_eigenvalues(Tw)
         # -- the round's status read (read 2) --
-        head = torch.stack([sinfo, kbot_t]).to(dtype)
+        head = torch.stack([sinfo, kbot_t, steps]).to(dtype)
         status = torch.cat([head, er_w, ei_w,
                             torch.diagonal(Tw, -1)]).cpu().numpy()
         Tw, Vw, beta = aed_recondense(Tw, Vw, s_spike, int(status[1]))
         return Tw, Vw, beta, status
 
-    Tw, Vw, beta, status = ext.window(window_math, win)
-    sfail = status[0] != 0
-    kbot = int(status[1])
-    er_h, ei_h, tsub = np.split(status[2:], [WA, 2 * WA])
-    nd = w - kbot
-    shifts_h, npairs = _pack_shifts(er_h, ei_h, tsub, kbot, NS, B, TMAX)
-    shifts = torch.from_numpy(shifts_h).to(dev)
+    with trace_span("schur.window", rect):
+        win = ext.get_block(Spad, gk, gk, WA, WA)
+        win[w:] = 0.0
+        win[:, w:] = 0.0
+        Tw, Vw, beta, status = ext.window(window_math, win)
 
-    # window transform at full extents (Vw is the identity outside the
-    # active block): rows, then columns, then the exact window plant and
-    # the spike column (beta on top, zeros below)
-    ext.mul_rows(Spad, gk, WA, Vw)
-    ext.mul_cols_pencil((Spad, Qpad), gk, WA, (Vw, Vw))
-    ext.set_block(Spad, Tw[:w, :w], gk, gk)
-    spike = Spad.new_zeros((WA, 1))
-    spike[0, 0] = beta
-    ext.set_block(Spad, spike, gk, gk - 1)
+    with trace_span("schur.apply", rect):
+        sfail = status[0] != 0
+        kbot = int(status[1])
+        steps = int(status[2])
+        er_h, ei_h, tsub = np.split(status[3:], [WA, 2 * WA])
+        nd = w - kbot
+        shifts_h, npairs = _pack_shifts(er_h, ei_h, tsub, kbot, NS, B, TMAX)
+        shifts = torch.from_numpy(shifts_h).to(dev)
 
-    new_ihi = ihi - nd
-    if npairs == 0:
-        # exceptional-shift fallback when the window gave no usable pair
-        tail = ext.get_block(Spad, P + new_ihi - 1, P + max(new_ihi - 2, 0),
-                             1, 2)
-        hq = tail[0, 0]
-        d0 = tail[0, 1] if new_ihi >= 2 else hq
-        esh = d0 + 0.75 * hq.abs()
-        shifts = torch.stack([esh, 0 * esh, esh, 0 * esh]).expand(TMAX, B, 4)
-        npairs = 1
+        # window transform at full extents (Vw is the identity outside the
+        # active block): rows, then columns, then the exact window plant and
+        # the spike column (beta on top, zeros below)
+        ext.mul_rows(Spad, gk, WA, Vw)
+        ext.mul_cols_pencil((Spad, Qpad), gk, WA, (Vw, Vw))
+        ext.set_block(Spad, Tw[:w, :w], gk, gk)
+        spike = Spad.new_zeros((WA, 1))
+        spike[0, 0] = beta
+        ext.set_block(Spad, spike, gk, gk - 1)
+
+        new_ihi = ihi - nd
+        if npairs == 0:
+            # exceptional-shift fallback when the window gave no usable pair
+            tail = ext.get_block(Spad, P + new_ihi - 1, P + max(new_ihi - 2, 0),
+                                 1, 2)
+            hq = tail[0, 0]
+            d0 = tail[0, 1] if new_ihi >= 2 else hq
+            esh = d0 + 0.75 * hq.abs()
+            shifts = torch.stack([esh, 0 * esh, esh, 0 * esh]).expand(TMAX, B, 4)
+            npairs = 1
 
     # nibble test + tiny-segment skip
     skip_sweep = ((nd > 0 and 100 * nd >= nibble * w)
                   or new_ihi - l <= 2 or sfail)
     ntr = 0 if skip_sweep else (npairs + B - 1) // B
-    return shifts, (new_ihi, l, ntr, bool(sfail), nd, npairs, w)
+    return shifts, (new_ihi, l, ntr, bool(sfail), nd, npairs, w, steps)
 
 
 # ---------------------------------------------------------------------------
@@ -604,32 +614,39 @@ def _aed_round(Spad, Qpad, ihi: int, thresh: float, eyeW, P: int, WA: int,
 
 def _schur_iter(Spad, Qpad, thresh: float, eyeW, P: int, WA: int, NS: int,
                 B: int, TMAX: int, nibble: int, itmax: int, n: int,
-                log: Optional[list] = None, ext=DenseExtent):
+                log: Optional[list] = None, ext=DenseExtent,
+                round_log: Optional[list] = None):
     """The multishift-QR iteration: a host loop over AED rounds, each
-    followed by a wavefront sweep when the round asks for one.  ``log``,
-    if a list, receives (w, kbot, ntr) for each round: the window's active
-    size, the rows it left undeflated, and the trains of its sweep.
-    ``ext`` carries every access to the padded buffers: ``DenseExtent``
-    for whole buffers, a sharded extent (``parallel/dm_core.py``) for
-    column shards of them.
+    followed by a wavefront sweep (the span ``schur.sweep``) when the round
+    asks for one.  ``log``, if a list, receives (w, kbot, ntr) for each
+    round: the window's active size, the rows it left undeflated, and the
+    trains of its sweep.  ``round_log``, if a list, receives (l, ihi, ntr,
+    chase_steps) for each round: the active segment [l, ihi) its sweep
+    spans, the trains, and the window solve's chase steps.  ``ext``
+    carries every access to the padded buffers: ``DenseExtent`` for whole
+    buffers, a sharded extent (``parallel/dm_core.py``) for column shards
+    of them.
 
     Returns (ihi, fail, rounds): converged when ihi == 0, failed when
     fail != 0.
     """
     ihi, it_seg, last_ihi, fail, rounds = n, 0, n, 0, 0
     while ihi > 0 and fail == 0 and rounds < 2 * n + 10:
-        shifts, (new_ihi, l, ntr, _sfail, nd, _np, w) = _aed_round(
+        shifts, (new_ihi, l, ntr, _sfail, nd, _np, w, steps) = _aed_round(
             Spad, Qpad, ihi, thresh, eyeW, P=P, WA=WA, NS=NS, B=B,
             TMAX=TMAX, nibble=nibble, n=n, ext=ext)
         if log is not None:
             log.append((w, w - nd, ntr))
+        if round_log is not None:
+            round_log.append((l, new_ihi, ntr, steps))
         it_seg = (0 if new_ihi != last_ihi else it_seg) + 1
         # a non-converged AED window is not fatal (dlaqr3 semantics); only
         # the per-segment iteration limit fails
         fail = int(it_seg > itmax)
         if ntr > 0 and fail == 0:
-            _sweep_wave(Spad, Qpad, P + l, P + new_ihi, shifts, ntr,
-                        G=TMAX, B=B, ext=ext)
+            with trace_span("schur.sweep", (l, l, new_ihi - l, new_ihi - l)):
+                _sweep_wave(Spad, Qpad, P + l, P + new_ihi, shifts, ntr,
+                            G=TMAX, B=B, ext=ext)
         if fail == 0:
             ihi = new_ihi
         last_ihi = new_ihi
@@ -671,8 +688,11 @@ def schur(H, Q=None, conf: Optional[SchurConf] = None,
     """Reduce an upper Hessenberg H to real Schur form S = Qs^T H Qs.
 
     Q (if given) accumulates on the right.  Runs on H's device.  If
-    ``stats`` is a dict it receives the geometry, the round count and
-    ``aed_log``, the (w, kbot, ntr) of each round.
+    ``stats`` is a dict it receives the path, ``chase_steps`` (the chase
+    steps of the Francis solves: the one solve of the small path, or the
+    AED windows' summed over the rounds) and, on the AED path, the
+    geometry, the round count, ``aed_log``, the (w, kbot, ntr) of each
+    round, and ``round_log``, the (l, ihi, ntr, chase_steps) of each.
 
     Returns:
       (S, Q, eig_real, eig_imag, info) with info Error.SUCCESS or
@@ -687,13 +707,14 @@ def schur(H, Q=None, conf: Optional[SchurConf] = None,
 
     if n <= min(conf.small_limit, 300):
         # the whole problem below the small limit: one Francis solve
-        S0, Z, sinfo = small_schur(H, torch.eye(n, dtype=dtype, device=dev),
-                                   n, thresh)
-        info = Error.SUCCESS if int(sinfo) == 0 else Error.DID_NOT_CONVERGE
+        S0, Z, sinfo, steps = small_schur(H, torch.eye(n, dtype=dtype, device=dev),
+                                          n, thresh, with_steps=True)
+        sinfo, steps = torch.stack([sinfo, steps]).tolist()
+        info = Error.SUCCESS if sinfo == 0 else Error.DID_NOT_CONVERGE
         S0, QZ = standardize_blocks(S0, Q @ Z)
         er, ei = extract_eigenvalues(S0)
         if stats is not None:
-            stats.update(path="small", rounds=0)
+            stats.update(path="small", rounds=0, chase_steps=steps)
         return S0, QZ, er, ei, info
 
     WA, NS, B, WC, TMAX, P = aed_geometry(n, conf)
@@ -705,14 +726,16 @@ def schur(H, Q=None, conf: Optional[SchurConf] = None,
     Qpad[:, P:P + n] = Q
     eyeW = torch.eye(WA, dtype=dtype, device=dev)
 
-    log = []
+    log, rlog = [], []
     ihi, fail, rounds = _schur_iter(
         Spad, Qpad, thresh, eyeW, P=P, WA=WA, NS=NS, B=B, TMAX=TMAX,
-        nibble=conf.aed_nibble, itmax=conf.iteration_limit, n=n, log=log)
+        nibble=conf.aed_nibble, itmax=conf.iteration_limit, n=n, log=log,
+        round_log=rlog)
     info = Error.DID_NOT_CONVERGE if (fail or ihi > 0) else Error.SUCCESS
     if stats is not None:
         stats.update(path="aed", rounds=rounds, WA=WA, NS=NS, B=B, WC=WC,
-                     TMAX=TMAX, P=P, NP=NP, aed_log=log)
+                     TMAX=TMAX, P=P, NP=NP, aed_log=log, round_log=rlog,
+                     chase_steps=sum(r[3] for r in rlog))
 
     S, Qf = standardize_blocks(Spad[P:P + n, P:P + n], Qpad[:, P:P + n])
     er, ei = extract_eigenvalues(S)

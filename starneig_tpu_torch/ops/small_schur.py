@@ -108,7 +108,7 @@ def _deflate_block(Hp, Zp, l: int, i: int):
 
 
 def _small_schur_plain(H, Z, m: int, thresh: float = 0.0, ilo: int = 0,
-                       max_total_iter: int = 0):
+                       max_total_iter: int = 0, with_steps: bool = False):
     """Plain PyTorch Francis solver: the twin of kernel B2.
 
     Same contract as :func:`small_schur`.  Control flow runs on the host:
@@ -121,7 +121,7 @@ def _small_schur_plain(H, Z, m: int, thresh: float = 0.0, ilo: int = 0,
     Hp[:w, :w] = H
     Zp = H.new_zeros((w, w + 2))
     Zp[:, :w] = Z
-    i, its, total, failed = m - 1, 0, 0, False
+    i, its, total, failed, steps = m - 1, 0, 0, False, 0
     while i >= ilo and not failed and total < max_total_iter:
         l = _find_deflation(Hp[:w, :w], ilo, i, thresh)
         if l > ilo:
@@ -133,16 +133,18 @@ def _small_schur_plain(H, Z, m: int, thresh: float = 0.0, ilo: int = 0,
         else:
             shifts = _shifts(Hp[:w, :w], i, its)
             _sweep(Hp, Zp, l, i, *shifts)
+            steps += i - l
             its += 1
             failed = its >= ITMAX_PER_BLOCK
         total += 1
-    info = torch.tensor(i + 1 if failed else 0, dtype=torch.int32,
-                        device=H.device)
-    return Hp[:w, :w].clone(), Zp[:, :w].clone(), info
+    i32 = dict(dtype=torch.int32, device=H.device)
+    out = (Hp[:w, :w].clone(), Zp[:, :w].clone(),
+           torch.tensor(i + 1 if failed else 0, **i32))
+    return (*out, torch.tensor(steps, **i32)) if with_steps else out
 
 
 def small_schur(H, Z, m: int, thresh: float = 0.0, ilo: int = 0,
-                max_total_iter: int = 0):
+                max_total_iter: int = 0, with_steps: bool = False):
     """Real Schur form of the active m x m Hessenberg block of H.
 
     Args:
@@ -156,8 +158,12 @@ def small_schur(H, Z, m: int, thresh: float = 0.0, ilo: int = 0,
 
     Returns:
       (S, Z, info): S (w, w), Z (w, w), info a 0-d int32 tensor on H's
-      device, 0 on success else the failing row + 1.
+      device, 0 on success else the failing row + 1.  With ``with_steps``
+      also the chase steps the sweeps ran (a sweep over [l, i] is i - l
+      steps), a 0-d int32 tensor on H's device.
     """
     if H.is_cuda:
-        return gpu_schur.francis(H, Z, m, float(thresh), ilo, max_total_iter)
-    return _small_schur_plain(H, Z, m, float(thresh), ilo, max_total_iter)
+        return gpu_schur.francis(H, Z, m, float(thresh), ilo, max_total_iter,
+                                 with_steps)
+    return _small_schur_plain(H, Z, m, float(thresh), ilo, max_total_iter,
+                              with_steps)

@@ -9,6 +9,7 @@ from starneig_tpu_torch.tools.trace import (
     trace_event,
     trace_span,
     dump_trace,
+    events_ns,
 )
 from starneig_tpu_torch.tools.sanity import (
     sanity_enabled,
