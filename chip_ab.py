@@ -15,6 +15,7 @@
     python3 chip_ab.py ht [--n N] ROOT [ROOT ...]
     python3 chip_ab.py qz ROOT [ROOT ...]
     python3 chip_ab.py qzsweep ROOT [ROOT ...]
+    python3 chip_ab.py qztrain [--n N] [--reps K]
     python3 chip_ab.py panel [--n N] ROOT [ROOT ...]
     python3 chip_ab.py backsolve [--n N] ROOT [ROOT ...]
     python3 chip_ab.py backsolvegep [--n N] ROOT [ROOT ...]
@@ -137,6 +138,14 @@ launches by CUDA events, the error against the plain twin and the
 SHA-256 of the output; then the GEP n=2000 chain's QZ phase timed, and
 under ``torch.profiler`` G3's device total and launches, the sweeps' time
 (CUDA events around each ``_qz_sweep``) and their device idle share.
+
+qztrain: G3's train mode (``qz_driver._qz_train``, two launches a train)
+against the hop loop (``_qz_sweep``: G3 a hop and the strip products
+queued by the host) on one B=12 train across a random size-N pencil
+(default 2000, ``chip_smoke.qz_train_ab``), in turns loop, train, train,
+loop (K times, default 3), each timed to a synchronize, then each under
+``torch.profiler``: the wall and device ms a train, the microseconds a
+hop, the train's kernels, and its error against the loop (at most 1e-11).
 
 ht: each ROOT's G1 (the blocked HT reduction) at size N (default 2000) on
 a regular pencil in a process of its own: three runs and the generation
@@ -909,16 +918,21 @@ def qzsweep_one(root: str, path: str) -> None:
     stats = {}
     res, qz_ms = timed(lambda: gep.schur(H, T, Q, Z, stats=stats))
     sweep_ms = [0.0]
-    orig = qz_driver._qz_sweep
+    # the train the driver runs on the card: G3's train mode where the
+    # package has it, else the hop loop
+    name = "_qz_train" if hasattr(qz_driver, "_qz_train") else "_qz_sweep"
+    orig = getattr(qz_driver, name)
 
     def timed_sweep(*a, **kw):
-        sweep_ms[0] += timed(lambda: orig(*a, **kw))[1]
-    qz_driver._qz_sweep = timed_sweep
+        out, t = timed(lambda: orig(*a, **kw))
+        sweep_ms[0] += t
+        return out
+    setattr(qz_driver, name, timed_sweep)
     try:
         _, prof, prof_ms = profiled_kernels(lambda: gep.schur(H, T, Q, Z))
     finally:
-        qz_driver._qz_sweep = orig
-    g3 = [v for k, v in prof.items() if "qz_sweep_kernel" in k]
+        setattr(qz_driver, name, orig)
+    g3 = [v for k, v in prof.items() if "qz_sweep_kernel" in k or "qz_train_" in k]
     g3_ms, g3_n = sum(v[0] for v in g3), sum(v[1] for v in g3)
     print("QZSWEEP " + json.dumps(dict(
         root=root, hop_ms=ms, us_a_step=min(ms) / HOP * 1e3, hop_rel_err=err,
@@ -936,6 +950,21 @@ def ab_qzsweep(args) -> bool:
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     qzsweep_inputs(path)
     return None not in run_per_root("qzsweep", args, path)
+
+
+def ab_qztrain(args) -> bool:
+    """[--n N] [--reps K]: one B=12 train, G3's train mode against the hop
+    loop (chip_smoke.qz_train_ab); a QZTRAIN JSON line."""
+    import argparse
+    import json
+    from chip_smoke import qz_train_ab
+    ap = argparse.ArgumentParser(prog="chip_ab.py qztrain")
+    ap.add_argument("--n", type=int, default=2000)
+    ap.add_argument("--reps", type=int, default=3)
+    a = ap.parse_args(args)
+    res = qz_train_ab(torch.device("cuda:0"), a.n, 12, a.n, a.reps)
+    print("QZTRAIN " + json.dumps(res, default=str), flush=True)
+    return res["err_vs_loop"] <= 1e-11
 
 
 def _wall_and_profile(fn, reps: int = 3):
@@ -1890,10 +1919,13 @@ QZSWEEP_ONE_BLOCK_NAMES = {0: "loop top", 1: "left reflectors", 2: "barrier", 3:
 # the counters of QZSWEEP_EDITS: lane 0 of each warp adds to its row of a
 # shared array (a register array indexed at the end would live in local
 # memory, whose misses in the small L1 beside 200 KB of shared memory cost
-# more than the parts they time)
+# more than the parts they time); chase and update take the counters as a
+# defaulted argument, so that the train mode, which calls them without it,
+# builds unchanged (it never runs in a clock build)
 QZS_CLK_MACROS = """
 #define SN_CLK_PARAM , void* sn_ctr
 #define SN_CLK_KPARAM , long long* __restrict__ sn_ctr
+#define SN_CLK_DPARAM , long long* __restrict__ sn_ctr = nullptr
 #define SN_CLK_ARG , static_cast<long long*>(sn_ctr)
 #define SN_CLK_FWD , sn_ctr
 __shared__ long long sn_sh_[32 * 32];
@@ -1917,7 +1949,7 @@ QZSWEEP_EDITS = [
     ("  __syncthreads();\n  // the full ranges where",
      "  for (int i_ = tid; i_ < 32 * 32; i_ += blockDim.x) sn_sh_[i_] = 0;\n"
      "  __syncthreads();\n  // the full ranges where"),
-    ("const double* sh) {", "const double* sh SN_CLK_KPARAM) {"),
+    ("const double* sh) {", "const double* sh SN_CLK_DPARAM) {"),
     ("nall = nchase + kUpdWarps * 32;\n", "nall = nchase + kUpdWarps * 32;\n  SN_CLK_DECL\n"),
     ("  // the update group read the slot\n", "  // the update group read the slot\n    SN_CLK(0)\n"),
     ("      householder(x, use3 ? 7u : 3u, 3, v, tau, beta);\n",
@@ -1936,7 +1968,7 @@ QZSWEEP_EDITS = [
      "    SN_CLK(6)\n    bar_sync(kBarChase, nchase);\n    SN_CLK(7)\n"
      "    SN_CLK_ADD(30, active ? 1 : 0)\n  }\n"
      "  if (lane == 0) { SN_CLK_OUT(b * 32, 0, 32) }\n}\n"),
-    ("const int* ring_k) {", "const int* ring_k SN_CLK_KPARAM) {"),
+    ("const int* ring_k) {", "const int* ring_k SN_CLK_DPARAM) {"),
     ("  int qlo = h.full", "  SN_CLK_DECL\n  int qlo = h.full"),
     ("    bar_sync(kBarReady + slot, nall);  // the chase's records of step t\n",
      "    bar_sync(kBarReady + slot, nall);  // the chase's records of step t\n    SN_CLK(10)\n"),
@@ -2915,7 +2947,8 @@ REGIME_KERNELS = {
     "G1w": ("gpu_gep", "ht_recondense", "ht_recondense",
             ("ht_win_chain_kernel", "ht_win_replay_kernel"), "rows"),
     "G2": ("gpu_gep", "qz_window", "qz_window", ("qz_window_kernel",), "rows"),
-    "G3": ("gpu_gep", "qz_sweep", "qz_sweep", ("qz_sweep_kernel",), None),
+    "G3": ("gpu_gep", "qz_train", "qz_train", ("qz_train_kernel", "qz_train_far_kernel"),
+           None),
     "G4": ("gpu_gep", "aed_deflate_gep", "aed_deflate_gep", ("aed_deflate_gep_kernel",),
            "rows"),
     "G5": ("gpu_gep", "inf_chase", "inf_chase", ("inf_chase_kernel",), None),
@@ -2946,12 +2979,11 @@ def _regime_size(key, args):
 def _analytic_bound(label, args, out):
     """(bytes, flops) of one launch where they follow from its arguments
     and outputs (chip_smoke's counts), else None (the twin counts them)."""
-    from chip_smoke import (h1_work, inf_chase_flops, qz_hop_flops, recondense_flops,
+    from chip_smoke import (h1_work, inf_chase_flops, qz_train_work, recondense_flops,
                             ht_window_flops)
     if label == "G3":
-        Sw, _Tw, _sh, lr, ir, s0, B, HOP = args
-        WC = Sw.shape[0]
-        return 8 * 6 * WC * WC, qz_hop_flops(WC, B, HOP, lr, ir, s0)
+        S, _T, Q, _Z, _sh, l, ihi, B = args
+        return qz_train_work(Q.shape[0], S.shape[0], l, ihi, B)
     if label == "G5":
         Hw, _Tw, jrel, mrel, lrel = args
         Wb = Hw.shape[0]
@@ -3354,6 +3386,7 @@ MODES = {"francis": ab_francis, "gemv": ab_gemv, "deflate": ab_deflate,
          "bubble": ab_bubble, "hops": ab_hops, "recondense": ab_recondense,
          "mainpath": ab_mainpath, "clock": ab_clock, "qzinf": ab_qzinf,
          "bitwise": ab_bitwise, "ht": ab_ht, "qz": ab_qz, "qzsweep": ab_qzsweep,
+         "qztrain": ab_qztrain,
          "htwin": ab_htwin, "infchase": ab_infchase, "panel": ab_panel,
          "backsolve": ab_backsolve,
          "backsolvegep": lambda args: ab_backsolve(args, "backsolvegep"),

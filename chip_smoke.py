@@ -264,6 +264,8 @@ REPLACES = {
     "ht_recondense": "starneig_tpu/ops/qz_driver.py:166",
     "qz_window": "starneig_tpu/ops/qz.py:215",
     "qz_sweep": "starneig_tpu/ops/qz_driver.py:444",
+    # a train's hop loop, which the JAX package ran inside its device program
+    "qz_train": "starneig_tpu/ops/qz_driver.py:952",
     "aed_deflate_gep": "starneig_tpu/ops/qz_driver.py:121",
     # the infinite push's window chase (a fori_loop) and the pencil window
     # bubble (a while_loop), both on the GEP chain past the reduction
@@ -277,6 +279,7 @@ REPLACES = {
     "eig_backsolve_gep": "starneig_tpu/ops/eigenvectors.py:395",
 }
 SOURCES = {k: f"starneig_tpu_torch/kernels/csrc/{k}.cu" for k in REPLACES}
+SOURCES["qz_train"] = SOURCES["qz_sweep"]     # G3's train mode, in G3's source
 # the card's peaks for bound_ms (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes per second and fp64 operations per second outside the tensor cores
 HBM_BPS = 3.35e12
@@ -286,10 +289,11 @@ F64_FLOPS = 34e12
 SCHUR_KERNELS = ("hess_panel", "francis", "train_hops", "aed_deflate", "recondense")
 CHAIN_KERNELS = ("reorder_bubble", "eig_backsolve")
 H1_PANELS = ((0, 0), (2016, 2016))  # (k, t0): n=4000's first panel and its fifth t0 bucket
-# the kernels of the GEP path hessenberg_triangular -> schur, and of the
-# chain past it (select -> reorder_schur -> eigenvectors)
-GEP_KERNELS = ("ht_cascade", "ht_recondense", "qz_window", "qz_sweep", "aed_deflate_gep",
-               "inf_chase")
+# the kernels of the GEP path hessenberg_triangular -> schur (its trains in
+# G3's train mode, no G3 hop launch), and of the chain past it (select ->
+# reorder_schur -> eigenvectors)
+GEP_KERNELS = ("ht_cascade", "ht_recondense", "qz_window", "qz_train", "qz_train_far",
+               "aed_deflate_gep", "inf_chase")
 GEP_CHAIN_KERNELS = ("reorder_bubble_gep", "eig_backsolve_gep")
 GEP_N = 2000                       # the GEP chain's size
 SMOKE_DEADLINE_S = 1100.0          # phase 9 waits for the plain cascade until then
@@ -2107,6 +2111,195 @@ def phase_qz_sweep(dev):
                             us_a_step=ms / HOP * 1e3, serial_chain_ms=chain))
 
 
+def qz_train_work(n, NP, l, ihi, B):
+    """(bytes, flops) of one B-bulge train across the padded segment [l,
+    ihi) of a pencil that holds the rows and columns [P, P + n) of (NP, NP)
+    S and T, P = (NP - n) / 2, and the columns [P, P + n) of (n, NP) Q and
+    Z: those four n x n blocks read and written once; each hop's chase
+    (qz_hop_flops on the entries that can change), its left transform on
+    S's and T's WC rows right of the window and its right transforms on
+    their rows above it, both inside the pencil, and on Q and Z, 2 WC
+    flops an entry."""
+    from starneig_tpu_torch.ops import gpu_gep
+    WC, HOP = 6 * B + 4, 3 * B
+    P = (NP - n) // 2
+    flops = 0
+    for h in range(gpu_gep.sweep_hops(l, ihi, B)):
+        s0 = h * HOP
+        ws = l + s0 - 3 * (B - 1) - 1
+        flops += qz_hop_flops(WC, B, HOP, l - ws, ihi - ws, s0)
+        flops += 2 * WC * WC * (2 * max(P + n - ws - WC, 0) + 2 * max(ws - P, 0) + 2 * n)
+    return 8 * 2 * 4 * n * n, flops
+
+
+def qz_train_ab(dev, n, B, seed, reps=3):
+    """One B-bulge train across a whole random n-pencil (qz_train_pencil):
+    the hop loop (_qz_sweep: G3 a hop and the strips by torch products, the
+    host queueing each hop) against G3's train mode (_qz_train: two
+    launches), in turns loop, train, train, loop, reps times, each run
+    timed to a synchronize after a warm-up run of each; then each by CUDA
+    events (for the train, whose two launches are queued at once, its
+    device time) and under torch.profiler.  Returns a dict: each side's
+    wall ms, event ms, device ms (the profiler's kernels), hops and us a
+    hop (of the event ms), the kernels' device ms by name, and the train's
+    error against the loop (max|M| relative)."""
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.qz_driver import _qz_sweep, _qz_train
+    from starneig_tpu_torch.testing.generators import qz_train_pencil
+    S, T, Q, Z, sh, P = qz_train_pencil(n, B, seed)
+    base = [torch.as_tensor(x, device=dev) for x in (S, T, Q, Z)]
+    shd = torch.as_tensor(sh, device=dev)
+    runs = {"loop": lambda b: _qz_sweep(*b, P, P + n, shd, B),
+            "train": lambda b: _qz_train(*b, P, P + n, shd, B)}
+    out, wall = {}, {k: [] for k in runs}
+
+    def one(k):
+        b = [x.clone() for x in base]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[k](b)
+        torch.cuda.synchronize()
+        wall[k].append((time.perf_counter() - t0) * 1e3)
+        out[k] = b
+    for k in runs:
+        one(k)
+        wall[k].clear()
+    for _ in range(reps):
+        for k in ("loop", "train", "train", "loop"):
+            one(k)
+    err = max(_rel(w, g) for g, w in zip(out["train"], out["loop"]))
+    hops = gpu_gep.sweep_hops(P, P + n, B)
+    res = dict(n=n, B=B, hops=hops, err_vs_loop=err, wall_ms=wall)
+    for k in runs:
+        b = [x.clone() for x in base]
+        _, ev_ms = timed(lambda: runs[k](b))
+        b = [x.clone() for x in base]
+        _, prof, _ms = profiled_kernels(lambda: runs[k](b))
+        res[k] = dict(wall_ms_median=sorted(wall[k])[len(wall[k]) // 2], event_ms=ev_ms,
+                      device_ms=sum(v[0] for v in prof.values()),
+                      us_a_hop=ev_ms / hops * 1e3,
+                      kernels={kk: v for kk, v in prof.items() if "qz_" in kk})
+    return res
+
+
+QZ_TRAIN_B, QZ_TRAIN_SEED = 12, 2000     # phase 3's train across the n=GEP_N pencil
+
+
+def qz_train_plain_job(conn, n, B, seed):
+    """In a child process: the plain hop loop (_qz_sweep on CPU tensors: the
+    twin a hop, the strips by torch products) of one B-bulge train across
+    qz_train_pencil(n, B, seed), then again on that input with each entry
+    of S and T moved by one ulp (a random sign a entry): the loop's own
+    spread under rounding of its input.  Sends (S, T, Q, Z of the first run
+    as numpy arrays, the spread (max|M| relative over the four), the loop's
+    hops, the first run's wall time in ms)."""
+    import numpy as np
+    import torch
+    from starneig_tpu_torch.ops.qz_driver import _qz_sweep
+    from starneig_tpu_torch.testing.generators import qz_train_pencil
+    torch.set_num_threads(1)
+    S, T, Q, Z, sh, P = qz_train_pencil(n, B, seed)
+    rng = np.random.default_rng(seed + 1)
+    ulp = [M * (1 + U * rng.choice([-1.0, 1.0], M.shape)) for M in (S, T)]
+    outs, ms = [], []
+    for Sx, Tx in ((S, T), ulp):
+        bufs = [torch.from_numpy(x.copy()) for x in (Sx, Tx, Q, Z)]
+        t0 = time.perf_counter()
+        hops = _qz_sweep(*bufs, P, P + n, torch.from_numpy(sh), B)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(bufs)
+    spread = max(_rel(w, g) for g, w in zip(outs[1], outs[0]))
+    conn.send(([x.numpy() for x in outs[0]], spread, hops, ms[0]))
+    conn.close()
+
+
+def start_qz_train_plain():
+    """Start phase 3's train's plain hop loop in a child process; returns
+    (the process, the receiving end of its pipe)."""
+    handle = start_child(qz_train_plain_job, GEP_N, QZ_TRAIN_B, QZ_TRAIN_SEED)
+    log(f"  G3 train mode n={GEP_N}: the plain hop loop runs in process {handle[0].pid} "
+        "until phase 9")
+    return handle
+
+
+def phase_qz_train(dev):
+    """G3's train mode on one B=12 train across the n=GEP_N pencil: its
+    result on the CPU for phase 9 (the plain hop loop's, from the child),
+    its hops as the chase published them, and the train timed against the
+    hop loop on the card (qz_train_ab)."""
+    import torch
+    from starneig_tpu_torch.ops import gpu_gep
+    from starneig_tpu_torch.ops.qz_driver import _qz_train
+    from starneig_tpu_torch.testing.generators import qz_train_pencil
+    n, B = GEP_N, QZ_TRAIN_B
+    S, T, Q, Z, sh, P = qz_train_pencil(n, B, QZ_TRAIN_SEED)
+    base = [torch.as_tensor(x, device=dev) for x in (S, T, Q, Z)]
+    got = [x.clone() for x in base]
+    hops = int(_qz_train(*got, P, P + n, torch.as_tensor(sh, device=dev), B))
+    want_hops = gpu_gep.sweep_hops(P, P + n, B)
+    check(hops == want_hops, f"G3 train mode n={n}: the chase published {hops} hops of "
+          f"{want_hops}")
+    # backward stable by itself: Q1 M1 Z1^T = Q0 M0 Z0^T on the pencil for
+    # M = S, T, S Hessenberg and T triangular again once the bulges are out
+    c = slice(P, P + n)
+    back = [float(torch.linalg.norm(got[2][:, c] @ M1[c, c] @ got[3][:, c].T - A0)
+                  / torch.linalg.norm(A0)) / U
+            for M1, A0 in ((got[0], base[2][:, c] @ base[0][c, c] @ base[3][:, c].T),
+                           (got[1], base[2][:, c] @ base[1][c, c] @ base[3][:, c].T))]
+    struct = (float(torch.tril(got[0][c, c], -2).abs().max()),
+              float(torch.tril(got[1][c, c], -1).abs().max()))
+    log(f"  G3 train mode n={n}: residuals {back[0]:.1f}u {back[1]:.1f}u, structure S, T "
+        f"{struct}")
+    check(max(back) < GATE_U and struct == (0.0, 0.0),
+          f"G3 train mode n={n}: residuals {back}, structure {struct}")
+    ab = qz_train_ab(dev, n, B, QZ_TRAIN_SEED)
+    nbytes, nflops = qz_train_work(n, n + 2 * P, P, P + n, B)
+    bms, by = bound(nbytes, nflops)
+    chain = ab["hops"] * 3 * B * QZSWEEP_STEP_CYCLES / SM_HZ * 1e3
+    t_, lp = ab["train"], ab["loop"]
+    log(f"  G3 one train n={n} B={B} ({hops} hops published): train mode wall "
+        f"{t_['wall_ms_median']:.2f} ms, CUDA events {t_['event_ms']:.2f} ms "
+        f"({t_['us_a_hop']:.1f} us a hop), profiled kernels {t_['device_ms']:.2f} ms "
+        f"{t_['kernels']}; hop loop on the card wall {lp['wall_ms_median']:.2f} ms, events "
+        f"{lp['event_ms']:.2f} ms, profiled kernels {lp['device_ms']:.2f} ms; train against "
+        f"that loop {ab['err_vs_loop']:.2e}; bound {bms:.4f} ms ({by}), serial chain "
+        f"{chain:.2f} ms; against the plain hop loop in phase 9")
+    check(ab["err_vs_loop"] <= 1e-11, f"G3 train mode n={n}: {ab['err_vs_loop']}")
+    return dict(max_abs_err=None, ms=t_["event_ms"], plain_ms=None, bound_ms=bms,
+                bound_by=by, detail=dict(ab=ab, serial_chain_ms=chain, hops=hops,
+                                         residuals_u=back),
+                out_n2000=[x.cpu() for x in got])
+
+
+def finish_qz_train_plain(handle, g3t, deadline_s):
+    """Phase 9: wait for the child's plain hop loop (at most deadline_s) and
+    hold phase 3's train to it: within 1e-11 max|M|, or within twice the
+    loop's own spread under one ulp of its input where that is larger (the
+    same steps in other orders of sums differ by the chase's rounding,
+    which grows with the train: 2e-12 at n=512, ~3e-11 at n=2000); its
+    host time becomes the row's plain_ms."""
+    import torch
+    proc, recv = handle
+    check(recv.poll(max(deadline_s, 1.0)), f"G3 train mode n={GEP_N}: the plain hop loop "
+          f"did not finish within {deadline_s:.0f} s")
+    want, spread, hops, plain_ms = recv.recv()
+    recv.close()
+    proc.join()
+    got = g3t.pop("out_n2000")
+    errs = [_rel(torch.from_numpy(w), g) for g, w in zip(got, want)]
+    err, tol = max(errs), max(1e-11, 2 * spread)
+    log(f"  G3 train mode n={GEP_N}: max err {err:.2e} max|M| (S, T, Q, Z: "
+        + ", ".join(f"{e:.2e}" for e in errs) + f") against the plain hop loop ({hops} "
+        f"hops; CPU, child process, {plain_ms:.1f} ms), whose own spread under one ulp of "
+        f"its input is {spread:.2e}: tolerance {tol:.2e}; the train {g3t['ms']:.2f} ms")
+    check(err <= tol and hops == g3t["detail"]["hops"],
+          f"G3 train mode n={GEP_N}: {errs} (tolerance {tol}), {hops} hops")
+    g3t["detail"].update(errors_s_t_q_z=errs, plain_hops=hops, plain_ulp_spread=spread,
+                         tolerance=tol)
+    g3t.update(max_abs_err=err, plain_ms=plain_ms)
+
+
 # G4's inputs (label, WA, make() -> (S, T, Q, Z), spike s, active w): the
 # n=2000 path's WA=162 and the n=4000 path's WA=322 windows with some bottom
 # blocks deflating and the others moving up (thresh is u/2 ||S||_F, which
@@ -2377,7 +2570,7 @@ def phase_gep(dev):
     stats = {}
     with tally(qz_driver, "inf_chase", lambda *a: 1) as inf_calls:
         out, qz_ms = timed(lambda: gep.schur(H, T, Q, Z, stats=stats))
-    launches = {k: kernels.LAUNCHES[k] for k in GEP_KERNELS}
+    launches = {k: kernels.LAUNCHES[k] for k in GEP_KERNELS + ("qz_sweep",)}
     S, Tt, Qo, Zo, ar, ai, bt, info = out
     ra, rb, oq, oz, fs, ft, ninf = gep_gates(A_np, B_np, S, Tt, Qo, Zo, bt)
     chordal = hooks.chordal_eigenvalue_error(ar, ai, bt, alpha, beta)
@@ -2403,13 +2596,16 @@ def phase_gep(dev):
     check(geo == dict(WA=162, NS=120, B=12, WC=76, TMAX=5), f"GEP n={n}: geometry {geo}")
     for k in GEP_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched by the GEP path")
+    check(launches["qz_sweep"] == 0 and stats["train_hops"] == stats["sweep_hops"] > 0,
+          f"GEP n={n}: hops outside train launches ({launches['qz_sweep']} G3 hop launches, "
+          f"{stats['train_hops']} of {stats['sweep_hops']} hops in trains)")
     check(stats["recondense_calls"] > 0, "G1's window mode did not run")
     check(ht_kernel_ms > 0, f"GEP n={n}: the profiler saw no G1 device time")
     # the QZ phase again under the profiler: each kernel's device total, the
     # infinite push's window chases and the sweeps (CUDA events around each
     # call)
     inf_ms, sweep_ms = [0.0], [0.0]
-    orig, orig_sweep = qz_driver.inf_chase, qz_driver._qz_sweep
+    orig, orig_sweep = qz_driver.inf_chase, qz_driver._qz_train
 
     def timed_chase(*a):
         out_, t = timed(lambda: orig(*a))
@@ -2417,16 +2613,18 @@ def phase_gep(dev):
         return out_
 
     def timed_sweep(*a, **kw):
-        sweep_ms[0] += timed(lambda: orig_sweep(*a, **kw))[1]
-    qz_driver.inf_chase, qz_driver._qz_sweep = timed_chase, timed_sweep
+        out_, t = timed(lambda: orig_sweep(*a, **kw))
+        sweep_ms[0] += t
+        return out_
+    qz_driver.inf_chase, qz_driver._qz_train = timed_chase, timed_sweep
     try:
         _, prof, _ms = profiled_kernels(lambda: gep.schur(H, T, Q, Z))
     finally:
-        qz_driver.inf_chase, qz_driver._qz_sweep = orig, orig_sweep
+        qz_driver.inf_chase, qz_driver._qz_train = orig, orig_sweep
     top = {k: (round(v[0], 3), v[1]) for k, v in list(prof.items())[:12]}
     log(f"  GEP n={n} QZ device time by kernel (ms, calls; under the profiler): {top}")
     g2_g4 = {}
-    for label, key in (("G2", "qz_window_kernel"), ("G3", "qz_sweep_kernel"),
+    for label, key in (("G2", "qz_window_kernel"), ("G3", "qz_train_"),
                        ("G4", "aed_deflate_gep_kernel"), ("G1w", "ht_win_"),
                        ("G5", "inf_chase_kernel")):
         hits = [v for k, v in prof.items() if key in k]
@@ -2434,11 +2632,12 @@ def phase_gep(dev):
     # the sweeps' device idle share: G3's device time against their time
     idle = 1.0 - g2_g4["G3"][0] / sweep_ms[0] if sweep_ms[0] else None
     log(f"  GEP n={n} QZ phase: G2 {g2_g4['G2'][0]:.1f} ms device time in {g2_g4['G2'][1]} "
-        f"launches, G3 {g2_g4['G3'][0]:.1f} ms in {g2_g4['G3'][1]}, G4 {g2_g4['G4'][0]:.1f} ms "
+        f"launches, G3's train mode {g2_g4['G3'][0]:.1f} ms in {g2_g4['G3'][1]} (two a train), "
+        f"G4 {g2_g4['G4'][0]:.1f} ms "
         f"in {g2_g4['G4'][1]}, G1's window mode {g2_g4['G1w'][0]:.1f} ms in {g2_g4['G1w'][1]} "
         f"kernel launches (a chain and a replay a recondense), G5 {g2_g4['G5'][0]:.2f} ms in "
         f"{g2_g4['G5'][1]}; the sweeps {sweep_ms[0]:.1f} ms, G3 idle {idle:.1%} of them "
-        f"(under the profiler)")
+        f"(under the profiler); {stats['sweep_hops']} hops")
     check(min(v[1] for v in g2_g4.values()) > 0,
           f"GEP n={n}: the profiler saw no G1 window/G2/G3/G4/G5 launch")
     # the window mode's device total on the path (37.9 ms a WA=162 window in
@@ -3268,13 +3467,21 @@ def phase_tools(dev):
     finally:
         sanity.enable_sanity_checks(False)
         trace.disable_tracing()
-    labels = [e["label"] for e in doc["events"]]
-    spans = {e["label"]: (e["end"] - e["begin"]) * 1e3 for e in doc["events"]}
+    # the stages' spans, and inside them the drivers' own (schur.scan, ...;
+    # tools/trace.py), which carry their windows' rects
+    staged = [e for e in doc["events"] if "." not in e["label"]]
+    labels = [e["label"] for e in staged]
+    spans = {e["label"]: (e["end"] - e["begin"]) * 1e3 for e in staged}
     check(set(doc) == {"n", "events"} and doc["n"] == n, f"11: trace keys {set(doc)}")
     check(labels == ["hessenberg", "schur", "select", "reorder", "eigenvectors"],
           f"11: trace labels {labels}")
-    check(all(e["rect"] == [0, 0, n, n] and 0 <= e["begin"] <= e["end"]
-              for e in doc["events"]), "11: trace events malformed")
+    check(all(e["rect"] == [0, 0, n, n] for e in staged)
+          and all(0 <= e["begin"] <= e["end"] for e in doc["events"]),
+          "11: trace events malformed")
+    sch = staged[1]
+    check(all(sch["begin"] <= e["begin"] <= e["end"] <= sch["end"]
+              for e in doc["events"] if e["label"].startswith("schur.")),
+          "11: a driver span outside its stage")
     log(f"  11 n={n}: sanity checks passed on every stage (and failed on H as a "
         f"Schur form); trace of {len(labels)} spans, ms {spans}; leading block {m}")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -3331,6 +3538,7 @@ def main() -> int:
     build_s = phase_build()
     log("== 3. kernels against their plain versions")
     ht_plain = start_ht_plain(dev)
+    qz_train_plain = start_qz_train_plain()
     qz322 = None
     try:
         results = {"hess_gemv": phase_gemv(dev), "francis": phase_francis(dev),
@@ -3347,6 +3555,7 @@ def main() -> int:
                    "reorder_bubble_gep": phase_bubble_gep(dev),
                    "hess_panel": phase_hess_panel(dev)}
         qz322 = results["qz_window"].pop("plain_w322")
+        results["qz_train"] = phase_qz_train(dev)
         log("== 4. n=1200 with B=70")
         b70 = phase_schur_b70(dev)
         log("== 5. main path")
@@ -3364,6 +3573,8 @@ def main() -> int:
                         SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
         finish_qz_plain(qz322, results["qz_window"],
                         SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
+        finish_qz_train_plain(qz_train_plain, results["qz_train"],
+                              SMOKE_DEADLINE_S - (time.perf_counter() - t_start))
         log("== 10. DM: gloo ranks sharing the card")
         t_dm = time.perf_counter()
         dm_a, dm_c, dm_d = phase_dm_two(dev, main_res, gep_res)
@@ -3373,7 +3584,7 @@ def main() -> int:
         log("== 11. tools and examples")
         tools = phase_tools(dev)
     finally:
-        for child in (ht_plain, qz322):
+        for child in (ht_plain, qz322, qz_train_plain):
             if child is not None and child[0].is_alive():
                 child[0].terminate()
             if child is not None:

@@ -52,8 +52,10 @@ def schur(H, T, Q=None, Z=None, conf: Optional[SchurConf] = None,
 
     Returns (S, T, Q, Z, alpha_r, alpha_i, beta, info); beta == 0 marks an
     infinite eigenvalue.  Above the small limit the multishift QZ driver
-    with AED runs; ``stats``, if a dict, receives its geometry and rounds,
-    and on either path ``chase_steps``, the window QZ solves' chase steps.
+    with AED runs; ``stats``, if a dict, receives its geometry, rounds and
+    trains' hops (``sweep_hops``; ``train_hops`` those run inside train
+    launches: all of them on a card), and on either path ``chase_steps``,
+    the window QZ solves' chase steps.
     """
     dev = _device(device)
     H, T = _to(H, dev), _to(T, dev)

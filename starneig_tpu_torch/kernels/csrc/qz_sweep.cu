@@ -1,4 +1,5 @@
-// G3: one hop (3B steps) of a B-bulge QZ train inside its (6B+4)-row window.
+// G3: one hop (3B steps) of a B-bulge QZ train inside its (6B+4)-row window;
+// its train mode (below) runs every hop of a train in two launches.
 //
 // Replaces the XLA fori_loop of starneig_tpu/ops/qz_driver.py:
 // _qz_sweep_chunk (:444, run by _qz_sweep_batch :432 and _qz_iter :953-980),
@@ -414,5 +415,412 @@ extern "C" int qz_sweep(void* S, void* T, void* Qw, void* Zw, void* shifts,
       static_cast<double*>(S), static_cast<double*>(T), static_cast<double*>(Qw),
       static_cast<double*>(Zw), static_cast<const double*>(shifts), WC, B, HOP,
       l_rel, ihi_rel, s0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Train mode: every hop of a train in two launches, in place on the padded
+// pencil (ops/qz_driver.py:_qz_train; the hop loop it replaces on the
+// dense card path is _qz_sweep, which stays for the DM path and the CPU).
+//
+// What bounded the hop loop: the host.  A hop was about 17 device
+// operations queued from Python (G3 on copies of the window, the strip
+// GEMMs and their copies), longer on the host than on the card, so the card
+// idled about 0.3 ms a hop of its 0.14 ms of G3 (PERF.md, section 5).
+//
+// Design.
+//   * qz_train_kernel, one cooperative launch.  Block 0 chases the hops in
+//     the JAX order with G3's chase and update groups unchanged: it loads
+//     the hop's (WC, WC) window pair from the padded buffers, runs 3B steps,
+//     writes the window back and the hop's Qw and Zw to a stack (H, WC, WC)
+//     each, and publishes the hop.  The window of hop h+1 takes the columns
+//     [we_h, we_h + 3B) (tile h) new, and their rows carry the left
+//     transforms of EVERY earlier hop: hop h mixes rows that hop h-1 mixed,
+//     and so on back to the first, so no fixed band of columns past the
+//     window can be brought up to date by the chase alone.  The other blocks
+//     keep the row strips current: block 1 + w owns the column tiles j = w,
+//     w + W, ... (3B columns each, from we_0 to the buffer's edge) and
+//     applies each published hop to them in hop order, Qw^T on the hop's WC
+//     rows; it hands tile j to the chase after hop j-1 (a flag), and the
+//     chase applies hop j there itself before loading window j+1.  Tiles
+//     past the train's windows take every hop from their owner.  Tile j is
+//     written by one block at a time, so no entry races.  The same blocks
+//     apply each hop's Qw to Q's and Zw to Z's columns [ws_h, ws_h + WC), a
+//     tile of four rows a warp, while the chase runs on: no window reads
+//     Q or Z, and no left transform reaches them.
+//   * qz_train_far_kernel, one launch after it: the right transforms of S's
+//     and T's rows above each window, which the strips' left transforms
+//     also reach (so they wait for them): a block a tile of kFarRows rows
+//     of S or T, each hop's Zw on its WC columns in hop order.
+// Each entry takes its left transforms in hop order and its right ones in
+// hop order; the two sides commute, so the result equals the hop loop's up
+// to the order of sums (cuBLAS's there, a thread's dot here).  What bounds
+// it: the chase, block 0's serial chain (G3's, about 0.14 ms a hop at
+// B = 12), plus a tile's left product a hop (WC x 3B x WC multiply-adds on
+// one SM); the strips and the far pass are parallel over tiles and stay off
+// that chain.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int kFarWarps = 16;               // the far pass: 4 rows a warp
+constexpr int kFarRows = 4 * kFarWarps;     //   rows a block
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// thread 0 waits until *flag reaches at_least, then the block goes on (it
+// polls every ~0.2 us: a hop takes ~140 us, and ~100 blocks polling one
+// line would crowd the chase's L2 traffic); a wait of ~10 s (a block that
+// never publishes) traps, failing the launch where it would hang the card
+DEVI void block_wait(const unsigned* flag, unsigned at_least) {
+  if (threadIdx.x == 0) {
+    const long long t0 = clock64();
+    while (ld_acquire(flag) < at_least) {
+      __nanosleep(200);
+      if (clock64() - t0 > 20000000000LL) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// every thread's global writes, then *flag = v for the other blocks
+DEVI void block_publish(unsigned* flag, unsigned v) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) st_release(flag, v);
+}
+
+struct Train {
+  double* S;            // the padded pencil, NP x NP, row stride NP
+  double* T;
+  double* Q;            // n x NP, row stride NP
+  double* Z;
+  double* Qs;           // the hops' Qw, (H, WC, WC), then their Zw
+  double* Zs;
+  const double* sh;     // the train's shifts, (B, 4)
+  unsigned* sync;       // [0] the hops published; [1 + j] tile j handed over
+  int NP, n, WC, B, HOP, l, ihi, H, J, tQZ, W;
+};
+
+// rows [ws, ws + m) x columns [c0, c0 + nc) of the padded M into shared X
+// (row stride lx).  Every load of what another block may have written goes
+// through L2 (__ldcg), here and below: L1 is not coherent across SMs, and
+// a line this SM cached beside its own columns can hold another block's
+// stale entries
+DEVI void stage(const double* M, int NP, int ws, int c0, int m, int nc, double* X, int lx) {
+  for (int e = threadIdx.x; e < m * nc; e += blockDim.x) {
+    const int r = e / nc, c = e % nc;
+    X[r * lx + c] = __ldcg(M + (size_t)(ws + r) * NP + c0 + c);
+  }
+}
+
+// rows [ws, ws + m) x columns [c0, c0 + nc) of the padded S and T = Qw^T
+// X: Qw in shared memory (m x m, row stride lq), XS and XT their staged
+// rows; a thread an output column and four rows of one of them
+DEVI void left_apply(const double* Qw, int lq, const double* XS, const double* XT, int lx,
+                     int m, int nc, double* S, double* T, int NP, int ws, int c0) {
+  constexpr int kR = 4;
+  const int nrb = (m + kR - 1) / kR;
+  for (int e = threadIdx.x; e < 2 * nrb * nc; e += blockDim.x) {
+    const bool second = e >= nrb * nc;
+    const double* X = second ? XT : XS;
+    double* M = second ? T : S;
+    const int f = second ? e - nrb * nc : e;
+    const int c = f % nc, i0 = (f / nc) * kR;
+    int ic[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) ic[r] = min(i0 + r, m - 1);
+    double acc[kR] = {0.0, 0.0, 0.0, 0.0};
+    for (int j = 0; j < m; ++j) {
+      const double x = X[j * lx + c];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) acc[r] = fma(Qw[j * lq + ic[r]], x, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+      if (i0 + r < m) M[(size_t)(ws + i0 + r) * NP + c0 + c] = acc[r];
+  }
+}
+
+// rows [r0, r0 + nr) x columns [ws, ws + m) of the padded M = X Mw: Mw in
+// shared memory (m x m, row stride lm), X those rows staged (row stride
+// lx); a warp four rows at a time, a lane a column of each block of 32 (m
+// <= 96), every product a 4 x 3 register tile
+DEVI void right_apply(const double* Mw, int lm, const double* X, int lx, int nr, int m,
+                      double* M, int NP, int r0, int ws) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int rw = 4 * warp; rw < nr; rw += 4 * nw) {
+    double acc[4][kCols] = {};
+    int cc[kCols], rr[4];
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) cc[q] = min(lane + 32 * q, m - 1);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) rr[r] = min(rw + r, nr - 1);
+    for (int k = 0; k < m; ++k) {
+      double mk[kCols], xk[4];
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) mk[q] = Mw[k * lm + cc[q]];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) xk[r] = X[rr[r] * lx + k];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) acc[r][q] = fma(xk[r], mk[q], acc[r][q]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) {
+        const int c = lane + 32 * q;
+        if (rw + r < nr && c < m) M[(size_t)(r0 + rw + r) * NP + ws + c] = acc[r][q];
+      }
+  }
+}
+
+// hop h's left transform on tile j's columns of S and T (X staged into XS,
+// XT of row stride lx); ends with the block synchronized
+DEVI void tile_left(const Train& p, const double* Qw, int lq, int h, int j, double* XS,
+                    double* XT, int lx) {
+  const int ws = p.l + h * p.HOP - 3 * (p.B - 1) - 1;
+  const int c0 = p.l - 3 * (p.B - 1) - 1 + p.WC + j * p.HOP;
+  const int nc = min(p.HOP, p.NP - c0);
+  stage(p.S, p.NP, ws, c0, p.WC, nc, XS, lx);
+  stage(p.T, p.NP, ws, c0, p.WC, nc, XT, lx);
+  __syncthreads();
+  left_apply(Qw, lq, XS, XT, lx, p.WC, nc, p.S, p.T, p.NP, ws, c0);
+  __syncthreads();
+}
+
+DEVI void train_chase(const Train& p, double* smem, int* ring_k) {
+  const int WC = p.WC, ld = WC + 1, NP = p.NP;
+  double* S = smem;
+  double* T = S + WC * ld;
+  double* Qw = T + WC * ld;
+  double* Zw = Qw + WC * ld;
+  double* ring = Zw + WC * ld;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nwarps = blockDim.x >> 5;
+  for (int h = 0; h < p.H; ++h) {
+    const int s0 = h * p.HOP, ws = p.l + s0 - 3 * (p.B - 1) - 1;
+    double* Sg = p.S + (size_t)ws * NP + ws;
+    double* Tg = p.T + (size_t)ws * NP + ws;
+    for (int r = warp; r < WC; r += nwarps)
+      for (int c = lane; c < WC; c += 32) {
+        S[r * ld + c] = __ldcg(Sg + (size_t)r * NP + c);
+        T[r * ld + c] = __ldcg(Tg + (size_t)r * NP + c);
+        const double one = r == c ? 1.0 : 0.0;
+        Qw[r * ld + c] = one;
+        Zw[r * ld + c] = one;
+      }
+    __syncthreads();
+    // the hop kernel's rule for the full ranges
+    const int l_rel = p.l - ws;
+    const int b_first = s0 <= 0 ? 0 : (s0 + 2) / 3;
+    const bool intro_hop = b_first < p.B && 3 * b_first < s0 + p.HOP;
+    const bool full = intro_hop && l_rel >= 1 && l_rel < WC && S[l_rel * ld + l_rel - 1] != 0.0;
+    const Hop hp{WC, ld, p.B, p.HOP, l_rel, p.ihi - ws, s0, full};
+    if (warp < p.B)
+      chase(hp, S, T, ring, ring_k, p.sh);
+    else
+      update(hp, Qw, Zw, ring, ring_k);
+    __syncthreads();
+    double* Qh = p.Qs + (size_t)h * WC * WC;
+    double* Zh = p.Zs + (size_t)h * WC * WC;
+    for (int r = warp; r < WC; r += nwarps)
+      for (int c = lane; c < WC; c += 32) {
+        Sg[(size_t)r * NP + c] = S[r * ld + c];
+        Tg[(size_t)r * NP + c] = T[r * ld + c];
+        Qh[r * WC + c] = Qw[r * ld + c];
+        Zh[r * WC + c] = Zw[r * ld + c];
+      }
+    block_publish(p.sync, h + 1);
+    if (h + 1 < p.H) {
+      // tile h, which window h+1 takes new: hops 0..h-1 from its owner,
+      // hop h here (S's and T's areas stage it)
+      if (h > 0) block_wait(p.sync + 1 + h, 1u);
+      tile_left(p, Qw, ld, h, h, S, T, p.HOP + 1);
+    }
+  }
+}
+
+DEVI void train_strips(const Train& p, double* smem) {
+  const int WC = p.WC, ld = WC + 1, w = blockIdx.x - 1;
+  const int nq = 2 * p.tQZ;           // Q's row tiles, then Z's
+  double* Qw = smem;
+  double* Zw = Qw + WC * ld;
+  double* XS = Zw + WC * ld;          // a tile's S and T rows, or Q's or Z's
+  double* XT = XS + WC * (p.HOP + 1);
+  // hop h reaches tile j where the chase does not: j > h, or no window
+  // takes the tile (j >= H - 1); Q and Z take every hop
+  auto takes = [&](int h, int j) { return h < j || j >= p.H - 1; };
+  for (int h = 0; h < p.H; ++h) {
+    bool any = w < nq;
+    for (int j = w; j < p.J; j += p.W) any = any || takes(h, j);
+    if (!any) break;
+    block_wait(p.sync, h + 1);
+    const double* Qh = p.Qs + (size_t)h * WC * WC;
+    const double* Zh = p.Zs + (size_t)h * WC * WC;
+    for (int e = threadIdx.x; e < WC * WC; e += blockDim.x) {
+      Qw[(e / WC) * ld + e % WC] = __ldcg(Qh + e);
+      if (w < nq) Zw[(e / WC) * ld + e % WC] = __ldcg(Zh + e);
+    }
+    __syncthreads();
+    for (int j = w; j < p.J; j += p.W) {
+      if (!takes(h, j)) continue;
+      tile_left(p, Qw, ld, h, j, XS, XT, p.HOP + 1);
+      if (h == j - 1 && j + 1 < p.H) block_publish(p.sync + 1 + j, 1u);
+    }
+    const int ws = p.l + h * p.HOP - 3 * (p.B - 1) - 1;
+    for (int q = w; q < nq; q += p.W) {
+      const bool isq = q < p.tQZ;
+      double* M = isq ? p.Q : p.Z;
+      const int r0 = (isq ? q : q - p.tQZ) * 4 * (blockDim.x >> 5);
+      const int nr = min(4 * (int)(blockDim.x >> 5), p.n - r0);
+      stage(M, p.NP, r0, ws, nr, WC, XS, WC);
+      __syncthreads();
+      right_apply(isq ? Qw : Zw, ld, XS, WC, nr, WC, M, p.NP, r0, ws);
+      __syncthreads();
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads) qz_train_kernel(Train p) {
+  extern __shared__ __align__(16) double smem[];
+  __shared__ int ring_k[kRing * kMaxB];
+  if (blockIdx.x == 0)
+    train_chase(p, smem, ring_k);
+  else
+    train_strips(p, smem);
+}
+
+struct Far {
+  double* M[2];         // S, T (NP x NP, row stride NP)
+  const double* Zs;     // the hops' Zw, (H, WC, WC)
+  int NP, WC, B, HOP, l, H, tST;
+};
+
+// The right transforms of S and T: block b a tile of kFarRows rows of S
+// (b < tST: the rows above the last window) or T; hop h's Zw on the
+// columns [ws_h, ws_h + WC) of its rows above ws_h, in hop order.
+__global__ void __launch_bounds__(kFarWarps * 32) qz_train_far_kernel(Far p) {
+  extern __shared__ __align__(16) double smem[];
+  const int WC = p.WC, NP = p.NP;
+  double* Mw = smem;                  // WC x WC
+  double* X = Mw + WC * WC;           // kFarRows x WC
+  const int m = blockIdx.x < p.tST ? 0 : 1;
+  double* A = p.M[m];
+  const int r0 = (blockIdx.x - m * p.tST) * kFarRows;
+  for (int h = 0; h < p.H; ++h) {
+    const int ws = p.l + h * p.HOP - 3 * (p.B - 1) - 1;
+    const int nr = min(kFarRows, ws - r0);
+    if (nr <= 0) continue;
+    const double* Mh = p.Zs + (size_t)h * WC * WC;
+    for (int e = threadIdx.x; e < WC * WC; e += blockDim.x) Mw[e] = Mh[e];
+    stage(A, NP, r0, ws, nr, WC, X, WC);
+    __syncthreads();
+    right_apply(Mw, WC, X, WC, nr, WC, A, NP, r0, ws);
+    __syncthreads();
+  }
+}
+
+size_t train_smem_bytes(int B, int WC) { return smem_bytes(B, WC); }
+
+size_t far_smem_bytes(int WC) {
+  return sizeof(double) * ((size_t)WC * WC + (size_t)kFarRows * WC);
+}
+
+}  // namespace
+
+// One B-bulge train across the padded segment [l, ihi), in place: S, T
+// (NP x NP), Q, Z (n x NP), all row-major with row stride NP; stack (2, H,
+// WC, WC) the hops' Qw then Zw; sync (NP + 1) unsigned ints, zeroed (sync[0]
+// ends at the hops the chase ran); H the train's hops (ops/gpu_gep.py:
+// sweep_hops).  S[ihi, ihi-1] = 0, as the hop kernel's ranges assume.  Two
+// launches: the chase with the row strips and Q's and Z's products
+// (cooperative: its blocks wait on each other), then S's and T's right
+// transforms.
+extern "C" int qz_train(void* S, void* T, void* Q, void* Z, void* stack, void* shifts,
+                        void* sync, int NP, int n, int B, int l, int ihi, int H,
+                        void* stream) {
+  const int WC = 6 * B + 4, HOP = 3 * B;
+  const int ws0 = l - 3 * (B - 1) - 1;
+  if (B < 1 || B > kMaxB || H < 1 || ws0 < 0 || ws0 + (H - 1) * HOP + WC > NP || ihi > NP ||
+      n > NP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int J = (NP - ws0 - WC + HOP - 1) / HOP;
+  const int nthreads = (B + kUpdWarps) * 32;
+  const size_t smem = train_smem_bytes(B, WC);
+  static bool configured = false;
+  cudaError_t e = cudaSuccess;
+  if (!configured) {
+    e = cudaFuncSetAttribute(qz_train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)train_smem_bytes(kMaxB, 6 * kMaxB + 4));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(qz_train_far_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)far_smem_bytes(6 * kMaxB + 4));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  int dev = 0, nsm = 0, occ = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, qz_train_kernel, nthreads, smem);
+  if (e == cudaSuccess && occ * nsm < 2) e = cudaErrorCooperativeLaunchTooLarge;
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(e);
+  }
+  Train p;
+  p.S = static_cast<double*>(S);
+  p.T = static_cast<double*>(T);
+  p.Q = static_cast<double*>(Q);
+  p.Z = static_cast<double*>(Z);
+  p.Qs = static_cast<double*>(stack);
+  p.Zs = p.Qs + (size_t)H * WC * WC;
+  p.sh = static_cast<const double*>(shifts);
+  p.sync = static_cast<unsigned*>(sync);
+  p.NP = NP;
+  p.n = n;
+  p.WC = WC;
+  p.B = B;
+  p.HOP = HOP;
+  p.l = l;
+  p.ihi = ihi;
+  p.H = H;
+  p.J = J;
+  // Q's and Z's tiles: four rows a warp of a strip block, staged behind
+  // its Qw and Zw in the 2 WC (WC + 1) doubles of the chase's S and T
+  p.tQZ = (n + 4 * (nthreads / 32) - 1) / (4 * (nthreads / 32));
+  p.W = min(max(J, 2 * p.tQZ), occ * nsm - 1);
+  void* args[] = {&p};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  e = cudaLaunchCooperativeKernel((const void*)qz_train_kernel, dim3(1 + p.W), dim3(nthreads),
+                                  args, smem, st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is not sticky: clear it for the next caller
+    return static_cast<int>(e);
+  }
+  Far f;
+  f.M[0] = p.S;
+  f.M[1] = p.T;
+  f.Zs = p.Zs;
+  f.NP = NP;
+  f.WC = WC;
+  f.B = B;
+  f.HOP = HOP;
+  f.l = l;
+  f.H = H;
+  f.tST = (ws0 + (H - 1) * HOP + kFarRows - 1) / kFarRows;
+  const int grid = 2 * f.tST;
+  if (grid > 0)
+    qz_train_far_kernel<<<grid, kFarWarps * 32, far_smem_bytes(WC), st>>>(f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,8 @@ that owns the plain PyTorch twin dispatches on the device:
   qz_window        qz_window.cu         ops/qz.py: small_qz, _small_qz_plain
   qz_sweep         qz_sweep.cu          ops/qz_driver.py: qz_train_hop,
                                         _qz_train_hop
+  qz_train         qz_sweep.cu (train   ops/qz_driver.py: _qz_train, the hop
+                   mode)                loop _qz_sweep
   aed_deflate_gep  aed_deflate_gep.cu   ops/qz_driver.py: aed_deflate_gep,
                                         _aed_deflate_gep
   inf_chase        inf_chase.cu         ops/qz_driver.py: inf_chase,
@@ -202,7 +204,10 @@ def qz_sweep(Sw, Tw, shifts, l_rel: int, ihi_rel: int, s0: int, B: int,
     """Kernel G3: HOP steps of one B-bulge QZ train inside its (WC, WC)
     window pair, CUDA tensors only (see
     :func:`starneig_tpu_torch.ops.qz_driver._qz_train_hop`).  ``shifts`` is
-    the train's (B, 4) shift rows.  Returns (Sw2, Tw2, Qw, Zw)."""
+    the train's (B, 4) shift rows.  The segment must be decoupled at its
+    bottom, S[ihi, ihi-1] = 0 (where ihi_rel < WC), as the driver's
+    deflations leave it: the kernel's row ranges stop at ihi_rel, the twin's
+    do not.  Returns (Sw2, Tw2, Qw, Zw)."""
     WC = _check_square("qz_sweep", Sw, Tw)
     if WC != 6 * B + 4:
         raise ValueError(f"qz_sweep: window {WC} is not 6 B + 4 = {6 * B + 4}")
@@ -221,6 +226,51 @@ def qz_sweep(Sw, Tw, shifts, l_rel: int, ihi_rel: int, s0: int, B: int,
                                int(l_rel), int(ihi_rel), int(s0),
                                kernels.stream_ptr(Sw)), "qz_sweep")
     return S, T, Qw, Zw
+
+
+def sweep_hops(l: int, ihi: int, B: int) -> int:
+    """The hops of a B-bulge train across the padded segment [l, ihi): its
+    chase steps (ihi - l) - 2 + 3 (B - 1) + 1 in hops of 3B."""
+    steps = (ihi - l) - 2 + 3 * (B - 1) + 1
+    return -(-steps // (3 * B))
+
+
+def qz_train(Spad, Tpad, Qpad, Zpad, shifts, l: int, ihi: int, B: int) -> int:
+    """Kernel G3 in train mode: one B-bulge QZ train across the padded
+    segment [l, ihi) of CUDA tensors, in place (the hop loop
+    :func:`starneig_tpu_torch.ops.qz_driver._qz_sweep` on a whole pencil):
+    a cooperative launch chases every hop, keeps the row strips current and
+    applies Q's and Z's products, a second applies the right transforms to
+    S's and T's rows above the windows.  Spad, Tpad are (NP, NP), Qpad, Zpad
+    (n, NP); ``shifts`` the train's (B, 4) shift rows.  The segment must be
+    decoupled at its bottom, Spad[ihi, ihi-1] = 0, as for :func:`qz_sweep`.
+    Returns the hops the chase published (its flag after the last hop), a
+    0-d int32 tensor on the card."""
+    NP = _check_square("qz_train", Spad, Tpad)
+    n = Qpad.shape[0]
+    if tuple(Qpad.shape) != (n, NP) or Zpad.shape != Qpad.shape:
+        raise ValueError(f"qz_train: Q and Z must be ({n}, {NP}), got "
+                         f"{tuple(Qpad.shape)}, {tuple(Zpad.shape)}")
+    WC, H = 6 * B + 4, sweep_hops(l, ihi, B)
+    ws0 = l - 3 * (B - 1) - 1
+    if not (1 <= B <= 13 and H >= 1 and ws0 >= 0 and ihi <= NP
+            and ws0 + (H - 1) * 3 * B + WC <= NP):
+        raise ValueError(f"qz_train: B = {B}, segment [{l}, {ihi}): the train's "
+                         f"windows leave the ({NP}, {NP}) buffers")
+    sh = shifts.contiguous()
+    if tuple(sh.shape) != (B, 4):
+        raise ValueError(f"qz_train: shifts {tuple(sh.shape)} are not ({B}, 4)")
+    stack = Spad.new_empty((2, H, WC, WC))
+    sync = torch.zeros(NP + 1, dtype=torch.int32, device=Spad.device)
+    kernels.require_cuda_f64("qz_train", Spad, Tpad, Qpad, Zpad, sh, stack)
+    lib = kernels.lib()
+    kernels.LAUNCHES["qz_train"] += 1
+    kernels.LAUNCHES["qz_train_far"] += 1
+    kernels.check(lib.qz_train(Spad.data_ptr(), Tpad.data_ptr(), Qpad.data_ptr(),
+                               Zpad.data_ptr(), stack.data_ptr(), sh.data_ptr(),
+                               sync.data_ptr(), NP, n, B, int(l), int(ihi), H,
+                               kernels.stream_ptr(Spad)), "qz_train")
+    return sync[0]
 
 
 def aed_deflate_gep(Sw, Tw, Qw, Zw, s: float, w: int, thresh: float):

@@ -19,7 +19,9 @@ loops run as one kernel launch each on CUDA (the dispatchers
 and ``ops/qz.py:small_qz`` run the plain twins for CPU tensors).  The
 trains run in windows of 6B+4 rows, as the SEP sweep does
 (``ops/schur.py:_sweep_wave``): the kernel chases inside the window and
-the off-window strips update by GEMMs.  The windowed infinite-eigenvalue
+the off-window strips update by GEMMs; on whole CUDA buffers a train runs
+as two launches of G3's train mode (:func:`_qz_train`), with no host work
+between hops.  The windowed infinite-eigenvalue
 push runs its window chase as kernel G5 on CUDA (the dispatcher
 :func:`inf_chase`; plain twin ``_inf_chase_kernel``); the deflating
 rotation at the segment bottom (``_deflate_inf_bottom``) is one rotation
@@ -354,10 +356,13 @@ def _qz_sweep(Spad, Tpad, Qpad, Zpad, l: int, ihi: int, sh, B: int,
     in its columns (``ext``'s ranged products).  The same steps as the JAX
     package's full-width ``_qz_sweep_batch``.  ``hop`` runs one hop on
     copies of the window pair: :func:`qz_train_hop`, or a caller's
-    wrapper of it."""
+    wrapper of it.  The segment is decoupled at its bottom: S[ihi, ihi-1]
+    is zero, as the driver's deflations leave it (G3's row ranges stop at
+    ihi).  Returns the hops the loop ran."""
     WC, HOP = 6 * B + 4, 3 * B
-    steps = (ihi - l) - 2 + 3 * (B - 1) + 1
-    for s0 in range(0, steps, HOP):
+    hops = 0
+    for h in range(gpu_gep.sweep_hops(l, ihi, B)):
+        s0 = h * HOP
         ws = l + s0 - 3 * (B - 1) - 1
         we = ws + WC
         Sw, Tw = ext.get_blocks((Spad, Tpad), ws, ws, WC, WC)
@@ -369,6 +374,19 @@ def _qz_sweep(Spad, Tpad, Qpad, Zpad, l: int, ihi: int, sh, B: int,
                             i1s=(ws, ws, None, None))
         ext.set_block(Spad, Sw2, ws, ws)
         ext.set_block(Tpad, Tw2, ws, ws)
+        hops += 1
+    return hops
+
+
+def _qz_train(Spad, Tpad, Qpad, Zpad, l: int, ihi: int, sh, B: int):
+    """Chase one B-bulge train across the padded segment [l, ihi) of whole
+    CUDA buffers, in place: the steps, hops and windows of
+    :func:`_qz_sweep`, run by kernel G3's train mode in two launches (the
+    chase with the row strips kept current beside it, then the right
+    transforms) with no host work between hops; S[ihi, ihi-1] is zero, as
+    for :func:`_qz_sweep`.  Returns the hops the chase published, a 0-d
+    tensor on the card (read once a solve, not a train)."""
+    return gpu_gep.qz_train(Spad, Tpad, Qpad, Zpad, sh, l, ihi, B)
 
 
 # ---------------------------------------------------------------------------
@@ -567,14 +585,21 @@ def _qz_iter(Spad, Tpad, Qpad, Zpad, n: int, thresh: float, thresh_t: float,
     ``stats`` receives ``qz_log`` entries (w, kbot, ntr, do_inf) and
     ``round_log`` entries (l, ihi, ntr, chase_steps), one each a round:
     the active segment [l, ihi) the trains span and the window solve's
-    chase steps.  ``ext`` carries every access to the padded buffers:
-    ``DenseExtent`` for whole buffers, a sharded extent
-    (``parallel/dm_core.py``) for column shards of them.  Returns (ihi,
-    fail)."""
+    chase steps; ``sweep_hops`` counts the hops the trains ran (the hop
+    loop's iterations and the hops the train launches published) and
+    ``train_hops`` those that ran inside train launches.  ``ext`` carries every access to
+    the padded buffers: ``DenseExtent`` for whole buffers, a sharded extent
+    (``parallel/dm_core.py``) for column shards of them.  Whole CUDA
+    buffers run each train as :func:`_qz_train`, the others as the hop
+    loop :func:`_qz_sweep`.  Returns (ihi, fail)."""
     eyeW = torch.eye(g.WA, dtype=Spad.dtype, device=Spad.device)
     ihi, it_seg, last_ihi, fail, rounds = n, 0, n, 0, 0
     log = stats["qz_log"]
     rlog = stats.setdefault("round_log", [])
+    stats.setdefault("sweep_hops", 0)
+    stats.setdefault("train_hops", 0)
+    in_train = ext is DenseExtent and Spad.is_cuda
+    published = []      # each train launch's hops, read after the last round
     while ihi > 0 and fail == 0 and rounds < 2 * n + 10:
         shifts, (new_ihi, l, ntr, _sf, nd, _np, w, do_inf, steps) = _qz_round(
             Spad, Tpad, Qpad, Zpad, n, ihi, thresh, thresh_t, eyeW, g, stats,
@@ -587,13 +612,22 @@ def _qz_iter(Spad, Tpad, Qpad, Zpad, n: int, thresh: float, thresh_t: float,
         fail = int(it_seg > g.itmax)
         if ntr > 0 and fail == 0:
             for t in range(ntr):
+                sh = shifts[min(t, g.TMAX - 1)]
                 with trace_span("qz.sweep", (l, l, new_ihi - l, new_ihi - l)):
-                    _qz_sweep(Spad, Tpad, Qpad, Zpad, g.P + l, g.P + new_ihi,
-                              shifts[min(t, g.TMAX - 1)], g.B, ext=ext)
+                    if in_train:
+                        published.append(_qz_train(Spad, Tpad, Qpad, Zpad, g.P + l,
+                                                   g.P + new_ihi, sh, g.B))
+                    else:
+                        stats["sweep_hops"] += _qz_sweep(Spad, Tpad, Qpad, Zpad, g.P + l,
+                                                         g.P + new_ihi, sh, g.B, ext=ext)
         if fail == 0:
             ihi = new_ihi
         last_ihi = new_ihi
         rounds += 1
+    if published:
+        hops = int(torch.stack(published).sum())
+        stats["sweep_hops"] += hops
+        stats["train_hops"] += hops
     stats["rounds"] = rounds
     stats["chase_steps"] = sum(r[3] for r in rlog)
     return ihi, fail
@@ -608,8 +642,10 @@ def qz_schur(H, T, Q=None, Z=None, conf: Optional[SchurConf] = None,
     receives the geometry, the round count, ``qz_log`` (the (w, kbot, ntr,
     do_inf) of each round), ``round_log`` (the (l, ihi, ntr, chase_steps)
     of each round), ``chase_steps`` (the window solves' chase steps summed
-    over the rounds), the recondense calls (G1's window mode), the
-    windowed infinite-push calls and the rounds that took that push.
+    over the rounds), ``sweep_hops`` and ``train_hops`` (the trains' hops,
+    and those run inside train launches: all of them on a card), the
+    recondense calls (G1's window mode), the windowed infinite-push calls
+    and the rounds that took that push.
 
     Returns (S, T, Q, Z, alpha_r, alpha_i, beta, info), info Error.SUCCESS
     or Error.DID_NOT_CONVERGE.

@@ -608,7 +608,8 @@ def gep_suite(arrays: dict):
       form with its eigenvalues, info and rounds, the selection, the
       reordered form with its leading block and info, and reduce's own
       eigenvalues; then gep_dm.schur of the given HT form ``HT``
-      (``schur_same``: the pencil gathered, eigenvalues, info, rounds) and
+      (``schur_same``: the pencil gathered, eigenvalues, info, rounds, each
+      train's (l, ihi, S[ihi, ihi-1]), ``hooks.train_bottoms``, and qz_log) and
       (rank 0) the single-process ``gep.schur`` of the chain's own HT form
       (``sm_own``: eigenvalues, info, rounds).
     """
@@ -617,6 +618,7 @@ def gep_suite(arrays: dict):
     from starneig_tpu_torch.node import default_mesh
     from starneig_tpu_torch.parallel import distr
     from starneig_tpu_torch.parallel.dm_core import ShardedExtent, pad_cuts
+    from starneig_tpu_torch.testing.hooks import train_bottoms
 
     mesh = default_mesh()
     res, cnt = {}, {}
@@ -656,10 +658,12 @@ def gep_suite(arrays: dict):
         final=dict(gather(mats), ar=ar.numpy(), ai=ai.numpy(), bt=bt.numpy(),
                    nsel=int(nsel), info=int(info)))
     st = {}
-    same = gep_dm.schur(*(arrays["HT"][k] for k in "STQZ"), stats=st)
+    with train_bottoms() as bottoms:
+        same = gep_dm.schur(*(arrays["HT"][k] for k in "STQZ"), stats=st)
     res["gep"]["schur_same"] = dict(gather(same[:4]), ar=same[4].numpy(), ai=same[5].numpy(),
                                     bt=same[6].numpy(), info=int(same[7]),
-                                    rounds=st.get("rounds"))
+                                    rounds=st.get("rounds"), bottoms=bottoms,
+                                    qz_log=st.get("qz_log"))
     if mesh.rank == 0:
         # the single-process QZ of the chain's own HT form, the reference of
         # its QZ on shards (the HT on shards agrees with the single-process

@@ -394,18 +394,15 @@ def planted_spike_reject(W: int, gap: int, seed: int):
     return S, T, Q, Z
 
 
-def qz_train_hops(n: int, B: int, seed: int, l: int = 0, ihi=None):
-    """The inputs of every hop of one B-bulge QZ train chased across [l,
-    ihi) of a random n-pencil, as the driver's sweep
-    (``ops/qz_driver.py:_qz_sweep``) cuts it, the plain twin running on the
-    CPU: S upper Hessenberg with S[l, l-1] = 0, T upper triangular with a
-    diagonal shifted by 3, padded by 6B + 6 rows on each side; the train's
-    shifts from the seed.  Returns (hops, shifts (B, 4) tensor), hops a list
-    of (Sw, Tw, l_rel, ihi_rel, s0) with (WC, WC) float64 CPU windows, WC =
-    6B + 4: the first hop introduces bulges at l_rel, the last one takes
-    them out at ihi_rel."""
-    import torch
-    from starneig_tpu_torch.ops import qz_driver
+def qz_train_pencil(n: int, B: int, seed: int, l: int = 0, ihi=None):
+    """A random n-pencil padded for one B-bulge QZ train across the segment
+    [l, ihi), as the driver's buffers hold it: S upper Hessenberg with
+    S[l, l-1] = 0 and S[ihi, ihi-1] = 0 (the segment decoupled, as the
+    driver's deflations leave it, and as kernel G3's ranges assume at its
+    bottom), T upper triangular with a diagonal shifted by 3, padded by
+    P = 6B + 6 rows and columns on each side (NP = n + 2P); Q and Z random
+    orthogonal in the columns [P, P + n) of (n, NP).  Returns (S, T, Q, Z,
+    shifts, P), numpy, the shifts (B, 4) from the seed."""
     ihi = n if ihi is None else ihi
     P = 6 * B + 6
     NP = n + 2 * P
@@ -414,17 +411,35 @@ def qz_train_hops(n: int, B: int, seed: int, l: int = 0, ihi=None):
     T = np.zeros((NP, NP))
     S[P:P + n, P:P + n] = np.triu(rng.standard_normal((n, n)), -1)
     S[P + l, P + l - 1] = 0.0
+    S[P + ihi, P + ihi - 1] = 0.0
     T[P:P + n, P:P + n] = np.triu(rng.standard_normal((n, n))) + 3 * np.eye(n)
-    Q = np.zeros((n, NP))
-    Q[:, P:P + n] = np.eye(n)
     sh = rng.standard_normal((B, 4))
     sh[:, 3] = -sh[:, 1]
+    Q = np.zeros((n, NP))
+    Z = np.zeros((n, NP))
+    Q[:, P:P + n] = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    Z[:, P:P + n] = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    return S, T, Q, Z, sh, P
+
+
+def qz_train_hops(n: int, B: int, seed: int, l: int = 0, ihi=None):
+    """The inputs of every hop of one B-bulge QZ train chased across [l,
+    ihi) of :func:`qz_train_pencil`'s pencil, as the driver's sweep
+    (``ops/qz_driver.py:_qz_sweep``) cuts it, the plain twin running on the
+    CPU.  Returns (hops, shifts (B, 4) tensor), hops a list of (Sw, Tw,
+    l_rel, ihi_rel, s0) with (WC, WC) float64 CPU windows, WC = 6B + 4: the
+    first hop introduces bulges at l_rel, the last one takes them out at
+    ihi_rel."""
+    import torch
+    from starneig_tpu_torch.ops import qz_driver
+    ihi = n if ihi is None else ihi
+    S, T, Q, Z, sh, P = qz_train_pencil(n, B, seed, l, ihi)
     sh = torch.as_tensor(sh)
     hops = []
 
     def hop(Sw, Tw, sh_, l_rel, ihi_rel, s0, B_, HOP):
         hops.append((Sw.clone(), Tw.clone(), l_rel, ihi_rel, s0))
         return qz_driver._qz_train_hop(Sw, Tw, sh_, l_rel, ihi_rel, s0, B_, HOP)
-    qz_driver._qz_sweep(*(torch.as_tensor(x) for x in (S, T, Q, Q.copy())),
+    qz_driver._qz_sweep(*(torch.as_tensor(x) for x in (S, T, Q, Z)),
                         P + l, P + ihi, sh, B, hop=hop)
     return hops, sh

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 import time
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -345,3 +346,33 @@ def timed(fn):
     out = fn()
     sync()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextmanager
+def train_bottoms():
+    """Within: each QZ train the driver starts, through the hop loop
+    (``ops/qz_driver.py:_qz_sweep``, any extent) or G3's train mode
+    (``_qz_train``), appends (l, ihi, S[ihi, ihi-1]) to the yielded list,
+    the padded segment and the entry below its bottom as the train finds
+    it (the precondition of G3's row ranges: zero).  A sharded extent
+    reads the entry with its collective ``get_block``, on every rank."""
+    from starneig_tpu_torch.ops import qz_driver
+    from starneig_tpu_torch.ops.schur import DenseExtent
+    record = []
+    sweep, train = qz_driver._qz_sweep, qz_driver._qz_train
+
+    def bottom(Spad, ihi, ext):
+        return float(ext.get_block(Spad, ihi, ihi - 1, 1, 1)[0, 0])
+
+    def sweep_rec(Spad, Tpad, Qpad, Zpad, l, ihi, sh, B, **kw):
+        record.append((l, ihi, bottom(Spad, ihi, kw.get("ext", DenseExtent))))
+        return sweep(Spad, Tpad, Qpad, Zpad, l, ihi, sh, B, **kw)
+
+    def train_rec(Spad, Tpad, Qpad, Zpad, l, ihi, sh, B):
+        record.append((l, ihi, bottom(Spad, ihi, DenseExtent)))
+        return train(Spad, Tpad, Qpad, Zpad, l, ihi, sh, B)
+    qz_driver._qz_sweep, qz_driver._qz_train = sweep_rec, train_rec
+    try:
+        yield record
+    finally:
+        qz_driver._qz_sweep, qz_driver._qz_train = sweep, train

@@ -72,6 +72,7 @@ from starneig_tpu.parallel import make_mesh as jmake_mesh
 from starneig_tpu_torch.api import gep, sep
 from starneig_tpu_torch.config import SchurConf
 from starneig_tpu_torch.ops import eigenvectors as ev
+from starneig_tpu_torch.ops import gpu_gep
 from starneig_tpu_torch.ops import hess_triangular as tht
 from starneig_tpu_torch.ops import qz_driver
 from starneig_tpu_torch.parallel.dm_eig import EIG_PANEL
@@ -176,14 +177,15 @@ def ref():
         jsel = jgep.select(jS, jT, finite_right_half)
         jr = jgep_dm.reorder_schur(jS, jT, jQ, jZ, jsel, mesh=mesh4)
         st = {}
-        sm = gep.schur(H, T, Q, Z, stats=st, device="cpu")
+        with hooks.train_bottoms() as bottoms:
+            sm = gep.schur(H, T, Q, Z, stats=st, device="cpu")
         ranks = {nd: f.result() for nd, f in spawns.items()}
     return dict(
         A=A, B=B, bufs=bufs, cases=cases, ht=dict(S=H, T=T, Q=Q, Z=Z), ranks=ranks,
         jax=dict(ar=np.asarray(js[4]), ai=np.asarray(js[5]), bt=np.asarray(js[6]),
                  info=int(js[7]), m=int(jr[4]), rinfo=int(jr[5])),
         sm=dict(ar=sm[4].numpy(), ai=sm[5].numpy(), bt=sm[6].numpy(), info=int(sm[7]),
-                rounds=st["rounds"]))
+                rounds=st["rounds"], stats=st, bottoms=bottoms))
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
@@ -372,6 +374,47 @@ def test_gep_dm_schur(ranks, ref):
     assert abs(c["rounds"] - sm["rounds"]) <= 2, (c["rounds"], sm["rounds"])
     st = cnt[0]["gep_stages"]["schur"]["stats"]
     assert st["path"] == "aed" and st["broadcast"] > 0 and st["all_reduce"] > 0
+
+
+def _round_log_hops(st):
+    """The hops of the trains in st's round_log: ceil(steps / 3B) a train
+    (``gpu_gep.sweep_hops``)."""
+    return sum(ntr * gpu_gep.sweep_hops(l, ihi, st["B"]) for l, ihi, ntr, _s in st["round_log"])
+
+
+@pytest.mark.parametrize("path", ["cpu", "dm2", "dm4"])
+def test_qz_hop_counters(ref, path):
+    """The QZ driver's hop counters off the card: ``sweep_hops`` is the sum
+    over round_log's trains of their hops and ``train_hops`` is 0, both on
+    the CPU (gep.schur at N) and on the DM path (the chain's QZ stage on 2
+    and 4 gloo ranks, through the sharded extent): both run the hop loop,
+    whose iterations ``sweep_hops`` counts."""
+    st = (ref["sm"]["stats"] if path == "cpu"
+          else ref["ranks"][int(path[2:])][1][0]["gep_stages"]["schur"]["stats"])
+    assert st["path"] == "aed"
+    assert st["sweep_hops"] == _round_log_hops(st) > 0
+    assert st["train_hops"] == 0
+
+
+@pytest.mark.parametrize("path", ["cpu", "dm2", "dm4"])
+def test_trains_decoupled_at_bottom(ref, path):
+    """Every train the QZ driver starts finds its segment decoupled at its
+    bottom, S[ihi, ihi-1] == 0 exactly (``hooks.train_bottoms``): kernel
+    G3's row ranges, in its hop and train modes, stop at ihi, where the
+    plain twin's do not.  On the CPU (gep.schur at N) and on the DM path
+    (gep_dm.schur of the same HT form on 2 and 4 gloo ranks, the entry read
+    through the sharded extent); among the trains, those of rounds whose AED
+    deflated (nd > 0: the bottom moved up inside the round) and inner
+    segments (ihi below the pencil's last row)."""
+    if path == "cpu":
+        rec, log = ref["sm"]["bottoms"], ref["sm"]["stats"]["qz_log"]
+    else:
+        same = ref["ranks"][int(path[2:])][0]["gep"]["schur_same"]
+        rec, log = same["bottoms"], same["qz_log"]
+    assert len(rec) == sum(ntr for _w, _kbot, ntr, _inf in log) > 0
+    assert [v for _l, _ihi, v in rec] == [0.0] * len(rec)
+    assert sum(ntr for w, kbot, ntr, _inf in log if kbot < w) > 0
+    assert min(ihi for _l, ihi, _v in rec) < max(ihi for _l, ihi, _v in rec)
 
 
 def test_gep_dm_reorder_schur(ranks, ref):

@@ -20,9 +20,11 @@ from starneig_tpu.ops import hess_triangular as jht
 from starneig_tpu.ops import qz_driver as jqd
 from starneig_tpu_torch.convert import from_numpy, to_numpy
 from starneig_tpu_torch.errors import Error
+from starneig_tpu_torch.ops import gpu_gep
 from starneig_tpu_torch.ops import qz_driver as tqd
 from starneig_tpu_torch.testing import hooks
-from starneig_tpu_torch.testing.generators import planted_schur_pair, qz_train_hops
+from starneig_tpu_torch.testing.generators import (planted_schur_pair, qz_train_hops,
+                                                   qz_train_pencil)
 
 torch.set_num_threads(1)
 
@@ -190,6 +192,63 @@ def test_g3_ranges(B, hop):
     if hop == "subdiag":
         cut = _g3_cut_hop(Sw, Tw, sh, l_rel, ihi_rel, s0, B, HOP, force_cut=True)
         assert not all(torch.equal(w, g) for w, g in zip(want, cut))
+
+
+def _train_mode_model(S, T, Q, Z, l, ihi, sh, B):
+    """G3's train mode (qz_sweep.cu) in torch, in place: the hops in order;
+    after hop h, its left transform on column tile h (the columns window
+    h+1 takes new) as the chase applies it, on every other tile it reaches
+    as the strip blocks apply it (tile j takes hop h if h < j, or every hop
+    once no window takes it, j >= H - 1) and on Q's and Z's columns; S's and
+    T's rows above each window after the last hop, in hop order."""
+    NP, WC, HOP = S.shape[0], 6 * B + 4, 3 * B
+    H = gpu_gep.sweep_hops(l, ihi, B)
+    ws0 = l - 3 * (B - 1) - 1
+    J = -(-(NP - ws0 - WC) // HOP)
+
+    def tile(Qw, h, j):
+        ws, c0 = ws0 + h * HOP, ws0 + WC + j * HOP
+        for M in (S, T):
+            M[ws:ws + WC, c0:c0 + HOP] = Qw.T @ M[ws:ws + WC, c0:c0 + HOP]
+    Zs = []
+    for h in range(H):
+        ws = ws0 + h * HOP
+        win = (slice(ws, ws + WC),) * 2
+        S[win], T[win], Qw, Zw = tqd._qz_train_hop(S[win], T[win], sh, l - ws, ihi - ws,
+                                                   h * HOP, B, HOP)
+        if h + 1 < H:
+            tile(Qw, h, h)
+        for j in range(J):
+            if h < j or j >= H - 1:
+                tile(Qw, h, j)
+        Q[:, ws:ws + WC] = Q[:, ws:ws + WC] @ Qw
+        Z[:, ws:ws + WC] = Z[:, ws:ws + WC] @ Zw
+        Zs.append(Zw)
+    for h, Zw in enumerate(Zs):
+        ws = ws0 + h * HOP
+        for M in (S, T):
+            M[:ws, ws:ws + WC] = M[:ws, ws:ws + WC] @ Zw
+
+
+@pytest.mark.parametrize("B,n,l,ihi,sub", [(1, 40, 0, 40, 0.0), (3, 60, 5, 50, 0.0),
+                                           (4, 80, 20, 70, 0.7), (6, 90, 30, 44, 0.0)])
+def test_train_mode_order(B, n, l, ihi, sub):
+    """The train mode's order (_train_mode_model: the strips kept current by
+    column tiles beside the chase, the right transforms after) gives the
+    hop loop _qz_sweep's S, T, Q and Z bit for bit: every entry takes its
+    left transforms in hop order and its right ones in hop order, by the
+    same products (whole segments, an inner one with ihi < n and
+    S[l, l-1] != 0, one shorter than a window)."""
+    S, T, Q, Z, sh, P = qz_train_pencil(n, B, 25 + B, l, ihi)
+    if l > 0:
+        S[P + l, P + l - 1] = sub
+    want = [torch.as_tensor(x.copy()) for x in (S, T, Q, Z)]
+    got = [torch.as_tensor(x.copy()) for x in (S, T, Q, Z)]
+    sh = torch.as_tensor(sh)
+    tqd._qz_sweep(*want, P + l, P + ihi, sh, B)
+    _train_mode_model(*got, P + l, P + ihi, sh, B)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
 
 
 def test_standardize_blocks_gep():

@@ -25,13 +25,14 @@ from starneig_tpu_torch.ops.hess_triangular import (_ht_generate, _ht_reduce,
 from starneig_tpu_torch.ops.qz import _small_qz_plain
 from starneig_tpu_torch.ops.qz_driver import (_aed_deflate_gep,
                                               _aed_recondense_gep, _inf_chase_kernel,
-                                              _qz_sweep, _qz_train_hop)
+                                              _qz_sweep, _qz_train, _qz_train_hop)
 from starneig_tpu_torch.ops.reorder import _window_bubble_gep
 from starneig_tpu_torch.testing import hooks
 from starneig_tpu_torch.testing import generators
 from starneig_tpu_torch.testing.generators import (inf_push_window, known_spectrum_pencil,
                                                    planted_pencil_windows,
-                                                   planted_spike_reject, qz_train_hops)
+                                                   planted_spike_reject, qz_train_hops,
+                                                   qz_train_pencil)
 from starneig_tpu_torch.testing.generators import planted_schur_pair as schur_pair
 
 U = np.finfo(np.float64).eps
@@ -323,6 +324,80 @@ def test_qz_sweep_hop(cuda, B, hop):
         assert _maxrel(g, w, w) <= 1e-12
 
 
+# (B, n, l, ihi, S[l, l-1]): whole segments at each B (B = 13 is G3's
+# kMaxB), an inner segment (l > 0, ihi < n), one shorter than a window
+# (WC = 76) and an introduction where S[l, l-1] != 0 (the full ranges)
+QZ_TRAIN_CASES = {"B1": (1, 40, 0, 40, 0.0), "B3": (3, 60, 0, 60, 0.0),
+                  "B12": (12, 200, 0, 200, 0.0), "B13": (13, 200, 0, 200, 0.0),
+                  "inner": (12, 200, 37, 170, 0.0), "short": (12, 200, 50, 70, 0.0),
+                  "subdiag": (12, 200, 37, 170, 0.7)}
+
+
+@pytest.mark.parametrize("case", list(QZ_TRAIN_CASES))
+def test_qz_train(cuda, case):
+    """G3's train mode (_qz_train: one qz_train and one qz_train_far launch,
+    no qz_sweep) against the hop loop _qz_sweep on the CPU (the plain twin a
+    hop, the strips by torch products): S, T, Q and Z within 1e-12 max|M|
+    (the same operations, other orders of sums); the hops the chase
+    published and those the loop ran both the train's."""
+    B, n, l, ihi, sub = QZ_TRAIN_CASES[case]
+    S, T, Q, Z, sh, P = qz_train_pencil(n, B, 25 + B, l, ihi)
+    if l > 0:
+        S[P + l, P + l - 1] = sub
+    cpu = [torch.as_tensor(x) for x in (S, T, Q, Z)]
+    dev = [x.to(cuda) for x in cpu]
+    sh = torch.as_tensor(sh)
+    before = {k: kernels.LAUNCHES[k] for k in ("qz_train", "qz_train_far", "qz_sweep")}
+    hops = _qz_train(*dev, P + l, P + ihi, sh.to(cuda), B)
+    torch.cuda.synchronize()
+    assert {k: kernels.LAUNCHES[k] - v for k, v in before.items()} == dict(
+        qz_train=1, qz_train_far=1, qz_sweep=0)
+    assert int(hops) == _qz_sweep(*cpu, P + l, P + ihi, sh, B) == gpu_gep.sweep_hops(
+        P + l, P + ihi, B)
+    for g, w in zip(dev, cpu):
+        assert _maxrel(g, w, w) <= 1e-12
+
+
+def test_qz_schur_train_path(cuda):
+    """qz_schur at n=512 on the card runs every train in train launches
+    (train_hops == sweep_hops, the hops the chases published, as many as
+    round_log's trains have; no G3 hop launch), each train's segment
+    decoupled at its bottom (hooks.train_bottoms), under the QZ gates
+    (residuals and orthogonality < 500 u, exact structure), its eigenvalues
+    within chordal 1e-10 of the CPU run's on the same HT form.  The pencil is
+    Gaussian: its eigenvalues are well conditioned (the port's CPU run and
+    LAPACK's agree to 7e-15 chordal), where known_spectrum_pencil's at this
+    n move by ~1e-8 under rounding."""
+    from starneig_tpu_torch.ops.qz_driver import qz_schur
+    n = 512
+    rng = np.random.default_rng(512)
+    A, B = rng.standard_normal((n, n)), rng.standard_normal((n, n))
+    H, T, Q, Z = (M.cpu() for M in gep.hessenberg_triangular(A, B))
+    st_c, st_d = {}, {}
+    want = qz_schur(H, T, Q, Z, stats=st_c)
+    before = {k: kernels.LAUNCHES[k] for k in ("qz_train", "qz_train_far", "qz_sweep")}
+    with hooks.train_bottoms() as bottoms:
+        got = qz_schur(*(M.to(cuda) for M in (H, T, Q, Z)), stats=st_d)
+    d = {k: kernels.LAUNCHES[k] - v for k, v in before.items()}
+    assert int(got[7]) == 0 == int(want[7])
+    ntr = sum(r[2] for r in st_d["round_log"])
+    assert st_d["train_hops"] == st_d["sweep_hops"] == sum(
+        t * gpu_gep.sweep_hops(l, i, st_d["B"]) for l, i, t, _s in st_d["round_log"]) > 0
+    assert st_c["train_hops"] == 0
+    assert d == dict(qz_train=ntr, qz_train_far=ntr, qz_sweep=0)
+    assert len(bottoms) == ntr and all(v == 0.0 for _l, _i, v in bottoms)
+    S, Tt, Qf, Zf = (M.cpu() for M in got[:4])
+    ra, rb = hooks.residual_gep(A, B, S, Tt, Qf, Zf)
+    assert ra < 500 and rb < 500
+    assert hooks.orthogonality(Qf) < 500 and hooks.orthogonality(Zf) < 500
+    assert hooks.schur_structure_error(S) == 0.0
+    assert hooks.triangular_structure_error(Tt) == 0.0
+    ar, ai, bt = (x.cpu() for x in got[4:7])
+    chordal = hooks.chordal_eigenvalue_error(ar, ai, bt, (want[4] + 1j * want[5]).numpy(),
+                                             want[6].numpy())
+    assert chordal * U < 1e-10
+
+
 # the spike: some bottom blocks deflate, the others move up (thresh is
 # u/2 ||S||_F, which grows with WA); WA=322 is the GEP n=4000 path's window
 @pytest.mark.parametrize("WA,s", [(84, 1e-13), (162, 1.5e-13), (322, 2.7e-13)])
@@ -381,8 +456,10 @@ def test_gep_schur_inf_rich(cuda):
     bt = bt.cpu().numpy()
     assert int((np.abs(bt) <= 1e-12 * np.abs(bt).max()).sum()) >= int(0.9 * len(inf_pos))
     assert stats["inf_rounds"] > 0 and stats["recondense_calls"] > 0
-    for k in ("qz_window", "qz_sweep", "aed_deflate_gep", "ht_recondense", "inf_chase"):
+    for k in ("qz_window", "qz_train", "qz_train_far", "aed_deflate_gep", "ht_recondense",
+              "inf_chase"):
         assert kernels.LAUNCHES[k] > 0, k
+    assert kernels.LAUNCHES["qz_sweep"] == 0
 
 
 @pytest.mark.parametrize("Wb,jrel,mrel,lrel", [(96, 1, 96, -1), (84, 0, 84, 0),

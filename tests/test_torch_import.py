@@ -71,7 +71,7 @@ def test_cpu_path_launches_no_kernel():
 
 @pytest.mark.parametrize("wrapper", ["aed_recondense", "window_bubble", "ht_cascade",
                                      "ht_recondense", "qz_window", "qz_sweep",
-                                     "aed_deflate_gep", "inf_chase",
+                                     "qz_train", "aed_deflate_gep", "inf_chase",
                                      "window_bubble_gep", "eig_backsolve",
                                      "eig_backsolve_gep"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
@@ -81,6 +81,7 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     from starneig_tpu_torch.ops import gpu_eig, gpu_gep, gpu_reorder, gpu_schur
     T = torch.eye(8, dtype=torch.float64)
     W = torch.eye(16, dtype=torch.float64)         # a train window, B = 2
+    Sp, Qp = torch.eye(40, dtype=torch.float64), torch.zeros(8, 40, dtype=torch.float64)
     v, x = torch.ones(1, dtype=torch.float64), torch.zeros(1, 8, dtype=torch.float64)
     kind = np.zeros(8, np.int32)                   # one eigenvalue at row 4
     calls = {
@@ -92,6 +93,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
         "qz_window": lambda: gpu_gep.qz_window(T, T, T, T, 8),
         "qz_sweep": lambda: gpu_gep.qz_sweep(W, W, torch.zeros(2, 4, dtype=torch.float64),
                                              4, 12, 0, 2, 6),
+        # a B = 2 train across the padded segment [16, 24) of 40 x 40 buffers
+        "qz_train": lambda: gpu_gep.qz_train(Sp, Sp, Qp, Qp,
+                                             torch.zeros(2, 4, dtype=torch.float64), 16, 24, 2),
         "aed_deflate_gep": lambda: gpu_gep.aed_deflate_gep(T, T, T, T, 0.5, 8, 0.0),
         "inf_chase": lambda: gpu_gep.inf_chase(T, T, 1, 8, -1),
         "window_bubble_gep": lambda: gpu_reorder.window_bubble_gep(
